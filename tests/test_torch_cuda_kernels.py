@@ -1,0 +1,160 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU mode, so every test here needs a GPU: it carries
+the `cuda` marker and skips (from a fixture, never at import) where
+`torch.cuda.is_available()` is false. On the GPU machine:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from textreact_tpu_torch.inference import Generator
+from textreact_tpu_torch.models import EncoderDecoder, TransformerConfig
+from textreact_tpu_torch.models.factory import init_weights
+from textreact_tpu_torch.ops import fused_attention, fused_layernorm
+
+pytestmark = pytest.mark.cuda
+
+# kernel vs plain on the same card. f32: summation order only. bf16: both
+# compute in f32 and round the result to bf16 (the plain attention also
+# rounds its probabilities to bf16), so they may differ by one bf16 ulp
+ATTN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 0.0)}
+LN_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1.6e-2, 2.0 ** -7)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, atol, rtol):
+    diff = (got.float() - ref.float()).abs()
+    assert (diff <= atol + rtol * ref.float().abs()).all(), float(diff.max())
+
+
+def _mask(B, L, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, L + 1, B)
+    lengths[-1] = 0  # dummy row: every key masked
+    return torch.as_tensor(np.arange(L)[None] < lengths[:, None],
+                           dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,H,D", [(128, 2, 64), (256, 4, 32), (512, 12, 64)])
+@pytest.mark.parametrize("masked", [True, False])
+def test_attention_kernel_matches_plain(dev, dtype, L, H, D, masked):
+    B = 3
+    g = torch.Generator(device=dev).manual_seed(L + D)
+    q, k, v = (torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    mask = _mask(B, L, dev) if masked else None
+    before = fused_attention.LAUNCHES
+    got = fused_attention.fused_dropout_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fused_attention.LAUNCHES == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    ref = fused_attention.attention_reference(q, k, v, mask, D ** -0.5)
+    _close(got, ref, *ATTN_TOL[dtype])
+
+
+def test_attention_kernel_raises_on_what_it_does_not_take(dev):
+    q = torch.randn(2, 128, 2, 64, device=dev)
+    with pytest.raises(NotImplementedError):
+        fused_attention.fused_dropout_attention(q, q, q, None, 0.1)
+    with pytest.raises(ValueError):
+        x = torch.randn(2, 100, 2, 64, device=dev)
+        fused_attention.fused_dropout_attention(x, x, x, None)
+    with pytest.raises(ValueError):
+        x = torch.randn(2, 128, 1, 128, device=dev)
+        fused_attention.fused_dropout_attention(x, x, x, None)
+    with pytest.raises(ValueError):
+        x = torch.randn(2, 2, 128, 64, device=dev).transpose(1, 2)
+        fused_attention.fused_dropout_attention(x, x, x, None)
+    with pytest.raises(TypeError):
+        x = q.half()
+        fused_attention.fused_dropout_attention(x, x, x, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", fused_layernorm.SUPPORTED_HIDDEN)
+@pytest.mark.parametrize("R", [1, 7, 480])
+def test_layernorm_kernel_matches_plain(dev, dtype, H, R):
+    g = torch.Generator(device=dev).manual_seed(R * H)
+    x, y = (torch.randn(R, H, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    w = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
+    b = 0.1 * torch.randn(H, generator=g, device=dev)
+    before = fused_layernorm.LAUNCHES
+    got = fused_layernorm.fused_residual_layernorm(x, y, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_layernorm.LAUNCHES == before + 1
+    ref = fused_layernorm.residual_layernorm_reference(x, y, w, b, 1e-5)
+    _close(got, ref, *LN_TOL[dtype])
+
+
+def test_layernorm_kernel_raises_on_what_it_does_not_take(dev):
+    x = torch.randn(4, 768, device=dev)
+    w, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    with pytest.raises(NotImplementedError):
+        fused_layernorm.fused_residual_layernorm(x, x, w, b, 1e-5, 0.1)
+    with pytest.raises(ValueError):
+        z = torch.randn(4, 100, device=dev)
+        fused_layernorm.fused_residual_layernorm(z, z, w[:100], b[:100])
+    with pytest.raises(ValueError):
+        fused_layernorm.fused_residual_layernorm(x, x, w.bfloat16(), b)
+    with pytest.raises(ValueError):
+        fused_layernorm.fused_residual_layernorm(x, x.bfloat16(), w, b)
+
+
+def _small_model(seed=0):
+    enc = TransformerConfig(vocab_size=64, hidden_size=128,
+                            num_hidden_layers=2, num_attention_heads=2,
+                            intermediate_size=256,
+                            max_position_embeddings=128, type_vocab_size=2,
+                            attention_impl="flash", layernorm_impl="fused")
+    dec = enc.replace(vocab_size=40, max_position_embeddings=16,
+                      type_vocab_size=1, is_decoder=True,
+                      add_cross_attention=True, bos_token_id=1,
+                      eos_token_id=2)
+    model = EncoderDecoder(enc, dec, dtype=torch.float32)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
+def _batch(B=3, L=128):
+    rng = np.random.default_rng(0)
+    mask = np.zeros((B, L), np.int32)
+    mask[0] = 1
+    mask[1, :70] = 1
+    return {"input_ids": rng.integers(1, 64, (B, L)).astype(np.int32),
+            "attention_mask": mask}
+
+
+def test_model_on_card_matches_cpu(dev):
+    """The same f32 weights and batch: encoder states through the kernels
+    on the card against the plain path on the CPU, and identical beams."""
+    cpu_model = _small_model()
+    gpu_model = _small_model().to(dev)
+    batch = _batch()
+    ids = torch.as_tensor(batch["input_ids"], dtype=torch.long)
+    mask = torch.as_tensor(batch["attention_mask"])
+    attn, ln = fused_attention.LAUNCHES, fused_layernorm.LAUNCHES
+    with torch.inference_mode():
+        ref = cpu_model.encode(ids, mask)
+        got = gpu_model.encode(ids.to(dev), mask.to(dev)).cpu()
+    assert fused_attention.LAUNCHES == attn + 2
+    assert fused_layernorm.LAUNCHES == ln + 4
+    # f32, 2 layers; card and CPU sum in different orders
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    cpu_seqs, cpu_scores = Generator(cpu_model, 3, 8).generate(batch)
+    seqs, scores = Generator(gpu_model, 3, 8).generate(batch)
+    np.testing.assert_array_equal(seqs, cpu_seqs)
+    np.testing.assert_allclose(scores, cpu_scores, rtol=1e-4)

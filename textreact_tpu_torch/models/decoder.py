@@ -1,0 +1,115 @@
+"""Transformer decoder with causal self-attention and cross-attention
+(twin of textreact_tpu/models/decoder.py), plus its decode cache.
+
+LM logits come from a BERT-style prediction head tied to the decoder's own
+word-embedding table.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from .config import TransformerConfig
+from .layers import (Embeddings, MLMHead, TransformerBlock, causal_bias,
+                     mask_to_bias)
+
+
+@dataclasses.dataclass
+class DecodeCache:
+    """Per-layer decode state.
+
+    self_k/self_v: (rows, cache_len, H, D), one row per beam, written in
+    place one position per step; beam search reorders them by row gather.
+    cross_k/cross_v: (examples, H, L, D), projected once from the encoder
+    states and never replicated across beams. cross_bias: (examples, 1, 1,
+    L) f32 key-padding bias, or None."""
+    self_k: List[torch.Tensor]
+    self_v: List[torch.Tensor]
+    cross_k: List[torch.Tensor]
+    cross_v: List[torch.Tensor]
+    cross_bias: Optional[torch.Tensor]
+
+    def reorder(self, rows: torch.Tensor) -> None:
+        """Row r of every self-attention cache becomes old row rows[r]."""
+        self.self_k = [c.index_select(0, rows) for c in self.self_k]
+        self.self_v = [c.index_select(0, rows) for c in self.self_v]
+
+
+def encoder_key_bias(encoder_attention_mask: Optional[torch.Tensor]
+                     ) -> Optional[torch.Tensor]:
+    """Cross-attention key bias; a 2-D bond mask keeps any valid row."""
+    if encoder_attention_mask is None:
+        return None
+    enc_mask = encoder_attention_mask
+    if enc_mask.dim() == 3:
+        enc_mask = (enc_mask.sum(-1) > 0).to(torch.int32)
+    return mask_to_bias(enc_mask)
+
+
+class Decoder(nn.Module):
+    def __init__(self, config: TransformerConfig,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.dtype = dtype
+        # owned here so the LM head ties to it (decoder.py:57-63)
+        self.word_embedding = nn.Parameter(
+            torch.zeros(cfg.vocab_size, cfg.hidden_size, dtype=dtype))
+        self.embeddings = Embeddings(cfg, dtype, own_word_embeddings=False)
+        self.layers = nn.ModuleList(TransformerBlock(cfg, dtype)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.lm_head = MLMHead(cfg, dtype, mlp=True, tied=True)
+
+    def forward(self, input_ids: torch.Tensor, encoder_states: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                encoder_attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Teacher-forced logits (B, L, V), f32."""
+        L = input_ids.shape[1]
+        self_bias = causal_bias(L, L, device=input_ids.device)
+        if attention_mask is not None:
+            self_bias = self_bias + mask_to_bias(attention_mask)
+        cross_bias = encoder_key_bias(encoder_attention_mask)
+        x = self.embeddings(input_ids, word_embedding=self.word_embedding)
+        for layer in self.layers:
+            x = layer(x, self_bias, encoder_states, cross_bias)
+        return self.lm_head(x, embedding=self.word_embedding)
+
+    def init_cache(self, encoder_states: torch.Tensor,
+                   encoder_attention_mask: Optional[torch.Tensor],
+                   rows: int, cache_len: int) -> DecodeCache:
+        """Empty self-attention caches for `rows` decode rows and the cross
+        K/V from the trained projections of this decoder."""
+        cfg = self.config
+        shape = (rows, cache_len, cfg.num_attention_heads, cfg.head_dim)
+        dev = encoder_states.device
+        cross = [layer.crossattention.project_kv(encoder_states)
+                 for layer in self.layers]
+        return DecodeCache(
+            self_k=[torch.zeros(shape, dtype=self.dtype, device=dev)
+                    for _ in self.layers],
+            self_v=[torch.zeros(shape, dtype=self.dtype, device=dev)
+                    for _ in self.layers],
+            cross_k=[k for k, _ in cross],
+            cross_v=[v for _, v in cross],
+            cross_bias=encoder_key_bias(encoder_attention_mask))
+
+    def decode(self, input_ids: torch.Tensor, cache: DecodeCache,
+               position: int) -> torch.Tensor:
+        """One token per row at `position`: (rows, 1) ids -> (rows, 1, V)
+        f32 logits; writes this position's K/V into the cache."""
+        position_ids = (torch.arange(input_ids.shape[1],
+                                     device=input_ids.device)[None, :]
+                        + position)
+        x = self.embeddings(input_ids, position_ids=position_ids,
+                            word_embedding=self.word_embedding)
+        for i, layer in enumerate(self.layers):
+            x = layer.decode(x, cache.self_k[i], cache.self_v[i], position,
+                             cache.cross_k[i], cache.cross_v[i],
+                             cache.cross_bias)
+        return self.lm_head(x, embedding=self.word_embedding)

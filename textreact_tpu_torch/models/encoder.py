@@ -1,0 +1,39 @@
+"""Transformer encoder (twin of textreact_tpu/models/encoder.py)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .config import TransformerConfig
+from .layers import Embeddings, TransformerBlock, mask_to_bias
+
+
+class Encoder(nn.Module):
+    def __init__(self, config: TransformerConfig,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.config = config
+        self.embeddings = Embeddings(config, dtype)
+        self.layers = nn.ModuleList(TransformerBlock(config, dtype)
+                                    for _ in range(config.num_hidden_layers))
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.embeddings(input_ids, position_ids=position_ids,
+                            token_type_ids=token_type_ids)
+        bias = None
+        self_mask = None
+        if attention_mask is not None:
+            if (self.config.attention_impl == "flash"
+                    and attention_mask.dim() == 2):
+                self_mask = attention_mask  # the fused path takes the raw mask
+            else:
+                bias = mask_to_bias(attention_mask)
+        for layer in self.layers:
+            x = layer(x, self_bias=bias, self_mask=self_mask)
+        return x

@@ -1,0 +1,87 @@
+"""Model factory: experiment config + tokenizers -> torch module (twin of
+textreact_tpu/models/factory.py, seq2seq only)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from textreact_tpu.config import ExperimentConfig
+
+from .config import resolve_config
+from .decoder import Decoder
+from .encdec import EncoderDecoder
+from .layers import LayerNorm, MLMHead, ResidualLayerNorm
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
+                generator: Optional[torch.Generator] = None):
+    """Returns (module, enc_config, dec_config), on the CPU, with weights
+    drawn from `generator` (seeded with cfg.seed when None)."""
+    if cfg.template_based:
+        raise NotImplementedError(
+            "template-based retrosynthesis is not ported yet")
+    enc_config = resolve_config(cfg.encoder)
+    enc_config = enc_config.replace(
+        max_position_embeddings=max(enc_config.max_position_embeddings,
+                                    cfg.max_length),
+        vocab_size=max(enc_config.vocab_size, len(enc_tokenizer)),
+        attention_impl=cfg.attention_impl,
+        layernorm_impl=cfg.layernorm_impl,
+    )
+    dec_config = resolve_config(cfg.decoder)
+    dec_config = dec_config.replace(
+        vocab_size=max(dec_config.vocab_size, len(dec_tokenizer)),
+        max_position_embeddings=max(dec_config.max_position_embeddings,
+                                    cfg.max_dec_length),
+        is_decoder=True, add_cross_attention=True,
+        attention_impl=cfg.attention_impl,
+        layernorm_impl=cfg.layernorm_impl,
+        decode_scores_dtype=cfg.decode_scores_dtype,
+        pad_token_id=dec_tokenizer.pad_token_id,
+        bos_token_id=dec_tokenizer.bos_token_id,
+        eos_token_id=dec_tokenizer.eos_token_id,
+    )
+    module = EncoderDecoder(encoder_config=enc_config,
+                            decoder_config=dec_config,
+                            dtype=DTYPES[cfg.compute_dtype],
+                            mlm_layer=cfg.mlm_layer if cfg.mlm else None)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights(module, generator)
+    return module, enc_config, dec_config
+
+
+@torch.no_grad()
+def init_weights(module: EncoderDecoder, generator: torch.Generator) -> None:
+    """The JAX package's initialisers: normal(0, initializer_range) for
+    dense kernels and embedding tables, zero biases, unit LN scales. Values
+    are drawn in f32 on the CPU, so a seed gives the same model on any
+    device and in any compute dtype."""
+
+    def normal_(p: torch.Tensor, std: float) -> None:
+        p.copy_(torch.empty(p.shape).normal_(0.0, std, generator=generator))
+
+    parts = [(module.encoder, module.encoder_config),
+             (module.decoder, module.decoder_config)]
+    if module.mlm_layer:
+        parts.append((module.mlm_head, module.encoder_config))
+    for part, config in parts:
+        std = config.initializer_range
+        for m in part.modules():
+            if isinstance(m, nn.Linear):
+                normal_(m.weight, std)
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                normal_(m.weight, std)
+            elif isinstance(m, (LayerNorm, ResidualLayerNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, MLMHead) and hasattr(m, "bias"):
+                m.bias.zero_()
+            elif isinstance(m, Decoder):
+                normal_(m.word_embedding, std)

@@ -1,0 +1,315 @@
+"""Transformer building blocks (twin of textreact_tpu/models/layers.py).
+
+Numerics follow the JAX package: matmul weights are kept in the compute
+dtype (bfloat16 or float32) and layer-norm parameters in float32;
+attention scores and softmax run in float32, the probabilities meet v in
+the compute dtype with float32 accumulation; LayerNorm is flax
+fast-variance in float32. Parameter names mirror the flax tree
+(`convert.py` maps one onto the other).
+
+Decoding keeps a per-row self-attention KV cache that beam search
+reorders by gathering rows (`DecodeCache.reorder`), and the cross K/V
+projected once per example, unreplicated across beams: beams attend as
+grouped query rows over their example's encoder states.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.fused_attention import SEQ_MULTIPLE, fused_dropout_attention
+from ..ops.fused_layernorm import (fused_residual_layernorm, layer_norm,
+                                   residual_layernorm_reference)
+from .config import TransformerConfig
+
+NEG_INF = -1e9
+
+
+def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
+    """(B, L) or (B, Lq, Lk) {0,1} mask -> (B, 1, Lq|1, Lk) f32 additive bias."""
+    if mask.dim() == 2:
+        bias = mask[:, None, None, :]
+    elif mask.dim() == 3:
+        bias = mask[:, None, :, :]
+    else:
+        raise ValueError(f"mask ndim {mask.dim()}")
+    return (1.0 - bias.float()) * NEG_INF
+
+
+def causal_bias(q_len: int, k_len: int, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(1, 1, q_len, k_len) f32 causal additive bias; offset shifts the
+    query positions."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + offset
+    k_pos = torch.arange(k_len, device=device)[None, :]
+    bias = torch.where(k_pos <= q_pos, 0.0, NEG_INF).to(torch.float32)
+    return bias[None, None]
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 accumulation and output, for inputs in any dtype
+    (preferred_element_type=float32 in the JAX package)."""
+    return torch.matmul(a.float(), b.float())
+
+
+class LayerNorm(nn.Module):
+    """flax.linen.LayerNorm(dtype=float32): f32 params, f32 output."""
+
+    def __init__(self, hidden: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(hidden))
+        self.bias = nn.Parameter(torch.zeros(hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Embeddings(nn.Module):
+    """word + position + token-type embeddings with post-sum LayerNorm.
+
+    With `own_word_embeddings=False` the word table is passed to forward
+    (the decoder owns it and ties it to the LM head)."""
+
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype,
+                 own_word_embeddings: bool = True):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        if own_word_embeddings:
+            self.word_embeddings = nn.Embedding(cfg.vocab_size,
+                                                cfg.hidden_size, dtype=dtype)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_position_embeddings, cfg.hidden_size, dtype=dtype)
+        if cfg.type_vocab_size > 0:
+            self.token_type_embeddings = nn.Embedding(
+                cfg.type_vocab_size, cfg.hidden_size, dtype=dtype)
+        self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                token_type_ids: Optional[torch.Tensor] = None,
+                word_embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)[None, :]
+        if word_embedding is not None:
+            word = F.embedding(input_ids, word_embedding)
+        else:
+            word = self.word_embeddings(input_ids)
+        dtype = word.dtype
+        x = word + self.position_embeddings(position_ids)
+        if self.config.type_vocab_size > 0:
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(input_ids)
+            x = x + self.token_type_embeddings(token_type_ids)
+        return self.layer_norm(x).to(dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """Self- or cross-attention with f32 scores and softmax.
+
+    `forward` is the full-sequence path; `decode_self` and `decode_cross`
+    are the one-token decode paths over the caches in `DecodeCache`."""
+
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.dtype = dtype
+        H, D = cfg.num_attention_heads, cfg.head_dim
+        self.query = nn.Linear(cfg.hidden_size, H * D, dtype=dtype)
+        self.key = nn.Linear(cfg.hidden_size, H * D, dtype=dtype)
+        self.value = nn.Linear(cfg.hidden_size, H * D, dtype=dtype)
+        self.output = nn.Linear(H * D, cfg.hidden_size, dtype=dtype)
+
+    def _heads(self, y: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        return y.view(y.shape[0], y.shape[1], cfg.num_attention_heads,
+                      cfg.head_dim)
+
+    def _out(self, ctx: torch.Tensor) -> torch.Tensor:
+        ctx = ctx.to(self.dtype)
+        return self.output(ctx.reshape(ctx.shape[0], ctx.shape[1], -1))
+
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None,
+                mask_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.config
+        D = cfg.head_dim
+        kv_in = x if kv is None else kv
+        q = self._heads(self.query(x))
+        k = self._heads(self.key(kv_in))
+        v = self._heads(self.value(kv_in))
+        # the fused kernel wants 128-aligned lengths and no extra bias
+        # (layers.py:201-203); the decoder always carries a bias
+        if (cfg.attention_impl == "flash" and bias is None
+                and x.shape[1] % SEQ_MULTIPLE == 0
+                and kv_in.shape[1] % SEQ_MULTIPLE == 0):
+            return self._out(fused_dropout_attention(
+                q, k, v, mask_kv, 0.0, None, sm_scale=1.0 / math.sqrt(D)))
+        if mask_kv is not None:
+            extra = mask_to_bias(mask_kv)
+            bias = extra if bias is None else bias + extra
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
+        if bias is not None:
+            s = s + bias.float()
+        probs = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(self.dtype).float(),
+                           v.float())
+        return self._out(ctx)
+
+    def project_kv(self, src: torch.Tensor):
+        """Cross K/V of the encoder states, head-major (B, H, L, D)."""
+        k = self._heads(self.key(src)).transpose(1, 2).contiguous()
+        v = self._heads(self.value(src)).transpose(1, 2).contiguous()
+        return k, v
+
+    def decode_cross(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """x: (Bk*G, 1, d) with G beams per example; k, v: (Bk, H, L, D);
+        bias: (Bk, 1, 1, L). Beams attend as G query rows of their example
+        (layers.py:162-194)."""
+        cfg = self.config
+        H, D = cfg.num_attention_heads, cfg.head_dim
+        Bk = k.shape[0]
+        G = x.shape[0] // Bk
+        q = self.query(x).view(Bk, G, H, D).transpose(1, 2)     # (Bk, H, G, D)
+        s = _matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(D)  # (Bk, H, G, L)
+        if bias is not None:
+            s = s + bias.float()
+        probs = torch.softmax(s, dim=-1)
+        ctx = _matmul_f32(probs.to(self.dtype), v)              # (Bk, H, G, D)
+        return self._out(ctx.transpose(1, 2).reshape(Bk * G, 1, H * D))
+
+    def decode_self(self, x: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, position: int) -> torch.Tensor:
+        """One token per row. x: (N, 1, d); cache_k/v: (N, T, H, D), written
+        in place at `position`; attends over positions 0..position."""
+        cfg = self.config
+        D = cfg.head_dim
+        cache_k[:, position] = self._heads(self.key(x))[:, 0]
+        cache_v[:, position] = self._heads(self.value(x))[:, 0]
+        q = self._heads(self.query(x)).transpose(1, 2)           # (N, H, 1, D)
+        k = cache_k[:, :position + 1].transpose(1, 2)            # (N, H, t, D)
+        v = cache_v[:, :position + 1].transpose(1, 2)
+        s = _matmul_f32(q, k.transpose(-1, -2))
+        if cfg.decode_scores_dtype != "float32":
+            s = s.to(self.dtype).float()   # score storage dtype (layers.py:295)
+        probs = torch.softmax(s * (1.0 / math.sqrt(D)), dim=-1)
+        ctx = _matmul_f32(probs.to(self.dtype), v)               # (N, H, 1, D)
+        return self._out(ctx.transpose(1, 2))
+
+
+class ResidualLayerNorm(nn.Module):
+    """LayerNorm(x + res) with nn.LayerNorm's param names. The fused kernel
+    runs when layernorm_impl == 'fused' and the hidden size is a multiple
+    of 128 (layers.py:374), the plain version otherwise."""
+
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(config.hidden_size))
+        self.bias = nn.Parameter(torch.zeros(config.hidden_size))
+
+    def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        x, res = x.to(self.dtype), res.to(self.dtype)
+        if cfg.layernorm_impl == "fused" and cfg.hidden_size % 128 == 0:
+            return fused_residual_layernorm(x, res, self.weight, self.bias,
+                                            cfg.layer_norm_eps)
+        return residual_layernorm_reference(x, res, self.weight, self.bias,
+                                            cfg.layer_norm_eps)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype):
+        super().__init__()
+        self.config = config
+        self.intermediate = nn.Linear(config.hidden_size,
+                                      config.intermediate_size, dtype=dtype)
+        self.output = nn.Linear(config.intermediate_size, config.hidden_size,
+                                dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.intermediate(x)
+        if self.config.hidden_act == "gelu":
+            h = F.gelu(h, approximate="tanh")   # flax nn.gelu default
+        else:
+            h = getattr(F, self.config.hidden_act)(h)
+        return self.output(h)
+
+
+class TransformerBlock(nn.Module):
+    """Post-LN block: self-attn, cross-attn (decoder), ffn, each followed
+    by a residual LayerNorm."""
+
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype):
+        super().__init__()
+        self.config = config
+        self.attention = MultiHeadAttention(config, dtype)
+        self.attention_norm = ResidualLayerNorm(config, dtype)
+        if config.add_cross_attention:
+            self.crossattention = MultiHeadAttention(config, dtype)
+            self.crossattention_norm = ResidualLayerNorm(config, dtype)
+        self.ffn = FeedForward(config, dtype)
+        self.ffn_norm = ResidualLayerNorm(config, dtype)
+
+    def forward(self, x: torch.Tensor, self_bias: Optional[torch.Tensor] = None,
+                encoder_states: Optional[torch.Tensor] = None,
+                cross_bias: Optional[torch.Tensor] = None,
+                self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.attention_norm(
+            x, self.attention(x, bias=self_bias, mask_kv=self_mask))
+        if self.config.add_cross_attention and encoder_states is not None:
+            x = self.crossattention_norm(
+                x, self.crossattention(x, kv=encoder_states, bias=cross_bias))
+        return self.ffn_norm(x, self.ffn(x))
+
+    def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
+               cache_v: torch.Tensor, position: int,
+               cross_k: torch.Tensor, cross_v: torch.Tensor,
+               cross_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.attention_norm(
+            x, self.attention.decode_self(x, cache_k, cache_v, position))
+        x = self.crossattention_norm(
+            x, self.crossattention.decode_cross(x, cross_k, cross_v,
+                                                cross_bias))
+        return self.ffn_norm(x, self.ffn(x))
+
+
+class MLMHead(nn.Module):
+    """BERT prediction head, logits only: [dense + gelu + LN] then the
+    vocab projection, tied to a given embedding table when `tied`."""
+
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype,
+                 mlp: bool = True, tied: bool = False):
+        super().__init__()
+        cfg = config
+        self.dtype = dtype
+        self.mlp = mlp
+        if mlp:
+            self.transform = nn.Linear(cfg.hidden_size, cfg.hidden_size,
+                                       dtype=dtype)
+            self.transform_norm = LayerNorm(cfg.hidden_size,
+                                            cfg.layer_norm_eps)
+        if tied:
+            self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        else:
+            # nn.Dense(dtype=float32): the input is promoted to f32
+            self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+
+    def forward(self, x: torch.Tensor,
+                embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.mlp:
+            x = F.gelu(self.transform(x), approximate="tanh")
+            x = self.transform_norm(x).to(self.dtype)
+        if embedding is not None:
+            return F.linear(x.float(), embedding.float()) + self.bias
+        return self.decoder(x.float())
