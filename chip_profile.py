@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Where one optimizer step of the PyTorch port's RCR training path spends
+its time on one CUDA GPU.
+
+    python3 chip_profile.py [--out DIR]
+
+Builds the same model, batch and step as chip_smoke.py's training phase
+(SciBERT-base + bert_l6 at full width and depth, f32 parameters, bf16
+compute, dropout 0.1, 4 micro-batches of 32 at L=512), runs two warm-up
+steps, then records one step with torch.profiler and prints:
+- the step's host-clock time, without and under the profiler, and the
+  share of it in which the card ran at least one kernel (the rest is the
+  host not keeping the card fed);
+- device time by kind of kernel: the port's own four kernels by name,
+  matrix products, the multi-tensor kernels (AdamW, the clip and the
+  gradient averaging), and the remaining elementwise and reduction kernels;
+- device time of the operators that only the plain decoder attention calls
+  (batched products and softmax), read from the operator table;
+- the twenty kernels with the most device time.
+Every line names the card and its power limit. The tables also go to
+DIR/profile_train.txt (default profile_out/). Exits non-zero without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import tempfile
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from textreact_tpu_torch.models import build_model
+from textreact_tpu_torch.tokenizers import get_tokenizers
+from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
+                                       make_optimizer)
+
+# kernel name fragments -> kind, first match wins
+KINDS = (
+    ("attention_fwd", "own: attention forward"),
+    ("attention_bwd_dq", "own: attention backward, dQ pass"),
+    ("attention_bwd_dkv", "own: attention backward, dK/dV pass"),
+    ("residual_layernorm_fwd", "own: residual LayerNorm forward"),
+    ("residual_layernorm_bwd", "own: residual LayerNorm backward"),
+    ("column_sums", "own: residual LayerNorm backward"),
+    ("multi_tensor_apply", "multi-tensor (AdamW, clip, gradient averaging)"),
+    ("gemm", "matrix products"), ("nvjet", "matrix products"),
+    ("cutlass", "matrix products"), ("xmma", "matrix products"),
+    ("cublas", "matrix products"), ("gemv", "matrix products"),
+    ("Memcpy", "copies"), ("Memset", "copies"),
+)
+DECODER_ATTENTION_OPS = ("aten::bmm", "aten::_softmax",
+                         "aten::_softmax_backward_data")
+
+
+def kind_of(name: str) -> str:
+    for fragment, kind in KINDS:
+        if fragment in name:
+            return kind
+    return "elementwise, reductions, gathers"
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(intervals):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--out", default="profile_out")
+    args = parser.parse_args()
+    card = cs.phase_device()
+    cs.phase_build()
+    lines = []
+
+    def say(msg: str) -> None:
+        cs.log(msg)
+        lines.append(msg)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = Path(tmp) / "vocab.txt"
+        cs.write_text_vocab(vocab)
+        cfg = cs.train_config(vocab)
+        enc_tok, dec_tok = get_tokenizers(cfg)
+        module, _, _ = build_model(cfg, enc_tok, dec_tok,
+                                   torch.Generator().manual_seed(0))
+        batch = cs.make_train_batch(cfg, enc_tok, dec_tok, cfg.batch_size)
+    micro = cs.as_microbatches(batch, cs.MICRO_BATCHES)
+    optimizer = make_optimizer(cfg, 100, module.parameters())
+    state = TrainState.create(module, optimizer)
+    step = make_accum_train_step(module, cfg, optimizer, dec_tok.pad_token_id)
+    weights = np.ones(cs.MICRO_BATCHES, np.float32)
+    for _ in range(2):
+        state, _ = step(state, micro, weights, cfg.seed)
+    torch.cuda.synchronize()
+    plain_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, _ = step(state, micro, weights, cfg.seed)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = sorted(plain_ms)[1]
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=False) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, micro, weights, cfg.seed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    by_kind, by_kernel, intervals = defaultdict(float), defaultdict(float), []
+    calls = defaultdict(int)
+    events = prof.events()
+    # ranges that the host opened (the optimizer's own annotation) are
+    # mirrored on the device's track: they are no kernels
+    host_names = {ev.name for ev in events
+                  if ev.device_type != torch.autograd.DeviceType.CUDA}
+    for ev in events:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.name in host_names):
+            continue
+        dur = ev.time_range.end - ev.time_range.start
+        by_kind[kind_of(ev.name)] += dur
+        by_kernel[ev.name] += dur
+        calls[ev.name] += 1
+        intervals.append((ev.time_range.start, ev.time_range.end))
+    device_us = sum(by_kind.values())
+    if not device_us > 0.0:
+        raise SystemExit("chip_profile: the profiler recorded no device time")
+    busy = busy_us(intervals)
+    where = (f"{cs.MICRO_BATCHES} x {cs.B} examples at L={cs.L}, bf16 "
+             f"compute, f32 parameters, dropout {cs.DROPOUT_P}, on {card}")
+    say(f"[profile] one optimizer step: {plain_ms:.1f} ms host clock without "
+        f"the profiler (median of 3), {wall_ms:.1f} ms under it (it slows "
+        f"the host), loss {float(metrics['train_loss']):.4f}; {where}")
+    say(f"[profile] device time {device_us / 1e3:.1f} ms in "
+        f"{len(intervals)} kernels and copies; the card ran something for "
+        f"{busy / 1e3:.1f} ms: {busy / (plain_ms * 1e3):.1%} of the step "
+        f"without the profiler (idle {1 - busy / (plain_ms * 1e3):.1%}), "
+        f"{busy / (wall_ms * 1e3):.1%} of the profiled step")
+    say("[profile] device time by kind:")
+    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        say(f"  {us / 1e3:9.2f} ms {us / device_us:6.1%}  {kind}")
+    ops = {e.key: e for e in prof.key_averages()}
+    dec_us = sum(ops[name].self_device_time_total
+                 for name in DECODER_ATTENTION_OPS if name in ops)
+    say(f"[profile] of which plain decoder attention (operators "
+        f"{', '.join(DECODER_ATTENTION_OPS)}, which nothing else on this "
+        f"path calls): {dec_us / 1e3:.2f} ms {dec_us / device_us:.1%}")
+    say("[profile] kernels with the most device time:")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]:
+        say(f"  {us / 1e3:9.2f} ms {us / device_us:6.1%} {calls[name]:6d} "
+            f"calls  {name[:110]}")
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "profile_train.txt").write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

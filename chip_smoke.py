@@ -1,22 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's RCR serving path once on one CUDA GPU.
+"""Drive the PyTorch port's RCR serving and training paths once on one CUDA
+GPU.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: compile every CUDA kernel of the path from textreact_tpu_torch/csrc;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, in float32 and bfloat16, with a
-   stated tolerance, and both timed (CUDA events, median of 20 calls);
-4. main path: the RCR recipe's serving configuration at full width
+2. build: compile every CUDA kernel from textreact_tpu_torch/csrc, one nvcc
+   process per source, started together;
+3. kernels: each of the four kernels (attention forward and backward,
+   residual-LayerNorm forward and backward) against its plain PyTorch
+   version on the card, at the shapes the paths give it, in float32 and
+   bfloat16, without dropout and at p = 0.1 with the kernel's own keep mask
+   exported and fed to the plain version, each with a stated tolerance; the
+   mask's statistics; all timed (CUDA events, median of 20 calls queued
+   while the card is held busy, so device time) beside the least time the
+   card could take and, for attention, beside
+   F.scaled_dot_product_attention (timed only, used nowhere in the port);
+4. serving path: the RCR recipe's serving configuration at full width
    (SciBERT-base encoder, 12 x 768, L=512, bf16; bert_l6 decoder, beam 15,
    16 decode positions; batch 32) with random weights from a seeded
    torch.Generator: tokenize 32 requests, Generator.generate,
    predictions_from_beams; checks shapes, finite non-increasing scores, and
-   that the pass went through both kernels (launch counts);
-5. the same batch's encoder states with the kernels and with the plain
-   functions, within a stated bf16 bound.
+   the forward kernels' launch counts; then the same batch's encoder states
+   with the kernels and with the plain functions, within a stated bound;
+5. training path: the RCR recipe's training step at full width and depth
+   (f32 parameters, bf16 compute, MLM head, dropout 0.1, clip 5, AdamW,
+   cosine schedule): 128 tokenized, span-masked, collated examples run as 4
+   micro-batches of 32 at L=512 for 3 optimizer steps, then an eval step;
+   checks finite metrics, a falling loss, changed parameters and the exact
+   launch counts of all four kernels; a weight-0 micro-batch changes
+   nothing;
+6. training, kernels against plain functions: one micro-batch's loss and
+   every gradient in float32 without dropout, within a stated bound.
 
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -35,17 +51,31 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from textreact_tpu.config import ExperimentConfig
-from textreact_tpu.tokenizers import get_tokenizers
+from textreact_tpu_torch.config import ExperimentConfig
+from textreact_tpu_torch.data import Collator, apply_span_mlm
 from textreact_tpu_torch.inference import Generator, predictions_from_beams
 from textreact_tpu_torch.models import build_model
+from textreact_tpu_torch.models.config import PRESETS
 from textreact_tpu_torch.ops import _build, fused_attention, fused_layernorm
+from textreact_tpu_torch.tokenizers import get_tokenizers
+from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
+                                       make_eval_step, make_loss_fn,
+                                       make_optimizer)
+from textreact_tpu_torch.train.step import to_device
 
-# serving shapes: B=32 requests of L=512 tokens, 12 heads of 64; the
-# encoder's LN rows are B*L, a decode step's are B*beams
+# shapes of the two paths: B=32 requests or examples of L=512 tokens, 12
+# heads of 64; LN rows are B*L in the encoder, B*beams in a decode step and
+# B*DEC_LEN in the teacher-forced decoder
 B, L, HEADS, HEAD_DIM, HIDDEN, BEAMS, DEC_LEN = 32, 512, 12, 64, 768, 15, 16
+MICRO_BATCHES, TRAIN_STEPS, DROPOUT_P = 4, 3, 0.1
 BF16_ULP = 2.0 ** -7  # relative spacing of bf16 just above a power of two
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds
+# below are the larger of bytes / memory rate and operations / peak rate
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # kernel vs plain, per dtype: (atol, rtol). f32: both sides compute in f32
 # and differ by summation order only. bf16: same f32 math, but each side
@@ -54,19 +84,42 @@ BF16_ULP = 2.0 ** -7  # relative spacing of bf16 just above a power of two
 # result may land one bf16 ulp away
 ATTN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 0.0)}
 LN_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1.6e-2, BF16_ULP)}
+# gradients, kernel vs autograd through the plain version. f32: sums of up
+# to 512 (attention) or 768 (LN) terms in another order. bf16: each side
+# rounds its f32 gradient to bf16, half an ulp each, and the plain attention
+# rounds its weights to bf16 before they meet v
+GRAD_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (3e-2, 2.0 ** -6)}
+# row statistics (attention max and normaliser, LN mean and rstd), f32 in
+# every case: summation order only
+STATS_TOL = (1e-4, 1e-5)
 # encoder output after 12 layers, kernels vs plain functions. bf16: the two
 # paths round activations to bf16 at different places and the differences
 # compound through the layers (LN outputs reach |x| ~ 4-8, where one bf16
 # ulp is 2^-5..2^-4). f32: summation order only
 ENCODER_BOUND = {"bfloat16": 0.125, "float32": 1e-3}
+# one micro-batch's f32 loss and gradients at p = 0, kernels vs plain
+# functions through 12 + 6 layers: summation order only. Loss: absolute.
+# Gradients: max abs difference of a tensor over its max abs value, the
+# latter taken as at least TRAIN_GRAD_FLOOR of the largest gradient of all
+TRAIN_LOSS_BOUND, TRAIN_GRAD_BOUND, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-4
+# parameters after one update at lr 1e-4, 3 real + 1 weight-0 micro-batch
+# against 3 real: the same arithmetic, up to the order of torch's atomics
+PAD_BOUND = 1e-6
 
+_CSRC = "textreact_tpu_torch/csrc/"
 KERNELS = {
-    "fused_attention": dict(
-        route="cuda", source="textreact_tpu_torch/csrc/fused_attention.cu",
+    "fused_attention_fwd": dict(
+        route="cuda", source=_CSRC + "fused_attention.cu",
         replaces="textreact_tpu/ops/fused_attention.py:60"),
-    "fused_layernorm": dict(
-        route="cuda", source="textreact_tpu_torch/csrc/fused_layernorm.cu",
+    "fused_attention_bwd": dict(
+        route="cuda", source=_CSRC + "fused_attention_bwd.cu",
+        replaces="textreact_tpu/ops/fused_attention.py:100"),
+    "fused_layernorm_fwd": dict(
+        route="cuda", source=_CSRC + "fused_layernorm.cu",
         replaces="textreact_tpu/ops/fused_layernorm.py:70"),
+    "fused_layernorm_bwd": dict(
+        route="cuda", source=_CSRC + "fused_layernorm.cu",
+        replaces="textreact_tpu/ops/fused_layernorm.py:85"),
 }
 
 WORDS = ("the mixture was stirred at room temperature for 2 h then "
@@ -80,27 +133,52 @@ REACTIONS = ["CC(=O)Cl.OCc1ccccc1>>CC(=O)OCc1ccccc1",
              "Brc1ccccc1.OB(O)c1ccccc1>>c1ccc(-c2ccccc2)cc1",
              "CCOC(=O)C.NCCN>>CC(=O)NCCN",
              "O=C(O)c1ccccc1.CCO>>CCOC(=O)c1ccccc1"]
+# catalyst, solvent 1, solvent 2, reagent 1, reagent 2 of each reaction
+# above, all in the bundled condition vocabulary
+CONDITIONS = [["", "ClCCl", "", "CCN(CC)CC", ""],
+              ["", "C1CCOC1", "O", "O=C([O-])[O-].[K+].[K+]", ""],
+              ["", "CCO", "", "", ""],
+              ["", "CCO", "", "O=S(=O)(O)O", ""]]
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+_BLOCKER = None
+
+
+def hold_the_card(ms: float = 60.0) -> None:
+    """Queue about `ms` of large matrix products, so that the host can
+    queue what follows while the card is busy and the card then runs it
+    back to back: a timing after this holds device time, not the time the
+    host takes to issue a launch."""
+    global _BLOCKER
+    if _BLOCKER is None:
+        _BLOCKER = torch.zeros(8192, 8192, dtype=torch.bfloat16,
+                               device="cuda")
+    # 2 * 8192^3 = 1.1 TFLOP a product, some 1.5-2 ms each
+    for _ in range(int(ms / 1.5)):
+        torch.mm(_BLOCKER, _BLOCKER)
+
+
 def time_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` single-call times in ms (CUDA events), after a
+    """Median of `reps` single-call device times in ms (a pair of CUDA
+    events around each call, all queued behind `hold_the_card`), after a
     warm-up call."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    hold_the_card()
+    pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def wall_ms(fn, reps: int = 5) -> float:
@@ -119,15 +197,25 @@ def wall_ms(fn, reps: int = 5) -> float:
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
                 atol: float, rtol: float) -> float:
-    diff = (got.float() - ref.float()).abs()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: the kernel's result is not finite")
+    diff = (got.detach().float() - ref.detach().float()).abs()
     err = float(diff.max())
-    excess = float((diff - atol - rtol * ref.float().abs()).max())
+    excess = float((diff - atol - rtol * ref.detach().float().abs()).max())
     log(f"  {name}: max_abs_err {err:.3e} (tolerance atol {atol:g} + "
         f"rtol {rtol:g} * |ref|)")
     if not excess <= 0.0:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {err:.3e})")
     return err
+
+
+def bound(nbytes: float, flops: float, dtype: torch.dtype):
+    """(least ms the card could take, which limit binds)."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
 
 
 def phase_device() -> str:
@@ -149,17 +237,85 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
+    _build.build_all([*fused_attention.LIBRARIES, "fused_layernorm"])
     fused_attention.load_kernel()
+    fused_attention.load_bwd_kernel()
     fused_layernorm.load_kernel()
-    log(f"[build] both kernels loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc seconds per kernel: {_build.BUILD_SECONDS or 'cached'})")
+    log(f"[build] three libraries (four kernels) loaded in "
+        f"{time.perf_counter() - t0:.1f} s, built in parallel (nvcc seconds "
+        f"per source: {_build.BUILD_SECONDS or 'cached'})")
     for name, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        lines = text.splitlines()
+        regs = [int(ln.split("Used ")[1].split(" registers")[0])
+                for ln in lines if "Used " in ln and " registers" in ln]
+        spills = [ln.strip() for ln in lines
+                  if "spill" in ln and "0 bytes spill stores" not in ln]
+        log(f"[build] {name}: {len(regs)} kernel variants, registers "
+            f"{min(regs)}-{max(regs)}, {len(spills)} variants spill")
+        for ln in spills:
+            log(f"[build] {name}: {ln}")
 
 
-def phase_kernels(results: dict) -> None:
+def reset_counts() -> None:
+    fused_attention.LAUNCHES = fused_attention.BWD_LAUNCHES = 0
+    fused_layernorm.LAUNCHES = fused_layernorm.BWD_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {"fused_attention_fwd": fused_attention.LAUNCHES,
+            "fused_attention_bwd": fused_attention.BWD_LAUNCHES,
+            "fused_layernorm_fwd": fused_layernorm.LAUNCHES,
+            "fused_layernorm_bwd": fused_layernorm.BWD_LAUNCHES}
+
+
+def drawn_seed(gen: torch.Generator, state: torch.Tensor) -> torch.Tensor:
+    """The seed a wrapper drew from `gen` when `gen` was in `state`."""
+    now = gen.get_state()
+    gen.set_state(state)
+    seed = _build.draw_seed(gen, torch.device("cuda"))
+    gen.set_state(now)
+    return seed
+
+
+def check_masks() -> None:
+    """The dropout bits: a function of (seed, element) alone, Bernoulli
+    with the right rate, different across seeds."""
+    dev = torch.device("cuda")
+    seed = torch.tensor([20240229], device=dev)
+    a = fused_attention.keep_mask(seed, B, HEADS, L, DROPOUT_P)
+    b = fused_attention.keep_mask(seed, B, HEADS, L, DROPOUT_P)
+    c = fused_attention.keep_mask(seed + 1, B, HEADS, L, DROPOUT_P)
+    frac = float(a.float().mean())
+    log(f"[kernels] attention keep mask ({B}, {HEADS}, {L}, {L}) at p="
+        f"{DROPOUT_P}: keep fraction {frac:.5f} (1 - p +- 0.005); same seed "
+        f"same bits: {torch.equal(a, b)}; next seed agrees on "
+        f"{float((a == c).float().mean()):.4f} of elements")
+    if not (abs(frac - (1 - DROPOUT_P)) < 0.005 and torch.equal(a, b)
+            and not torch.equal(a, c)):
+        raise AssertionError("attention keep mask")
+    per_head = a.float().mean(dim=(2, 3))
+    if not float((per_head - (1 - DROPOUT_P)).abs().max()) < 0.005:
+        raise AssertionError("attention keep mask is uneven across heads")
+    a = fused_layernorm.keep_mask(seed, B * L, HIDDEN, DROPOUT_P)
+    b = fused_layernorm.keep_mask(seed, B * L, HIDDEN, DROPOUT_P)
+    c = fused_layernorm.keep_mask(seed + 1, B * L, HIDDEN, DROPOUT_P)
+    frac = float(a.float().mean())
+    log(f"[kernels] layernorm keep mask ({B * L}, {HIDDEN}): keep fraction "
+        f"{frac:.5f}; same seed same bits: {torch.equal(a, b)}")
+    if not (abs(frac - (1 - DROPOUT_P)) < 0.005 and torch.equal(a, b)
+            and not torch.equal(a, c)):
+        raise AssertionError("layernorm keep mask")
+
+
+def sdpa(q, k, v, key_mask, p):
+    """The one PyTorch call that computes the attention kernel's function
+    (timed as a yardstick, used nowhere in the port)."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=key_mask, dropout_p=p).transpose(1, 2)
+
+
+def kernels_attention(results: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
@@ -171,48 +327,239 @@ def phase_kernels(results: dict) -> None:
     scale = HEAD_DIM ** -0.5
     log(f"[kernels] attention B={B} L={L} H={HEADS} D={HEAD_DIM}, ragged "
         f"mask, row {B - 1} fully masked")
+    errs = {"fwd": 0.0, "bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(B, L, HEADS, HEAD_DIM, generator=gen,
-                               device=dev).to(dtype) for _ in range(3))
-        got = fused_attention.fused_dropout_attention(q, k, v, mask, 0.0,
-                                                      None, scale)
-        ref = fused_attention.attention_reference(q, k, v, mask, scale)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise AssertionError("attention kernel output is not finite")
-        err = check_close(f"attention {dtype}", got, ref, *ATTN_TOL[dtype])
-        ms = time_ms(lambda: fused_attention.fused_dropout_attention(
-            q, k, v, mask, 0.0, None, scale))
-        plain_ms = time_ms(lambda: fused_attention.attention_reference(
-            q, k, v, mask, scale))
-        log(f"  attention {dtype}: kernel {ms:.4f} ms/call, plain "
-            f"{plain_ms:.4f} ms/call")
+        q, k, v, do = (torch.randn(B, L, HEADS, HEAD_DIM, generator=gen,
+                                   device=dev).to(dtype) for _ in range(4))
+        for p in (0.0, DROPOUT_P):
+            tag = f"attention {str(dtype)[6:]} p={p}"
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            state = gen.get_state()
+            out = fused_attention.fused_dropout_attention(*leaves, mask, p,
+                                                          gen, scale)
+            stats = out.grad_fn.saved_tensors[4]
+            out.backward(do)
+            keep = None
+            if p > 0.0:
+                seed = drawn_seed(gen, state)
+                keep = fused_attention.keep_mask(seed, B, HEADS, L, p)
+                again = [t.clone().requires_grad_() for t in (q, k, v)]
+                gen.set_state(state)
+                out2 = fused_attention.fused_dropout_attention(
+                    *again, mask, p, gen, scale)
+                out2.backward(do)
+                same = torch.equal(out, out2) and all(
+                    torch.equal(a.grad, b.grad)
+                    for a, b in zip(leaves, again))
+                log(f"  {tag}: two calls with one seed give the same bits: "
+                    f"{same}")
+                if not same:
+                    raise AssertionError("attention is not reproducible")
+            ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = fused_attention.attention_reference(*ref_leaves, mask,
+                                                      scale, keep, p)
+            ref.backward(do)
+            torch.cuda.synchronize()
+            e = check_close(f"{tag} out", out, ref, *ATTN_TOL[dtype])
+            if dtype == torch.bfloat16:
+                errs["fwd"] = max(errs["fwd"], e)
+            for name, a, b in zip("qkv", leaves, ref_leaves):
+                e = check_close(f"{tag} d{name}", a.grad, b.grad,
+                                *GRAD_TOL[dtype])
+                if dtype == torch.bfloat16:
+                    errs["bwd"] = max(errs["bwd"], e)
+            if dtype == torch.float32 and p == 0.0:
+                # row log-sum-exp from the saved (max, normaliser), valid
+                # rows only: in the all-masked row m is -1e9, where m + log l
+                # is not representable (why the pair is saved, not the sum)
+                s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+                s = s + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+                lse = stats[..., 0] + torch.log(stats[..., 1])
+                check_close("attention f32 lse (rows 0..B-2)", lse[:-1],
+                            torch.logsumexp(s, -1)[:-1], *STATS_TOL)
+            del ref, ref_leaves
         if dtype == torch.bfloat16:
-            results["fused_attention"] = dict(max_abs_err=err, ms=ms,
-                                              plain_ms=plain_ms)
-    for rows in (B * L, B * BEAMS):
+            time_attention(results, q, k, v, do, mask, gen, scale, lengths,
+                           errs)
+
+
+def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
+    """bf16 times at the training shape (p = 0.1) and the serving shape
+    (p = 0, no statistics written), with bounds from this run's mask."""
+    p = DROPOUT_P
+    dtype = q.dtype
+    elems = q.numel()
+    # keys a row's data needs: its valid ones (all L in the all-masked row,
+    # whose softmax is uniform)
+    keys = float(np.where(lengths == 0, L, lengths).sum())
+    fwd_flops = 4.0 * HEADS * HEAD_DIM * L * keys
+    bwd_flops = 10.0 * HEADS * HEAD_DIM * L * keys
+    stats_bytes = B * HEADS * L * 8
+    fwd_bytes = 4 * elems * q.element_size() + mask.numel() * 4
+    bwd_bytes = (8 * elems * q.element_size() + mask.numel() * 4
+                 + stats_bytes)
+    key_mask = (mask > 0)[:, None, None, :]
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    with torch.no_grad():
+        ms_p0 = time_ms(lambda: fused_attention.fused_dropout_attention(
+            q, k, v, mask, 0.0, None, scale))
+        plain_p0 = time_ms(lambda: fused_attention.attention_reference(
+            q, k, v, mask, scale))
+        lib_p0 = time_ms(lambda: sdpa(q, k, v, key_mask, 0.0))
+    fwd_ms = time_ms(lambda: fused_attention.fused_dropout_attention(
+        *leaves, mask, p, gen, scale))
+    out = fused_attention.fused_dropout_attention(*leaves, mask, p, gen,
+                                                  scale)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True))
+    keep = fused_attention.keep_mask(
+        torch.tensor([1], device=q.device), B, HEADS, L, p)
+    plain_fwd = time_ms(lambda: fused_attention.attention_reference(
+        *leaves, mask, scale, keep, p))
+    ref = fused_attention.attention_reference(*leaves, mask, scale, keep, p)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(ref, leaves, do,
+                                                    retain_graph=True))
+    del ref, keep
+    lib_fwd = time_ms(lambda: sdpa(*leaves, key_mask, p))
+    lib_out = sdpa(*leaves, key_mask, p)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                  retain_graph=True))
+    fb, fby = bound(fwd_bytes + stats_bytes, fwd_flops, dtype)
+    bb, bby = bound(bwd_bytes, bwd_flops, dtype)
+    log(f"  attention bf16 forward p={p} (writes row statistics): kernel "
+        f"{fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, SDPA {lib_fwd:.4f} ms, "
+        f"bound {fb:.4f} ms ({fby}: {fwd_flops / 1e9:.2f} GFLOP over valid "
+        f"keys, {(fwd_bytes + stats_bytes) / 1e6:.1f} MB)")
+    log(f"  attention bf16 forward p=0 (serving): kernel {ms_p0:.4f} ms, "
+        f"plain {plain_p0:.4f} ms, SDPA {lib_p0:.4f} ms")
+    log(f"  attention bf16 backward p={p}: kernel {bwd_ms:.4f} ms, plain "
+        f"autograd backward {plain_bwd:.4f} ms (forward + backward "
+        f"{plain_fwd + plain_bwd:.4f} ms), SDPA backward {lib_bwd:.4f} ms, "
+        f"bound {bb:.4f} ms ({bby}: {bwd_flops / 1e9:.2f} GFLOP, "
+        f"{bwd_bytes / 1e6:.1f} MB)")
+    results["fused_attention_fwd"] = dict(
+        max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd, bound_ms=fb,
+        bound_by=fby, library_ms=lib_fwd, ms_p0=ms_p0, plain_ms_p0=plain_p0,
+        library_ms_p0=lib_p0)
+    results["fused_attention_bwd"] = dict(
+        max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd, bound_ms=bb,
+        bound_by=bby, library_ms=lib_bwd,
+        plain_fwd_bwd_ms=plain_fwd + plain_bwd)
+
+
+def kernels_layernorm(results: dict) -> None:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    eps = 1e-5
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for rows in (B * L, B * DEC_LEN, B * BEAMS):
         log(f"[kernels] residual LayerNorm R={rows} H={HIDDEN}")
         for dtype in (torch.float32, torch.bfloat16):
-            x, y = (torch.randn(rows, HIDDEN, generator=gen,
-                                device=dev).to(dtype) for _ in range(2))
+            x, y, g = (torch.randn(rows, HIDDEN, generator=gen,
+                                   device=dev).to(dtype) for _ in range(3))
             w = 1.0 + 0.1 * torch.randn(HIDDEN, generator=gen, device=dev)
             b = 0.1 * torch.randn(HIDDEN, generator=gen, device=dev)
-            got = fused_layernorm.fused_residual_layernorm(x, y, w, b, 1e-5)
-            ref = fused_layernorm.residual_layernorm_reference(x, y, w, b,
-                                                               1e-5)
-            torch.cuda.synchronize()
-            err = check_close(f"layernorm R={rows} {dtype}", got, ref,
-                              *LN_TOL[dtype])
-            ms = time_ms(lambda: fused_layernorm.fused_residual_layernorm(
-                x, y, w, b, 1e-5))
-            plain_ms = time_ms(
-                lambda: fused_layernorm.residual_layernorm_reference(
-                    x, y, w, b, 1e-5))
-            log(f"  layernorm R={rows} {dtype}: kernel {ms:.4f} ms/call, "
-                f"plain {plain_ms:.4f} ms/call")
-            if dtype == torch.bfloat16 and rows == B * L:
-                results["fused_layernorm"] = dict(max_abs_err=err, ms=ms,
-                                                  plain_ms=plain_ms)
+            for p in (0.0, DROPOUT_P):
+                tag = f"layernorm R={rows} {str(dtype)[6:]} p={p}"
+                leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+                state = gen.get_state()
+                out = fused_layernorm.fused_residual_layernorm(
+                    *leaves, eps, p, gen)
+                mean, rstd = out.grad_fn.saved_tensors[3:5]
+                out.backward(g)
+                keep = None
+                if p > 0.0:
+                    keep = fused_layernorm.keep_mask(drawn_seed(gen, state),
+                                                     rows, HIDDEN, p)
+                ref_leaves = [t.clone().requires_grad_()
+                              for t in (x, y, w, b)]
+                ref = fused_layernorm.residual_layernorm_reference(
+                    *ref_leaves, eps, keep, p)
+                ref.backward(g)
+                torch.cuda.synchronize()
+                e = check_close(f"{tag} out", out, ref, *LN_TOL[dtype])
+                main_shape = dtype == torch.bfloat16 and rows == B * L
+                if main_shape:
+                    errs["fwd"] = max(errs["fwd"], e)
+                z = x.float() + y.float() * (
+                    1.0 if keep is None else keep.float() / (1.0 - p))
+                var = (z * z).mean(-1) - z.mean(-1) ** 2
+                check_close(f"{tag} mean", mean, z.mean(-1), *STATS_TOL)
+                check_close(f"{tag} rstd", rstd,
+                            torch.rsqrt(var.clamp(min=0) + eps), *STATS_TOL)
+                for name, a, c in zip(("dx", "dy"), leaves, ref_leaves):
+                    e = check_close(f"{tag} {name}", a.grad, c.grad,
+                                    *GRAD_TOL[dtype])
+                    if main_shape:
+                        errs["bwd"] = max(errs["bwd"], e)
+                # dscale, dbias: f32 sums over R rows of terms of size ~1
+                for name, a, c in zip(("dscale", "dbias"), leaves[2:],
+                                      ref_leaves[2:]):
+                    check_close(f"{tag} {name}", a.grad, c.grad,
+                                1e-5 * rows + 1e-4, 1e-4)
+            if dtype == torch.bfloat16:
+                time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs)
+
+
+def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs):
+    p = DROPOUT_P
+    leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    with torch.no_grad():
+        ms_p0 = time_ms(lambda: fused_layernorm.fused_residual_layernorm(
+            x, y, w, b, eps))
+        plain_p0 = time_ms(
+            lambda: fused_layernorm.residual_layernorm_reference(
+                x, y, w, b, eps))
+        two_calls = time_ms(lambda: F.layer_norm(x + y, (HIDDEN,),
+                                                 w.to(x.dtype),
+                                                 b.to(x.dtype), eps))
+    fwd_ms = time_ms(lambda: fused_layernorm.fused_residual_layernorm(
+        *leaves, eps, p, gen))
+    out = fused_layernorm.fused_residual_layernorm(*leaves, eps, p, gen)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                 retain_graph=True))
+    keep = fused_layernorm.keep_mask(torch.tensor([1], device=x.device),
+                                     rows, HIDDEN, p)
+    plain_fwd = time_ms(lambda: fused_layernorm.residual_layernorm_reference(
+        *leaves, eps, keep, p))
+    ref = fused_layernorm.residual_layernorm_reference(*leaves, eps, keep, p)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(ref, leaves, g,
+                                                    retain_graph=True))
+    size = x.numel() * x.element_size()
+    fwd_bytes = 3 * size + 2 * HIDDEN * 4 + 2 * rows * 4
+    bwd_bytes = 5 * size + 3 * HIDDEN * 4 + 2 * rows * 4
+    fb, fby = bound(fwd_bytes, 10.0 * x.numel(), torch.float32)
+    bb, bby = bound(bwd_bytes, 20.0 * x.numel(), torch.float32)
+    log(f"  layernorm R={rows} bf16 forward p={p} (writes mean, rstd): "
+        f"kernel {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, bound "
+        f"{fb:.4f} ms ({fby}: {fwd_bytes / 1e6:.2f} MB); p=0: kernel "
+        f"{ms_p0:.4f} ms, plain {plain_p0:.4f} ms; for information, "
+        f"F.layer_norm(x + y), two calls with a two-pass variance: "
+        f"{two_calls:.4f} ms")
+    log(f"  layernorm R={rows} bf16 backward p={p}: kernel {bwd_ms:.4f} ms, "
+        f"plain autograd backward {plain_bwd:.4f} ms (forward + backward "
+        f"{plain_fwd + plain_bwd:.4f} ms), bound {bb:.4f} ms ({bby}: "
+        f"{bwd_bytes / 1e6:.2f} MB)")
+    if rows == B * L:
+        results["fused_layernorm_fwd"] = dict(
+            max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd,
+            bound_ms=fb, bound_by=fby, library_ms=None, ms_p0=ms_p0,
+            plain_ms_p0=plain_p0)
+        results["fused_layernorm_bwd"] = dict(
+            max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd,
+            bound_ms=bb, bound_by=bby, library_ms=None,
+            plain_fwd_bwd_ms=plain_fwd + plain_bwd)
+    else:
+        for kind, ms in (("fwd", fwd_ms), ("bwd", bwd_ms)):
+            results[f"fused_layernorm_{kind}"][f"ms_rows_{rows}"] = ms
+
+
+def phase_kernels(results: dict) -> None:
+    check_masks()
+    kernels_attention(results)
+    kernels_layernorm(results)
+    torch.cuda.empty_cache()
 
 
 def write_text_vocab(path: Path) -> None:
@@ -225,22 +572,51 @@ def write_text_vocab(path: Path) -> None:
     path.write_text("\n".join(dict.fromkeys(tokens)) + "\n")
 
 
+def encode_request(enc_tok, rng, i: int, length: int) -> dict:
+    """Request i (reaction SMILES + retrieved neighbour paragraphs),
+    tokenized and cut to `length`; every fourth one short."""
+    n_nb, n_words = (1, 20) if i % 4 == 3 else (3, 200)
+    texts = [" ".join(rng.choice(WORDS, n_words)) for _ in range(n_nb)]
+    enc = enc_tok(REACTIONS[i % len(REACTIONS)], text_pair=texts)
+    return {k: v[:length] for k, v in enc.items()}
+
+
 def make_requests(enc_tok, n: int, length: int, seed: int = 0) -> dict:
-    """n requests (reaction SMILES + retrieved neighbour paragraphs),
-    tokenized and padded to `length` with numpy; every fourth one short."""
+    """n tokenized requests padded to `length` with numpy."""
     rng = np.random.default_rng(seed)
     ids = np.full((n, length), enc_tok.pad_token_id, np.int32)
     mask = np.zeros((n, length), np.int32)
     for i in range(n):
-        n_nb, n_words = (1, 20) if i % 4 == 3 else (3, 200)
-        texts = [" ".join(rng.choice(WORDS, n_words)) for _ in range(n_nb)]
-        enc = enc_tok(REACTIONS[i % len(REACTIONS)], text_pair=texts)
-        row = enc["input_ids"][:length]
+        row = encode_request(enc_tok, rng, i, length)["input_ids"]
         ids[i, :len(row)] = row
         mask[i, :len(row)] = 1
     return {"input_ids": ids, "attention_mask": mask,
             "indices": np.arange(n, dtype=np.int32),
             "example_mask": np.ones(n, np.int32)}
+
+
+def make_train_batch(cfg, enc_tok, dec_tok, n: int, seed: int = 0):
+    """n training examples as the dataset builds them (tokenized request,
+    span MLM with masked-first reordering, the reaction's conditions as
+    decoder tokens), collated at the encoder length cfg.max_length."""
+    import random
+    rng = np.random.default_rng(seed)
+    py_rng = random.Random(seed)
+    examples = []
+    for i in range(n):
+        ex = encode_request(enc_tok, rng, i, cfg.max_length)
+        ids, position_ids, mlm_labels = apply_span_mlm(
+            ex["input_ids"], enc_tok.mask_token_id, cfg.mlm_ratio, rng=py_rng)
+        dec = dec_tok(CONDITIONS[i % len(CONDITIONS)])
+        examples.append({
+            "id": str(i), "index": i, "input_ids": ids,
+            "attention_mask": ex["attention_mask"],
+            "position_ids": position_ids, "mlm_labels": mlm_labels,
+            "decoder_input_ids": dec["input_ids"][:cfg.max_dec_length],
+            "decoder_attention_mask":
+                dec["attention_mask"][:cfg.max_dec_length]})
+    collate = Collator(cfg, enc_tok.pad_token_id, dec_tok.pad_token_id)
+    return collate(examples, fixed_enc_len=cfg.max_length)
 
 
 def set_kernels(module: torch.nn.Module, on: bool) -> None:
@@ -253,48 +629,65 @@ def set_kernels(module: torch.nn.Module, on: bool) -> None:
                 layernorm_impl="fused" if on else "xla")
 
 
-def phase_main_path(card: str, results: dict):
-    dev = torch.device("cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        vocab = Path(tmp) / "vocab.txt"
-        write_text_vocab(vocab)
-        cfg = ExperimentConfig(
-            task="condition", encoder="scibert_base", decoder="bert_l6",
-            max_length=L, max_dec_length=DEC_LEN, num_beams=BEAMS,
-            test_batch_size=B, compute_dtype="bfloat16",
-            attention_impl="flash", layernorm_impl="fused",
-            text_vocab_file=str(vocab))
-        enc_tok, dec_tok = get_tokenizers(cfg)
+def set_dropout(module: torch.nn.Module, p: float) -> None:
+    for m in module.modules():
+        if hasattr(m, "config"):
+            m.config = m.config.replace(hidden_dropout_prob=p,
+                                        attention_probs_dropout_prob=p)
+
+
+def base_config(vocab: Path, **kw) -> ExperimentConfig:
+    return ExperimentConfig(
+        task="condition", encoder="scibert_base", decoder="bert_l6",
+        max_length=L, max_dec_length=DEC_LEN, num_beams=BEAMS,
+        test_batch_size=B, compute_dtype="bfloat16",
+        attention_impl="flash", layernorm_impl="fused",
+        text_vocab_file=str(vocab), **kw)
+
+
+def describe(module, enc_cfg, dec_cfg) -> str:
+    return (f"encoder {enc_cfg.num_hidden_layers}x{enc_cfg.hidden_size} "
+            f"vocab {enc_cfg.vocab_size}, decoder "
+            f"{dec_cfg.num_hidden_layers}x{dec_cfg.hidden_size} vocab "
+            f"{dec_cfg.vocab_size}, "
+            f"{sum(p.numel() for p in module.parameters()) / 1e6:.1f} M "
+            f"params stored as "
+            f"{module.encoder.layers[0].ffn.output.weight.dtype}")
+
+
+def phase_serving(card: str, vocab: Path, results: dict) -> None:
+    # serving holds its weights pre-cast to the compute dtype
+    cfg = base_config(vocab, param_dtype="bfloat16")
+    enc_tok, dec_tok = get_tokenizers(cfg)
     t0 = time.perf_counter()
     module, enc_cfg, dec_cfg = build_model(cfg, enc_tok, dec_tok,
                                            torch.Generator().manual_seed(0))
-    module = module.to(dev).eval()
-    log(f"[main] model built in {time.perf_counter() - t0:.1f} s: encoder "
-        f"{enc_cfg.num_hidden_layers}x{enc_cfg.hidden_size} vocab "
-        f"{enc_cfg.vocab_size}, decoder {dec_cfg.num_hidden_layers}x"
-        f"{dec_cfg.hidden_size} vocab {dec_cfg.vocab_size}, "
-        f"{sum(p.numel() for p in module.parameters()) / 1e6:.1f} M params")
+    log(f"[serve] model built on {next(module.parameters()).device} in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{describe(module, enc_cfg, dec_cfg)}")
     batch = make_requests(enc_tok, B, L)
     lens = batch["attention_mask"].sum(1)
-    log(f"[main] {B} requests, tokens per request min {lens.min()} max "
+    log(f"[serve] {B} requests, tokens per request min {lens.min()} max "
         f"{lens.max()}")
     gen = Generator(module, num_beams=BEAMS, max_length=DEC_LEN)
 
-    fused_attention.LAUNCHES = 0
-    fused_layernorm.LAUNCHES = 0
+    reset_counts()
     seqs, scores = gen.generate(batch)
     torch.cuda.synchronize()
-    attn_n, ln_n = fused_attention.LAUNCHES, fused_layernorm.LAUNCHES
+    counts = read_counts()
     steps = gen.last_steps
-    results["fused_attention"]["launches"] = attn_n
-    results["fused_layernorm"]["launches"] = ln_n
-    log(f"[main] launches: attention {attn_n}, layernorm {ln_n} over "
-        f"{steps} decode steps")
-    enc_layers, dec_layers = enc_cfg.num_hidden_layers, dec_cfg.num_hidden_layers
-    if attn_n != enc_layers:
-        raise AssertionError(f"attention launches {attn_n} != {enc_layers}")
-    if steps < 1 or ln_n != 2 * enc_layers + 3 * dec_layers * steps:
-        raise AssertionError(f"layernorm launches {ln_n} for {steps} steps")
+    log(f"[serve] launches: {counts} over {steps} decode steps")
+    enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
+                              dec_cfg.num_hidden_layers)
+    if counts["fused_attention_fwd"] != enc_layers:
+        raise AssertionError(f"attention launches {counts}")
+    if steps < 1 or counts["fused_layernorm_fwd"] != (
+            2 * enc_layers + 3 * dec_layers * steps):
+        raise AssertionError(f"layernorm launches {counts}, {steps} steps")
+    if counts["fused_attention_bwd"] or counts["fused_layernorm_bwd"]:
+        raise AssertionError(f"serving launched a backward kernel: {counts}")
+    for name in ("fused_attention_fwd", "fused_layernorm_fwd"):
+        results[name]["launches_serving"] = counts[name]
 
     preds = predictions_from_beams(seqs, scores, batch["indices"],
                                    batch["example_mask"], dec_tok)
@@ -307,59 +700,271 @@ def phase_main_path(card: str, results: dict):
     if len(preds) != B or any(len(p["prediction"]) != BEAMS
                               for p in preds.values()):
         raise AssertionError("predictions_from_beams lost requests")
-    log(f"[main] request 0 best beam {preds[0]['prediction'][0]} score "
+    log(f"[serve] request 0 best beam {preds[0]['prediction'][0]} score "
         f"{preds[0]['score'][0]:.3f}")
 
-    ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev)
-    mask = torch.as_tensor(batch["attention_mask"], device=dev)
+    ids = torch.as_tensor(batch["input_ids"], dtype=torch.long,
+                          device="cuda")
+    mask = torch.as_tensor(batch["attention_mask"], device="cuda")
     batch_ms = wall_ms(lambda: gen.generate(batch))
     with torch.inference_mode():
         enc_ms = wall_ms(lambda: module.encode(ids, mask))
-    log(f"[main] {batch_ms:.1f} ms/batch (host clock, median of 5) for B={B} "
-        f"L={L} beam {BEAMS} dec {DEC_LEN}, {gen.last_steps} decode steps, "
-        f"on {card}; the encoder alone {enc_ms:.1f} ms, cache set-up and "
-        f"beam search the other {batch_ms - enc_ms:.1f} ms. Random weights "
-        f"rarely emit EOS, so this is the worst case with no early stop.")
+    log(f"[serve] {batch_ms:.1f} ms/batch (host clock, median of 5) for "
+        f"B={B} L={L} beam {BEAMS} dec {DEC_LEN}, {gen.last_steps} decode "
+        f"steps, on {card}; the encoder alone {enc_ms:.1f} ms, cache set-up "
+        f"and beam search the other {batch_ms - enc_ms:.1f} ms. Random "
+        f"weights rarely emit EOS, so this is the worst case with no early "
+        f"stop.")
 
-    return cfg, enc_tok, dec_tok, module, ids, mask
-
-
-def phase_end_to_end(cfg, enc_tok, dec_tok, module: torch.nn.Module,
-                     ids: torch.Tensor, mask: torch.Tensor) -> None:
-    """The batch's encoder states through the kernels and through the plain
-    functions: the bf16 serving model, and the same seed built in f32."""
-    f32, _, _ = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
-                            enc_tok, dec_tok, torch.Generator().manual_seed(0))
-    f32 = f32.to(ids.device).eval()
+    # the batch's encoder states through the kernels and through the plain
+    # functions: the bf16 serving model, and the same seed built in f32
+    f32, _, _ = build_model(
+        dataclasses.replace(cfg, compute_dtype="float32",
+                            param_dtype="float32"),
+        enc_tok, dec_tok, torch.Generator().manual_seed(0))
     for name, m in (("bfloat16", module), ("float32", f32)):
         with torch.inference_mode():
             with_kernels = m.encode(ids, mask)
             set_kernels(m, False)
-            launches = (fused_attention.LAUNCHES, fused_layernorm.LAUNCHES)
+            before = read_counts()
             plain = m.encode(ids, mask)
             set_kernels(m, True)
         torch.cuda.synchronize()
-        if (fused_attention.LAUNCHES, fused_layernorm.LAUNCHES) != launches:
+        if read_counts() != before:
             raise AssertionError("the plain encoder pass launched a kernel")
         diff = float((with_kernels.float() - plain.float()).abs().max())
-        log(f"[e2e] encoder states, kernels vs plain functions, {name}: max "
-            f"abs diff {diff:.3e} (bound {ENCODER_BOUND[name]:g})")
+        log(f"[serve] encoder states, kernels vs plain functions, {name}: "
+            f"max abs diff {diff:.3e} (bound {ENCODER_BOUND[name]:g})")
         if not diff <= ENCODER_BOUND[name]:
             raise AssertionError(f"{name} encoder with kernels departs from "
                                  f"the plain path")
 
 
+def train_config(vocab: Path, **kw) -> ExperimentConfig:
+    """scripts/train_RCR.sh: MLM auxiliary head, clip 5, AdamW lr 1e-4 wd
+    0.01, cosine schedule with warmup 0.02, global batch 128."""
+    kw.setdefault("compute_dtype", "bfloat16")
+    cfg = base_config(vocab, mlm=True, mlm_layer="mlp", mlm_lambda=0.1,
+                      mlm_ratio=0.15, batch_size=B * MICRO_BATCHES, lr=1e-4,
+                      weight_decay=0.01, max_grad_norm=5.0,
+                      scheduler="cosine", warmup_ratio=0.02,
+                      param_dtype="float32")
+    return dataclasses.replace(cfg, **kw)
+
+
+def as_microbatches(batch, n: int) -> dict:
+    return {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
+            for k, v in batch.arrays.items()}
+
+
+def phase_train(card: str, vocab: Path, results: dict):
+    cfg = train_config(vocab)
+    enc_tok, dec_tok = get_tokenizers(cfg)
+    t0 = time.perf_counter()
+    module, enc_cfg, dec_cfg = build_model(cfg, enc_tok, dec_tok,
+                                           torch.Generator().manual_seed(0))
+    log(f"[train] model built in {time.perf_counter() - t0:.1f} s: "
+        f"{describe(module, enc_cfg, dec_cfg)}, compute {cfg.compute_dtype}, "
+        f"dropout {enc_cfg.hidden_dropout_prob}/"
+        f"{enc_cfg.attention_probs_dropout_prob}")
+    batch = make_train_batch(cfg, enc_tok, dec_tok, cfg.batch_size)
+    micro = as_microbatches(batch, MICRO_BATCHES)
+    log(f"[train] {cfg.batch_size} examples as {MICRO_BATCHES} micro-batches "
+        f"of {B}: " + ", ".join(f"{k} {v.shape[1:]}"
+                                for k, v in micro.items()))
+    # a 3-step run: warmup int(3 * 0.02) = 0 steps, then the cosine decay
+    optimizer = make_optimizer(cfg, TRAIN_STEPS, module.parameters())
+    state = TrainState.create(module, optimizer)
+    train_step = make_accum_train_step(module, cfg, optimizer,
+                                       dec_tok.pad_token_id)
+    eval_step = make_eval_step(module, cfg, dec_tok.pad_token_id)
+    before = [p.detach().clone() for p in module.parameters()]
+    weights = np.ones(MICRO_BATCHES, np.float32)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, micro, weights, cfg.seed)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+        log(f"[train] step {state.step}: {history[-1]} "
+            f"lr {optimizer.schedule(state.step - 1):.3g} "
+            f"{step_ms[-1]:.1f} ms")
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
+                              dec_cfg.num_hidden_layers)
+    per_mb = {"fused_attention_fwd": enc_layers,
+              "fused_attention_bwd": enc_layers,
+              "fused_layernorm_fwd": 2 * enc_layers + 3 * dec_layers,
+              "fused_layernorm_bwd": 2 * enc_layers + 3 * dec_layers}
+    expected = {k: v * MICRO_BATCHES * TRAIN_STEPS for k, v in per_mb.items()}
+    log(f"[train] launches over {TRAIN_STEPS} steps x {MICRO_BATCHES} "
+        f"micro-batches: {counts} (per micro-batch {per_mb})")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    for name, n in counts.items():
+        results[name]["launches"] = n
+    for h in history:
+        if not all(np.isfinite(v) for v in h.values()):
+            raise AssertionError(f"non-finite metric: {h}")
+        if not h["grad_norm"] > 0.0:
+            raise AssertionError(f"grad_norm {h['grad_norm']}")
+    if not history[-1]["train_loss"] < history[0]["train_loss"]:
+        raise AssertionError(f"the loss did not fall: {history}")
+    changed = sum(int(not torch.equal(a, b))
+                  for a, b in zip(before, module.parameters()))
+    if changed != len(before):
+        raise AssertionError(f"only {changed} of {len(before)} parameter "
+                             f"tensors changed")
+    del before
+
+    out = eval_step({k: v[0] for k, v in micro.items()})
+    loss, acc = out["loss"].float().cpu(), out["acc"].float().cpu()
+    if loss.shape != (B,) or acc.shape != (B,) or not bool(
+            torch.isfinite(loss).all()):
+        raise AssertionError("eval step")
+    log(f"[train] eval step on micro-batch 0: mean loss "
+        f"{float(loss.mean()):.4f}, greedy exact match "
+        f"{float(acc.mean()):.3f}")
+    med = statistics.median(step_ms[1:])
+    log(f"[train] {med:.1f} ms per optimizer step (host clock, median of "
+        f"steps 2-{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms) = "
+        f"{cfg.batch_size / med * 1e3:.1f} examples/s for "
+        f"{MICRO_BATCHES} x {B} examples at L={L}, bf16 compute, f32 "
+        f"parameters, dropout {DROPOUT_P}, peak device memory "
+        f"{peak_gb:.1f} GB, on {card}")
+    return cfg, enc_tok, dec_tok, micro
+
+
+def small_configs(tmp: Path, layers: int):
+    """The two presets cut to `layers` layers, full width, as json files."""
+    paths = []
+    for name in ("scibert_base", "bert_l6"):
+        path = tmp / f"{name}_{layers}.json"
+        path.write_text(json.dumps(dataclasses.asdict(
+            PRESETS[name].replace(num_hidden_layers=layers))))
+        paths.append(str(path))
+    return paths
+
+
+def phase_train_pad_microbatch(cfg, enc_tok, dec_tok, micro, tmp: Path):
+    """3 real micro-batches + 1 weight-0 pad give the update of 3 real ones
+    (2 + 2 layers at full width, f32, no dropout: a cheap run)."""
+    enc_json, dec_json = small_configs(tmp, 2)
+    cfg = dataclasses.replace(cfg, encoder=enc_json, decoder=dec_json,
+                              compute_dtype="float32")
+    params = []
+    for micro_n, weights in ((micro, [1, 1, 1, 0]),
+                             ({k: v[:3] for k, v in micro.items()},
+                              [1, 1, 1])):
+        module, _, _ = build_model(cfg, enc_tok, dec_tok,
+                                   torch.Generator().manual_seed(0))
+        set_dropout(module, 0.0)
+        optimizer = make_optimizer(cfg, TRAIN_STEPS, module.parameters())
+        step = make_accum_train_step(module, cfg, optimizer,
+                                     dec_tok.pad_token_id)
+        state, metrics = step(TrainState.create(module, optimizer), micro_n,
+                              weights, cfg.seed)
+        params.append(([p.detach() for p in module.parameters()],
+                       float(metrics["train_loss"])))
+    # not bit for bit: the embedding tables' gradients are scatter-adds
+    # with float atomics in torch, whose order varies from run to run
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(params[0][0], params[1][0]))
+    log(f"[train] weight-0 pad micro-batch: loss {params[0][1]:.6f} vs "
+        f"{params[1][1]:.6f}, parameters after the update differ by at most "
+        f"{diff:.3e} (bound {PAD_BOUND:g}, a hundredth of the learning "
+        f"rate)")
+    if not (diff <= PAD_BOUND
+            and abs(params[0][1] - params[1][1]) <= PAD_BOUND):
+        raise AssertionError("a weight-0 micro-batch changed the update")
+
+
+def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro) -> None:
+    """One micro-batch (8 examples, full width and depth) in f32 without
+    dropout: loss and every gradient, kernels against plain functions."""
+    n = 8
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    module, _, _ = build_model(cfg, enc_tok, dec_tok,
+                               torch.Generator().manual_seed(0))
+    set_dropout(module, 0.0)
+    module.train()
+    loss_fn = make_loss_fn(module, cfg, dec_tok.pad_token_id)
+    batch = to_device({k: v[0][:n] for k, v in micro.items()},
+                      torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    runs = []
+    for on in (True, False):
+        set_kernels(module, on)
+        module.zero_grad(set_to_none=True)
+        before = read_counts()
+        loss, _ = loss_fn(batch, gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = read_counts() != before
+        if launched != on:
+            raise AssertionError(f"kernels on={on} but launched={launched}")
+        runs.append((float(loss.detach()), {name: p.grad.clone() for name, p
+                                   in module.named_parameters()}))
+    (loss_k, grads_k), (loss_p, grads_p) = runs
+    # A tensor's difference is held against its own largest gradient, but
+    # not against less than GRAD_FLOOR of the largest gradient of all: the
+    # attention key biases have a gradient of exactly zero (a softmax does
+    # not see a shift of all its scores), so what they hold is rounding
+    # noise on both sides
+    floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max())
+                                   for g in grads_p.values())
+    worst, worst_name, worst_abs = 0.0, "", 0.0
+    for name, g in grads_p.items():
+        diff = float((grads_k[name] - g).abs().max())
+        rel = diff / max(float(g.abs().max()), floor)
+        if rel > worst:
+            worst, worst_name, worst_abs = rel, name, diff
+    log(f"[train] kernels vs plain functions, f32, p=0, {n} examples at "
+        f"L={L}, full width and depth: loss {loss_k:.6f} vs {loss_p:.6f} "
+        f"(bound {TRAIN_LOSS_BOUND:g}); worst gradient tensor {worst_name}: "
+        f"max abs diff {worst_abs:.3e}, over max(its max abs, {floor:.3e}) "
+        f"= {worst:.3e} (bound {TRAIN_GRAD_BOUND:g}) over {len(grads_p)} "
+        f"tensors; the plain pass launched no kernel")
+    if not (abs(loss_k - loss_p) <= TRAIN_LOSS_BOUND
+            and worst <= TRAIN_GRAD_BOUND):
+        raise AssertionError("training with kernels departs from the plain "
+                             "path")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     results: dict = {}
     phase_kernels(results)
-    phase_end_to_end(*phase_main_path(card, results))
-    kernels = [dict(name=name, **meta, launches=results[name]["launches"],
-                    max_abs_err=results[name]["max_abs_err"],
-                    ms=results[name]["ms"], plain_ms=results[name]["plain_ms"])
+    log(f"[time] kernels phase done at {time.perf_counter() - t_start:.0f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = Path(tmp) / "vocab.txt"
+        write_text_vocab(vocab)
+        phase_serving(card, vocab, results)
+        torch.cuda.empty_cache()
+        log(f"[time] serving done at {time.perf_counter() - t_start:.0f} s")
+        cfg, enc_tok, dec_tok, micro = phase_train(card, vocab, results)
+        torch.cuda.empty_cache()
+        phase_train_pad_microbatch(cfg, enc_tok, dec_tok, micro, Path(tmp))
+        phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro)
+    for name, r in results.items():
+        if not r.get("launches", 0) > 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    kernels = [dict(name=name, **meta, **results[name])
                for name, meta in KERNELS.items()]
+    log(f"[time] all phases done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

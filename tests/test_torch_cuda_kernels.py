@@ -67,8 +67,9 @@ def test_attention_kernel_matches_plain(dev, dtype, L, H, D, masked):
 
 def test_attention_kernel_raises_on_what_it_does_not_take(dev):
     q = torch.randn(2, 128, 2, 64, device=dev)
-    with pytest.raises(NotImplementedError):
-        fused_attention.fused_dropout_attention(q, q, q, None, 0.1)
+    with pytest.raises(ValueError):  # an explicit mask is for CPU tensors
+        fused_attention.fused_dropout_attention(
+            q, q, q, None, 0.1, keep=torch.ones(2, 2, 128, 128, device=dev))
     with pytest.raises(ValueError):
         x = torch.randn(2, 100, 2, 64, device=dev)
         fused_attention.fused_dropout_attention(x, x, x, None)
@@ -103,8 +104,9 @@ def test_layernorm_kernel_matches_plain(dev, dtype, H, R):
 def test_layernorm_kernel_raises_on_what_it_does_not_take(dev):
     x = torch.randn(4, 768, device=dev)
     w, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
-    with pytest.raises(NotImplementedError):
-        fused_layernorm.fused_residual_layernorm(x, x, w, b, 1e-5, 0.1)
+    with pytest.raises(ValueError):  # an explicit mask is for CPU tensors
+        fused_layernorm.fused_residual_layernorm(
+            x, x, w, b, 1e-5, 0.1, keep=torch.ones_like(x, dtype=torch.bool))
     with pytest.raises(ValueError):
         z = torch.randn(4, 100, device=dev)
         fused_layernorm.fused_residual_layernorm(z, z, w[:100], b[:100])
@@ -112,6 +114,112 @@ def test_layernorm_kernel_raises_on_what_it_does_not_take(dev):
         fused_layernorm.fused_residual_layernorm(x, x, w.bfloat16(), b)
     with pytest.raises(ValueError):
         fused_layernorm.fused_residual_layernorm(x, x.bfloat16(), w, b)
+
+
+# gradients, kernel vs autograd through the plain version with the exported
+# keep mask. f32: summation order only (sums of up to 512 terms of size
+# ~1). bf16: each side rounds its f32 gradient to bf16 (half an ulp, 2^-9
+# relative, each) and the plain attention also rounds its weights to bf16
+# before they meet v
+GRAD_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (3e-2, 2.0 ** -6)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,H,D", [(128, 2, 64), (256, 4, 32), (512, 3, 64)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_attention_kernel_forward_and_gradients_match_plain(dev, dtype, L, H,
+                                                            D, p):
+    B = 3
+    g = torch.Generator(device=dev).manual_seed(L + D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    mask = _mask(B, L, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = fused_attention.LAUNCHES, fused_attention.BWD_LAUNCHES
+    state = g.get_state()
+    got = fused_attention.fused_dropout_attention(*leaves, mask, p, g)
+    got.backward(do)
+    assert fused_attention.LAUNCHES == fwd + 1
+    assert fused_attention.BWD_LAUNCHES == bwd + 1
+    keep = None
+    if p > 0.0:
+        g.set_state(state)  # the seed the wrapper drew
+        seed = torch.randint(0, 1 << 62, (1,), generator=g, device=dev,
+                             dtype=torch.int64)
+        keep = fused_attention.keep_mask(seed, B, H, L, p)
+        assert abs(float(keep.float().mean()) - (1 - p)) < 0.01
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = fused_attention.attention_reference(*ref_leaves, mask, D ** -0.5,
+                                              keep, p)
+    ref.backward(do)
+    _close(got, ref, *ATTN_TOL[dtype])
+    for a, b in zip(leaves, ref_leaves):
+        assert torch.isfinite(a.grad).all()
+        _close(a.grad, b.grad, *GRAD_TOL[dtype])
+
+
+def test_attention_dropout_mask_is_a_function_of_the_seed(dev):
+    seed = torch.tensor([1234], device=dev)
+    a = fused_attention.keep_mask(seed, 2, 3, 128, 0.1)
+    b = fused_attention.keep_mask(seed, 2, 3, 128, 0.1)
+    c = fused_attention.keep_mask(seed + 1, 2, 3, 128, 0.1)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert abs(float(a.float().mean()) - 0.9) < 0.01
+    # p = 0.1 keeps a superset of p = 0.5: one threshold on the same bits
+    d = fused_attention.keep_mask(seed, 2, 3, 128, 0.5)
+    assert bool((a | ~d).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", fused_layernorm.SUPPORTED_HIDDEN)
+@pytest.mark.parametrize("R", [1, 7, 480, 5000])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_layernorm_kernel_forward_and_gradients_match_plain(dev, dtype, H, R,
+                                                            p):
+    g = torch.Generator(device=dev).manual_seed(R * H)
+    x, y, go = (torch.randn(R, H, generator=g, device=dev).to(dtype)
+                for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
+    b = 0.1 * torch.randn(H, generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    fwd, bwd = fused_layernorm.LAUNCHES, fused_layernorm.BWD_LAUNCHES
+    state = g.get_state()
+    got = fused_layernorm.fused_residual_layernorm(*leaves, 1e-5, p, g)
+    got.backward(go)
+    assert fused_layernorm.LAUNCHES == fwd + 1
+    assert fused_layernorm.BWD_LAUNCHES == bwd + 1
+    keep = None
+    if p > 0.0:
+        g.set_state(state)
+        seed = torch.randint(0, 1 << 62, (1,), generator=g, device=dev,
+                             dtype=torch.int64)
+        keep = fused_layernorm.keep_mask(seed, R, H, p)
+    ref_leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    ref = fused_layernorm.residual_layernorm_reference(*ref_leaves, 1e-5,
+                                                       keep, p)
+    ref.backward(go)
+    _close(got, ref, *LN_TOL[dtype])
+    for a, c in zip(leaves[:2], ref_leaves[:2]):
+        _close(a.grad, c.grad, *GRAD_TOL[dtype])
+    # dscale, dbias: f32 sums over R rows of terms of size ~1
+    for a, c in zip(leaves[2:], ref_leaves[2:]):
+        _close(a.grad, c.grad, 1e-5 * R + 1e-4, 1e-4)
+
+
+def test_kernel_backward_is_reproducible(dev):
+    """No float atomics: the same inputs and seed give the same bits."""
+    g = torch.Generator(device=dev)
+    x, y, go = (torch.randn(5000, 768, device=dev) for _ in range(3))
+    w, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+        g.manual_seed(7)
+        fused_layernorm.fused_residual_layernorm(*leaves, 1e-5, 0.1,
+                                                 g).backward(go)
+        grads.append([t.grad for t in leaves])
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
 
 
 def _small_model(seed=0):

@@ -1,0 +1,137 @@
+"""The port's own copies of the host-side modules against the JAX
+package's originals: copies drift, so the same inputs must give the same
+token ids, masked sequences and collated arrays."""
+
+import dataclasses
+import random
+
+import numpy as np
+import pytest
+
+import textreact_tpu.config as jax_config
+import textreact_tpu.data.collate as jax_collate
+import textreact_tpu.data.mlm as jax_mlm
+import textreact_tpu.tokenizers as jax_tok
+import textreact_tpu_torch.config as port_config
+import textreact_tpu_torch.data as port_data
+import textreact_tpu_torch.tokenizers as port_tok
+from fixtures import write_text_vocab
+
+SMILES = ["CC(=O)Cl.OCc1ccccc1>>CC(=O)OCc1ccccc1",
+          "Brc1ccccc1.OB(O)c1ccccc1>>c1ccc(-c2ccccc2)cc1",
+          "[Na+].[Cl-].C[C@H](N)C(=O)O>>C[C@@H](N)C(=O)OC",
+          "c1ccc2[nH]ccc2c1%12"]
+TEXTS = ["The mixture was stirred at room temperature for 2 h.",
+         "Pd(PPh3)4 (5 mol%) and K2CO3 in THF/H2O; yield 85 %",
+         "naïve café µ-wave heating, 100 °C", ""]
+
+
+def _cfgs(tmp_path, **kw):
+    vocab = tmp_path / "vocab.txt"
+    write_text_vocab(str(vocab))
+    kw = dict(text_vocab_file=str(vocab), max_length=64, max_dec_length=16,
+              **kw)
+    return jax_config.ExperimentConfig(**kw), port_config.ExperimentConfig(**kw)
+
+
+def test_experiment_config_has_the_same_fields_and_defaults():
+    a = {f.name: f.default for f in dataclasses.fields(
+        jax_config.ExperimentConfig)}
+    b = {f.name: f.default for f in dataclasses.fields(
+        port_config.ExperimentConfig)}
+    assert a == b
+    for n in (1, 64, 65, 600):
+        assert port_config.bucket_length(n, (64, 128, 512)) \
+            == jax_config.bucket_length(n, (64, 128, 512))
+
+
+def test_bundled_vocabularies_are_the_same_files():
+    for name in ("CONDITION_VOCAB", "SMILES_VOCAB"):
+        a, b = getattr(jax_tok, name), getattr(port_tok, name)
+        assert a != b and "textreact_tpu_torch" in b
+        assert open(a).read() == open(b).read()
+
+
+@pytest.mark.parametrize("mode", ["smiles", "text", "smiles_text"])
+@pytest.mark.parametrize("task", ["condition", "retro"])
+def test_tokenizers_give_the_same_ids(tmp_path, mode, task):
+    jcfg, pcfg = _cfgs(tmp_path, encoder_tokenizer=mode, task=task)
+    jenc, jdec = jax_tok.get_tokenizers(jcfg)
+    penc, pdec = port_tok.get_tokenizers(pcfg)
+    assert len(jenc) == len(penc) and len(jdec) == len(pdec)
+    for attr in ("pad_token_id", "mask_token_id"):
+        assert getattr(jenc, attr) == getattr(penc, attr)
+    for smi in SMILES:
+        for text in TEXTS:
+            pair = [text, TEXTS[0]] if mode != "smiles" else None
+            if mode == "smiles":
+                assert jenc(smi) == penc(smi)
+            else:
+                assert jenc(smi, text_pair=pair) == penc(smi, text_pair=pair)
+    if task == "condition":
+        conds = ["", "ClCCl", "not-in-vocab", "CCN(CC)CC", "O"]
+        assert jdec(conds) == pdec(conds)
+        ids = jdec(conds)["input_ids"]
+        assert jdec.decode(ids, True) == pdec.decode(ids, True)
+        assert (jdec.bos_token_id, jdec.eos_token_id) \
+            == (pdec.bos_token_id, pdec.eos_token_id)
+    else:
+        for smi in SMILES:
+            assert jdec(smi) == pdec(smi)
+            ids = jdec(smi)["input_ids"]
+            assert jdec.decode(ids) == pdec.decode(ids)
+
+
+def test_template_based_tokenizers_wait_for_their_slice(tmp_path):
+    _, pcfg = _cfgs(tmp_path, encoder_tokenizer="smiles", task="retro",
+                    template_based=True, template_path="x")
+    with pytest.raises(NotImplementedError):
+        port_tok.get_tokenizers(pcfg)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_span_mlm_and_reorder_match(seed):
+    ids = list(np.random.default_rng(seed).integers(5, 90, 70))
+    a = jax_mlm.apply_span_mlm(ids, 4, 0.15, rng=random.Random(seed))
+    b = port_data.apply_span_mlm(ids, 4, 0.15, rng=random.Random(seed))
+    assert a == b and len(b[2]) > 0
+    new_ids, position_ids, labels = b
+    assert new_ids[:len(labels)] == [4] * len(labels)
+    assert sorted(position_ids) == list(range(len(ids)))
+    assert port_data.remap_positions(position_ids, [3, 9]) \
+        == jax_mlm.remap_positions(position_ids, [3, 9])
+    assert port_data.reorder_masked_first(ids, [-100] * 70, 4) \
+        == jax_mlm.reorder_masked_first(ids, [-100] * 70, 4)
+
+
+def _examples(seed, n=5):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        length = int(rng.integers(20, 100))
+        ids = [int(t) for t in rng.integers(5, 90, length)]
+        new_ids, pos, labels = port_data.apply_span_mlm(
+            ids, 4, 0.15, rng=random.Random(seed + i))
+        dec = [1] + [int(t) for t in rng.integers(6, 40, 5)] + [2]
+        out.append({"id": f"r{i}", "index": i, "input_ids": new_ids,
+                    "attention_mask": [1] * length, "position_ids": pos,
+                    "mlm_labels": labels, "decoder_input_ids": dec,
+                    "decoder_attention_mask": [1] * len(dec)})
+    return out
+
+
+@pytest.mark.parametrize("static_shapes", [False, True])
+def test_collator_gives_the_same_arrays(tmp_path, static_shapes):
+    jcfg, pcfg = _cfgs(tmp_path)
+    assert port_data.IGNORE_INDEX == jax_collate.IGNORE_INDEX == -100
+    examples = _examples(0)
+    a = jax_collate.Collator(jcfg, 0, 0, static_shapes=static_shapes)(
+        examples, fixed_batch=8)
+    b = port_data.Collator(pcfg, 0, 0, static_shapes=static_shapes)(
+        examples, fixed_batch=8)
+    assert set(a.arrays) == set(b.arrays) and a.host == b.host
+    for name, arr in a.arrays.items():
+        assert arr.dtype == b.arrays[name].dtype
+        np.testing.assert_array_equal(arr, b.arrays[name], err_msg=name)
+    assert b.size == 5 and b["mlm_labels"].shape[1] % 16 == 0
+    assert "ids" in b and b["ids"][0] == "r0"

@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from textreact_tpu.config import ExperimentConfig
 from textreact_tpu.models import EncoderDecoder as JaxEncoderDecoder
 from textreact_tpu.models import TransformerConfig as JaxConfig
+from textreact_tpu_torch.config import ExperimentConfig
 from textreact_tpu_torch.models import (DecoderStep, EncoderDecoder,
                                         TransformerConfig, build_model,
                                         from_flax)
@@ -229,7 +229,10 @@ class _Tok:
 
 def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
     """The RCR recipe's geometry from the experiment config, and weights
-    that depend only on the generator's seed (not on the dtype)."""
+    that depend only on the generator's seed (not on the dtype). Parameters
+    are float32 unless cfg.param_dtype asks for pre-cast serving weights;
+    the module comes back in eval mode on the device asked for, and with no
+    device named and no card the factory raises."""
     import json
     enc_json = tmp_path / "enc.json"
     enc_json.write_text(json.dumps(dict(
@@ -245,7 +248,12 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
                            max_length=128, max_dec_length=24, mlm=True,
                            mlm_layer="mlp", compute_dtype="float32")
     m32, enc_cfg, dec_cfg = build_model(cfg, _Tok(70), _Tok(30),
-                                        torch.Generator().manual_seed(0))
+                                        torch.Generator().manual_seed(0),
+                                        device="cpu")
+    assert not m32.training
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg, _Tok(70), _Tok(30))
     assert enc_cfg.max_position_embeddings == 128
     assert enc_cfg.vocab_size == 70 and dec_cfg.vocab_size == 30
     assert dec_cfg.max_position_embeddings == 24
@@ -254,9 +262,18 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
     assert enc_cfg.layernorm_impl == "fused"
     assert hasattr(m32, "mlm_head") and m32.mlm_head.mlp
     cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    m16, _, _ = build_model(cfg16, _Tok(70), _Tok(30),
-                            torch.Generator().manual_seed(0))
+    train16, _, _ = build_model(cfg16, _Tok(70), _Tok(30),
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
     w32 = m32.encoder.layers[0].ffn.intermediate.weight
+    # bf16 compute keeps float32 parameters (what the optimizer updates)
+    assert train16.encoder.layers[0].ffn.intermediate.weight.dtype \
+        == torch.float32
+    torch.testing.assert_close(
+        train16.encoder.layers[0].ffn.intermediate.weight, w32)
+    m16, _, _ = build_model(
+        dataclasses.replace(cfg16, param_dtype="bfloat16"), _Tok(70),
+        _Tok(30), torch.Generator().manual_seed(0), device="cpu")
     w16 = m16.encoder.layers[0].ffn.intermediate.weight
     assert w16.dtype == torch.bfloat16
     torch.testing.assert_close(w16.float(), w32.bfloat16().float())
@@ -266,16 +283,30 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, template_based=True,
                                         template_path="x"),
-                    _Tok(70), _Tok(30))
+                    _Tok(70), _Tok(30), device="cpu")
 
 
 def test_port_imports_no_jax_or_pandas():
-    """The port's modules load where JAX and pandas are absent."""
+    """The port's modules, chip_smoke and chip_profile load where JAX,
+    pandas and the JAX package are absent: nothing of them is in
+    sys.modules afterwards."""
+    import pkgutil
     import subprocess
     import sys
-    code = ("import sys, textreact_tpu_torch.models, "
-            "textreact_tpu_torch.inference, textreact_tpu_torch.ops.fused_attention, "
-            "textreact_tpu_torch.ops.fused_layernorm, textreact_tpu.tokenizers; "
-            "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'pandas') "
-            "if m in sys.modules]; assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+    import textreact_tpu_torch
+    names = sorted(m.name for m in pkgutil.walk_packages(
+        textreact_tpu_torch.__path__, "textreact_tpu_torch."))
+    assert "textreact_tpu_torch.train.step" in names
+    assert "textreact_tpu_torch.tokenizers.text" in names
+    code = ("import sys, importlib\n"
+            f"for name in {names!r} + ['chip_smoke', 'chip_profile']:\n"
+            "    importlib.import_module(name)\n"
+            "bad = [m for m in sys.modules if m == 'textreact_tpu' "
+            "or m.startswith('textreact_tpu.') "
+            "or m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', "
+            "'orbax', 'pandas')]\n"
+            "assert not bad, bad\n")
+    root = str(__import__("pathlib").Path(__file__).resolve().parent.parent)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=root)

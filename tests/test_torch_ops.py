@@ -134,3 +134,131 @@ def test_layernorm_dropout_plain_path_rescales_kept_residual():
         x, torch.where(keep, y / (1 - p), 0.0), torch.ones(128),
         torch.zeros(128), 1e-5)
     torch.testing.assert_close(got, expect, rtol=RTOL, atol=ATOL)
+
+
+# --- gradients, and dropout with a shared keep mask -------------------------
+# jax.grad runs through the interpret-mode Pallas backward kernels; the port
+# runs autograd through its plain versions. f32 on both sides, summation
+# order only; gradients sum up to 128 terms of size ~1, hence 1e-4
+GRAD_ATOL = GRAD_RTOL = 1e-4
+
+
+def _jax_attention_keep(rng, B, H, L, p):
+    """The keep mask the JAX wrapper draws host-side in interpret mode
+    (ops/fused_attention.py:193-194 with the seed of :305-306)."""
+    import jax
+    seed = jax.random.randint(rng, (1,), 0, jnp.iinfo(jnp.int32).max,
+                              dtype=jnp.int32)
+    key = jax.random.fold_in(jax.random.PRNGKey(0), seed[0])
+    return np.array(jax.random.uniform(key, (B, H, L, L)) >= p)
+
+
+def _jax_layernorm_keep(rng, R, H, p):
+    """ops/fused_layernorm.py:117-118 with the seed of :245-246."""
+    import jax
+    seed = jax.random.randint(rng, (1,), 0, jnp.iinfo(jnp.int32).max,
+                              dtype=jnp.int32)
+    key = jax.random.fold_in(jax.random.PRNGKey(0), seed[0])
+    return np.array(jax.random.uniform(key, (R, H)) >= p)
+
+
+@pytest.mark.parametrize("H,D", [(2, 64), (4, 32)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_attention_forward_and_gradients_match_pallas_kernels(H, D, p):
+    import jax
+    B, L = 3, 128
+    q, k, v = _qkv(B, L, H, D, seed=1)
+    do = np.random.default_rng(2).standard_normal((B, L, H, D),
+                                                  dtype=np.float32)
+    mask = _ragged_mask(B, L)
+    scale = 1.0 / np.sqrt(D)
+    rng = jax.random.PRNGKey(5)
+
+    def jloss(q, k, v):
+        out = jax_attention(q, k, v, jnp.asarray(mask), p, rng,
+                            sm_scale=scale)
+        return jnp.sum(out * do), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    keep = (torch.from_numpy(_jax_attention_keep(rng, B, H, L, p))
+            if p > 0.0 else None)
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    out = fused_attention.fused_dropout_attention(
+        *leaves, torch.from_numpy(mask), p, None, sm_scale=scale, keep=keep)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=RTOL, atol=ATOL)
+    for leaf, jg in zip(leaves, jgrads):
+        assert torch.isfinite(leaf.grad).all()
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(jg),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_attention_cpu_dropout_draws_from_the_generator():
+    q, k, v = (torch.from_numpy(t) for t in _qkv(2, 128, 2, 32))
+    g = torch.Generator().manual_seed(3)
+    a = fused_attention.fused_dropout_attention(q, k, v, None, 0.5, g)
+    g.manual_seed(3)
+    b = fused_attention.fused_dropout_attention(q, k, v, None, 0.5, g)
+    c = fused_attention.fused_dropout_attention(q, k, v, None, 0.5, g)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # the normaliser runs over the undropped weights: dropping changes a
+    # row by less than the row's weight, never renormalises
+    none = fused_attention.fused_dropout_attention(q, k, v, None, 0.0)
+    assert not torch.allclose(a, none)
+
+
+@pytest.mark.parametrize("R,H", [(64, 128), (24, 256)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_layernorm_forward_and_gradients_match_pallas_kernels(R, H, p):
+    import jax
+    rng_np = np.random.default_rng(R + H)
+    x = rng_np.standard_normal((R, H), dtype=np.float32)
+    y = rng_np.standard_normal((R, H), dtype=np.float32) * 0.5 + 1.0
+    g = rng_np.standard_normal((R, H), dtype=np.float32)
+    scale = 1.0 + 0.1 * rng_np.standard_normal(H, dtype=np.float32)
+    bias = 0.1 * rng_np.standard_normal(H, dtype=np.float32)
+    rng = jax.random.PRNGKey(9)
+
+    def jloss(x, y, scale, bias):
+        out = jax_layernorm(x, y, scale, bias, 1e-5, dropout_p=p,
+                            dropout_rng=rng)
+        return jnp.sum(out * g), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
+                                           has_aux=True)(
+        *(jnp.asarray(t) for t in (x, y, scale, bias)))
+    keep = (torch.from_numpy(_jax_layernorm_keep(rng, R, H, p))
+            if p > 0.0 else None)
+    leaves = [torch.from_numpy(t).requires_grad_()
+              for t in (x, y, scale, bias)]
+    out = fused_layernorm.fused_residual_layernorm(*leaves, 1e-5, p, None,
+                                                   keep=keep)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=RTOL, atol=ATOL)
+    for leaf, jg in zip(leaves, jgrads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(jg),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_layernorm_reference_keep_mask_scales_the_kept():
+    x = torch.zeros(2, 128)
+    y = torch.ones(2, 128)
+    keep = torch.zeros(2, 128, dtype=torch.bool)
+    keep[:, ::2] = True
+    w, b = torch.ones(128), torch.zeros(128)
+    out = fused_layernorm.residual_layernorm_reference(x, y, w, b, 1e-5,
+                                                       keep, 0.5)
+    # z alternates 2, 0: mean 1, variance 1
+    torch.testing.assert_close(out[0, :2], torch.tensor([1.0, -1.0]),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_dropout_threshold_is_the_jax_kernels_rule():
+    from textreact_tpu_torch.ops import _build
+    assert _build.dropout_threshold(0.0) == 0
+    assert _build.dropout_threshold(0.1) == int(0.1 * (1 << 32))
+    assert _build.dropout_threshold(1.0) == (1 << 32) - 1

@@ -1,64 +1,75 @@
-// Fused non-causal attention, forward, dropout p = 0, for Hopper (sm_90a).
+// Fused non-causal attention with in-kernel dropout on the probabilities,
+// forward and backward, for Hopper (sm_90a).
 //
-// Replaces: textreact_tpu/ops/fused_attention.py::_fwd_kernel (Pallas TPU),
-// out = softmax(q k^T * scale + mask_bias) v per (batch, head), where a key
-// with mask 0 gets the additive bias -1e9 (not -inf: a row whose keys are
-// all masked, as in the collator's dummy rows, stays finite and averages
-// v). q, k, v and out stay in the model's (B, L, H * D) activation layout,
-// as on the TPU, so no transpose runs around the call.
+// Replaces: textreact_tpu/ops/fused_attention.py::_fwd_kernel and
+// ::_bwd_kernel (Pallas TPU). Forward: out = dropout(softmax(q k^T * scale +
+// mask_bias)) v per (batch, head), where a key with mask 0 gets the additive
+// bias -1e9 (not -inf: a row whose keys are all masked, as in the collator's
+// dummy rows, stays finite and averages v), and the softmax normaliser runs
+// over the UNDROPPED weights (torch/HF semantics). Backward: dq, dk, dv from
+// q, k, v, o, do with the dropout mask regenerated from the seed. q, k, v,
+// out and the gradients stay in the model's (B, L, H * D) activation layout,
+// as on the TPU, so no transpose runs around a call.
 //
-// Bound: at the slice's shape (B=32, L=512, H=12, D=64) a call does
-// 4 * B * H * L^2 * D = 25.8 GFLOP against 4 * 25 MB of bf16 q/k/v/out,
-// ~1000 flop/byte: compute bound. The TPU kernel keeps a whole (L, L)
-// score row block per head in VMEM; on Hopper a 512 x 512 f32 tile per
-// head does not fit in a block's 227 KB of shared memory, so the scores are
-// never materialised at all.
+// What the TPU kernels lean on and this card does not have: a whole (L, L)
+// f32 score tile per head in on-chip memory (512 x 512 x 4 B = 1 MB against
+// 227 KB of shared memory per block), and a per-core PRNG stream whose order
+// forward and backward share. So the scores are never materialised: the
+// forward streams over the keys with an online softmax and writes the row
+// statistics (max m, normaliser l) for the backward, which recomputes
+// p = exp(s - m) / l tile by tile; and the dropout bits come from a
+// counter-based generator indexed by (batch * H + head, query row, key
+// column) (philox.cuh), so every kernel draws the same bit for the same
+// element whatever its tiling.
 //
-// Design (simple first; tensor cores come later): one block per
-// (query tile of 128 rows, head, batch), one thread per query row. A
-// thread holds its q row and its f32 output accumulator in registers and
-// streams over the keys in tiles of 32 that the block stages, converted to
-// f32, in shared memory. Each tile runs an online (streaming) softmax: the
-// running row max m and normaliser l are rescaled when the max grows, and
-// the final 1/l scales the output once, as the TPU kernel's deferred
-// normalisation does. All arithmetic is f32 FMA; every thread of a warp
-// reads the same k/v element at a time, so shared-memory reads are
-// broadcasts with no bank conflicts, issued as 16-byte vectors.
+// The statistics are the pair (m, l), not the log-sum-exp m + log l: in an
+// all-masked row m is -1e9, where f32 numbers are 64 apart, so m + log l
+// would round to m and the backward would recompute p = 1 instead of 1 / L.
+//
+// Bounds at the slice's shape (B=32, L=512, H=12, D=64, bf16): forward
+// 4 * B * H * L^2 * D = 25.8 GFLOP (26 us at the bf16 tensor-core peak)
+// against 4 * 25 MB moved (30 us); backward 10 * B * H * L^2 * D = 64 GFLOP
+// (65 us) against 8 * 25 MB (60 us). Either way close to the card's balance
+// point, and far below what these kernels take: their f32 FMA arithmetic
+// runs at 67 TFLOP/s at most.
+//
+// Design (simple first; tensor cores come later). All arithmetic is f32 FMA
+// through shared-memory tiles, outputs in the input dtype, no atomics, so a
+// call is deterministic.
+// - forward: one block per (query tile of 128 rows, head, batch), one thread
+//   per query row holding its q row and its f32 accumulator in registers,
+//   streaming over keys in tiles of 32 staged in shared memory. The keep
+//   mask is applied to the unnormalised weight AFTER it is added to l, and
+//   inv_keep / l scales the output once.
+// - backward: a dQ pass and a dK/dV pass that recompute p = exp(s - m) / l
+//   tile by tile, with dS = p * (keep * inv_keep * (dO v^T) - delta) * scale
+//   and delta = rowsum(dO * O); set out in fused_attention_bwd.cu.
+//
+// This file holds the forward and the test-only mask export; the backward
+// is fused_attention_bwd.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 128;  // query rows per block (one per thread)
-constexpr int kBK = 32;   // keys per shared-memory tile
-constexpr float kMaskBias = -1e9f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kBQ)
 attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int32_t* __restrict__ mask,
-              T* __restrict__ out, int L, int H, float scale) {
+              T* __restrict__ out, float2* __restrict__ stats, Dropout drop,
+              int L, int H, float scale) {
   __shared__ __align__(16) float ks[kBK][D];
   __shared__ __align__(16) float vs[kBK][D];
   __shared__ float kbias[kBK];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int64_t row = (int64_t)blockIdx.x * kBQ + threadIdx.x;
+  const int row_i = blockIdx.x * kBQ + threadIdx.x;
+  const int64_t row = row_i;
   const int64_t HD = (int64_t)H * D;
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
+  const uint32_t bh = (uint32_t)(b * H + h);
+  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
 
   float qr[D];
   float acc[D];
@@ -69,7 +80,7 @@ attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
     acc[d] = 0.f;
   }
   float m = -INFINITY;  // running row max
-  float l = 0.f;        // running softmax normaliser
+  float l = 0.f;        // running softmax normaliser (undropped weights)
 
   for (int k0 = 0; k0 < L; k0 += kBK) {
     __syncthreads();  // every thread is done with the previous tile
@@ -81,8 +92,8 @@ attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
       vs[j][d] = to_f32(v[off]);
     }
     if (threadIdx.x < kBK) {
-      const bool keep = mask == nullptr || mask[(int64_t)b * L + k0 + threadIdx.x] > 0;
-      kbias[threadIdx.x] = keep ? 0.f : kMaskBias;
+      const bool valid = mask == nullptr || mask[(int64_t)b * L + k0 + threadIdx.x] > 0;
+      kbias[threadIdx.x] = valid ? 0.f : kMaskBias;
     }
     __syncthreads();
 
@@ -110,10 +121,17 @@ attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
     l *= corr;
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] *= corr;
+    uint32_t bits[4];
 #pragma unroll
     for (int j = 0; j < kBK; ++j) {
-      const float p = expf(s[j] - mt);
+      float p = expf(s[j] - mt);
       l += p;
+      if (kDrop) {
+        if ((j & 3) == 0) {
+          tr::attention_bits(seed, bh, (uint32_t)row_i, (uint32_t)((k0 + j) >> 2), bits);
+        }
+        if (bits[j & 3] < drop.threshold) p = 0.f;
+      }
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
         const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
@@ -126,48 +144,95 @@ attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
     m = mt;
   }
 
-  const float inv = 1.f / l;
+  const float r = (kDrop ? drop.inv_keep : 1.f) / l;
   T* op = out + head + row * HD;
 #pragma unroll
-  for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * inv);
+  for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * r);
+  if (stats != nullptr) stats[((int64_t)bh) * L + row] = make_float2(m, l);
+}
+
+// Test-only: the keep mask of (seed, B * H, L, L), one byte per element.
+__global__ void attention_keep_mask(const int64_t* __restrict__ seed,
+                                    uint32_t threshold, uint8_t* __restrict__ out,
+                                    int64_t BH, int L) {
+  const int L4 = L / 4;
+  const int64_t n = BH * L * L4;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t col4 = (uint32_t)(i % L4);
+  const uint32_t row = (uint32_t)((i / L4) % L);
+  const uint32_t bh = (uint32_t)(i / ((int64_t)L4 * L));
+  uint32_t bits[4];
+  tr::attention_bits((uint64_t)*seed, bh, row, col4, bits);
+  uchar4 keep;
+  keep.x = bits[0] >= threshold;
+  keep.y = bits[1] >= threshold;
+  keep.z = bits[2] >= threshold;
+  keep.w = bits[3] >= threshold;
+  reinterpret_cast<uchar4*>(out)[i] = keep;
+}
+
+template <typename T, int D, bool kDrop>
+cudaError_t launch_fwd(const T* q, const T* k, const T* v, const int32_t* mask,
+                       T* out, float2* stats, Dropout drop, int B, int L, int H,
+                       float scale, cudaStream_t stream) {
+  attention_fwd<T, D, kDrop><<<dim3(L / kBQ, H, B), kBQ, 0, stream>>>(
+      q, k, v, mask, out, stats, drop, L, H, scale);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* mask, void* out, int B, int L, int H, int D,
-                   float scale, cudaStream_t stream) {
-  if (L % kBQ != 0 || L % kBK != 0) return cudaErrorInvalidValue;
-  const dim3 grid(L / kBQ, H, B);
-  const dim3 block(kBQ);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
-  if (D == 64) {
-    attention_fwd<T, 64><<<grid, block, 0, stream>>>(qt, kt, vt, mask, ot, L, H, scale);
-  } else if (D == 32) {
-    attention_fwd<T, 32><<<grid, block, 0, stream>>>(qt, kt, vt, mask, ot, L, H, scale);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+cudaError_t fwd(const void* q, const void* k, const void* v, const int32_t* mask,
+                void* out, void* stats, Dropout drop, int B, int L, int H, int D,
+                float scale, cudaStream_t stream) {
+  if (L % kBQ != 0) return cudaErrorInvalidValue;
+  const bool dropout = drop.seed != nullptr;
+#define TR_FWD(DV, DR)                                                         \
+  return launch_fwd<T, DV, DR>(static_cast<const T*>(q), static_cast<const T*>(k), \
+                               static_cast<const T*>(v), mask, static_cast<T*>(out), \
+                               static_cast<float2*>(stats), drop, B, L, H, scale, stream);
+  TR_DISPATCH(TR_FWD);
+#undef TR_FWD
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, out: (B, L, H * D) contiguous;
-// mask: (B, L) int32 {0, 1} or null. Returns cudaGetLastError() after launch.
+// Conventions of every entry point. dtype: 0 = float32, 1 = bfloat16.
+// q, k, v, out, o, dout, dq, dk, dv: (B, L, H * D) contiguous; mask: (B, L)
+// int32 {0, 1} or null; stats: (B, H, L, 2) float32 (row max, normaliser);
+// delta: (B, H, L) float32 workspace; seed: one int64 in device memory, or
+// null for no dropout; threshold and inv_keep as in philox.cuh. Returns
+// cudaGetLastError() after the launch.
+
 int tr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                     const void* mask, void* out, int B, int L, int H, int D,
-                     float scale, void* stream) {
+                     const void* mask, void* out, void* stats, const void* seed,
+                     uint32_t threshold, float inv_keep, int B, int L, int H,
+                     int D, float scale, void* stream) {
   const int32_t* m = static_cast<const int32_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout drop = make_dropout(seed, threshold, inv_keep);
   if (B == 0) return 0;
-  if (dtype == 0) return launch<float>(q, k, v, m, out, B, L, H, D, scale, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, m, out, B, L, H, D, scale, st);
+  if (dtype == 0) return fwd<float>(q, k, v, m, out, stats, drop, B, L, H, D, scale, st);
+  if (dtype == 1) {
+    return fwd<__nv_bfloat16>(q, k, v, m, out, stats, drop, B, L, H, D, scale, st);
+  }
   return cudaErrorInvalidValue;
+}
+
+// Test-only: out (B * H, L, L) uint8, 1 where the element is kept.
+int tr_attention_keep_mask(const void* seed, uint32_t threshold, void* out,
+                           int64_t BH, int L, void* stream) {
+  if (L % 4 != 0) return cudaErrorInvalidValue;
+  const int64_t n = BH * L * (L / 4);
+  if (n == 0) return 0;
+  const int threads = 256;
+  attention_keep_mask<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(seed), threshold, static_cast<uint8_t*>(out), BH, L);
+  return cudaGetLastError();
 }
 
 const char* tr_error_string(int err) {

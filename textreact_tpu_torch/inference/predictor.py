@@ -29,6 +29,7 @@ class Generator:
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """batch: 'input_ids' (B, L) and 'attention_mask' (B, L) or
         (B, L, L). Returns (sequences (B, K, max_length), scores (B, K))."""
+        self.module.eval()  # no dropout, whatever a train step left on
         device = self.module.decoder.word_embedding.device
         input_ids = torch.as_tensor(np.asarray(batch["input_ids"]),
                                     dtype=torch.long, device=device)

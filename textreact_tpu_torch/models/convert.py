@@ -49,3 +49,9 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             name = leaf_name
         state[".".join(mods + [name])] = torch.tensor(arr)
     return state
+
+
+def grads_from_flax(grads: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax gradient tree keyed like `module.named_parameters()`: a
+    gradient takes the renames and transposes of its parameter."""
+    return from_flax(grads)

@@ -52,32 +52,39 @@ def encoder_key_bias(encoder_attention_mask: Optional[torch.Tensor]
 
 class Decoder(nn.Module):
     def __init__(self, config: TransformerConfig,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
         # owned here so the LM head ties to it (decoder.py:57-63)
         self.word_embedding = nn.Parameter(
-            torch.zeros(cfg.vocab_size, cfg.hidden_size, dtype=dtype))
-        self.embeddings = Embeddings(cfg, dtype, own_word_embeddings=False)
-        self.layers = nn.ModuleList(TransformerBlock(cfg, dtype)
-                                    for _ in range(cfg.num_hidden_layers))
-        self.lm_head = MLMHead(cfg, dtype, mlp=True, tied=True)
+            torch.zeros(cfg.vocab_size, cfg.hidden_size, dtype=param_dtype))
+        self.embeddings = Embeddings(cfg, dtype, own_word_embeddings=False,
+                                     param_dtype=param_dtype)
+        self.layers = nn.ModuleList(
+            TransformerBlock(cfg, dtype, param_dtype)
+            for _ in range(cfg.num_hidden_layers))
+        self.lm_head = MLMHead(cfg, dtype, mlp=True, tied=True,
+                               param_dtype=param_dtype)
 
     def forward(self, input_ids: torch.Tensor, encoder_states: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                encoder_attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """Teacher-forced logits (B, L, V), f32."""
+                encoder_attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced logits (B, L, V), f32. `generator` feeds the
+        dropouts in training mode."""
         L = input_ids.shape[1]
         self_bias = causal_bias(L, L, device=input_ids.device)
         if attention_mask is not None:
             self_bias = self_bias + mask_to_bias(attention_mask)
         cross_bias = encoder_key_bias(encoder_attention_mask)
-        x = self.embeddings(input_ids, word_embedding=self.word_embedding)
+        x = self.embeddings(input_ids, word_embedding=self.word_embedding,
+                            generator=generator)
         for layer in self.layers:
-            x = layer(x, self_bias, encoder_states, cross_bias)
+            x = layer(x, self_bias, encoder_states, cross_bias,
+                      generator=generator)
         return self.lm_head(x, embedding=self.word_embedding)
 
     def init_cache(self, encoder_states: torch.Tensor,

@@ -20,32 +20,50 @@ class EncoderDecoder(nn.Module):
     def __init__(self, encoder_config: TransformerConfig,
                  decoder_config: TransformerConfig,
                  dtype: torch.dtype = torch.bfloat16,
-                 mlm_layer: Optional[str] = None):
+                 mlm_layer: Optional[str] = None,
+                 param_dtype: torch.dtype = torch.float32):
+        """`dtype` is the compute dtype; parameters are stored in
+        `param_dtype` (float32 to train, the compute dtype to serve with
+        pre-cast weights) and LayerNorm parameters always in float32."""
         super().__init__()
         self.encoder_config = encoder_config
         self.decoder_config = decoder_config
         self.dtype = dtype
         self.mlm_layer = mlm_layer
-        self.encoder = Encoder(encoder_config, dtype)
-        self.decoder = Decoder(decoder_config, dtype)
+        self.encoder = Encoder(encoder_config, dtype, param_dtype)
+        self.decoder = Decoder(decoder_config, dtype, param_dtype)
         if mlm_layer:
             self.mlm_head = MLMHead(encoder_config, dtype,
-                                    mlp=mlm_layer == "mlp")
+                                    mlp=mlm_layer == "mlp",
+                                    param_dtype=param_dtype)
+        # dropout is off until a train step turns it on (flax's
+        # deterministic=True default)
+        self.eval()
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 decoder_input_ids: torch.Tensor,
                 decoder_attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
-                mlm_prefix_len: Optional[int] = None) -> dict:
+                mlm_prefix_len: Optional[int] = None,
+                mlm_labels: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """In training mode `generator` feeds every dropout. With
+        `mlm_labels` the MLM head returns `mlm_loss_sum` and `mlm_valid`
+        (linear + CE folded together) instead of `mlm_logits`."""
         enc = self.encoder(input_ids, attention_mask=attention_mask,
-                           position_ids=position_ids)
+                           position_ids=position_ids, generator=generator)
         logits = self.decoder(decoder_input_ids, enc,
                               attention_mask=decoder_attention_mask,
-                              encoder_attention_mask=attention_mask)
+                              encoder_attention_mask=attention_mask,
+                              generator=generator)
         out = {"logits": logits, "encoder_last_hidden_state": enc}
         if self.mlm_layer and mlm_prefix_len is not None:
             # masked tokens sit in a contiguous prefix (data/mlm.py)
-            out["mlm_logits"] = self.mlm_head(enc[:, :mlm_prefix_len])
+            if mlm_labels is not None:
+                out["mlm_loss_sum"], out["mlm_valid"] = self.mlm_head(
+                    enc[:, :mlm_prefix_len], labels=mlm_labels)
+            else:
+                out["mlm_logits"] = self.mlm_head(enc[:, :mlm_prefix_len])
         return out
 
     def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,

@@ -13,19 +13,24 @@ from .layers import Embeddings, TransformerBlock, mask_to_bias
 
 class Encoder(nn.Module):
     def __init__(self, config: TransformerConfig,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
-        self.embeddings = Embeddings(config, dtype)
-        self.layers = nn.ModuleList(TransformerBlock(config, dtype)
-                                    for _ in range(config.num_hidden_layers))
+        self.embeddings = Embeddings(config, dtype, param_dtype=param_dtype)
+        self.layers = nn.ModuleList(
+            TransformerBlock(config, dtype, param_dtype)
+            for _ in range(config.num_hidden_layers))
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` feeds the dropouts in training mode."""
         x = self.embeddings(input_ids, position_ids=position_ids,
-                            token_type_ids=token_type_ids)
+                            token_type_ids=token_type_ids,
+                            generator=generator)
         bias = None
         self_mask = None
         if attention_mask is not None:
@@ -35,5 +40,6 @@ class Encoder(nn.Module):
             else:
                 bias = mask_to_bias(attention_mask)
         for layer in self.layers:
-            x = layer(x, self_bias=bias, self_mask=self_mask)
+            x = layer(x, self_bias=bias, self_mask=self_mask,
+                      generator=generator)
         return x

@@ -8,8 +8,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from textreact_tpu.config import ExperimentConfig
-
+from ..config import ExperimentConfig
 from .config import resolve_config
 from .decoder import Decoder
 from .encdec import EncoderDecoder
@@ -18,10 +17,29 @@ from .layers import LayerNorm, MLMHead, ResidualLayerNorm
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another. Raises where no card is found: nothing falls back to
+    the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU unless the caller "
+            "passes device='cpu'")
+    return torch.device("cuda")
+
+
 def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
-                generator: Optional[torch.Generator] = None):
-    """Returns (module, enc_config, dec_config), on the CPU, with weights
-    drawn from `generator` (seeded with cfg.seed when None)."""
+                generator: Optional[torch.Generator] = None, device=None):
+    """Returns (module, enc_config, dec_config), on `device` (None: the CUDA
+    card; raises without one), in eval mode, with weights drawn from
+    `generator` (seeded with cfg.seed when None).
+
+    Parameters are stored in cfg.param_dtype: 'float32' (the default, what
+    training needs) or the compute dtype's name for pre-cast serving
+    weights; the compute dtype is cfg.compute_dtype."""
+    device = resolve_device(device)
     if cfg.template_based:
         raise NotImplementedError(
             "template-based retrosynthesis is not ported yet")
@@ -49,11 +67,12 @@ def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
     module = EncoderDecoder(encoder_config=enc_config,
                             decoder_config=dec_config,
                             dtype=DTYPES[cfg.compute_dtype],
-                            mlm_layer=cfg.mlm_layer if cfg.mlm else None)
+                            mlm_layer=cfg.mlm_layer if cfg.mlm else None,
+                            param_dtype=DTYPES[cfg.param_dtype])
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(module, generator)
-    return module, enc_config, dec_config
+    return module.to(device).eval(), enc_config, dec_config
 
 
 @torch.no_grad()

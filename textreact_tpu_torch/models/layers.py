@@ -1,11 +1,23 @@
 """Transformer building blocks (twin of textreact_tpu/models/layers.py).
 
-Numerics follow the JAX package: matmul weights are kept in the compute
-dtype (bfloat16 or float32) and layer-norm parameters in float32;
-attention scores and softmax run in float32, the probabilities meet v in
-the compute dtype with float32 accumulation; LayerNorm is flax
+Numerics follow the JAX package: every layer casts its matmul weights to
+the compute dtype (bfloat16 or float32) at use, layer-norm parameters stay
+float32; attention scores and softmax run in float32, the probabilities
+meet v in the compute dtype with float32 accumulation; LayerNorm is flax
 fast-variance in float32. Parameter names mirror the flax tree
 (`convert.py` maps one onto the other).
+
+Parameters are stored in `param_dtype`: float32 for training, as in the JAX
+package, so the optimizer updates float32 values and each gradient lands on
+them through the cast; or already in the compute dtype for serving, where
+the cast is a no-op. One code path serves both.
+
+Training mode (`module.train()`, flax's `deterministic=False`) turns the
+dropouts on: after the embedding LayerNorm, on the attention probabilities
+(inside the fused kernel on the fused path), and on each block's residual
+branch (inside the fused LayerNorm kernel on the fused path). The masks
+come from the `torch.Generator` passed to `forward`, never from the global
+generator.
 
 Decoding keeps a per-row self-attention KV cache that beam search
 reorders by gathering rows (`DecodeCache.reorder`), and the cross K/V
@@ -22,7 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..data.collate import IGNORE_INDEX
 from ..ops.fused_attention import SEQ_MULTIPLE, fused_dropout_attention
+from ..ops.fused_ce import fused_linear_ce
 from ..ops.fused_layernorm import (fused_residual_layernorm, layer_norm,
                                    residual_layernorm_reference)
 from .config import TransformerConfig
@@ -57,6 +71,29 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - p and rescale."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+class Linear(nn.Linear):
+    """flax nn.Dense(dtype=compute dtype): input, weight and bias are cast
+    to the compute dtype at use; the parameters keep their own dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype, param_dtype: torch.dtype):
+        super().__init__(in_features, out_features, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class LayerNorm(nn.Module):
     """flax.linen.LayerNorm(dtype=float32): f32 params, f32 output."""
 
@@ -77,38 +114,45 @@ class Embeddings(nn.Module):
     (the decoder owns it and ties it to the LM head)."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
-                 own_word_embeddings: bool = True):
+                 own_word_embeddings: bool = True,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         self.config = cfg
+        self.dtype = dtype
         if own_word_embeddings:
-            self.word_embeddings = nn.Embedding(cfg.vocab_size,
-                                                cfg.hidden_size, dtype=dtype)
+            self.word_embeddings = nn.Embedding(
+                cfg.vocab_size, cfg.hidden_size, dtype=param_dtype)
         self.position_embeddings = nn.Embedding(
-            cfg.max_position_embeddings, cfg.hidden_size, dtype=dtype)
+            cfg.max_position_embeddings, cfg.hidden_size, dtype=param_dtype)
         if cfg.type_vocab_size > 0:
             self.token_type_embeddings = nn.Embedding(
-                cfg.type_vocab_size, cfg.hidden_size, dtype=dtype)
+                cfg.type_vocab_size, cfg.hidden_size, dtype=param_dtype)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
-                word_embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
+                word_embedding: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
                                         device=input_ids.device)[None, :]
-        if word_embedding is not None:
-            word = F.embedding(input_ids, word_embedding)
-        else:
-            word = self.word_embeddings(input_ids)
-        dtype = word.dtype
-        x = word + self.position_embeddings(position_ids)
+        if word_embedding is None:
+            word_embedding = self.word_embeddings.weight
+        # rows are gathered, then cast: the same values as casting the table
+        # first (flax nn.Embed(dtype=...)) without a pass over the table
+        dtype = self.dtype
+        x = (F.embedding(input_ids, word_embedding).to(dtype)
+             + self.position_embeddings(position_ids).to(dtype))
         if self.config.type_vocab_size > 0:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
-            x = x + self.token_type_embeddings(token_type_ids)
-        return self.layer_norm(x).to(dtype)
+            x = x + self.token_type_embeddings(token_type_ids).to(dtype)
+        x = self.layer_norm(x)
+        if self.training:
+            x = dropout(x, self.config.hidden_dropout_prob, generator)
+        return x.to(dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -117,16 +161,17 @@ class MultiHeadAttention(nn.Module):
     `forward` is the full-sequence path; `decode_self` and `decode_cross`
     are the one-token decode paths over the caches in `DecodeCache`."""
 
-    def __init__(self, config: TransformerConfig, dtype: torch.dtype):
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
         H, D = cfg.num_attention_heads, cfg.head_dim
-        self.query = nn.Linear(cfg.hidden_size, H * D, dtype=dtype)
-        self.key = nn.Linear(cfg.hidden_size, H * D, dtype=dtype)
-        self.value = nn.Linear(cfg.hidden_size, H * D, dtype=dtype)
-        self.output = nn.Linear(H * D, cfg.hidden_size, dtype=dtype)
+        self.query = Linear(cfg.hidden_size, H * D, dtype, param_dtype)
+        self.key = Linear(cfg.hidden_size, H * D, dtype, param_dtype)
+        self.value = Linear(cfg.hidden_size, H * D, dtype, param_dtype)
+        self.output = Linear(H * D, cfg.hidden_size, dtype, param_dtype)
 
     def _heads(self, y: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -139,10 +184,12 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
-                mask_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask_kv: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
         D = cfg.head_dim
         kv_in = x if kv is None else kv
+        drop_p = cfg.attention_probs_dropout_prob if self.training else 0.0
         q = self._heads(self.query(x))
         k = self._heads(self.key(kv_in))
         v = self._heads(self.value(kv_in))
@@ -152,14 +199,15 @@ class MultiHeadAttention(nn.Module):
                 and x.shape[1] % SEQ_MULTIPLE == 0
                 and kv_in.shape[1] % SEQ_MULTIPLE == 0):
             return self._out(fused_dropout_attention(
-                q, k, v, mask_kv, 0.0, None, sm_scale=1.0 / math.sqrt(D)))
+                q, k, v, mask_kv, drop_p, generator,
+                sm_scale=1.0 / math.sqrt(D)))
         if mask_kv is not None:
             extra = mask_to_bias(mask_kv)
             bias = extra if bias is None else bias + extra
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
         if bias is not None:
             s = s + bias.float()
-        probs = torch.softmax(s, dim=-1)
+        probs = dropout(torch.softmax(s, dim=-1), drop_p, generator)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(self.dtype).float(),
                            v.float())
         return self._out(ctx)
@@ -207,9 +255,11 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualLayerNorm(nn.Module):
-    """LayerNorm(x + res) with nn.LayerNorm's param names. The fused kernel
-    runs when layernorm_impl == 'fused' and the hidden size is a multiple
-    of 128 (layers.py:374), the plain version otherwise."""
+    """LayerNorm(x + dropout(res)) with nn.LayerNorm's param names. The
+    fused kernel runs when layernorm_impl == 'fused' and the hidden size is
+    a multiple of 128 (layers.py:374) and draws the residual dropout
+    itself; otherwise a plain dropout goes before the plain version
+    (layers.py:425-434)."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype):
         super().__init__()
@@ -218,24 +268,29 @@ class ResidualLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(config.hidden_size))
         self.bias = nn.Parameter(torch.zeros(config.hidden_size))
 
-    def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, res: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
-        x, res = x.to(self.dtype), res.to(self.dtype)
+        drop_p = cfg.hidden_dropout_prob if self.training else 0.0
         if cfg.layernorm_impl == "fused" and cfg.hidden_size % 128 == 0:
-            return fused_residual_layernorm(x, res, self.weight, self.bias,
-                                            cfg.layer_norm_eps)
-        return residual_layernorm_reference(x, res, self.weight, self.bias,
-                                            cfg.layer_norm_eps)
+            return fused_residual_layernorm(
+                x.to(self.dtype), res.to(self.dtype), self.weight, self.bias,
+                cfg.layer_norm_eps, drop_p, generator)
+        res = dropout(res, drop_p, generator)
+        return residual_layernorm_reference(
+            x, res, self.weight, self.bias, cfg.layer_norm_eps).to(self.dtype)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, config: TransformerConfig, dtype: torch.dtype):
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
-        self.intermediate = nn.Linear(config.hidden_size,
-                                      config.intermediate_size, dtype=dtype)
-        self.output = nn.Linear(config.intermediate_size, config.hidden_size,
-                                dtype=dtype)
+        self.intermediate = Linear(config.hidden_size,
+                                   config.intermediate_size, dtype,
+                                   param_dtype)
+        self.output = Linear(config.intermediate_size, config.hidden_size,
+                             dtype, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.intermediate(x)
@@ -250,27 +305,32 @@ class TransformerBlock(nn.Module):
     """Post-LN block: self-attn, cross-attn (decoder), ffn, each followed
     by a residual LayerNorm."""
 
-    def __init__(self, config: TransformerConfig, dtype: torch.dtype):
+    def __init__(self, config: TransformerConfig, dtype: torch.dtype,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
-        self.attention = MultiHeadAttention(config, dtype)
+        self.attention = MultiHeadAttention(config, dtype, param_dtype)
         self.attention_norm = ResidualLayerNorm(config, dtype)
         if config.add_cross_attention:
-            self.crossattention = MultiHeadAttention(config, dtype)
+            self.crossattention = MultiHeadAttention(config, dtype,
+                                                     param_dtype)
             self.crossattention_norm = ResidualLayerNorm(config, dtype)
-        self.ffn = FeedForward(config, dtype)
+        self.ffn = FeedForward(config, dtype, param_dtype)
         self.ffn_norm = ResidualLayerNorm(config, dtype)
 
     def forward(self, x: torch.Tensor, self_bias: Optional[torch.Tensor] = None,
                 encoder_states: Optional[torch.Tensor] = None,
                 cross_bias: Optional[torch.Tensor] = None,
-                self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                self_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.attention_norm(
-            x, self.attention(x, bias=self_bias, mask_kv=self_mask))
+            x, self.attention(x, bias=self_bias, mask_kv=self_mask,
+                              generator=generator), generator)
         if self.config.add_cross_attention and encoder_states is not None:
             x = self.crossattention_norm(
-                x, self.crossattention(x, kv=encoder_states, bias=cross_bias))
-        return self.ffn_norm(x, self.ffn(x))
+                x, self.crossattention(x, kv=encoder_states, bias=cross_bias,
+                                       generator=generator), generator)
+        return self.ffn_norm(x, self.ffn(x), generator)
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, position: int,
@@ -285,18 +345,21 @@ class TransformerBlock(nn.Module):
 
 
 class MLMHead(nn.Module):
-    """BERT prediction head, logits only: [dense + gelu + LN] then the
-    vocab projection, tied to a given embedding table when `tied`."""
+    """BERT prediction head: [dense + gelu + LN] then the vocab projection,
+    tied to a given embedding table when `tied`. With `labels` it returns
+    (sum of NLL, count of valid labels) through the chunked linear + CE
+    (ops/fused_ce.py) instead of the (B, P, V) f32 logits."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
-                 mlp: bool = True, tied: bool = False):
+                 mlp: bool = True, tied: bool = False,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = config
         self.dtype = dtype
         self.mlp = mlp
         if mlp:
-            self.transform = nn.Linear(cfg.hidden_size, cfg.hidden_size,
-                                       dtype=dtype)
+            self.transform = Linear(cfg.hidden_size, cfg.hidden_size, dtype,
+                                    param_dtype)
             self.transform_norm = LayerNorm(cfg.hidden_size,
                                             cfg.layer_norm_eps)
         if tied:
@@ -306,10 +369,20 @@ class MLMHead(nn.Module):
             self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size)
 
     def forward(self, x: torch.Tensor,
-                embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
+                embedding: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None):
         if self.mlp:
             x = F.gelu(self.transform(x), approximate="tanh")
             x = self.transform_norm(x).to(self.dtype)
+        d = x.shape[-1]
         if embedding is not None:
-            return F.linear(x.float(), embedding.float()) + self.bias
+            if labels is not None:
+                return fused_linear_ce(x.reshape(-1, d), embedding, self.bias,
+                                       labels.reshape(-1), IGNORE_INDEX, 0)
+            return F.linear(x.float(),
+                            embedding.to(self.dtype).float()) + self.bias
+        if labels is not None:
+            return fused_linear_ce(x.reshape(-1, d), self.decoder.weight.t(),
+                                   self.decoder.bias, labels.reshape(-1),
+                                   IGNORE_INDEX, 1)
         return self.decoder(x.float())

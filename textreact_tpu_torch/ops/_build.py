@@ -3,9 +3,11 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use with nvcc for Hopper (`sm_90a`) into a shared library under
 `textreact_tpu_torch/_kernel_build/`, then loaded with ctypes. A library is
-rebuilt when its source is newer. Every entry point takes its pointers and
-the CUDA stream as `void*`, and returns `cudaGetLastError()` after the
-launch, which `check` turns into an exception.
+rebuilt when its source or a shared header (`csrc/*.cuh`) is newer.
+`build_all` compiles several sources at once, one nvcc process each. Every
+entry point takes its pointers and the CUDA stream as `void*`, and returns
+`cudaGetLastError()` after the launch, which `check` turns into an
+exception.
 
 No PyTorch header is compiled in, so a kernel builds in seconds rather
 than minutes (`torch.utils.cpp_extension.load` is the slow alternative).
@@ -19,8 +21,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -47,17 +50,52 @@ def _nvcc() -> str:
     return found
 
 
-def _compile(name: str, src: Path, out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _paths(name: str):
+    return CSRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(src: Path, out: Path) -> bool:
+    if not out.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *CSRC_DIR.glob("*.cuh")))
+    return out.stat().st_mtime < newest
+
+
+def _compile_one(nvcc: str, name: str) -> str:
+    """Compile one source; returns "" or the failure's text."""
+    src, out = _paths(name)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(src)],
+        capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+        return f"nvcc failed for {src.name}:\n{proc.stderr}"
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     BUILD_LOG[name] = proc.stderr
+    return ""
+
+
+def _compile(names: Iterable[str]) -> None:
+    """One nvcc process per source, all started together."""
+    names = list(names)
+    if not names:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        failures = [f for f in pool.map(lambda n: _compile_one(nvcc, n), names)
+                    if f]
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Compile every stale library among `names` in parallel; `load` then
+    finds them built."""
+    with _lock:
+        _compile([n for n in names if _stale(*_paths(n))])
 
 
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
@@ -69,10 +107,9 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = CSRC_DIR / f"{name}.cu"
-        out = BUILD_DIR / f"lib{name}.so"
-        if not out.exists() or out.stat().st_mtime < src.stat().st_mtime:
-            _compile(name, src, out)
+        src, out = _paths(name)
+        if _stale(src, out):
+            _compile([name])
         lib = ctypes.CDLL(str(out))
         lib.tr_error_string.restype = ctypes.c_char_p
         lib.tr_error_string.argtypes = [ctypes.c_int]
@@ -89,8 +126,31 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
+    """Device pointer of `t`, or a null pointer for None."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def dropout_threshold(p: float) -> int:
+    """Keep iff bits >= threshold (the JAX kernels' rule)."""
+    return min(int(p * (1 << 32)), (1 << 32) - 1)
+
+
+def dropout_args(seed: Optional[torch.Tensor], p: float):
+    """(seed pointer, threshold, 1 / (1 - p)) as the C entry points take
+    them; a null seed means no dropout."""
+    if seed is None:
+        return None, 0, 1.0
+    return ptr(seed), dropout_threshold(p), 1.0 / (1.0 - p)
+
+
+def draw_seed(generator: Optional[torch.Generator],
+              device: torch.device) -> torch.Tensor:
+    """One 64-bit dropout seed as a (1,) int64 tensor on `device`, drawn from
+    `generator` there: it never visits the host, so drawing it does not wait
+    for the device."""
+    return torch.randint(0, 1 << 62, (1,), generator=generator, device=device,
+                         dtype=torch.int64)
 
 
 def stream() -> ctypes.c_void_p:

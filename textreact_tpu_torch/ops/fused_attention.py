@@ -6,9 +6,14 @@ dummy rows have every key masked and must stay finite, or NaN reaches the
 beam search's top-k). Attention-probability dropout keeps the softmax
 normaliser over the undropped weights (torch/HF semantics).
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/fused_attention.cu, forward at p = 0) or raises; on a CPU tensor it
-runs the plain version below.
+On a CUDA tensor the wrapper launches the hand-written kernels
+(csrc/fused_attention.cu: forward; csrc/fused_attention_bwd.cu: a backward
+of two passes; joined by a `torch.autograd.Function`) or raises; on a CPU tensor it runs the plain
+version below under ordinary autograd. The kernels draw their dropout bits
+from a counter-based generator keyed by one 64-bit seed per call
+(csrc/philox.cuh); the seed is drawn from the caller's `torch.Generator`,
+stays on the device, and is saved for the backward, which regenerates the
+mask. `keep_mask` exports that mask for tests.
 """
 
 from __future__ import annotations
@@ -22,18 +27,35 @@ from . import _build
 
 NEG_INF = -1e9
 SUPPORTED_HEAD_DIM = (32, 64)
-SEQ_MULTIPLE = 128  # the kernel's query tile
-LAUNCHES = 0  # kernel launches since the last reset
+SEQ_MULTIPLE = 128  # the kernels' row tile
+LAUNCHES = 0      # forward kernel launches since the last reset
+BWD_LAUNCHES = 0  # backward launches (one per dQ + dK/dV pair)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"tr_attention_fwd": [
-    _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]}
+_U = ctypes.c_uint32
+_F = ctypes.c_float
+# one library per source, so that the two compile side by side
+LIBRARIES = ("fused_attention", "fused_attention_bwd")
+_SIGNATURES = {
+    "tr_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _U, _F,
+                         _I, _I, _I, _I, _F, _P],
+    "tr_attention_keep_mask": [_P, _U, _P, ctypes.c_int64, _I, _P],
+}
+_BWD_SIGNATURES = {
+    "tr_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F,
+                         _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+}
 
 
 def load_kernel():
-    """Build (at first use) and load the kernel's library."""
+    """Build (at first use) and load the forward's library."""
     return _build.load("fused_attention", _SIGNATURES)
+
+
+def load_bwd_kernel():
+    """Build (at first use) and load the backward's library."""
+    return _build.load("fused_attention_bwd", _BWD_SIGNATURES)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,30 +86,50 @@ def fused_dropout_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, mask_kv: Optional[torch.Tensor],
                             dropout_p: float = 0.0,
                             generator: Optional[torch.Generator] = None,
-                            sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over (B, L, H, D) inputs; returns (B, L, H, D) in q's dtype."""
+                            sm_scale: Optional[float] = None,
+                            keep: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Attention over (B, L, H, D) inputs; returns (B, L, H, D) in q's dtype.
+
+    Differentiable in q, k, v. With dropout_p > 0 the mask comes from
+    `generator` (its device must be the tensors'); `keep`, an explicit
+    (B, H, L, L) bool mask, is for CPU tensors only."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if not q.is_cuda:
-        keep = None
-        if dropout_p > 0.0:
+        if dropout_p > 0.0 and keep is None:
             B, L, H, _ = q.shape
             keep = torch.rand((B, H, L, k.shape[1]),
                               generator=generator) >= dropout_p
-        return attention_reference(q, k, v, mask_kv, sm_scale, keep,
+        return attention_reference(q, k, v, mask_kv, sm_scale,
+                                   keep if dropout_p > 0.0 else None,
                                    dropout_p)
-    return _launch(q, k, v, mask_kv, dropout_p, sm_scale)
+    if keep is not None:
+        raise ValueError("fused_dropout_attention: the kernel draws its own "
+                         "mask; keep= is for CPU tensors")
+    mask = _check(q, k, v, mask_kv)
+    seed = _build.draw_seed(generator, q.device) if dropout_p > 0.0 else None
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    return _FusedAttention.apply(q, k, v, mask, seed, float(dropout_p),
+                                 float(sm_scale), needs_grad)
 
 
-def _launch(q, k, v, mask_kv, dropout_p, sm_scale):
-    global LAUNCHES
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "fused_dropout_attention kernel: dropout comes with training")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "fused_dropout_attention kernel: no backward yet")
+def keep_mask(seed: torch.Tensor, B: int, H: int, L: int,
+              dropout_p: float) -> torch.Tensor:
+    """The (B, H, L, L) bool keep mask the kernels draw for `seed` (a (1,)
+    int64 CUDA tensor), written by the library's test-only entry point."""
+    out = torch.empty((B, H, L, L), dtype=torch.uint8, device=seed.device)
+    lib = load_kernel()
+    err = lib.tr_attention_keep_mask(
+        _build.ptr(seed), _build.dropout_threshold(dropout_p),
+        _build.ptr(out), B * H, L, _build.stream())
+    _build.check(lib, err, "attention keep mask")
+    return out.bool()
+
+
+def _check(q, k, v, mask_kv) -> Optional[torch.Tensor]:
+    """Validate the kernels' preconditions; returns the int32 mask."""
     if q.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"fused_dropout_attention: dtype {q.dtype}")
     B, L, H, D = q.shape
@@ -96,25 +138,64 @@ def _launch(q, k, v, mask_kv, dropout_p, sm_scale):
             raise ValueError(f"fused_dropout_attention: {name} is "
                              f"{t.dtype}{tuple(t.shape)}, q is "
                              f"{q.dtype}{tuple(q.shape)}")
-        if t.device != q.device or not t.is_contiguous():
+        if (t.device != q.device or not t.is_contiguous()
+                or t.data_ptr() % 16 != 0):
             raise ValueError(f"fused_dropout_attention: {name} must be a "
-                             f"contiguous tensor on {q.device}")
+                             f"contiguous, 16-byte aligned tensor on "
+                             f"{q.device}")
     if D not in SUPPORTED_HEAD_DIM or L % SEQ_MULTIPLE != 0:
         raise ValueError(f"fused_dropout_attention: head dim {D} not in "
                          f"{SUPPORTED_HEAD_DIM} or length {L} not a multiple "
                          f"of {SEQ_MULTIPLE}")
-    mask = None
-    if mask_kv is not None:
-        if mask_kv.shape != (B, L) or mask_kv.device != q.device:
-            raise ValueError(f"fused_dropout_attention: mask "
-                             f"{tuple(mask_kv.shape)} on {mask_kv.device}")
-        mask = mask_kv.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    lib = load_kernel()
-    err = lib.tr_attention_fwd(
-        _build.DTYPE_CODE[q.dtype], _build.ptr(q), _build.ptr(k),
-        _build.ptr(v), None if mask is None else _build.ptr(mask),
-        _build.ptr(out), B, L, H, D, float(sm_scale), _build.stream())
-    _build.check(lib, err, "fused_dropout_attention")
-    LAUNCHES += 1
-    return out
+    if mask_kv is None:
+        return None
+    if mask_kv.shape != (B, L) or mask_kv.device != q.device:
+        raise ValueError(f"fused_dropout_attention: mask "
+                         f"{tuple(mask_kv.shape)} on {mask_kv.device}")
+    return mask_kv.to(torch.int32).contiguous()
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward saves q, k, v, out, the row statistics (max, normaliser),
+    the mask and the seed; backward launches the dQ and dK/dV passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seed, dropout_p, sm_scale, needs_grad):
+        global LAUNCHES
+        B, L, H, D = q.shape
+        out = torch.empty_like(q)
+        stats = (torch.empty((B, H, L, 2), dtype=torch.float32,
+                             device=q.device) if needs_grad else None)
+        lib = load_kernel()
+        err = lib.tr_attention_fwd(
+            _build.DTYPE_CODE[q.dtype], _build.ptr(q), _build.ptr(k),
+            _build.ptr(v), _build.ptr(mask), _build.ptr(out),
+            _build.ptr(stats), *_build.dropout_args(seed, dropout_p), B, L, H, D,
+            sm_scale, _build.stream())
+        _build.check(lib, err, "fused_dropout_attention")
+        LAUNCHES += 1
+        ctx.save_for_backward(q, k, v, out, stats, mask, seed)
+        ctx.dropout_p, ctx.sm_scale = dropout_p, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        global BWD_LAUNCHES
+        q, k, v, out, stats, mask, seed = ctx.saved_tensors
+        B, L, H, D = q.shape
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16 != 0:
+            dout = dout.clone()
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+        lib = load_bwd_kernel()
+        err = lib.tr_attention_bwd(
+            _build.DTYPE_CODE[q.dtype], _build.ptr(q), _build.ptr(k),
+            _build.ptr(v), _build.ptr(out), _build.ptr(dout),
+            _build.ptr(mask), _build.ptr(stats),
+            *_build.dropout_args(seed, ctx.dropout_p), _build.ptr(dq),
+            _build.ptr(dk), _build.ptr(dv), _build.ptr(delta), B, L, H, D,
+            ctx.sm_scale, _build.stream())
+        _build.check(lib, err, "fused_dropout_attention backward")
+        BWD_LAUNCHES += 1
+        return dq, dk, dv, None, None, None, None, None

@@ -6,9 +6,14 @@ clamped at 0, eps inside the rsqrt, output in the input dtype.
 `torch.nn.LayerNorm` takes the variance in two passes and is not a
 substitute.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/fused_layernorm.cu, forward at p = 0) or raises; on a CPU tensor it
-runs the plain version below.
+On a CUDA tensor the wrapper launches the hand-written kernels
+(csrc/fused_layernorm.cu: forward, and a backward behind a
+`torch.autograd.Function`) or raises; on a CPU tensor it runs the plain
+version below under ordinary autograd. Dropout bits come from the
+counter-based generator in csrc/philox.cuh, keyed by one seed per call that
+is drawn from the caller's `torch.Generator`; the backward regenerates the
+mask and recomputes z, so neither is stored. `keep_mask` exports the mask
+for tests.
 """
 
 from __future__ import annotations
@@ -21,16 +26,27 @@ import torch
 from . import _build
 
 SUPPORTED_HIDDEN = (128, 256, 384, 512, 768, 1024)
-LAUNCHES = 0  # kernel launches since the last reset
+BWD_MAX_BLOCKS = 512  # backward grid cap: rows of the dscale/dbias workspace
+BWD_WARPS = 4         # rows in flight per backward block (kWarps in the .cu)
+LAUNCHES = 0      # forward kernel launches since the last reset
+BWD_LAUNCHES = 0  # backward launches (row kernel + column sums)
 
 _P = ctypes.c_void_p
-_SIGNATURES = {"tr_residual_layernorm_fwd": [
-    ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-    ctypes.c_float, _P]}
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_U = ctypes.c_uint32
+_F = ctypes.c_float
+_SIGNATURES = {
+    "tr_residual_layernorm_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F,
+                                  _L, _I, _F, _P],
+    "tr_residual_layernorm_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _P, _P, _U, _F, _L, _I, _P],
+    "tr_row_keep_mask": [_P, _U, _P, _L, _I, _P],
+}
 
 
 def load_kernel():
-    """Build (at first use) and load the kernel's library."""
+    """Build (at first use) and load the kernels' library."""
     return _build.load("fused_layernorm", _SIGNATURES)
 
 
@@ -47,34 +63,60 @@ def layer_norm(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def residual_layernorm_reference(x: torch.Tensor, y: torch.Tensor,
                                  scale: torch.Tensor, bias: torch.Tensor,
-                                 eps: float = 1e-12) -> torch.Tensor:
-    """Plain version of the kernel (ops/fused_layernorm.py:254-263)."""
-    return layer_norm(x.float() + y.float(), scale, bias, eps).to(x.dtype)
+                                 eps: float = 1e-12,
+                                 keep: Optional[torch.Tensor] = None,
+                                 dropout_p: float = 0.0) -> torch.Tensor:
+    """Plain version of the kernel (ops/fused_layernorm.py:51-82, 254-263).
+    `keep`: optional bool dropout keep mask of y's shape."""
+    y = y.float()
+    if keep is not None:
+        y = y * torch.where(keep, 1.0 / (1.0 - dropout_p), 0.0)
+    return layer_norm(x.float() + y, scale, bias, eps).to(x.dtype)
 
 
 def fused_residual_layernorm(x: torch.Tensor, y: torch.Tensor,
                              scale: torch.Tensor, bias: torch.Tensor,
                              eps: float = 1e-12, dropout_p: float = 0.0,
-                             generator: Optional[torch.Generator] = None
+                             generator: Optional[torch.Generator] = None,
+                             keep: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
-    """LN(x + dropout(y, p)) over the last axis, in x's dtype."""
+    """LN(x + dropout(y, p)) over the last axis, in x's dtype.
+
+    Differentiable in x, y, scale, bias. With dropout_p > 0 the mask comes
+    from `generator` (its device must be the tensors'); `keep`, an explicit
+    bool mask of y's shape, is for CPU tensors only."""
     if not x.is_cuda:
-        if dropout_p > 0.0:
+        if dropout_p > 0.0 and keep is None:
             keep = torch.rand(y.shape, generator=generator) >= dropout_p
-            y = torch.where(keep, y.float() / (1.0 - dropout_p), 0.0)
-        return residual_layernorm_reference(x, y, scale, bias, eps)
-    return _launch(x, y, scale, bias, eps, dropout_p)
+        return residual_layernorm_reference(
+            x, y, scale, bias, eps, keep if dropout_p > 0.0 else None,
+            dropout_p)
+    if keep is not None:
+        raise ValueError("fused_residual_layernorm: the kernel draws its own "
+                         "mask; keep= is for CPU tensors")
+    _check(x, y, scale, bias)
+    seed = _build.draw_seed(generator, x.device) if dropout_p > 0.0 else None
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, y, scale, bias))
+    return _FusedResidualLayerNorm.apply(x, y, scale, bias, seed, float(eps),
+                                         float(dropout_p), needs_grad)
 
 
-def _launch(x, y, scale, bias, eps, dropout_p):
-    global LAUNCHES
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "fused_residual_layernorm kernel: dropout comes with training")
-    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad
-                                    or scale.requires_grad):
-        raise NotImplementedError(
-            "fused_residual_layernorm kernel: no backward yet")
+def keep_mask(seed: torch.Tensor, rows: int, hidden: int,
+              dropout_p: float) -> torch.Tensor:
+    """The (rows, hidden) bool keep mask the kernels draw for `seed` (a (1,)
+    int64 CUDA tensor), written by the library's test-only entry point."""
+    out = torch.empty((rows, hidden), dtype=torch.uint8, device=seed.device)
+    lib = load_kernel()
+    err = lib.tr_row_keep_mask(_build.ptr(seed),
+                               _build.dropout_threshold(dropout_p),
+                               _build.ptr(out), rows, hidden, _build.stream())
+    _build.check(lib, err, "layernorm keep mask")
+    return out.bool()
+
+
+def _check(x, y, scale, bias) -> None:
+    """Validate the kernels' preconditions."""
     H = x.shape[-1]
     if x.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"fused_residual_layernorm: dtype {x.dtype}")
@@ -87,18 +129,60 @@ def _launch(x, y, scale, bias, eps, dropout_p):
     for name, t in (("x", x), ("y", y), ("scale", scale), ("bias", bias)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"fused_residual_layernorm: {name} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_residual_layernorm: {name} not contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16 != 0:
+            raise ValueError(f"fused_residual_layernorm: {name} must be "
+                             f"contiguous and 16-byte aligned")
     for name, t in (("scale", scale), ("bias", bias)):
         if t.dtype != torch.float32 or t.shape != (H,):
             raise ValueError(f"fused_residual_layernorm: {name} must be "
                              f"float32 ({H},), got {t.dtype}{tuple(t.shape)}")
-    out = torch.empty_like(x)
-    lib = load_kernel()
-    err = lib.tr_residual_layernorm_fwd(
-        _build.DTYPE_CODE[x.dtype], _build.ptr(x), _build.ptr(y),
-        _build.ptr(scale), _build.ptr(bias), _build.ptr(out),
-        x.numel() // H, H, float(eps), _build.stream())
-    _build.check(lib, err, "fused_residual_layernorm")
-    LAUNCHES += 1
-    return out
+
+
+class _FusedResidualLayerNorm(torch.autograd.Function):
+    """Forward saves x, y, scale, the row mean and rstd and the seed;
+    backward launches the row kernel and the column sums."""
+
+    @staticmethod
+    def forward(ctx, x, y, scale, bias, seed, eps, dropout_p, needs_grad):
+        global LAUNCHES
+        H = x.shape[-1]
+        rows = x.numel() // H
+        out = torch.empty_like(x)
+        mean = rstd = None
+        if needs_grad:
+            mean = torch.empty(rows, dtype=torch.float32, device=x.device)
+            rstd = torch.empty_like(mean)
+        lib = load_kernel()
+        err = lib.tr_residual_layernorm_fwd(
+            _build.DTYPE_CODE[x.dtype], _build.ptr(x), _build.ptr(y),
+            _build.ptr(scale), _build.ptr(bias), _build.ptr(out),
+            _build.ptr(mean), _build.ptr(rstd),
+            *_build.dropout_args(seed, dropout_p), rows, H, eps, _build.stream())
+        _build.check(lib, err, "fused_residual_layernorm")
+        LAUNCHES += 1
+        ctx.save_for_backward(x, y, scale, mean, rstd, seed)
+        ctx.dropout_p = dropout_p
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global BWD_LAUNCHES
+        x, y, scale, mean, rstd, seed = ctx.saved_tensors
+        H = x.shape[-1]
+        rows = x.numel() // H
+        g = g.contiguous()
+        dx, dy = torch.empty_like(x), torch.empty_like(x)
+        nblocks = max(1, min(-(-rows // BWD_WARPS), BWD_MAX_BLOCKS))
+        partial = torch.empty((nblocks, 2, H), dtype=torch.float32,
+                              device=x.device)
+        dparams = torch.empty((2, H), dtype=torch.float32, device=x.device)
+        lib = load_kernel()
+        err = lib.tr_residual_layernorm_bwd(
+            _build.DTYPE_CODE[x.dtype], _build.ptr(x), _build.ptr(y),
+            _build.ptr(g), _build.ptr(scale), _build.ptr(mean),
+            _build.ptr(rstd), _build.ptr(dx), _build.ptr(dy),
+            _build.ptr(partial), nblocks, _build.ptr(dparams),
+            *_build.dropout_args(seed, ctx.dropout_p), rows, H, _build.stream())
+        _build.check(lib, err, "fused_residual_layernorm backward")
+        BWD_LAUNCHES += 1
+        return dx, dy, dparams[0], dparams[1], None, None, None, None

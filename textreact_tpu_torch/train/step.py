@@ -1,0 +1,220 @@
+"""Train and eval steps (twin of textreact_tpu/train/step.py).
+
+Replaces the reference's Lightning training_step / validation_step
+(main.py:164-196). A step runs eagerly on one device: forward in training
+mode, backward through the kernels' own backward passes, the optimizer's
+update. Every dropout mask of a step comes from one `torch.Generator`
+seeded from (the run's seed, the step, the micro-batch), so a step is
+reproducible and no global generator is touched.
+
+The entry points run on the CUDA card unless the caller passes `device=`;
+they raise where no card is found, and where the module lies elsewhere.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.factory import resolve_device
+from . import losses
+from .optim import Optimizer
+
+Tensor = torch.Tensor
+_MASK64 = (1 << 63) - 1
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The module, its optimizer (moments and update count) and the step.
+    A train step updates all three in place and hands the state back."""
+    module: torch.nn.Module
+    optimizer: Optimizer
+    step: int = 0
+
+    @classmethod
+    def create(cls, module: torch.nn.Module,
+               optimizer: Optimizer) -> "TrainState":
+        return cls(module=module, optimizer=optimizer, step=0)
+
+
+def _check_device(module: torch.nn.Module, device) -> torch.device:
+    device = resolve_device(device)
+    where = next(module.parameters()).device
+    if where.type != device.type:
+        raise RuntimeError(f"the module lies on {where}, the step runs on "
+                           f"{device}")
+    return where
+
+
+def to_device(batch: Mapping[str, Any], device: torch.device
+              ) -> Dict[str, Tensor]:
+    """A collated batch (numpy arrays, or a `Batch`) as tensors on `device`;
+    integer arrays become int64, what torch indexes with."""
+    arrays = getattr(batch, "arrays", batch)
+    out = {}
+    for name, value in arrays.items():
+        t = torch.as_tensor(np.asarray(value) if not torch.is_tensor(value)
+                            else value)
+        if not t.is_floating_point():
+            t = t.long()
+        out[name] = t.to(device, non_blocking=True)
+    return out
+
+
+def _dropout_generator(gen: torch.Generator, seed: int,
+                       counter: int) -> torch.Generator:
+    """Reseed `gen` from the run's seed and a step counter (the role of
+    jax.random.fold_in(rng, counter))."""
+    gen.manual_seed((seed * 0x9E3779B97F4A7C15 + counter) & _MASK64)
+    return gen
+
+
+def _model_inputs(batch: Dict[str, Tensor], template_based: bool,
+                  mlm_prefix_len: Optional[int],
+                  mlm_fused: bool = False) -> Dict[str, Any]:
+    if template_based:
+        raise NotImplementedError(
+            "template-based retrosynthesis is not ported yet")
+    kw: Dict[str, Any] = dict(
+        input_ids=batch["input_ids"],
+        attention_mask=batch["attention_mask"],
+        decoder_input_ids=batch["decoder_input_ids"],
+        decoder_attention_mask=batch.get("decoder_attention_mask"),
+    )
+    if "position_ids" in batch:
+        kw["position_ids"] = batch["position_ids"]
+    if mlm_prefix_len is not None:
+        kw["mlm_prefix_len"] = mlm_prefix_len
+        if mlm_fused:   # fold projection + CE into the forward (ops/fused_ce)
+            kw["mlm_labels"] = batch["mlm_labels"]
+    return kw
+
+
+def make_loss_fn(module: torch.nn.Module, cfg, dec_pad_id: int) -> Callable:
+    """Builds loss_fn(batch, generator) -> (loss, metrics) over a batch of
+    tensors on the module's device; the module must be in training mode for
+    the dropouts to run."""
+    template_based = cfg.template_based
+    mlm_fused = getattr(cfg, "mlm_impl", "fused") == "fused"
+
+    def loss_fn(batch: Dict[str, Tensor], generator: torch.Generator
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        mlm_prefix = (batch["mlm_labels"].shape[1]
+                      if cfg.mlm and "mlm_labels" in batch else None)
+        out = module(**_model_inputs(batch, template_based, mlm_prefix,
+                                     mlm_fused), generator=generator)
+        loss = losses.seq2seq_loss(out["logits"], batch["decoder_input_ids"],
+                                   dec_pad_id, cfg.label_smoothing)
+        metrics = {"train_loss": loss}
+        if mlm_prefix is not None:
+            if "mlm_loss_sum" in out:
+                mloss = out["mlm_loss_sum"] / out["mlm_valid"].clamp(min=1)
+            else:
+                mloss = losses.mlm_loss(out["mlm_logits"],
+                                        batch["mlm_labels"])
+            loss = loss + cfg.mlm_lambda * mloss
+            metrics["mlm_loss"] = mloss
+            metrics["total_loss"] = loss
+        return loss, metrics
+
+    return loss_fn
+
+
+def _detached(metrics: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(module: torch.nn.Module, cfg, optimizer: Optimizer,
+                    dec_pad_id: int, device=None) -> Callable:
+    """train_step(state, batch, seed) -> (state, metrics). Metrics are
+    0-dim tensors on the device (`train_loss`, with MLM `mlm_loss` and
+    `total_loss`, and `grad_norm`, the global norm before the clip)."""
+    device = _check_device(module, device)
+    loss_fn = make_loss_fn(module, cfg, dec_pad_id)
+    gen = torch.Generator(device=device)
+
+    def train_step(state: TrainState, batch: Mapping[str, Any], seed: int
+                   ) -> Tuple[TrainState, Dict[str, Tensor]]:
+        module.train()
+        optimizer.zero_grad()
+        loss, metrics = loss_fn(to_device(batch, device),
+                                _dropout_generator(gen, seed, state.step))
+        loss.backward()
+        metrics = _detached(metrics)
+        metrics["grad_norm"] = optimizer.update()
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def make_accum_train_step(module: torch.nn.Module, cfg, optimizer: Optimizer,
+                          dec_pad_id: int, device=None) -> Callable:
+    """Gradient accumulation over the leading micro-batch axis (reference
+    accumulate_grad_batches, main.py:381).
+
+    train_step(state, microbatches, mb_weights, seed): every array of
+    `microbatches` has a leading axis of n micro-batches; `mb_weights` (n,)
+    marks real ones with 1.0 and the padding of a trailing partial window
+    with 0.0. Gradients and loss average over the weight sum. A weight-0
+    micro-batch contributes 0 * its gradient, so it is not run at all."""
+    device = _check_device(module, device)
+    loss_fn = make_loss_fn(module, cfg, dec_pad_id)
+    gen = torch.Generator(device=device)
+
+    def train_step(state: TrainState, microbatches: Mapping[str, Any],
+                   mb_weights: Sequence[float], seed: int
+                   ) -> Tuple[TrainState, Dict[str, Tensor]]:
+        module.train()
+        optimizer.zero_grad()
+        arrays = getattr(microbatches, "arrays", microbatches)
+        weights = [float(w) for w in np.asarray(mb_weights, dtype=np.float32)]
+        loss_sum = torch.zeros((), device=device)
+        for i, w in enumerate(weights):
+            if w == 0.0:
+                continue
+            mb = to_device({k: v[i] for k, v in arrays.items()}, device)
+            loss, _ = loss_fn(
+                mb, _dropout_generator(gen, seed, state.step * 1009 + i))
+            (loss * w).backward()
+            loss_sum += loss.detach() * w
+        denom = max(sum(weights), 1.0)
+        grads = [p.grad for p in optimizer.params if p.grad is not None]
+        if grads:
+            torch._foreach_div_(grads, denom)
+        grad_norm = optimizer.update()
+        state.step += 1
+        return state, {"train_loss": loss_sum / denom, "grad_norm": grad_norm}
+
+    return train_step
+
+
+def make_eval_step(module: torch.nn.Module, cfg, dec_pad_id: int,
+                   device=None) -> Callable:
+    """Per-example val scores (reference validation_step, main.py:177-188):
+    acc = greedy exact match, loss = per-example mean CE."""
+    if cfg.template_based:
+        raise NotImplementedError(
+            "template-based retrosynthesis is not ported yet")
+    device = _check_device(module, device)
+
+    @torch.no_grad()
+    def eval_step(batch: Mapping[str, Any]) -> Dict[str, Tensor]:
+        module.eval()
+        batch = to_device(batch, device)
+        out = module(**_model_inputs(batch, False, None))
+        return {
+            "example_mask": batch["example_mask"],
+            "indices": batch["indices"],
+            "loss": losses.seq2seq_loss(
+                out["logits"], batch["decoder_input_ids"], dec_pad_id,
+                reduction="none"),
+            "acc": losses.seq2seq_greedy_acc(
+                out["logits"], batch["decoder_input_ids"], dec_pad_id),
+        }
+
+    return eval_step
