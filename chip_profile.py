@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where one optimizer step of the PyTorch port's RCR training path spends
-its time on one CUDA GPU.
+"""Where one optimizer step of the PyTorch port's RCR training path, or one
+search of its retrieval path, spends its time on one CUDA GPU.
 
-    python3 chip_profile.py [--out DIR]
+    python3 chip_profile.py [--path train|retrieval] [--out DIR]
 
-Builds the same model, batch and step as chip_smoke.py's training phase
+`--path train` (the default) builds the same model, batch and step as chip_smoke.py's training phase
 (SciBERT-base + bert_l6 at full width and depth, f32 parameters, bf16
 compute, dropout 0.1, 4 micro-batches of 32 at L=512), runs two warm-up
 steps, then records one step with torch.profiler and prints:
@@ -17,8 +17,12 @@ steps, then records one step with torch.profiler and prints:
 - device time of the operators that only the plain decoder attention calls
   (batched products and softmax), read from the operator table;
 - the twenty kernels with the most device time.
+`--path retrieval` makes chip_smoke.py's two retrieval shapes and records
+one FlatIndex.search of 8192 queries per shape and kernel layout: host
+clock from numpy in to numpy out, and device time of the scan kernel, the
+merge kernel and the copies to and from the card.
 Every line names the card and its power limit. The tables also go to
-DIR/profile_train.txt (default profile_out/). Exits non-zero without CUDA.
+DIR/profile_<path>.txt (default profile_out/). Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from textreact_tpu_torch.models import build_model
+from textreact_tpu_torch.retrieval import FlatIndex
 from textreact_tpu_torch.tokenizers import get_tokenizers
 from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
                                        make_optimizer)
@@ -80,8 +85,57 @@ def busy_us(intervals) -> float:
     return total
 
 
+def device_events(prof):
+    """(name, start, end) of every kernel and copy the profiler saw on the
+    card. Ranges that the host opened (the optimizer's own annotation) are
+    mirrored on the device's track: they are no kernels."""
+    events = prof.events()
+    host_names = {ev.name for ev in events
+                  if ev.device_type != torch.autograd.DeviceType.CUDA}
+    return [(ev.name, ev.time_range.start, ev.time_range.end)
+            for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.name not in host_names]
+
+
+def profile_retrieval(card: str, say) -> None:
+    k = cs.TOPK_K
+    for shape in ("bench", "rcr"):
+        corpus, queries, banned = cs.retrieval_data(shape)
+        index = FlatIndex(corpus)
+        for resident, name in cs.TOPK_LAYOUTS.items():
+            index.corpus_resident = resident
+            plain_ms = cs.wall_ms(
+                lambda: index.search(queries, k=k, banned=banned))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                index.search(queries, k=k, banned=banned)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            by_kernel = defaultdict(float)
+            events = device_events(prof)
+            for kernel, start, end in events:
+                by_kernel[kernel] += end - start
+            if not by_kernel:
+                raise SystemExit("chip_profile: the profiler recorded no "
+                                 "device time")
+            busy = busy_us([(a, b) for _, a, b in events])
+            say(f"[profile] {shape} {name}: corpus {corpus.shape}, "
+                f"{len(queries)} queries, k={k}: FlatIndex.search "
+                f"{plain_ms:.2f} ms host clock without the profiler (median "
+                f"of 5), {wall_ms:.2f} ms under it; the card ran something "
+                f"for {busy / 1e3:.2f} ms ({busy / (plain_ms * 1e3):.1%} of "
+                f"the search without the profiler); on {card}")
+            for kernel, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+                say(f"  {us / 1e3:9.3f} ms {us / busy:6.1%}  {kernel[:110]}")
+        del index
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--path", choices=("train", "retrieval"),
+                        default="train")
     parser.add_argument("--out", default="profile_out")
     args = parser.parse_args()
     card = cs.phase_device()
@@ -92,6 +146,17 @@ def main() -> int:
         cs.log(msg)
         lines.append(msg)
 
+    if args.path == "retrieval":
+        profile_retrieval(card, say)
+    else:
+        profile_train(card, say)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"profile_{args.path}.txt").write_text("\n".join(lines) + "\n")
+    return 0
+
+
+def profile_train(card: str, say) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         vocab = Path(tmp) / "vocab.txt"
         cs.write_text_vocab(vocab)
@@ -125,20 +190,11 @@ def main() -> int:
 
     by_kind, by_kernel, intervals = defaultdict(float), defaultdict(float), []
     calls = defaultdict(int)
-    events = prof.events()
-    # ranges that the host opened (the optimizer's own annotation) are
-    # mirrored on the device's track: they are no kernels
-    host_names = {ev.name for ev in events
-                  if ev.device_type != torch.autograd.DeviceType.CUDA}
-    for ev in events:
-        if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.name in host_names):
-            continue
-        dur = ev.time_range.end - ev.time_range.start
-        by_kind[kind_of(ev.name)] += dur
-        by_kernel[ev.name] += dur
-        calls[ev.name] += 1
-        intervals.append((ev.time_range.start, ev.time_range.end))
+    for name, start, end in device_events(prof):
+        by_kind[kind_of(name)] += end - start
+        by_kernel[name] += end - start
+        calls[name] += 1
+        intervals.append((start, end))
     device_us = sum(by_kind.values())
     if not device_us > 0.0:
         raise SystemExit("chip_profile: the profiler recorded no device time")
@@ -166,10 +222,6 @@ def main() -> int:
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]:
         say(f"  {us / 1e3:9.2f} ms {us / device_us:6.1%} {calls[name]:6d} "
             f"calls  {name[:110]}")
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_train.txt").write_text("\n".join(lines) + "\n")
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's RCR serving and training paths once on one CUDA
-GPU.
+"""Drive the PyTorch port's RCR serving, training and retrieval paths once on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,7 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: compile every CUDA kernel from textreact_tpu_torch/csrc, one nvcc
    process per source, started together;
-3. kernels: each of the four kernels (attention forward and backward,
+3. kernels: each of the four model kernels (attention forward and backward,
    residual-LayerNorm forward and backward) against its plain PyTorch
    version on the card, at the shapes the paths give it, in float32 and
    bfloat16, without dropout and at p = 0.1 with the kernel's own keep mask
@@ -17,6 +17,11 @@ Phases, each fatal on failure:
    while the card is held busy, so device time) beside the least time the
    card could take and, for attention, beside
    F.scaled_dot_product_attention (timed only, used nowhere in the port);
+   then both layouts of the exact top-k L2 search at small shapes (ragged
+   sizes, k from 1 to 100, fewer rows than k, ties across tiles and slabs,
+   banned ids, negative counts, d from 128 to 2048) against the plain
+   version on the card and the float64 numpy oracle on the host, equal to
+   the bit;
 4. serving path: the RCR recipe's serving configuration at full width
    (SciBERT-base encoder, 12 x 768, L=512, bf16; bert_l6 decoder, beam 15,
    16 decode positions; batch 32) with random weights from a seeded
@@ -32,7 +37,17 @@ Phases, each fatal on failure:
    launch counts of all four kernels; a weight-0 micro-batch changes
    nothing;
 6. training, kernels against plain functions: one micro-batch's loss and
-   every gradient in float32 without dropout, within a stated bound.
+   every gradient in float32 without dropout, within a stated bound;
+7. retrieval path at full size through FlatIndex.search, data made from a
+   seed with numpy: the bench shape (200,000 binary fingerprints of 1024
+   bits) and the RCR shape (700,000 reaction count fingerprints of 2048,
+   2% duplicated rows, queries taken from the corpus with their own ids
+   banned), 8192 queries, k = 20, each layout: equal to the plain version
+   on the card (first 256 queries) and to the numpy oracle (first 64), then
+   timed (device ms, and host ms from numpy in to numpy out) beside the
+   plain version, the bound and torch._int_mm + torch.topk (timed only);
+8. the retrieval CLI, in-process on the card, on fixture CSVs written at
+   run time, with --check_parity; the three neighbour files read back.
 
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -40,6 +55,7 @@ Prints a JSON line of per-kernel results, then, as the last line,
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import statistics
@@ -58,7 +74,10 @@ from textreact_tpu_torch.data import Collator, apply_span_mlm
 from textreact_tpu_torch.inference import Generator, predictions_from_beams
 from textreact_tpu_torch.models import build_model
 from textreact_tpu_torch.models.config import PRESETS
-from textreact_tpu_torch.ops import _build, fused_attention, fused_layernorm
+from textreact_tpu_torch.ops import (_build, fused_attention, fused_layernorm,
+                                     topk)
+from textreact_tpu_torch.retrieval import FlatIndex
+from textreact_tpu_torch.retrieval import cli as retrieval_cli
 from textreact_tpu_torch.tokenizers import get_tokenizers
 from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
                                        make_eval_step, make_loss_fn,
@@ -75,7 +94,8 @@ BF16_ULP = 2.0 ** -7  # relative spacing of bf16 just above a power of two
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds
 # below are the larger of bytes / memory rate and operations / peak rate
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 # kernel vs plain, per dtype: (atol, rtol). f32: both sides compute in f32
 # and differ by summation order only. bf16: same f32 math, but each side
@@ -120,7 +140,18 @@ KERNELS = {
     "fused_layernorm_bwd": dict(
         route="cuda", source=_CSRC + "fused_layernorm.cu",
         replaces="textreact_tpu/ops/fused_layernorm.py:85"),
+    "exact_topk_corpus_split": dict(
+        route="cuda", source=_CSRC + "exact_topk.cu",
+        replaces="textreact_tpu/ops/topk.py:120"),
+    "exact_topk_query_outer": dict(
+        route="cuda", source=_CSRC + "exact_topk.cu",
+        replaces="textreact_tpu/ops/topk.py:95"),
 }
+# the retrieval kernels by FlatIndex's corpus_resident flag
+TOPK_LAYOUTS = {True: "exact_topk_corpus_split",
+                False: "exact_topk_query_outer"}
+# retrieval shapes: 8192 queries, k = 20
+TOPK_M, TOPK_K = 8192, 20
 
 WORDS = ("the mixture was stirred at room temperature for 2 h then "
          "concentrated under reduced pressure and the residue purified by "
@@ -237,11 +268,13 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.build_all([*fused_attention.LIBRARIES, "fused_layernorm"])
+    _build.build_all([*fused_attention.LIBRARIES, "fused_layernorm",
+                      "exact_topk"])
     fused_attention.load_kernel()
     fused_attention.load_bwd_kernel()
     fused_layernorm.load_kernel()
-    log(f"[build] three libraries (four kernels) loaded in "
+    topk.load_kernel()
+    log(f"[build] four libraries (six kernels) loaded in "
         f"{time.perf_counter() - t0:.1f} s, built in parallel (nvcc seconds "
         f"per source: {_build.BUILD_SECONDS or 'cached'})")
     for name, text in _build.BUILD_LOG.items():
@@ -259,13 +292,16 @@ def phase_build() -> None:
 def reset_counts() -> None:
     fused_attention.LAUNCHES = fused_attention.BWD_LAUNCHES = 0
     fused_layernorm.LAUNCHES = fused_layernorm.BWD_LAUNCHES = 0
+    topk.LAUNCHES.update(corpus_split=0, query_outer=0)
 
 
 def read_counts() -> dict:
     return {"fused_attention_fwd": fused_attention.LAUNCHES,
             "fused_attention_bwd": fused_attention.BWD_LAUNCHES,
             "fused_layernorm_fwd": fused_layernorm.LAUNCHES,
-            "fused_layernorm_bwd": fused_layernorm.BWD_LAUNCHES}
+            "fused_layernorm_bwd": fused_layernorm.BWD_LAUNCHES,
+            "exact_topk_corpus_split": topk.LAUNCHES["corpus_split"],
+            "exact_topk_query_outer": topk.LAUNCHES["query_outer"]}
 
 
 def drawn_seed(gen: torch.Generator, state: torch.Tensor) -> torch.Tensor:
@@ -559,6 +595,7 @@ def phase_kernels(results: dict) -> None:
     check_masks()
     kernels_attention(results)
     kernels_layernorm(results)
+    kernels_topk_small()
     torch.cuda.empty_cache()
 
 
@@ -795,6 +832,8 @@ def phase_train(card: str, vocab: Path, results: dict):
             f"lr {optimizer.schedule(state.step - 1):.3g} "
             f"{step_ms[-1]:.1f} ms")
     counts = read_counts()
+    if any([counts.pop(name) for name in TOPK_LAYOUTS.values()]):
+        raise AssertionError("training launched a retrieval kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
@@ -938,6 +977,282 @@ def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro) -> None:
                              "path")
 
 
+def sparse_counts(rng, n: int, d: int, nnz: int) -> np.ndarray:
+    """n int8 rows with about `nnz` non-zero entries in -3..3 each, as
+    reaction difference fingerprints have."""
+    out = np.zeros((n, d), np.int8)
+    cols = rng.integers(0, d, (n, nnz))
+    vals = (rng.integers(1, 4, (n, nnz))
+            * rng.choice([-1, 1], (n, nnz))).astype(np.int8)
+    out[np.arange(n)[:, None], cols] = vals
+    return out
+
+
+def topk_both_layouts(tag, queries, corpus, n_real, banned, k) -> None:
+    """Both layouts of exact_topk_l2 on the card against the plain version
+    on the card and the numpy oracle on the host: equal, tolerance 0."""
+    norms = topk.corpus_norms_padded(corpus, n_real)
+    q, c, n = (torch.from_numpy(a).cuda() for a in (queries, corpus, norms))
+    b = None if banned is None else torch.from_numpy(banned).cuda()
+    ref_v, ref_i = topk.exact_topk_l2_reference(q, c, n, b, k=k)
+    for resident, name in TOPK_LAYOUTS.items():
+        vals, idx = topk.exact_topk_l2(q, c, n, b, k=k,
+                                       corpus_resident=resident)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ref_i) and torch.equal(vals, ref_v)):
+            raise AssertionError(f"{tag}: {name} disagrees with its plain "
+                                 f"version")
+    nb = 0 if banned is None else banned.shape[1]
+    oracle = "not comparable (fewer rows than k)"
+    if n_real >= k + nb:
+        o_v, o_i = topk.numpy_reference_topk(queries, corpus[:n_real], k,
+                                             banned)
+        if not (np.array_equal(ref_i.cpu().numpy(), o_i)
+                and np.array_equal(ref_v.cpu().numpy(), o_v)):
+            raise AssertionError(f"{tag}: the plain version disagrees with "
+                                 f"the numpy oracle")
+        oracle = "equal"
+    log(f"  top-k {tag}: both layouts equal the plain version exactly "
+        f"(tolerance 0); numpy oracle: {oracle}")
+
+
+def kernels_topk_small() -> None:
+    log("[kernels] exact top-k L2, small shapes, both layouts")
+    rng = np.random.default_rng(0)
+    # (M, N, d, kind, k, NB)
+    cases = [(37, 601, 128, "binary", 20, 0), (130, 1000, 1024, "binary", 5, 0),
+             (257, 3001, 2048, "counts", 20, 3), (5, 129, 256, "full", 100, 0),
+             (128, 128, 2048, "full", 1, 1), (9, 7, 128, "binary", 20, 0),
+             (300, 5000, 1024, "counts", 100, 1), (64, 2000, 2048, "full", 20, 0)]
+    for M, N, d, kind, k, nb in cases:
+        if kind == "binary":
+            corpus = (rng.random((N, d)) < 0.08).astype(np.int8)
+        elif kind == "counts":  # negative counts
+            corpus = sparse_counts(rng, N, d, 48)
+        else:
+            corpus = rng.integers(-127, 128, (N, d)).astype(np.int8)
+        # duplicate rows: equal distances across tile and slab boundaries
+        corpus[rng.integers(0, N, N // 3)] = corpus[rng.integers(0, N, N // 3)]
+        rows = rng.integers(0, N, M)
+        queries = corpus[rows].copy()
+        queries[::3] = np.roll(queries[::3], 1, axis=1)
+        banned = None
+        if nb:
+            banned = rng.integers(-1, N, (M, nb)).astype(np.int32)
+            banned[:, 0] = rows  # masked self-retrieval
+        topk_both_layouts(f"M={M} N={N} d={d} {kind} k={k} NB={nb}", queries,
+                          corpus, N, banned, k)
+
+
+def retrieval_data(shape: str):
+    """(corpus, queries, banned) of one of the two retrieval shapes, from a
+    seed, with numpy on the host."""
+    rng = np.random.default_rng(20240229)
+    if shape == "bench":  # bench.py of the JAX package: 1024-bit Morgan
+        n, d = 200_000, 1024
+        corpus = (rng.random((n, d), dtype=np.float32) < 0.08).astype(np.int8)
+        queries = (rng.random((TOPK_M, d), dtype=np.float32) < 0.08
+                   ).astype(np.int8)
+        return corpus, queries, None
+    # scripts/train_RCR.sh: reaction difference fingerprints of the train set
+    n, d = 700_000, 2048
+    corpus = sparse_counts(rng, n, d, 48)
+    dup = rng.choice(n, n // 50, replace=False)  # 2% of the rows: real ties
+    corpus[dup] = corpus[rng.integers(0, n, len(dup))]
+    ids = np.sort(rng.choice(n, TOPK_M, replace=False)).astype(np.int32)
+    return corpus, corpus[ids].copy(), ids[:, None].copy()
+
+
+def library_topk(q, corpus, norms, k, chunk: int = 1024):
+    """Yardstick, timed only and used nowhere in the port: the int8 product
+    of the library (torch._int_mm) in query chunks, the distances, and
+    torch.topk (which has no tie order). Banned ids are not applied."""
+    vals, idx = [], []
+    ct = corpus.T
+    for m0 in range(0, q.shape[0], chunk):
+        dist = norms[None, :] - 2 * torch._int_mm(q[m0:m0 + chunk], ct)
+        v, i = torch.topk(dist, k, dim=1, largest=False)
+        vals.append(v)
+        idx.append(i)
+    return torch.cat(vals), torch.cat(idx)
+
+
+def phase_retrieval(card: str, results: dict) -> None:
+    k = TOPK_K
+    for name in TOPK_LAYOUTS.values():
+        results[name] = dict(launches=0)
+    for shape in ("bench", "rcr"):
+        t0 = time.perf_counter()
+        corpus, queries, banned = retrieval_data(shape)
+        N, d = corpus.shape
+        M = len(queries)
+        index = FlatIndex(corpus)
+        torch.cuda.synchronize()
+        log(f"[retrieve] {shape} shape: corpus {N} x {d} int8 "
+            f"({corpus.nbytes / 1e9:.2f} GB on {index.device}), {M} queries, "
+            f"k={k}, banned ids: {banned is not None}; default layout "
+            f"corpus_resident={index.corpus_resident}; data and index in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # the main path: one FlatIndex.search per layout
+        reset_counts()
+        found = {}
+        for resident in TOPK_LAYOUTS:
+            index.corpus_resident = resident
+            found[resident] = index.search(queries, k=k, banned=banned)
+        counts = read_counts()
+        log(f"[retrieve] {shape}: launches of one search per layout: "
+            f"{ {n: counts[n] for n in TOPK_LAYOUTS.values()} }")
+        for name in TOPK_LAYOUTS.values():
+            if counts[name] != 1:
+                raise AssertionError(f"{shape}: {name} launched "
+                                     f"{counts[name]} times, expected 1")
+            results[name]["launches"] += counts[name]
+
+        q_dev = torch.from_numpy(queries).cuda()
+        b_dev = None if banned is None else torch.from_numpy(banned).cuda()
+        plain_v, plain_i = topk.exact_topk_l2_reference(
+            q_dev[:256], index.corpus, index.norms,
+            None if b_dev is None else b_dev[:256], k=k)
+        plain_v, plain_i = plain_v.cpu().numpy(), plain_i.cpu().numpy()
+        t0 = time.perf_counter()
+        oracle_v, oracle_i = index.reference_search(
+            queries[:64], k=k, banned=None if banned is None else banned[:64])
+        oracle_s = time.perf_counter() - t0
+        ties = float((np.diff(plain_v, axis=1) == 0).mean())
+        errs = {}
+        for resident, name in TOPK_LAYOUTS.items():
+            vals, idx = found[resident]
+            if vals.shape != (M, k) or idx.shape != (M, k):
+                raise AssertionError(f"{shape} {name}: shapes {vals.shape}")
+            if not (idx.min() >= 0 and idx.max() < N):
+                raise AssertionError(f"{shape} {name}: an index outside the "
+                                     f"corpus")
+            if not (np.diff(vals.astype(np.int64), axis=1) >= 0).all():
+                raise AssertionError(f"{shape} {name}: distances not sorted")
+            if banned is not None and (idx == banned).any():
+                raise AssertionError(f"{shape} {name}: a banned id came back")
+            errs[name] = float(np.abs(vals[:256].astype(np.int64)
+                                      - plain_v).max())
+            if not (np.array_equal(idx[:256], plain_i)
+                    and np.array_equal(vals[:256], plain_v)):
+                raise AssertionError(f"{shape} {name} disagrees with the "
+                                     f"plain version")
+            if not (np.array_equal(idx[:64], oracle_i)
+                    and np.array_equal(vals[:64], oracle_v)):
+                raise AssertionError(f"{shape} {name} disagrees with the "
+                                     f"numpy oracle")
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(found[True], found[False])):
+            raise AssertionError(f"{shape}: the two layouts disagree")
+        log(f"[retrieve] {shape}: both layouts equal the plain version on "
+            f"the card (256 queries), the numpy oracle ({oracle_s:.1f} s for "
+            f"64 queries) and each other (all {M}), tolerance 0; "
+            f"{ties:.3f} of neighbouring distances tie")
+
+        time_retrieval(card, results, shape, index, queries, banned, q_dev,
+                       b_dev, errs)
+        del index, q_dev, b_dev, corpus
+        torch.cuda.empty_cache()
+
+
+def time_retrieval(card, results, shape, index, queries, banned, q_dev, b_dev,
+                   errs) -> None:
+    k = TOPK_K
+    N, d = index.corpus.shape
+    M = len(queries)
+    ops = 2.0 * M * N * d
+    nbytes = N * d + M * d + 8 * M * k
+    bound_ms, bound_by = bound(nbytes, ops, torch.int8)
+
+    plain_ms = time_ms(lambda: topk.exact_topk_l2_reference(
+        q_dev, index.corpus, index.norms, b_dev, k=k), reps=1)
+    library_ms = time_ms(lambda: library_topk(q_dev, index.corpus,
+                                              index.norms, k), reps=3)
+    torch.cuda.empty_cache()
+    log(f"[retrieve] {shape}: {ops / 1e15:.3f} Pop, {nbytes / 1e6:.1f} MB "
+        f"→ bound {bound_ms:.3f} ms ({bound_by}); plain version "
+        f"{plain_ms:.1f} ms; library (torch._int_mm + torch.topk) "
+        f"{library_ms:.2f} ms")
+    for resident, name in TOPK_LAYOUTS.items():
+        index.corpus_resident = resident
+        ms = time_ms(lambda: topk.exact_topk_l2(
+            q_dev, index.corpus, index.norms, b_dev, k=k,
+            corpus_resident=resident), reps=10)
+        host_ms = wall_ms(lambda: index.search(queries, k=k, banned=banned))
+        log(f"[retrieve] {shape} {name}: device {ms:.3f} ms = "
+            f"{M / ms * 1e3:.0f} queries/s, {ops / ms / 1e9:.1f} TOP/s "
+            f"({bound_ms / ms * 100:.1f}% of the bound); FlatIndex.search "
+            f"numpy in to numpy out {host_ms:.2f} ms = "
+            f"{M / host_ms * 1e3:.0f} queries/s; on {card}")
+        timing = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=library_ms, search_wall_ms=host_ms)
+        if shape == "rcr":  # the recipe's shape is the kernels' line
+            results[name].update(timing)
+        else:
+            results[name].update({f"{key}_bench": v
+                                  for key, v in timing.items()})
+
+
+def write_reaction_csvs(root: Path, sizes: dict) -> None:
+    """Fixture CSVs of acylations over a few building blocks (so many rows
+    are duplicates, as in a reaction database): ids, reaction SMILES, the
+    five condition columns and a year."""
+    import random
+    rng = random.Random(0)
+    chlorides = ["CC(=O)Cl", "CCC(=O)Cl", "CC(C)C(=O)Cl", "CCCC(=O)Cl",
+                 "c1ccccc1C(=O)Cl", "C1CC1C(=O)Cl", "Fc1ccc(cc1)C(=O)Cl"]
+    partners = ["OC", "OCC", "OCc1ccccc1", "NCC", "NC1CCCCC1", "Nc1ccccc1",
+                "OC(C)C", "NCCO", "OCCCC"]
+    for name, n in sizes.items():
+        with open(root / f"{name}.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["id", "canonical_rxn", "catalyst1", "solvent1",
+                        "solvent2", "reagent1", "reagent2", "year"])
+            for i in range(n):
+                chloride, partner = rng.choice(chlorides), rng.choice(partners)
+                w.writerow([f"{name}_{i}",
+                            f"{chloride}.{partner}>>{chloride[:-2]}{partner}",
+                            *rng.choice(CONDITIONS),
+                            rng.randrange(1990, 2016)])
+
+
+def phase_retrieval_cli(tmp: Path) -> None:
+    """python -m textreact_tpu_torch.retrieval.cli, in-process on the card."""
+    data, out = tmp / "retrieval_data", tmp / "retrieval_out"
+    data.mkdir()
+    sizes = {"train": 300, "val": 40, "test": 40}
+    write_reaction_csvs(data, sizes)
+    before = read_counts()
+    t0 = time.perf_counter()
+    retrieval_cli.main([
+        "--data_path", str(data), "--train_file", "train.csv",
+        "--valid_file", "val.csv", "--test_file", "test.csv",
+        "--field", "canonical_rxn", "--output_path", str(out),
+        "--k", str(TOPK_K), "--check_parity"])
+    seconds = time.perf_counter() - t0
+    launched = sum(read_counts()[n] - before[n]
+                   for n in TOPK_LAYOUTS.values())
+    if launched != 3:
+        raise AssertionError(f"the CLI launched {launched} searches, "
+                             f"expected 3")
+    fps = np.load(out / "train_fp.npy")
+    if fps.shape != (sizes["train"], 2048) or fps.dtype != np.int8:
+        raise AssertionError(f"train_fp.npy {fps.shape} {fps.dtype}")
+    for name, n in sizes.items():
+        records = json.loads((out / f"{name}.json").read_text())
+        if len(records) != n or any(len(r["nn"]) != TOPK_K for r in records):
+            raise AssertionError(f"{name}.json: {len(records)} records")
+        if not all(r["id"] == f"{name}_{i}" and
+                   all(x.startswith("train_") for x in r["nn"])
+                   for i, r in enumerate(records)):
+            raise AssertionError(f"{name}.json: ids")
+    log(f"[retrieve] CLI on the card: {sizes} reactions fingerprinted, "
+        f"indexed and searched with --check_parity in {seconds:.1f} s, three "
+        f"searches launched, every nn list {TOPK_K} long")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -955,8 +1270,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_train_pad_microbatch(cfg, enc_tok, dec_tok, micro, Path(tmp))
         phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro)
-    for name, r in results.items():
-        if not r.get("launches", 0) > 0:
+        del cfg, enc_tok, dec_tok, micro
+        torch.cuda.empty_cache()
+        log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
+        phase_retrieval(card, results)
+        phase_retrieval_cli(Path(tmp))
+    for name in KERNELS:
+        if not results[name].get("launches", 0) > 0:
             raise AssertionError(f"{name} was not launched on the main path")
     kernels = [dict(name=name, **meta, **results[name])
                for name, meta in KERNELS.items()]

@@ -14,7 +14,8 @@ import torch
 from textreact_tpu_torch.inference import Generator
 from textreact_tpu_torch.models import EncoderDecoder, TransformerConfig
 from textreact_tpu_torch.models.factory import init_weights
-from textreact_tpu_torch.ops import fused_attention, fused_layernorm
+from textreact_tpu_torch.ops import fused_attention, fused_layernorm, topk
+from textreact_tpu_torch.retrieval import FlatIndex
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +267,111 @@ def test_model_on_card_matches_cpu(dev):
     seqs, scores = Generator(gpu_model, 3, 8).generate(batch)
     np.testing.assert_array_equal(seqs, cpu_seqs)
     np.testing.assert_allclose(scores, cpu_scores, rtol=1e-4)
+
+
+def _fps(rng, n, d, kind):
+    if kind == "binary":
+        return (rng.random((n, d)) < 0.08).astype(np.int8)
+    if kind == "counts":  # sparse signed counts, as reaction fingerprints
+        return (rng.integers(-3, 4, (n, d))
+                * (rng.random((n, d)) < 0.05)).astype(np.int8)
+    return rng.integers(-127, 128, (n, d)).astype(np.int8)
+
+
+def _topk_both_layouts(queries, corpus, n_real, banned, k, dev):
+    """Both layouts on the card, each held to the plain version on the card
+    and (where the corpus fills k) to the numpy oracle: equal, tolerance 0."""
+    norms = topk.corpus_norms_padded(corpus, n_real)
+    args = [torch.from_numpy(a).to(dev) for a in (queries, corpus, norms)]
+    b = None if banned is None else torch.from_numpy(banned).to(dev)
+    ref_v, ref_i = topk.exact_topk_l2_reference(*args, b, k=k)
+    for resident, name in ((False, "query_outer"), (True, "corpus_split")):
+        before = topk.LAUNCHES[name]
+        vals, idx = topk.exact_topk_l2(*args, b, k=k,
+                                       corpus_resident=resident)
+        torch.cuda.synchronize()
+        assert topk.LAUNCHES[name] == before + 1
+        assert torch.equal(idx, ref_i), name
+        assert torch.equal(vals, ref_v), name
+    if n_real >= k + (0 if banned is None else banned.shape[1]):
+        o_v, o_i = topk.numpy_reference_topk(queries, corpus[:n_real], k,
+                                             banned)
+        np.testing.assert_array_equal(ref_i.cpu().numpy(), o_i)
+        np.testing.assert_array_equal(ref_v.cpu().numpy(), o_v)
+    return ref_v, ref_i
+
+
+@pytest.mark.parametrize("k", [1, 5, 20, 100, 128])
+@pytest.mark.parametrize("M,N,d,kind", [
+    (37, 601, 128, "binary"), (130, 1000, 1024, "binary"),
+    (257, 3001, 2048, "counts"), (5, 129, 256, "full"),
+    (128, 128, 2048, "full"), (1, 50, 16, "counts"), (40, 700, 200, "full")])
+def test_topk_kernels_equal_plain_version(dev, M, N, d, kind, k):
+    rng = np.random.default_rng(M + N + k)
+    corpus = _fps(rng, N, d, kind)
+    # duplicate rows, so that equal distances cross tile and slab boundaries
+    src = rng.integers(0, N, N // 3)
+    corpus[rng.integers(0, N, N // 3)] = corpus[src]
+    queries = _fps(rng, M, d, kind)
+    queries[: M // 2] = corpus[rng.integers(0, N, M // 2)]
+    _topk_both_layouts(queries, corpus, N, None, k, dev)
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("k", [5, 20])
+def test_topk_kernels_banned_ids_and_padding_rows(dev, nb, k):
+    rng = np.random.default_rng(nb + k)
+    corpus = topk.pad_matrix(_fps(rng, 900, 256, "binary"), 128, 16)
+    corpus[rng.integers(0, 900, 300)] = corpus[rng.integers(0, 900, 300)]
+    queries = corpus[:200].copy()
+    banned = rng.integers(-1, 900, (200, nb)).astype(np.int32)
+    banned[:, 0] = np.arange(200)  # masked self-retrieval
+    _, idx = _topk_both_layouts(queries, corpus, 900, banned, k, dev)
+    idx = idx.cpu().numpy()
+    assert (idx < 900).all()  # no padding row entered
+    for b in range(nb):
+        assert not (idx == banned[:, b:b + 1]).any()
+
+
+@pytest.mark.parametrize("N", [1, 5, 19])
+def test_topk_kernels_corpus_smaller_than_k(dev, N):
+    rng = np.random.default_rng(N)
+    corpus, queries = _fps(rng, N, 128, "binary"), _fps(rng, 9, 128, "binary")
+    vals, idx = _topk_both_layouts(queries, corpus, N, None, 20, dev)
+    qn = torch.from_numpy((queries.astype(np.int64) ** 2).sum(1)).to(dev)
+    assert (idx[:, N:] == topk.BIG).all() and (idx[:, :N] < N).all()
+    assert torch.equal(vals[:, N:].long(),
+                       (topk.BIG + qn)[:, None].expand(-1, 20 - N))
+
+
+def test_topk_kernel_raises_on_what_it_does_not_take(dev):
+    q = torch.zeros((4, 128), dtype=torch.int8, device=dev)
+    c = torch.zeros((50, 128), dtype=torch.int8, device=dev)
+    n = torch.zeros(50, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        topk.exact_topk_l2(q, c, n, k=129)
+    with pytest.raises(TypeError):
+        topk.exact_topk_l2(q.int(), c, n)
+    with pytest.raises(ValueError):
+        topk.exact_topk_l2(q, c.cpu(), n)
+    with pytest.raises(ValueError):
+        topk.exact_topk_l2(q, c[:, :64], n)
+    with pytest.raises(ValueError):
+        topk.exact_topk_l2(q, c, n[:49])
+
+
+def test_flat_index_on_card_chunks_and_layouts(dev, monkeypatch):
+    """FlatIndex on the card (odd width, default layout and both explicit
+    ones, a query set cut into chunks) against the numpy oracle."""
+    from textreact_tpu_torch.retrieval import engine
+    rng = np.random.default_rng(0)
+    corpus, queries = _fps(rng, 2000, 1000, "counts"), _fps(rng, 700, 1000,
+                                                            "counts")
+    ref = topk.numpy_reference_topk(queries, corpus, 20)
+    monkeypatch.setattr(engine, "SEARCH_BUDGET_BYTES", 256 * 2000)
+    for resident in (None, False, True):
+        index = FlatIndex(corpus, corpus_resident=resident)
+        assert index.device.type == "cuda" and index.max_queries(20, 1) < 700
+        got = index.search(queries, k=20)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r)

@@ -3,6 +3,8 @@ package's originals: copies drift, so the same inputs must give the same
 token ids, masked sequences and collated arrays."""
 
 import dataclasses
+import json
+import os
 import random
 
 import numpy as np
@@ -135,3 +137,128 @@ def test_collator_gives_the_same_arrays(tmp_path, static_shapes):
         np.testing.assert_array_equal(arr, b.arrays[name], err_msg=name)
     assert b.size == 5 and b["mlm_labels"].shape[1] % 16 == 0
     assert "ids" in b and b["ids"][0] == "r0"
+
+
+# --- the retrieval slice's copies: chem kit, retrieval helpers, logging ---
+
+def _public(module):
+    return {n for n in dir(module) if not n.startswith("_")}
+
+
+def _golden_smiles():
+    path = os.path.join(os.path.dirname(__file__), "golden",
+                        "canon_groups.json")
+    with open(path) as f:
+        return [s for g in json.load(f)["groups"] for s in g["smiles"]]
+
+
+CHEM_SMILES = [s.split(">>")[0] for s in SMILES[:3]] + [
+    "c1ccc2[nH]ccc2c1", "F/C=C/F", "F/C=C\\F", "N[C@@H](C)C(=O)O",
+    "[13CH4]", "[O-][N+](=O)c1ccccc1", "C1CC1C(=O)Cl", "not a smiles", ""]
+
+
+def test_chem_kit_has_the_same_public_names():
+    import textreact_tpu.chem as jax_chem
+    import textreact_tpu_torch.chem as port_chem
+    assert set(port_chem.__all__) == set(jax_chem.__all__)
+    for name in ("mol", "canon", "aromatic", "rdkit_bridge"):
+        a = __import__(f"textreact_tpu.chem.{name}", fromlist=["x"])
+        b = __import__(f"textreact_tpu_torch.chem.{name}", fromlist=["x"])
+        assert _public(a) == _public(b), name
+    import textreact_tpu.chem.fingerprints as jfp
+    import textreact_tpu_torch.chem.fingerprints as pfp
+    # the port has no C++ fast path: nothing else may differ
+    assert _public(jfp) - _public(pfp) == set()
+    assert _public(pfp) - _public(jfp) == set()
+
+
+def _outcome(fn, *args):
+    """The value, or the name of the exception's class."""
+    try:
+        out = fn(*args)
+    except Exception as e:  # noqa: BLE001 - the class is what is compared
+        return type(e).__name__
+    return out.tolist() if isinstance(out, np.ndarray) else out
+
+
+@pytest.mark.parametrize("source", ["hard_cases", "goldens"])
+def test_chem_kit_gives_the_same_outputs(source):
+    import textreact_tpu.chem as jax_chem
+    import textreact_tpu_torch.chem as port_chem
+    smiles = CHEM_SMILES if source == "hard_cases" else _golden_smiles()
+    assert len(smiles) >= 10
+
+    def both(fn):
+        return [(lambda *a, k=kit: fn(k, *a))
+                for kit in (jax_chem, port_chem)]
+
+    for s in smiles:
+        for fn in (lambda k, x: k.canonical_smiles(x),
+                   lambda k, x: k.canonical_smiles_strict(x),
+                   lambda k, x: k.morgan_fingerprint(x),
+                   lambda k, x: k.write_smiles(k.parse_smiles(x)),
+                   lambda k, x: k.canonical_ranks(k.parse_smiles(x)),
+                   lambda k, x: k.random_smiles(x, random.Random(3))):
+            ref, got = (_outcome(f, s) for f in both(fn))
+            assert got == ref, s
+    assert _outcome(port_chem.canonical_smiles_strict, "not a smiles") \
+        == "SmilesParseError"
+    for rxn in SMILES + ["CCO>CC(=O)O>CCOC(C)=O", "CCO>>", "bad>>worse", ""]:
+        for fn in (lambda k, x: k.canonical_rxn_smiles(x),
+                   lambda k, x: k.reaction_difference_fingerprint(x)):
+            ref, got = (_outcome(f, rxn) for f in both(fn))
+            assert got == ref, rxn
+
+
+@pytest.mark.parametrize("kind,n_bits", [("morgan", None), ("morgan", 512),
+                                         ("reaction", None)])
+def test_fingerprint_matrix_matches_in_process_and_in_workers(kind, n_bits):
+    """The port always takes the Python workers; the JAX package may take
+    its C++ fast path, which it holds identical to them."""
+    import textreact_tpu.chem as jax_chem
+    import textreact_tpu_torch.chem as port_chem
+    smiles = SMILES if kind == "reaction" else CHEM_SMILES
+    ref = jax_chem.fingerprint_matrix(smiles, kind, n_bits)
+    got = port_chem.fingerprint_matrix(smiles, kind, n_bits)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        port_chem.fingerprint_matrix(smiles, kind, n_bits, num_workers=2), ref)
+
+
+def test_retrieval_helpers_and_logging_have_the_same_public_names():
+    import textreact_tpu.retrieval as jax_retrieval
+    import textreact_tpu.retrieval.convert as jconv
+    import textreact_tpu.retrieval.fingerprints as jfp
+    import textreact_tpu.utils.logging as jlog
+    import textreact_tpu_torch.retrieval as port_retrieval
+    import textreact_tpu_torch.retrieval.convert as pconv
+    import textreact_tpu_torch.retrieval.fingerprints as pfp
+    import textreact_tpu_torch.utils.logging as plog
+    for a, b in ((jfp, pfp), (jconv, pconv), (jlog, plog)):
+        assert _public(a) == _public(b), a.__name__
+    # the mesh axis waits for the multi-GPU slice; merge_topk is its merge
+    assert set(jax_retrieval.__all__) - set(port_retrieval.__all__) \
+        == {"CORPUS_AXIS"}
+    assert set(port_retrieval.__all__) - set(jax_retrieval.__all__) \
+        == {"merge_topk"}
+
+
+def test_metric_logger_writes_the_same_lines(tmp_path):
+    import textreact_tpu.utils.logging as jlog
+    import textreact_tpu_torch.utils.logging as plog
+    assert plog.log.name == "textreact_tpu_torch"
+    records = []
+    for mod, name in ((jlog, "jax"), (plog, "port")):
+        logger = mod.MetricLogger(str(tmp_path / name), use_wandb=False)
+        logger.log({"train_loss": np.float32(1.5), "acc": 0.25,
+                    "lr": np.asarray(1e-4), "resumed_from": "last.ckpt"}, 3)
+        logger.log({"val_acc": 1}, 4)
+        logger.close()
+        text = (tmp_path / name / "metrics.jsonl").read_text()
+        records.append([json.loads(line) for line in text.splitlines()])
+    for rows in records:
+        assert [r.pop("time") >= 0 for r in rows] == [True, True]
+    assert records[0] == records[1]
+    assert records[1][0] == {"step": 3, "train_loss": 1.5, "acc": 0.25,
+                             "lr": 1e-4, "resumed_from": "last.ckpt"}

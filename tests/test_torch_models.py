@@ -299,6 +299,12 @@ def test_port_imports_no_jax_or_pandas():
         textreact_tpu_torch.__path__, "textreact_tpu_torch."))
     assert "textreact_tpu_torch.train.step" in names
     assert "textreact_tpu_torch.tokenizers.text" in names
+    for name in ("ops.topk", "retrieval.engine", "retrieval.cli",
+                 "retrieval.debug_cli", "retrieval.fingerprints",
+                 "retrieval.convert", "chem.mol", "chem.canon",
+                 "chem.aromatic", "chem.rdkit_bridge", "chem.fingerprints",
+                 "utils.logging", "utils.table"):
+        assert "textreact_tpu_torch." + name in names
     code = ("import sys, importlib\n"
             f"for name in {names!r} + ['chip_smoke', 'chip_profile']:\n"
             "    importlib.import_module(name)\n"

@@ -1,0 +1,141 @@
+"""Exact nearest-neighbour engine (twin of textreact_tpu/retrieval/engine.py).
+
+Role of reference retrieve/retrieve_faiss.py: build an exact L2 index over
+fingerprint vectors and query top-20 neighbours.
+
+- the corpus matrix and its norms are put on the device once, as int8 and
+  int32; a search runs the fused distance + top-k kernels of ops/topk.py
+  over it;
+- masked retrieval (self/gold removal, reference dataset.py:74-76) is a
+  per-query banned-id list applied inside the kernel, not a host-side
+  filter;
+- `merge_topk` merges partial results over parts of a corpus with a
+  two-key order (distance, then corpus index) that preserves the faiss tie
+  order. Sharding the corpus rows over several devices (the JAX engine's
+  `mesh` argument) is not ported yet: it will search each shard and call
+  `merge_topk`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.factory import resolve_device
+from ..ops.topk import (corpus_norms_padded, exact_topk_l2,
+                        numpy_reference_topk, pad_matrix, split_slabs,
+                        workspace_bytes)
+
+# Layout rule, measured on an H100 80GB HBM3 at 700 W by chip_smoke.py's
+# retrieval phase at M = 8192, k = 20 (PERF.md, section 6): the
+# corpus-split layout was faster at both shapes, 10.8 against 23.0 ms at
+# N = 200,000 x 1024 and 56.0 against 130.6 ms at N = 700,000 x 2048 (its
+# grid has several times the query-outer grid's M / 128 blocks, which alone
+# do not fill the card's 132 multiprocessors).
+# With so many queries that the query tiles fill the card, corpus-split runs
+# with one slab and is the query-outer scan plus a copy. So the rule is that
+# layout, always; corpus_resident=False overrides it.
+CORPUS_RESIDENT_DEFAULT = True
+
+# Device memory one kernel call may take for its queries, banned ids,
+# partial lists and results: larger query sets are searched in chunks.
+SEARCH_BUDGET_BYTES = 1 << 30
+
+
+class FlatIndex:
+    """Exact (flat) L2 index over int8 fingerprint vectors.
+
+    `device=None` is the CUDA card and raises without one. `corpus_resident`
+    picks the kernel layout (None: the measured rule above)."""
+
+    def __init__(self, corpus_fps: np.ndarray, device=None,
+                 corpus_resident: Optional[bool] = None):
+        assert corpus_fps.dtype == np.int8, corpus_fps.dtype
+        self.device = resolve_device(device)
+        self.n_real = corpus_fps.shape[0]
+        self.corpus_resident = (CORPUS_RESIDENT_DEFAULT
+                                if corpus_resident is None
+                                else corpus_resident)
+        # columns to whole 16-byte pieces (zeros change no distance); an
+        # empty corpus becomes one padding row, which never enters
+        padded = pad_matrix(corpus_fps, 1, 16)
+        if self.n_real == 0:
+            padded = np.zeros((1, padded.shape[1]), np.int8)
+        norms = corpus_norms_padded(padded, self.n_real)
+        self.dim = padded.shape[1]
+        self.corpus = torch.from_numpy(np.ascontiguousarray(padded)
+                                       ).to(self.device)
+        self.norms = torch.from_numpy(norms).to(self.device)
+
+    def max_queries(self, k: int, nb: int) -> int:
+        """Most queries one kernel call takes inside SEARCH_BUDGET_BYTES."""
+        n = self.corpus.shape[0]
+        m = 1 << 16
+        while m > 128:
+            slabs = (split_slabs(m, n, self.device)
+                     if self.device.type == "cuda" else 1)
+            need = (m * (self.dim + 4 * nb + 8 * k)
+                    + workspace_bytes(m, k, slabs))
+            if need <= SEARCH_BUDGET_BYTES:
+                break
+            m //= 2
+        return m
+
+    def search(self, queries: np.ndarray, k: int = 20,
+               banned: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k (distances, indices), faiss-flat semantics. `banned` is
+        (M, NB) int32 global corpus ids to exclude per query (-1 = none)."""
+        assert queries.dtype == np.int8, queries.dtype
+        M = queries.shape[0]
+        q = pad_matrix(queries, 1, 16)
+        assert q.shape[1] == self.dim, (q.shape, self.dim)
+        nb = 1 if banned is None else banned.shape[1]
+        chunk = self.max_queries(k, nb)
+        out_v = np.empty((M, k), np.int32)
+        out_i = np.empty((M, k), np.int32)
+        for start in range(0, M, chunk):
+            stop = min(start + chunk, M)
+            b = None
+            if banned is not None:
+                b = torch.from_numpy(np.ascontiguousarray(
+                    banned[start:stop], dtype=np.int32)).to(self.device)
+            vals, idx = exact_topk_l2(
+                torch.from_numpy(np.ascontiguousarray(q[start:stop])
+                                 ).to(self.device),
+                self.corpus, self.norms, b, k=k,
+                corpus_resident=self.corpus_resident)
+            out_v[start:stop] = vals.cpu().numpy()
+            out_i[start:stop] = idx.cpu().numpy()
+        return out_v, out_i
+
+    def reference_search(self, queries: np.ndarray, k: int = 20,
+                         banned: Optional[np.ndarray] = None):
+        """Brute-force numpy oracle over the same (unpadded) data."""
+        corpus = self.corpus[: self.n_real].cpu().numpy()
+        return numpy_reference_topk(pad_matrix(queries, 1, 16), corpus, k,
+                                    banned)
+
+
+def merge_topk(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]], k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge partial top-k results over parts of a corpus: `parts` holds
+    (distances (M, k_i), global indices (M, k_i)) per part; the lists are
+    concatenated, ordered by (distance, index) and cut to k. Unfilled slots
+    (index `BIG`) sort last."""
+    vals = torch.cat([torch.as_tensor(v) for v, _ in parts], dim=1)
+    idx = torch.cat([torch.as_tensor(i) for _, i in parts], dim=1)
+    key = (vals.to(torch.int64) << 32) | idx.to(torch.int64)
+    order = torch.sort(key, dim=1).indices[:, :k]
+    return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+
+
+def build_neighbor_file(ids: Sequence[str], train_ids: Sequence[str],
+                        index: FlatIndex, query_fps: np.ndarray,
+                        k: int = 20) -> List[Dict]:
+    """{id, nn} records like retrieve_faiss.py:116-130 writes."""
+    _, idx = index.search(query_fps, k=k)
+    return [{"id": qid, "nn": [train_ids[j] for j in row if j < len(train_ids)]}
+            for qid, row in zip(ids, idx.tolist())]
