@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's RCR serving, training and retrieval paths once on
-one CUDA GPU.
+"""Drive the PyTorch port's RCR serving, training, retrieval, causal-decoder
+and command-line paths once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,8 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: compile every CUDA kernel from textreact_tpu_torch/csrc, one nvcc
    process per source, started together;
-3. kernels: each of the four model kernels (attention forward and backward,
-   residual-LayerNorm forward and backward) against its plain PyTorch
+3. kernels: each of the four encoder kernels (attention forward and
+   backward, residual-LayerNorm forward and backward) against its plain PyTorch
    version on the card, at the shapes the paths give it, in float32 and
    bfloat16, without dropout and at p = 0.1 with the kernel's own keep mask
    exported and fed to the plain version, each with a stated tolerance; the
@@ -17,7 +17,9 @@ Phases, each fatal on failure:
    while the card is held busy, so device time) beside the least time the
    card could take and, for attention, beside
    F.scaled_dot_product_attention (timed only, used nowhere in the port);
-   then both layouts of the exact top-k L2 search at small shapes (ragged
+   the causal attention forward and backward the same way (no dropout) at
+   L=512 and L=128, beside SDPA under a boolean mask that joins the causal
+   and the key mask; then both layouts of the exact top-k L2 search at small shapes (ragged
    sizes, k from 1 to 100, fewer rows than k, ties across tiles and slabs,
    banned ids, negative counts, d from 128 to 2048) against the plain
    version on the card and the float64 numpy oracle on the host, equal to
@@ -47,7 +49,21 @@ Phases, each fatal on failure:
    timed (device ms, and host ms from numpy in to numpy out) beside the
    plain version, the bound and torch._int_mm + torch.topk (timed only);
 8. the retrieval CLI, in-process on the card, on fixture CSVs written at
-   run time, with --check_parity; the three neighbour files read back.
+   run time, with --check_parity; the three neighbour files read back;
+9. causal path: a stack of six TransformerBlock(causal=True) with bert_l6's
+   geometry and cross-attention over encoder states of L=512, B=32 at L=512
+   and L=128, no self bias and a ragged key mask: forward in eval mode and
+   forward + backward in training mode (hidden dropout 0.1, no attention
+   dropout), launch counts of the causal kernels asserted; kernels against
+   plain functions (bf16 forward; f32 forward and every gradient at p=0);
+   an unaligned length (160) launches no causal kernel;
+10. runtime: python -m textreact_tpu_torch's main, in-process on the card, on
+   the CSVs of phase 8, a corpus written at run time and the neighbour files
+   that phase 8's retrieval CLI wrote: full width and depth, bf16, MLM,
+   dropout 0.1, batch 32 x accumulation 4, 512 training reactions, 2 epochs,
+   --do_train --do_valid --do_test, beam 15; a falling loss, published
+   checkpoints, two prediction files, kernel launches that match the steps
+   run; then the same command with one more epoch resumes.
 
 Prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without CUDA.
@@ -69,11 +85,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from textreact_tpu_torch.cli import main as runtime_cli
 from textreact_tpu_torch.config import ExperimentConfig
 from textreact_tpu_torch.data import Collator, apply_span_mlm
 from textreact_tpu_torch.inference import Generator, predictions_from_beams
 from textreact_tpu_torch.models import build_model
 from textreact_tpu_torch.models.config import PRESETS
+from textreact_tpu_torch.models.layers import TransformerBlock
 from textreact_tpu_torch.ops import (_build, fused_attention, fused_layernorm,
                                      topk)
 from textreact_tpu_torch.retrieval import FlatIndex
@@ -140,6 +158,12 @@ KERNELS = {
     "fused_layernorm_bwd": dict(
         route="cuda", source=_CSRC + "fused_layernorm.cu",
         replaces="textreact_tpu/ops/fused_layernorm.py:85"),
+    "causal_attention_fwd": dict(
+        route="cuda", source=_CSRC + "causal_attention.cu",
+        replaces="textreact_tpu/models/layers.py:94"),
+    "causal_attention_bwd": dict(
+        route="cuda", source=_CSRC + "causal_attention_bwd.cu",
+        replaces="textreact_tpu/models/layers.py:94"),
     "exact_topk_corpus_split": dict(
         route="cuda", source=_CSRC + "exact_topk.cu",
         replaces="textreact_tpu/ops/topk.py:120"),
@@ -150,6 +174,13 @@ KERNELS = {
 # the retrieval kernels by FlatIndex's corpus_resident flag
 TOPK_LAYOUTS = {True: "exact_topk_corpus_split",
                 False: "exact_topk_query_outer"}
+# reactions of the retrieval CLI phase and of the runtime phase that trains
+# on its neighbour files
+RUNTIME_SIZES = {"train": 512, "val": 64, "test": 64}
+CAUSAL_KERNELS = ("causal_attention_fwd", "causal_attention_bwd")
+# the causal path: bert_l6's six blocks at these decoder lengths; 160
+# (retro's decoder length) is not a multiple of 128 and takes the plain path
+CAUSAL_LENGTHS, UNALIGNED_LENGTH = (L, 128), 160
 # retrieval shapes: 8192 queries, k = 20
 TOPK_M, TOPK_K = 8192, 20
 
@@ -272,9 +303,11 @@ def phase_build() -> None:
                       "exact_topk"])
     fused_attention.load_kernel()
     fused_attention.load_bwd_kernel()
+    fused_attention.load_causal_kernel()
+    fused_attention.load_causal_bwd_kernel()
     fused_layernorm.load_kernel()
     topk.load_kernel()
-    log(f"[build] four libraries (six kernels) loaded in "
+    log(f"[build] six libraries (eight kernels) loaded in "
         f"{time.perf_counter() - t0:.1f} s, built in parallel (nvcc seconds "
         f"per source: {_build.BUILD_SECONDS or 'cached'})")
     for name, text in _build.BUILD_LOG.items():
@@ -291,6 +324,7 @@ def phase_build() -> None:
 
 def reset_counts() -> None:
     fused_attention.LAUNCHES = fused_attention.BWD_LAUNCHES = 0
+    fused_attention.CAUSAL_LAUNCHES = fused_attention.CAUSAL_BWD_LAUNCHES = 0
     fused_layernorm.LAUNCHES = fused_layernorm.BWD_LAUNCHES = 0
     topk.LAUNCHES.update(corpus_split=0, query_outer=0)
 
@@ -298,6 +332,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     return {"fused_attention_fwd": fused_attention.LAUNCHES,
             "fused_attention_bwd": fused_attention.BWD_LAUNCHES,
+            "causal_attention_fwd": fused_attention.CAUSAL_LAUNCHES,
+            "causal_attention_bwd": fused_attention.CAUSAL_BWD_LAUNCHES,
             "fused_layernorm_fwd": fused_layernorm.LAUNCHES,
             "fused_layernorm_bwd": fused_layernorm.BWD_LAUNCHES,
             "exact_topk_corpus_split": topk.LAUNCHES["corpus_split"],
@@ -484,6 +520,127 @@ def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
         plain_fwd_bwd_ms=plain_fwd + plain_bwd)
 
 
+def causal_allowed(mask: torch.Tensor) -> torch.Tensor:
+    """(B, 1, L, L) bool: key j is valid and not above query i."""
+    n = mask.shape[1]
+    below = torch.ones(n, n, dtype=torch.bool, device=mask.device).tril()
+    return (mask > 0)[:, None, None, :] & below
+
+
+def causal_keys(lengths: np.ndarray, n: int) -> float:
+    """Keys the rows of this run's data need: row i of an example with
+    `length` valid keys sees min(i + 1, length) of them (all i + 1 in an
+    all-masked example, whose rows are uniform over what they see)."""
+    rows = np.arange(1, n + 1)[None, :]
+    seen = np.minimum(rows, np.where(lengths == 0, n, lengths)[:, None])
+    return float(seen.sum())
+
+
+def kernels_causal_attention(results: dict) -> None:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(2)
+    scale = HEAD_DIM ** -0.5
+    for name in CAUSAL_KERNELS:
+        results[name] = dict(max_abs_err=0.0)
+    for n in CAUSAL_LENGTHS:
+        lengths = rng.integers(n // 8, n + 1, B)
+        lengths[0] = n
+        lengths[-1] = 0  # a collator dummy row: every key masked
+        mask = torch.as_tensor(np.arange(n)[None, :] < lengths[:, None],
+                               dtype=torch.int32, device=dev)
+        log(f"[kernels] causal attention B={B} L={n} H={HEADS} D={HEAD_DIM}, "
+            f"ragged mask, row {B - 1} fully masked, no dropout")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(B, n, HEADS, HEAD_DIM, generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            tag = f"causal attention L={n} {str(dtype)[6:]}"
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fused_attention.causal_attention(*leaves, mask, scale)
+            stats = out.grad_fn.saved_tensors[4]
+            out.backward(do)
+            ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = fused_attention.attention_reference(
+                *ref_leaves, mask, scale, causal=True)
+            ref.backward(do)
+            torch.cuda.synchronize()
+            e = check_close(f"{tag} out", out, ref, *ATTN_TOL[dtype])
+            if dtype == torch.bfloat16:
+                results["causal_attention_fwd"]["max_abs_err"] = max(
+                    results["causal_attention_fwd"]["max_abs_err"], e)
+            for name, a, b in zip("qkv", leaves, ref_leaves):
+                e = check_close(f"{tag} d{name}", a.grad, b.grad,
+                                *GRAD_TOL[dtype])
+                if dtype == torch.bfloat16:
+                    results["causal_attention_bwd"]["max_abs_err"] = max(
+                        results["causal_attention_bwd"]["max_abs_err"], e)
+            if dtype == torch.float32:
+                s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+                s = s + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+                s = s.masked_fill(~causal_allowed(torch.ones_like(mask)),
+                                  float("-inf"))
+                lse = stats[..., 0] + torch.log(stats[..., 1])
+                check_close(f"{tag} lse (rows 0..B-2)", lse[:-1],
+                            torch.logsumexp(s, -1)[:-1], *STATS_TOL)
+            del ref, ref_leaves
+        time_causal_attention(results, n, q, k, v, do, mask, scale, lengths)
+
+
+def time_causal_attention(results, n, q, k, v, do, mask, scale, lengths):
+    """bf16 times of the causal kernels beside the plain version, SDPA under
+    the joined boolean mask (timed only; its all-masked rows are NaN) and the
+    bound from this run's mask. L=512 is the kernels' line; L=128 rides
+    along under its own keys."""
+    dtype = q.dtype
+    elems = q.numel()
+    keys = causal_keys(lengths, n)
+    fwd_flops = 4.0 * HEADS * HEAD_DIM * keys
+    bwd_flops = 10.0 * HEADS * HEAD_DIM * keys
+    stats_bytes = B * HEADS * n * 8
+    fwd_bytes = 4 * elems * q.element_size() + mask.numel() * 4 + stats_bytes
+    bwd_bytes = (8 * elems * q.element_size() + mask.numel() * 4
+                 + stats_bytes)
+    allowed = causal_allowed(mask)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd_ms = time_ms(lambda: fused_attention.causal_attention(
+        *leaves, mask, scale))
+    out = fused_attention.causal_attention(*leaves, mask, scale)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True))
+    plain_fwd = time_ms(lambda: fused_attention.attention_reference(
+        *leaves, mask, scale, causal=True))
+    ref = fused_attention.attention_reference(*leaves, mask, scale,
+                                              causal=True)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(ref, leaves, do,
+                                                    retain_graph=True))
+    del ref
+    lib_fwd = time_ms(lambda: sdpa(*leaves, allowed, 0.0))
+    lib_out = sdpa(*leaves, allowed, 0.0)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                  retain_graph=True))
+    fb, fby = bound(fwd_bytes, fwd_flops, dtype)
+    bb, bby = bound(bwd_bytes, bwd_flops, dtype)
+    log(f"  causal attention bf16 L={n} forward (writes row statistics): "
+        f"kernel {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, SDPA "
+        f"{lib_fwd:.4f} ms, bound {fb:.4f} ms ({fby}: "
+        f"{fwd_flops / 1e9:.2f} GFLOP over the keys each row sees, "
+        f"{fwd_bytes / 1e6:.1f} MB)")
+    log(f"  causal attention bf16 L={n} backward: kernel {bwd_ms:.4f} ms, "
+        f"plain autograd backward {plain_bwd:.4f} ms, SDPA backward "
+        f"{lib_bwd:.4f} ms, bound {bb:.4f} ms ({bby}: "
+        f"{bwd_flops / 1e9:.2f} GFLOP, {bwd_bytes / 1e6:.1f} MB)")
+    fwd = dict(ms=fwd_ms, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby,
+               library_ms=lib_fwd)
+    bwd = dict(ms=bwd_ms, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby,
+               library_ms=lib_bwd)
+    if n != L:
+        fwd = {f"{key}_L{n}": val for key, val in fwd.items()}
+        bwd = {f"{key}_L{n}": val for key, val in bwd.items()}
+    results["causal_attention_fwd"].update(fwd)
+    results["causal_attention_bwd"].update(bwd)
+
+
 def kernels_layernorm(results: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -594,6 +751,7 @@ def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs):
 def phase_kernels(results: dict) -> None:
     check_masks()
     kernels_attention(results)
+    kernels_causal_attention(results)
     kernels_layernorm(results)
     kernels_topk_small()
     torch.cuda.empty_cache()
@@ -832,8 +990,10 @@ def phase_train(card: str, vocab: Path, results: dict):
             f"lr {optimizer.schedule(state.step - 1):.3g} "
             f"{step_ms[-1]:.1f} ms")
     counts = read_counts()
-    if any([counts.pop(name) for name in TOPK_LAYOUTS.values()]):
-        raise AssertionError("training launched a retrieval kernel")
+    if any([counts.pop(name) for name in (*TOPK_LAYOUTS.values(),
+                                          *CAUSAL_KERNELS)]):
+        raise AssertionError("training launched a retrieval or causal "
+                             "kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
@@ -878,7 +1038,7 @@ def phase_train(card: str, vocab: Path, results: dict):
         f"{MICRO_BATCHES} x {B} examples at L={L}, bf16 compute, f32 "
         f"parameters, dropout {DROPOUT_P}, peak device memory "
         f"{peak_gb:.1f} GB, on {card}")
-    return cfg, enc_tok, dec_tok, micro
+    return cfg, enc_tok, dec_tok, micro, med
 
 
 def small_configs(tmp: Path, layers: int):
@@ -1222,7 +1382,7 @@ def phase_retrieval_cli(tmp: Path) -> None:
     """python -m textreact_tpu_torch.retrieval.cli, in-process on the card."""
     data, out = tmp / "retrieval_data", tmp / "retrieval_out"
     data.mkdir()
-    sizes = {"train": 300, "val": 40, "test": 40}
+    sizes = RUNTIME_SIZES
     write_reaction_csvs(data, sizes)
     before = read_counts()
     t0 = time.perf_counter()
@@ -1253,6 +1413,405 @@ def phase_retrieval_cli(tmp: Path) -> None:
         f"searches launched, every nn list {TOPK_K} long")
 
 
+class CausalStack(torch.nn.Module):
+    """bert_l6's six blocks as causal blocks: TransformerBlock(causal=True)
+    with no self bias, the decoder's key mask as `self_mask`, and
+    cross-attention over the encoder states under their key bias."""
+
+    def __init__(self, config, dtype, layers=None):
+        super().__init__()
+        n = config.num_hidden_layers if layers is None else layers
+        self.layers = torch.nn.ModuleList(
+            TransformerBlock(config, dtype, torch.float32, causal=True)
+            for _ in range(n))
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, torch.nn.Linear):
+                    m.weight.copy_(torch.empty(m.weight.shape).normal_(
+                        0.0, config.initializer_range, generator=gen))
+                    m.bias.zero_()
+
+    def forward(self, x, encoder_states, cross_bias, self_mask,
+                generator=None):
+        for layer in self.layers:
+            x = layer(x, self_bias=None, encoder_states=encoder_states,
+                      cross_bias=cross_bias, self_mask=self_mask,
+                      generator=generator)
+        return x
+
+
+def causal_inputs(n: int, batch: int, dtype, seed: int):
+    """Decoder-side activations of length n with a ragged right-padded key
+    mask, encoder states of L=512 with theirs, and a cotangent."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    x, w = (torch.randn(batch, n, HIDDEN, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    enc = torch.randn(batch, L, HIDDEN, generator=gen, device=dev).to(dtype)
+    lengths = rng.integers(1, n + 1, batch)
+    lengths[0] = n
+    self_mask = torch.as_tensor(np.arange(n)[None, :] < lengths[:, None],
+                                dtype=torch.int32, device=dev)
+    enc_lengths = rng.integers(64, L + 1, batch)
+    cross_bias = torch.as_tensor(
+        np.where(np.arange(L)[None, :] < enc_lengths[:, None], 0.0, -1e9),
+        dtype=torch.float32, device=dev)[:, None, None, :]
+    return x, enc, cross_bias, self_mask, w
+
+
+def phase_causal_path(card: str, results: dict) -> None:
+    config = PRESETS["bert_l6"].replace(attention_impl="flash",
+                                        layernorm_impl="fused")
+    n_layers = config.num_hidden_layers
+    stack = CausalStack(config, torch.bfloat16).cuda()
+    log(f"[causal] {n_layers} x TransformerBlock(causal=True), d="
+        f"{config.hidden_size}, {config.num_attention_heads} heads of "
+        f"{config.head_dim}, cross-attention over L={L}, "
+        f"{sum(p.numel() for p in stack.parameters()) / 1e6:.1f} M f32 "
+        f"parameters, bf16 compute, hidden dropout "
+        f"{config.hidden_dropout_prob}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    launches = dict.fromkeys(CAUSAL_KERNELS, 0)
+    for n in CAUSAL_LENGTHS:
+        x, enc, cross_bias, self_mask, w = causal_inputs(
+            n, B, torch.bfloat16, seed=n)
+        # forward in eval mode
+        stack.eval()
+        reset_counts()
+        with torch.no_grad():
+            out = stack(x, enc, cross_bias, self_mask)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {"causal_attention_fwd": n_layers, "causal_attention_bwd": 0,
+                "fused_attention_fwd": 0, "fused_attention_bwd": 0,
+                "fused_layernorm_fwd": 3 * n_layers,
+                "fused_layernorm_bwd": 0}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"causal eval pass L={n}: launches "
+                                 f"{counts}, expected {want}")
+        if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"causal eval pass L={n}: output")
+        for name in CAUSAL_KERNELS:
+            launches[name] += counts[name]
+        with torch.no_grad():
+            fwd_ms = wall_ms(lambda: stack(x, enc, cross_bias, self_mask))
+        # the same states through the plain functions
+        set_kernels(stack, False)
+        before = read_counts()
+        with torch.no_grad():
+            plain = stack(x, enc, cross_bias, self_mask)
+        set_kernels(stack, True)
+        torch.cuda.synchronize()
+        if read_counts() != before:
+            raise AssertionError("the plain causal pass launched a kernel")
+        diff = float((out.float() - plain.float()).abs().max())
+        if not diff <= ENCODER_BOUND["bfloat16"]:
+            raise AssertionError(f"causal stack L={n}: kernels depart from "
+                                 f"the plain path by {diff:.3e}")
+
+        # forward + backward in training mode: hidden dropout through the
+        # residual-LN kernel, no attention dropout on the causal branch
+        stack.train()
+        stack.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_()
+        reset_counts()
+        out = stack(xg, enc, cross_bias, self_mask, generator=gen)
+        (out.float() * w.float()).sum().backward()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {"causal_attention_fwd": n_layers,
+                "causal_attention_bwd": n_layers,
+                "fused_attention_fwd": 0, "fused_attention_bwd": 0,
+                "fused_layernorm_fwd": 3 * n_layers,
+                "fused_layernorm_bwd": 3 * n_layers}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"causal training pass L={n}: launches "
+                                 f"{counts}, expected {want}")
+        grads = [xg.grad] + [p.grad for p in stack.parameters()]
+        if not all(g is not None and bool(torch.isfinite(g).all())
+                   for g in grads) or not float(xg.grad.abs().max()) > 0:
+            raise AssertionError(f"causal training pass L={n}: gradients")
+        for name in CAUSAL_KERNELS:
+            launches[name] += counts[name]
+
+        def train_pass():
+            stack.zero_grad(set_to_none=True)
+            o = stack(xg, enc, cross_bias, self_mask, generator=gen)
+            (o.float() * w.float()).sum().backward()
+
+        train_ms = wall_ms(train_pass)
+        log(f"[causal] B={B} L={n}: eval forward {fwd_ms:.1f} ms, training "
+            f"forward + backward {train_ms:.1f} ms (host clock, median of "
+            f"5) on {card}; launches a pass: causal attention {n_layers} "
+            f"forward and {n_layers} backward, residual LN {3 * n_layers} "
+            f"and {3 * n_layers}; bf16 eval output, kernels vs plain "
+            f"functions: max abs diff {diff:.3e} (bound "
+            f"{ENCODER_BOUND['bfloat16']:g})")
+    for name in CAUSAL_KERNELS:
+        results[name]["launches"] = launches[name]
+
+    # the unaligned length takes the plain path: no causal launch
+    x, enc, cross_bias, self_mask, _ = causal_inputs(
+        UNALIGNED_LENGTH, B, torch.bfloat16, seed=1)
+    stack.eval()
+    reset_counts()
+    with torch.no_grad():
+        out = stack(x, enc, cross_bias, self_mask)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if (counts["causal_attention_fwd"] or counts["fused_attention_fwd"]
+            or counts["fused_layernorm_fwd"] != 3 * n_layers
+            or not bool(torch.isfinite(out).all())):
+        raise AssertionError(f"causal stack at L={UNALIGNED_LENGTH}: "
+                             f"launches {counts}")
+    log(f"[causal] L={UNALIGNED_LENGTH} (not a multiple of 128): no causal "
+        f"kernel launched, {counts['fused_layernorm_fwd']} residual-LN "
+        f"launches, finite output")
+    del stack
+    torch.cuda.empty_cache()
+    phase_causal_kernels_vs_plain(config)
+
+
+def phase_causal_kernels_vs_plain(config) -> None:
+    """The causal stack in f32 without dropout, 8 examples at each length:
+    the output and every gradient of a weighted sum of it, kernels against
+    plain functions (summation order only)."""
+    n_batch = 8
+    stack = CausalStack(config, torch.float32).cuda()
+    set_dropout(stack, 0.0)
+    stack.train()
+    for n in CAUSAL_LENGTHS:
+        x, enc, cross_bias, self_mask, w = causal_inputs(
+            n, n_batch, torch.float32, seed=n + 1)
+        runs = []
+        for on in (True, False):
+            set_kernels(stack, on)
+            stack.zero_grad(set_to_none=True)
+            xg, eg = x.clone().requires_grad_(), enc.clone().requires_grad_()
+            before = read_counts()
+            out = stack(xg, eg, cross_bias, self_mask)
+            (out * w).sum().backward()
+            torch.cuda.synchronize()
+            if (read_counts() != before) != on:
+                raise AssertionError(f"causal stack, kernels on={on}: "
+                                     f"launches {read_counts()}")
+            grads = {"x": xg.grad, "encoder_states": eg.grad}
+            grads.update({name: p.grad.clone()
+                          for name, p in stack.named_parameters()})
+            runs.append((out.detach(), grads))
+        set_kernels(stack, True)
+        (out_k, grads_k), (out_p, grads_p) = runs
+        out_diff = float((out_k - out_p).abs().max())
+        floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max())
+                                       for g in grads_p.values())
+        worst, worst_name = 0.0, ""
+        for name, g in grads_p.items():
+            rel = float((grads_k[name] - g).abs().max()) / max(
+                float(g.abs().max()), floor)
+            if rel > worst:
+                worst, worst_name = rel, name
+        log(f"[causal] kernels vs plain functions, f32, p=0, {n_batch} "
+            f"examples at L={n}: output max abs diff {out_diff:.3e} (bound "
+            f"{ENCODER_BOUND['float32']:g}); worst gradient tensor "
+            f"{worst_name}: {worst:.3e} of max(its max abs, {floor:.3e}) "
+            f"(bound {TRAIN_GRAD_BOUND:g}) over {len(grads_p)} tensors")
+        if not (out_diff <= ENCODER_BOUND["float32"]
+                and worst <= TRAIN_GRAD_BOUND):
+            raise AssertionError(f"causal stack at L={n}: kernels depart "
+                                 f"from the plain path")
+    del stack
+    torch.cuda.empty_cache()
+
+
+def write_corpus(path: Path, ids, seed: int = 0) -> None:
+    """A corpus row per training reaction: a short heading and a paragraph
+    of about 220 words (every fourth one 20), so that three neighbours fill
+    an encoder input of 512 tokens."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "heading_text", "paragraph_text"])
+        for i, rid in enumerate(ids):
+            n_words = 20 if i % 4 == 3 else 220
+            w.writerow([rid, " ".join(rng.choice(WORDS, 3)),
+                        " ".join(rng.choice(WORDS, n_words))])
+
+
+def read_metrics(save: Path) -> list:
+    with open(save / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_runtime(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
+                  results: dict) -> None:
+    """python -m textreact_tpu_torch, in-process on the card: train, validate
+    and test on the retrieval phase's CSVs and neighbour files, then resume
+    for one more epoch."""
+    data, nn_dir, save = (tmp / "retrieval_data", tmp / "retrieval_out",
+                          tmp / "run")
+    sizes = RUNTIME_SIZES
+    write_corpus(data / "corpus.csv",
+                 [f"train_{i}" for i in range(sizes["train"])])
+    accum = MICRO_BATCHES
+
+    def argv(epochs: int) -> list:
+        return [
+            "--task", "condition", "--do_train", "--do_valid", "--do_test",
+            "--data_path", str(data), "--train_file", "train.csv",
+            "--valid_file", "val.csv", "--test_file", "test.csv",
+            "--corpus_file", str(data / "corpus.csv"),
+            "--nn_path", str(nn_dir), "--train_nn_file", "train.json",
+            "--valid_nn_file", "val.json", "--test_nn_file", "test.json",
+            "--encoder", "scibert_base", "--decoder", "bert_l6",
+            "--encoder_tokenizer", "text", "--text_vocab_file", str(vocab),
+            "--num_neighbors", "3", "--use_gold_neighbor",
+            "--max_length", str(L), "--max_dec_length", str(DEC_LEN),
+            "--batch_size", str(B), "--gradient_accumulation_steps",
+            str(accum), "--test_batch_size", str(B), "--epochs", str(epochs),
+            "--lr", "1e-4", "--warmup", "0.02", "--max_grad_norm", "5",
+            "--num_beams", str(BEAMS), "--mlm", "--mlm_layer", "mlp",
+            "--mlm_lambda", "0.1", "--compute_dtype", "bfloat16",
+            "--save_path", str(save), "--log_every", "1", "--debug"]
+
+    enc_layers = PRESETS["scibert_base"].num_hidden_layers
+    dec_layers = PRESETS["bert_l6"].num_hidden_layers
+    ln_per_batch = 2 * enc_layers + 3 * dec_layers
+    train_mbs = -(-sizes["train"] // B)           # loader batches an epoch
+    val_batches = 2 * -(-sizes["val"] // B)       # two corpora a pass
+    test_batches = 2 * -(-sizes["test"] // B)
+
+    def check_launches(tag, counts, epochs_run):
+        mbs = train_mbs * epochs_run
+        evals = val_batches * (epochs_run + 1)    # each epoch + --do_valid
+        want = {"fused_attention_fwd": enc_layers * (mbs + evals
+                                                     + test_batches),
+                "fused_attention_bwd": enc_layers * mbs,
+                "fused_layernorm_bwd": ln_per_batch * mbs,
+                "causal_attention_fwd": 0, "causal_attention_bwd": 0}
+        # a test batch launches 2 * enc_layers residual LNs and 3 *
+        # dec_layers a decode step; a trained model may stop early
+        ln_floor = (ln_per_batch * (mbs + evals)
+                    + test_batches * (2 * enc_layers + 3 * dec_layers))
+        ln_ceil = (ln_per_batch * (mbs + evals) + test_batches
+                   * (2 * enc_layers + 3 * dec_layers * (DEC_LEN - 1)))
+        got = {k: counts[k] for k in want}
+        log(f"[runtime] {tag}: launches {counts}")
+        if got != want or not (ln_floor <= counts["fused_layernorm_fwd"]
+                               <= ln_ceil):
+            raise AssertionError(
+                f"{tag}: launches {counts}; expected {want} and "
+                f"{ln_floor}..{ln_ceil} residual-LN forwards for {mbs} "
+                f"micro-batches, {evals} validation and {test_batches} test "
+                f"batches")
+
+    # --- first run: 2 epochs
+    epochs = 2
+    reset_counts()
+    t0 = time.perf_counter()
+    accuracies = runtime_cli.main(argv(epochs))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check_launches("first run", counts, epochs)
+    for name in ("fused_attention_fwd", "fused_attention_bwd",
+                 "fused_layernorm_fwd", "fused_layernorm_bwd"):
+        results[name]["launches_runtime"] = counts[name]
+    records = read_metrics(save)
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    steps_an_epoch = -(-train_mbs // accum)
+    if len(losses) < epochs * steps_an_epoch or not all(
+            np.isfinite(v) for v in losses):
+        raise AssertionError(f"train_loss records: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    names = sorted(p.name for p in save.iterdir())
+    for name in ("best.ckpt", "last.ckpt", "best.meta.json",
+                 "last.meta.json", "prediction_test_0.json",
+                 "prediction_test_1.json"):
+        if name not in names:
+            raise AssertionError(f"{name} missing from {names}")
+    if any(n.endswith(".tmp") for n in names):
+        raise AssertionError(f"an unpublished write was left: {names}")
+    for li in (0, 1):
+        preds = json.loads((save / f"prediction_test_{li}.json").read_text())
+        if sorted(map(int, preds)) != list(range(sizes["test"])) or any(
+                len(p["prediction"]) != BEAMS or len(p["score"]) != BEAMS
+                for p in preds.values()):
+            raise AssertionError(f"prediction_test_{li}.json")
+    if len(accuracies) != 2 or any(
+            set(a) != {1, 3, 5, 10, 15}
+            or not all(0.0 <= v <= 1.0 for v in a.values())
+            for a in accuracies):
+        raise AssertionError(f"accuracy dicts: {accuracies}")
+    val = [r for r in records if "val_acc" in r]
+    if len(val) != epochs or "val_acc/1" not in val[-1]:
+        raise AssertionError(f"validation records: {val}")
+    timing = [r for r in records if "epoch_seconds" in r]
+    step_ms = timing[-1]["epoch_seconds"] / timing[-1]["epoch_steps"] * 1e3
+    first_ms = timing[0]["epoch_seconds"] / timing[0]["epoch_steps"] * 1e3
+    write_s = [r for r in records if "save_write_seconds" in r][-1][
+        "save_write_seconds"]
+    tests = [r for r in records if "test_seconds" in r]
+    test_rate = (sum(r["test_examples"] for r in tests)
+                 / sum(r["test_seconds"] for r in tests))
+    ckpt_gb = (save / "last.ckpt").stat().st_size / 1e9
+    log(f"[runtime] train + validate + test through the command line in "
+        f"{seconds:.1f} s: {sizes} reactions, {epochs} epochs of "
+        f"{steps_an_epoch} optimizer steps ({accum} x {B} at L={L}); "
+        f"train_loss {losses[0]:.4f} -> {losses[-1]:.4f}; val_acc "
+        f"{val[-1]['val_acc']:.3f} / {val[-1]['val_acc/1']:.3f}; top-1 "
+        f"{accuracies[0][1]:.3f} / {accuracies[1][1]:.3f}")
+    log(f"[runtime] {step_ms:.1f} ms per optimizer step inside the trainer "
+        f"(epoch 2, loader waits included; epoch 1 {first_ms:.1f} ms) "
+        f"beside {bare_step_ms:.1f} ms for the bare step on one resident "
+        f"batch; saving last.ckpt and best.ckpt of {ckpt_gb:.2f} GB each "
+        f"holds the loop {timing[0]['save_blocking_seconds']:.2f} s (a "
+        f"copy to the host takes {timing[0]['save_copy_seconds']:.2f} s; "
+        f"the second save waits for the first one's write), last.ckpt "
+        f"alone {timing[-1]['save_blocking_seconds']:.2f} s; the last write "
+        f"takes {write_s:.2f} s in the background; test pass "
+        f"{test_rate:.1f} examples/s (beam {BEAMS}, both corpora); on "
+        f"{card}")
+    results["runtime"] = dict(
+        step_ms=step_ms, bare_step_ms=bare_step_ms,
+        save_blocking_s=timing[0]["save_blocking_seconds"],
+        save_copy_s=timing[0]["save_copy_seconds"], save_write_s=write_s, test_examples_per_s=test_rate)
+
+    # --- the same command with one more epoch resumes
+    before = len(records)
+    reset_counts()
+    t0 = time.perf_counter()
+    runtime_cli.main(argv(epochs + 1))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    new = read_metrics(save)[before:]
+    resumed = [r for r in new if "resumed_at_epoch" in r]
+    if len(resumed) != 1:
+        raise AssertionError(f"no resume record: {new[:3]}")
+    start = int(resumed[0]["resumed_at_epoch"])
+    steps = [r["step"] for r in new if "train_loss" in r]
+    ran = [r for r in new if "epoch_seconds" in r]
+    # it goes on from the restored step, through the epochs that are left
+    # (a shape group left with a partial window adds an unlogged step)
+    if (not 1 <= start <= epochs
+            or [r["epoch"] for r in ran] != list(range(start, epochs + 1))
+            or steps[0] != int(resumed[0]["step"]) + 1
+            or any(b <= a for a, b in zip(steps, steps[1:]))
+            or len(steps) < steps_an_epoch * len(ran)):
+        raise AssertionError(f"resumed at epoch {start}, steps {steps}")
+    check_launches("resumed run", read_counts(), epochs + 1 - start)
+    meta = json.loads((save / "last.meta.json").read_text())
+    if meta["epoch"] != epochs or any(
+            p.name.endswith(".tmp") for p in save.iterdir()):
+        raise AssertionError(f"after the resumed run: {meta}")
+    log(f"[runtime] the same command with --epochs {epochs + 1} resumed "
+        f"from {resumed[0]['resumed_from']}.ckpt at epoch {start}, ran "
+        f"steps {steps[0]}-{steps[-1]}, validated and tested again in "
+        f"{seconds:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1266,7 +1825,8 @@ def main() -> int:
         phase_serving(card, vocab, results)
         torch.cuda.empty_cache()
         log(f"[time] serving done at {time.perf_counter() - t_start:.0f} s")
-        cfg, enc_tok, dec_tok, micro = phase_train(card, vocab, results)
+        cfg, enc_tok, dec_tok, micro, bare_step_ms = phase_train(
+            card, vocab, results)
         torch.cuda.empty_cache()
         phase_train_pad_microbatch(cfg, enc_tok, dec_tok, micro, Path(tmp))
         phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro)
@@ -1275,12 +1835,19 @@ def main() -> int:
         log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
         phase_retrieval(card, results)
         phase_retrieval_cli(Path(tmp))
+        log(f"[time] retrieval done at {time.perf_counter() - t_start:.0f} s")
+        phase_causal_path(card, results)
+        log(f"[time] causal path done at "
+            f"{time.perf_counter() - t_start:.0f} s")
+        phase_runtime(card, Path(tmp), vocab, bare_step_ms, results)
+    runtime = results.pop("runtime")
     for name in KERNELS:
         if not results[name].get("launches", 0) > 0:
             raise AssertionError(f"{name} was not launched on the main path")
     kernels = [dict(name=name, **meta, **results[name])
                for name, meta in KERNELS.items()]
     log(f"[time] all phases done in {time.perf_counter() - t_start:.0f} s")
+    print(json.dumps({"runtime": runtime}))
     print(json.dumps({"kernels": kernels}))
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,

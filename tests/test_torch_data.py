@@ -262,3 +262,78 @@ def test_metric_logger_writes_the_same_lines(tmp_path):
     assert records[0] == records[1]
     assert records[1][0] == {"step": 3, "train_loss": 1.5, "acc": 0.25,
                              "lr": 1e-4, "resumed_from": "last.ckpt"}
+
+
+# ---- the runtime's host modules: table, corpus, neighbors ----------------
+
+
+def test_table_reads_what_pandas_reads(tmp_path):
+    """`utils/table.read_csv` against `pandas.read_csv(keep_default_na=
+    False)`: inferred ints, strings with empty cells, a short line, a blank
+    line, the head and one row."""
+    import pandas as pd
+    from fixtures import make_condition_data
+    from textreact_tpu_torch.utils.table import read_csv
+    root = make_condition_data(str(tmp_path / "d"))
+    odd = tmp_path / "odd.csv"
+    odd.write_text('id,a,b,c\n1,x,3,\n2,"y,z"\n3,,5,z\n\n4,q,6,w\n')
+    for path in (os.path.join(root, "train.csv"),
+                 os.path.join(root, "corpus.csv"), str(odd)):
+        df = pd.read_csv(path, keep_default_na=False)
+        table = read_csv(path)
+        assert len(table) == len(df)
+        assert list(table.columns) == list(df.columns)
+        for col in df.columns:
+            assert table[col] == df[col].tolist(), col
+        assert table.row(1) == df.iloc[1].to_dict()
+        head = table.head(2)
+        assert len(head) == 2 and head["id"] == df["id"].tolist()[:2]
+
+
+def test_neighbors_module_is_a_copy():
+    import inspect
+
+    import textreact_tpu.data.neighbors as a
+    import textreact_tpu_torch.data.neighbors as b
+    names = [n for n, f in vars(a).items()
+             if inspect.isfunction(f) and f.__module__ == a.__name__]
+    assert names and names == [n for n, f in vars(b).items()
+                               if inspect.isfunction(f)
+                               and f.__module__ == b.__name__]
+    for n in names:
+        assert inspect.getsource(getattr(a, n)) == inspect.getsource(
+            getattr(b, n)), n
+
+
+def test_corpus_io_matches(tmp_path):
+    from fixtures import make_condition_data
+    import textreact_tpu.data.corpus as a
+    import textreact_tpu_torch.data.corpus as b
+    root = make_condition_data(str(tmp_path / "d"))
+    assert a.CONDITION_COLS == b.CONDITION_COLS
+    corpus_file = os.path.join(root, "corpus.csv")
+    want = a.read_corpus(corpus_file)
+    cache = str(tmp_path / "cache")
+    assert b.read_corpus(corpus_file, cache) == want      # writes the cache
+    assert os.path.exists(os.path.join(cache, "corpus.pkl"))
+    assert b.read_corpus(corpus_file, cache) == want      # reads it
+    assert a.read_corpus(corpus_file, cache) == want      # same pickle
+    train = os.path.join(root, "train.csv")
+    assert b.generate_train_label_corpus(train) \
+        == a.generate_train_label_corpus(train)
+    nn = os.path.join(root, "train_nn.json")
+    assert b.read_neighbors(nn) == a.read_neighbors(nn)
+
+
+def test_loader_and_profiling_helpers_match():
+    import textreact_tpu.data.loader as a
+    import textreact_tpu_torch.data.loader as b
+    for args in ((0, 0, 0), (42, 3, 17), (7, 100, 99999)):
+        assert a.example_rng(*args).random() == b.example_rng(*args).random()
+    import textreact_tpu.utils.profiling as pa
+    import textreact_tpu_torch.utils.profiling as pb
+    ta, tb = pa.StepTimer(warmup=1), pb.StepTimer(warmup=1)
+    assert ta.steps_per_sec == tb.steps_per_sec == 0.0
+    for t in (ta, tb):
+        t.tick(), t.tick()
+    assert ta.steps_per_sec > 0 and tb.steps_per_sec > 0

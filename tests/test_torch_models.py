@@ -303,7 +303,11 @@ def test_port_imports_no_jax_or_pandas():
                  "retrieval.debug_cli", "retrieval.fingerprints",
                  "retrieval.convert", "chem.mol", "chem.canon",
                  "chem.aromatic", "chem.rdkit_bridge", "chem.fingerprints",
-                 "utils.logging", "utils.table"):
+                 "utils.logging", "utils.table", "utils.profiling",
+                 "data.corpus", "data.neighbors", "data.datasets",
+                 "data.loader", "evaluation.condition", "evaluation.retro",
+                 "train.checkpoint", "train.trainer", "cli.main",
+                 "__main__"):
         assert "textreact_tpu_torch." + name in names
     code = ("import sys, importlib\n"
             f"for name in {names!r} + ['chip_smoke', 'chip_profile']:\n"

@@ -4,7 +4,10 @@ One dataclass covering the reference's full CLI flag surface
 (reference main.py:26-97) plus the framework's extras (dtypes, length
 buckets, kernel switches). Every field of the JAX package's dataclass is
 kept, with the same default, so one set of flags describes a run in either
-package; fields that only the JAX runtime reads are marked.
+package; fields that only the JAX runtime reads are marked. The port runs
+one process on one device: `validate` raises for the mesh options
+(`dp_size > 1`, `tp_size > 1`, `zero1`) until the multi-GPU slice
+(ROADMAP.md Queue 1 item 8) ports them.
 """
 
 from __future__ import annotations
@@ -87,8 +90,8 @@ class ExperimentConfig:
     test_num_neighbors: int = 1
 
     # --- framework extras (no reference equivalent) ---
-    dp_size: int = -1                   # JAX runtime only (mesh axis)
-    tp_size: int = 1                    # JAX runtime only (mesh axis)
+    dp_size: int = -1                   # -1 or 1: one device (mesh: item 8)
+    tp_size: int = 1                    # 1: one device (mesh: item 8)
     param_dtype: str = "float32"        # 'float32' (training) | 'compute':
     #                                     store weights pre-cast (serving)
     compute_dtype: str = "bfloat16"
@@ -104,10 +107,13 @@ class ExperimentConfig:
     # beam-decode QK score storage: model dtype (default) or 'float32'
     # for bit-strict score parity (see models/config.py)
     decode_scores_dtype: str = "bfloat16"
-    dropout_rng_impl: str = "unsafe_rbg"   # JAX runtime only
-    zero1: bool = False                 # JAX runtime only
-    profile: bool = False
-    remat: bool = False                 # not ported yet
+    dropout_rng_impl: str = "unsafe_rbg"   # JAX runtime only: the port's
+    #                                     masks come from a torch.Generator
+    zero1: bool = False                 # raises until item 8
+    profile: bool = False               # torch.profiler trace of fit()
+    #                                     under save_path/profile
+    remat: bool = False                 # recompute each encoder block in
+    #                                     the backward (torch.utils.checkpoint)
 
     def validate(self) -> "ExperimentConfig":
         assert self.task in ("condition", "retro"), self.task
@@ -117,6 +123,11 @@ class ExperimentConfig:
         assert self.mlm_impl in ("fused", "xla"), self.mlm_impl
         if self.template_based:
             assert self.template_path is not None
+        if self.dp_size not in (-1, 1) or self.tp_size != 1 or self.zero1:
+            raise NotImplementedError(
+                f"dp_size={self.dp_size}, tp_size={self.tp_size}, "
+                f"zero1={self.zero1}: the port runs on one device until the "
+                f"multi-GPU slice (ROADMAP.md Queue 1 item 8)")
         return self
 
 

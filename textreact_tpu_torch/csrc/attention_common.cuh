@@ -1,7 +1,8 @@
-// Shared by fused_attention.cu (forward) and fused_attention_bwd.cu
-// (backward): dtype conversions and the dispatch over head dim and dropout. The two sources are separate
-// libraries so that their many unrolled kernel variants compile side by
-// side.
+// Shared by the attention kernels (attention_fwd.cuh, attention_bwd.cuh)
+// and their four sources (fused_attention.cu, fused_attention_bwd.cu,
+// causal_attention.cu, causal_attention_bwd.cu): dtype conversions and the
+// dispatch over head dim and dropout. The sources are separate libraries so
+// that their many unrolled kernel variants compile side by side.
 
 #pragma once
 

@@ -15,7 +15,7 @@ from torch import nn
 
 from .config import TransformerConfig
 from .layers import (Embeddings, MLMHead, TransformerBlock, causal_bias,
-                     mask_to_bias)
+                     mask_to_bias, remat_block)
 
 
 @dataclasses.dataclass
@@ -53,11 +53,13 @@ def encoder_key_bias(encoder_attention_mask: Optional[torch.Tensor]
 class Decoder(nn.Module):
     def __init__(self, config: TransformerConfig,
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.remat = remat   # teacher-forced pass only (decoder.py:65-66)
         # owned here so the LM head ties to it (decoder.py:57-63)
         self.word_embedding = nn.Parameter(
             torch.zeros(cfg.vocab_size, cfg.hidden_size, dtype=param_dtype))
@@ -82,9 +84,14 @@ class Decoder(nn.Module):
         cross_bias = encoder_key_bias(encoder_attention_mask)
         x = self.embeddings(input_ids, word_embedding=self.word_embedding,
                             generator=generator)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, self_bias, encoder_states, cross_bias,
-                      generator=generator)
+            if remat:
+                x = remat_block(layer, x, self_bias, encoder_states,
+                                cross_bias, generator=generator)
+            else:
+                x = layer(x, self_bias, encoder_states, cross_bias,
+                          generator=generator)
         return self.lm_head(x, embedding=self.word_embedding)
 
     def init_cache(self, encoder_states: torch.Tensor,

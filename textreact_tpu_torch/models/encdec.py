@@ -21,17 +21,19 @@ class EncoderDecoder(nn.Module):
                  decoder_config: TransformerConfig,
                  dtype: torch.dtype = torch.bfloat16,
                  mlm_layer: Optional[str] = None,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         """`dtype` is the compute dtype; parameters are stored in
         `param_dtype` (float32 to train, the compute dtype to serve with
-        pre-cast weights) and LayerNorm parameters always in float32."""
+        pre-cast weights) and LayerNorm parameters always in float32.
+        `remat` recomputes encoder and decoder blocks in the backward."""
         super().__init__()
         self.encoder_config = encoder_config
         self.decoder_config = decoder_config
         self.dtype = dtype
         self.mlm_layer = mlm_layer
-        self.encoder = Encoder(encoder_config, dtype, param_dtype)
-        self.decoder = Decoder(decoder_config, dtype, param_dtype)
+        self.encoder = Encoder(encoder_config, dtype, param_dtype, remat)
+        self.decoder = Decoder(decoder_config, dtype, param_dtype, remat)
         if mlm_layer:
             self.mlm_head = MLMHead(encoder_config, dtype,
                                     mlp=mlm_layer == "mlp",

@@ -8,15 +8,20 @@ import torch
 from torch import nn
 
 from .config import TransformerConfig
-from .layers import Embeddings, TransformerBlock, mask_to_bias
+from .layers import (Embeddings, TransformerBlock, mask_to_bias,
+                     remat_block)
 
 
 class Encoder(nn.Module):
     def __init__(self, config: TransformerConfig,
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
+        """`remat`: in training, recompute each block's activations in the
+        backward instead of keeping them (encoder.py:45-46)."""
         super().__init__()
         self.config = config
+        self.remat = remat
         self.embeddings = Embeddings(config, dtype, param_dtype=param_dtype)
         self.layers = nn.ModuleList(
             TransformerBlock(config, dtype, param_dtype)
@@ -39,7 +44,12 @@ class Encoder(nn.Module):
                 self_mask = attention_mask  # the fused path takes the raw mask
             else:
                 bias = mask_to_bias(attention_mask)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, self_bias=bias, self_mask=self_mask,
-                      generator=generator)
+            if remat:
+                x = remat_block(layer, x, self_bias=bias, self_mask=self_mask,
+                                generator=generator)
+            else:
+                x = layer(x, self_bias=bias, self_mask=self_mask,
+                          generator=generator)
         return x

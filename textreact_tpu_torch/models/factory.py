@@ -68,7 +68,8 @@ def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
                             decoder_config=dec_config,
                             dtype=DTYPES[cfg.compute_dtype],
                             mlm_layer=cfg.mlm_layer if cfg.mlm else None,
-                            param_dtype=DTYPES[cfg.param_dtype])
+                            param_dtype=DTYPES[cfg.param_dtype],
+                            remat=cfg.remat)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(module, generator)

@@ -32,10 +32,12 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..data.collate import IGNORE_INDEX
-from ..ops.fused_attention import SEQ_MULTIPLE, fused_dropout_attention
+from ..ops.fused_attention import (SEQ_MULTIPLE, causal_attention,
+                                   fused_dropout_attention)
 from ..ops.fused_ce import fused_linear_ce
 from ..ops.fused_layernorm import (fused_residual_layernorm, layer_norm,
                                    residual_layernorm_reference)
@@ -159,14 +161,26 @@ class MultiHeadAttention(nn.Module):
     """Self- or cross-attention with f32 scores and softmax.
 
     `forward` is the full-sequence path; `decode_self` and `decode_cross`
-    are the one-token decode paths over the caches in `DecodeCache`."""
+    are the one-token decode paths over the caches in `DecodeCache`.
+
+    `causal_hint` (layers.py:142, set by `TransformerBlock(causal=True)`)
+    marks a decoder self-attention. Where the kernel's conditions hold
+    (attention_impl 'flash', no bias, lengths that are multiples of 128) it
+    takes the causal kernel, which applies no attention-probability dropout
+    even in training mode, as layers.py:217-220 ignores drop_p on that
+    branch. Elsewhere the plain path adds `causal_bias` exactly where the
+    JAX package does (layers.py:225-230): only when a `mask_kv` is given.
+    With `causal_hint` and neither mask nor bias, the plain path is NOT
+    causal; that quirk of the reference is mirrored as it stands."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32,
+                 causal_hint: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.causal_hint = causal_hint
         H, D = cfg.num_attention_heads, cfg.head_dim
         self.query = Linear(cfg.hidden_size, H * D, dtype, param_dtype)
         self.key = Linear(cfg.hidden_size, H * D, dtype, param_dtype)
@@ -193,17 +207,23 @@ class MultiHeadAttention(nn.Module):
         q = self._heads(self.query(x))
         k = self._heads(self.key(kv_in))
         v = self._heads(self.value(kv_in))
-        # the fused kernel wants 128-aligned lengths and no extra bias
+        # the fused kernels want 128-aligned lengths and no extra bias
         # (layers.py:201-203); the decoder always carries a bias
         if (cfg.attention_impl == "flash" and bias is None
                 and x.shape[1] % SEQ_MULTIPLE == 0
                 and kv_in.shape[1] % SEQ_MULTIPLE == 0):
+            if self.causal_hint:   # no dropout here (layers.py:217-220)
+                return self._out(causal_attention(
+                    q, k, v, mask_kv, sm_scale=1.0 / math.sqrt(D)))
             return self._out(fused_dropout_attention(
                 q, k, v, mask_kv, drop_p, generator,
                 sm_scale=1.0 / math.sqrt(D)))
         if mask_kv is not None:
             extra = mask_to_bias(mask_kv)
             bias = extra if bias is None else bias + extra
+            if self.causal_hint:   # only under a mask_kv (layers.py:229)
+                bias = bias + causal_bias(x.shape[1], kv_in.shape[1],
+                                          device=x.device)
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
         if bias is not None:
             s = s + bias.float()
@@ -303,13 +323,16 @@ class FeedForward(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Post-LN block: self-attn, cross-attn (decoder), ffn, each followed
-    by a residual LayerNorm."""
+    by a residual LayerNorm. `causal` (layers.py:408) makes the
+    self-attention causal through `MultiHeadAttention(causal_hint=True)`."""
 
     def __init__(self, config: TransformerConfig, dtype: torch.dtype,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32,
+                 causal: bool = False):
         super().__init__()
         self.config = config
-        self.attention = MultiHeadAttention(config, dtype, param_dtype)
+        self.attention = MultiHeadAttention(config, dtype, param_dtype,
+                                            causal_hint=causal)
         self.attention_norm = ResidualLayerNorm(config, dtype)
         if config.add_cross_attention:
             self.crossattention = MultiHeadAttention(config, dtype,
@@ -342,6 +365,37 @@ class TransformerBlock(nn.Module):
             x, self.crossattention.decode_cross(x, cross_k, cross_v,
                                                 cross_bias))
         return self.ffn_norm(x, self.ffn(x))
+
+
+def remat_block(layer: TransformerBlock, *args,
+                generator: Optional[torch.Generator] = None,
+                **kwargs) -> torch.Tensor:
+    """`layer(*args, generator=generator, **kwargs)` with its activations
+    recomputed in the backward (`torch.utils.checkpoint`; flax `nn.remat`,
+    encoder.py:45-46).
+
+    `torch.utils.checkpoint` preserves the global generator only, and the
+    port's dropouts and kernel seeds come from an explicit one: the
+    recomputation is therefore run with `generator` put back into the state
+    it had before the first pass (and returned to where it was afterwards),
+    so it draws the same masks. Without that the gradients would be wrong
+    and nothing would say so."""
+    state = None if generator is None else generator.get_state()
+    first_pass = [True]
+
+    def run(*a, **k):
+        if first_pass[0] or generator is None:
+            first_pass[0] = False
+            return layer(*a, generator=generator, **k)
+        now = generator.get_state()
+        generator.set_state(state)
+        try:
+            return layer(*a, generator=generator, **k)
+        finally:
+            generator.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 class MLMHead(nn.Module):

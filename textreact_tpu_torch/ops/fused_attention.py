@@ -1,4 +1,6 @@
-"""Fused non-causal attention (twin of textreact_tpu/ops/fused_attention.py).
+"""Fused attention: non-causal with dropout (twin of
+textreact_tpu/ops/fused_attention.py) and causal without (twin of
+textreact_tpu/models/layers.py::_flash_attention).
 
 softmax(q k^T * sm_scale + mask_bias) v over the (B, L, H, D) layout, where
 a key with mask 0 gets the additive bias -1e9 (not -inf: the collator's
@@ -14,6 +16,11 @@ from a counter-based generator keyed by one 64-bit seed per call
 (csrc/philox.cuh); the seed is drawn from the caller's `torch.Generator`,
 stays on the device, and is saved for the backward, which regenerates the
 mask. `keep_mask` exports that mask for tests.
+
+`causal_attention` is the causal call: query row i sees keys 0 .. i, no
+dropout. Its kernels (csrc/causal_attention.cu, csrc/causal_attention_bwd.cu)
+are the same device functions with the causal flag set, so a block of query
+rows streams only the key tiles at or below its diagonal.
 """
 
 from __future__ import annotations
@@ -30,13 +37,16 @@ SUPPORTED_HEAD_DIM = (32, 64)
 SEQ_MULTIPLE = 128  # the kernels' row tile
 LAUNCHES = 0      # forward kernel launches since the last reset
 BWD_LAUNCHES = 0  # backward launches (one per dQ + dK/dV pair)
+CAUSAL_LAUNCHES = 0      # the same two counts for the causal kernels
+CAUSAL_BWD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
-# one library per source, so that the two compile side by side
-LIBRARIES = ("fused_attention", "fused_attention_bwd")
+# one library per source, so that the four compile side by side
+LIBRARIES = ("fused_attention", "fused_attention_bwd", "causal_attention",
+             "causal_attention_bwd")
 _SIGNATURES = {
     "tr_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _U, _F,
                          _I, _I, _I, _I, _F, _P],
@@ -45,6 +55,16 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "tr_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F,
                          _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+}
+
+
+_CAUSAL_SIGNATURES = {
+    "tr_causal_attention_fwd": [_I, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _F, _P],
+}
+_CAUSAL_BWD_SIGNATURES = {
+    "tr_causal_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -58,19 +78,39 @@ def load_bwd_kernel():
     return _build.load("fused_attention_bwd", _BWD_SIGNATURES)
 
 
+def load_causal_kernel():
+    """Build (at first use) and load the causal forward's library."""
+    return _build.load("causal_attention", _CAUSAL_SIGNATURES)
+
+
+def load_causal_bwd_kernel():
+    """Build (at first use) and load the causal backward's library."""
+    return _build.load("causal_attention_bwd", _CAUSAL_BWD_SIGNATURES)
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_kv: Optional[torch.Tensor], sm_scale: float,
                         keep: Optional[torch.Tensor] = None,
-                        dropout_p: float = 0.0) -> torch.Tensor:
-    """Plain version of the kernel (ops/fused_attention.py:_fwd_kernel).
+                        dropout_p: float = 0.0,
+                        causal: bool = False) -> torch.Tensor:
+    """Plain version of the kernels (ops/fused_attention.py:_fwd_kernel;
+    with `causal`, the flash kernel behind layers.py:_flash_attention).
 
     q, k, v: (B, L, H, D); mask_kv: (B, L) {0, 1} or None; keep: optional
     (B, H, L, L) bool dropout keep mask. Scores and the softmax in f32; the
-    unnormalised weights meet v in v's dtype and 1/l scales the context."""
+    unnormalised weights meet v in v's dtype and 1/l scales the context.
+    `causal`: a key above the diagonal scores -inf, so its weight is exactly
+    0 whatever the key mask says (every row sees key 0, so no row is empty);
+    the key mask stays the additive -1e9."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     if mask_kv is not None:
         bias = torch.where(mask_kv > 0, 0.0, NEG_INF).to(torch.float32)
         s = s + bias[:, None, None, :]
+    if causal:
+        Lq, Lk = s.shape[-2:]
+        above = torch.ones(Lq, Lk, dtype=torch.bool,
+                           device=s.device).triu(diagonal=1)
+        s = s.masked_fill(above, float("-inf"))
     e = torch.exp(s - s.amax(-1, keepdim=True))
     l = e.sum(-1, keepdim=True)
     inv = 1.0
@@ -112,7 +152,30 @@ def fused_dropout_attention(q: torch.Tensor, k: torch.Tensor,
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     return _FusedAttention.apply(q, k, v, mask, seed, float(dropout_p),
-                                 float(sm_scale), needs_grad)
+                                 float(sm_scale), needs_grad, False)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask_kv: Optional[torch.Tensor],
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention over (B, L, H, D) inputs with a (B, L) key mask;
+    returns (B, L, H, D) in q's dtype. Twin of
+    textreact_tpu/models/layers.py::_flash_attention with causal=True: the
+    key mask is what that function turns into segment ids, there is no
+    dropout (the JAX package applies none on this branch, even in training),
+    and the (B, L, H, D) layout is kept, so its four transposes are gone.
+
+    Differentiable in q, k, v. On a CUDA tensor it launches the causal
+    kernels or raises; on a CPU tensor it runs `attention_reference`."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return attention_reference(q, k, v, mask_kv, sm_scale, causal=True)
+    mask = _check(q, k, v, mask_kv)
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    return _FusedAttention.apply(q, k, v, mask, None, 0.0, float(sm_scale),
+                                 needs_grad, True)
 
 
 def keep_mask(seed: torch.Tensor, B: int, H: int, L: int,
@@ -157,30 +220,40 @@ def _check(q, k, v, mask_kv) -> Optional[torch.Tensor]:
 
 class _FusedAttention(torch.autograd.Function):
     """Forward saves q, k, v, out, the row statistics (max, normaliser),
-    the mask and the seed; backward launches the dQ and dK/dV passes."""
+    the mask and the seed; backward launches the dQ and dK/dV passes.
+    `causal` picks the causal libraries (no seed) and their counters."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, dropout_p, sm_scale, needs_grad):
-        global LAUNCHES
+    def forward(ctx, q, k, v, mask, seed, dropout_p, sm_scale, needs_grad,
+                causal):
+        global LAUNCHES, CAUSAL_LAUNCHES
         B, L, H, D = q.shape
         out = torch.empty_like(q)
         stats = (torch.empty((B, H, L, 2), dtype=torch.float32,
                              device=q.device) if needs_grad else None)
-        lib = load_kernel()
-        err = lib.tr_attention_fwd(
-            _build.DTYPE_CODE[q.dtype], _build.ptr(q), _build.ptr(k),
-            _build.ptr(v), _build.ptr(mask), _build.ptr(out),
-            _build.ptr(stats), *_build.dropout_args(seed, dropout_p), B, L, H, D,
-            sm_scale, _build.stream())
-        _build.check(lib, err, "fused_dropout_attention")
-        LAUNCHES += 1
+        tensors = (_build.DTYPE_CODE[q.dtype], _build.ptr(q), _build.ptr(k),
+                   _build.ptr(v), _build.ptr(mask), _build.ptr(out),
+                   _build.ptr(stats))
+        if causal:
+            lib = load_causal_kernel()
+            err = lib.tr_causal_attention_fwd(*tensors, B, L, H, D, sm_scale,
+                                              _build.stream())
+            _build.check(lib, err, "causal_attention")
+            CAUSAL_LAUNCHES += 1
+        else:
+            lib = load_kernel()
+            err = lib.tr_attention_fwd(
+                *tensors, *_build.dropout_args(seed, dropout_p), B, L, H, D,
+                sm_scale, _build.stream())
+            _build.check(lib, err, "fused_dropout_attention")
+            LAUNCHES += 1
         ctx.save_for_backward(q, k, v, out, stats, mask, seed)
-        ctx.dropout_p, ctx.sm_scale = dropout_p, sm_scale
+        ctx.dropout_p, ctx.sm_scale, ctx.causal = dropout_p, sm_scale, causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        global BWD_LAUNCHES
+        global BWD_LAUNCHES, CAUSAL_BWD_LAUNCHES
         q, k, v, out, stats, mask, seed = ctx.saved_tensors
         B, L, H, D = q.shape
         dout = dout.contiguous()
@@ -188,14 +261,21 @@ class _FusedAttention(torch.autograd.Function):
             dout = dout.clone()
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-        lib = load_bwd_kernel()
-        err = lib.tr_attention_bwd(
-            _build.DTYPE_CODE[q.dtype], _build.ptr(q), _build.ptr(k),
-            _build.ptr(v), _build.ptr(out), _build.ptr(dout),
-            _build.ptr(mask), _build.ptr(stats),
-            *_build.dropout_args(seed, ctx.dropout_p), _build.ptr(dq),
-            _build.ptr(dk), _build.ptr(dv), _build.ptr(delta), B, L, H, D,
-            ctx.sm_scale, _build.stream())
-        _build.check(lib, err, "fused_dropout_attention backward")
-        BWD_LAUNCHES += 1
-        return dq, dk, dv, None, None, None, None, None
+        inputs = (_build.DTYPE_CODE[q.dtype], _build.ptr(q), _build.ptr(k),
+                  _build.ptr(v), _build.ptr(out), _build.ptr(dout),
+                  _build.ptr(mask), _build.ptr(stats))
+        outputs = (_build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
+                   _build.ptr(delta), B, L, H, D, ctx.sm_scale,
+                   _build.stream())
+        if ctx.causal:
+            lib = load_causal_bwd_kernel()
+            err = lib.tr_causal_attention_bwd(*inputs, *outputs)
+            _build.check(lib, err, "causal_attention backward")
+            CAUSAL_BWD_LAUNCHES += 1
+        else:
+            lib = load_bwd_kernel()
+            err = lib.tr_attention_bwd(
+                *inputs, *_build.dropout_args(seed, ctx.dropout_p), *outputs)
+            _build.check(lib, err, "fused_dropout_attention backward")
+            BWD_LAUNCHES += 1
+        return dq, dk, dv, None, None, None, None, None, None

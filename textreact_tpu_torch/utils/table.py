@@ -6,7 +6,16 @@ repeats the part of pandas' type inference that shows in its outputs: a
 column whose every cell is an integer literal becomes ints, one whose every
 cell is a decimal literal becomes floats, anything else (an empty cell
 included) stays strings. So an all-digit `id` column is written to JSON as
-numbers and `year` compares as a number, as they do there.
+numbers and `year` compares as a number, as they do there. A blank line
+is skipped and a cell that a short line leaves out is the empty string, as
+pandas reads them under `keep_default_na=False`.
+
+The datasets and metrics read a table where the JAX package reads a
+DataFrame: a column by name (`table["id"]`), the row count (`len`), one row
+as a dict (`table.row(i)`, for `df.iloc[i]` and `df.loc[i, cols]`), the
+first n rows (`table.head(n)`, for `df.iloc[:n].reset_index(drop=True)`). A
+table built from columns in memory carries its cells as they are, a NaN
+included: a gold label read from one equals no prediction, as there.
 """
 
 from __future__ import annotations
@@ -42,6 +51,10 @@ class Table:
     def row(self, i: int) -> dict:
         return {name: col[i] for name, col in self.columns.items()}
 
+    def head(self, n: int) -> "Table":
+        """The first n rows."""
+        return Table({name: col[:n] for name, col in self.columns.items()})
+
     def take(self, keep: Sequence[bool]) -> "Table":
         """The rows whose flag is true, in order."""
         return Table({name: [v for v, k in zip(col, keep) if k]
@@ -51,6 +64,6 @@ class Table:
 def read_csv(path: str) -> Table:
     with open(path, newline="") as f:
         rows = list(csv.reader(f))
-    header, body = rows[0], rows[1:]
+    header, body = rows[0], [r for r in rows[1:] if r]
     return Table({name: _infer([r[j] if j < len(r) else "" for r in body])
                   for j, name in enumerate(header)})
