@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where one optimizer step of the PyTorch port's RCR training path, or one
-search of its retrieval path, spends its time on one CUDA GPU.
+"""Where one optimizer step of the PyTorch port's RCR training path, one
+batch of its serving path, or one search of its retrieval path, spends its
+time on one CUDA GPU.
 
-    python3 chip_profile.py [--path train|retrieval] [--out DIR]
+    python3 chip_profile.py [--path train|serving|retrieval] [--out DIR]
 
 `--path train` (the default) builds the same model, batch and step as chip_smoke.py's training phase
 (SciBERT-base + bert_l6 at full width and depth, f32 parameters, bf16
@@ -17,6 +18,9 @@ steps, then records one step with torch.profiler and prints:
 - device time of the operators that only the plain decoder attention calls
   (batched products and softmax), read from the operator table;
 - the twenty kernels with the most device time.
+`--path serving` builds chip_smoke.py's serving model and batch (bf16
+weights, 32 requests of L=512, beam 15, 16 decode positions), and records
+one Generator.generate and one encoder pass the same way.
 `--path retrieval` makes chip_smoke.py's two retrieval shapes and records
 one FlatIndex.search of 8192 queries per shape and kernel layout: host
 clock from numpy in to numpy out, and device time of the scan kernel, the
@@ -39,6 +43,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
+from textreact_tpu_torch.inference import Generator
 from textreact_tpu_torch.models import build_model
 from textreact_tpu_torch.retrieval import FlatIndex
 from textreact_tpu_torch.tokenizers import get_tokenizers
@@ -134,7 +139,7 @@ def profile_retrieval(card: str, say) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--path", choices=("train", "retrieval"),
+    parser.add_argument("--path", choices=("train", "serving", "retrieval"),
                         default="train")
     parser.add_argument("--out", default="profile_out")
     args = parser.parse_args()
@@ -148,6 +153,8 @@ def main() -> int:
 
     if args.path == "retrieval":
         profile_retrieval(card, say)
+    elif args.path == "serving":
+        profile_serving(card, say)
     else:
         profile_train(card, say)
     out = Path(args.out)
@@ -170,24 +177,33 @@ def profile_train(card: str, say) -> None:
     state = TrainState.create(module, optimizer)
     step = make_accum_train_step(module, cfg, optimizer, dec_tok.pad_token_id)
     weights = np.ones(cs.MICRO_BATCHES, np.float32)
+    box = {"state": state}
+
+    def one_step():
+        box["state"], box["metrics"] = step(box["state"], micro, weights,
+                                            cfg.seed)
+
     for _ in range(2):
-        state, _ = step(state, micro, weights, cfg.seed)
-    torch.cuda.synchronize()
-    plain_ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        state, _ = step(state, micro, weights, cfg.seed)
-        torch.cuda.synchronize()
-        plain_ms.append((time.perf_counter() - t0) * 1e3)
-    plain_ms = sorted(plain_ms)[1]
+        one_step()
+    plain_ms, wall_ms, prof = profile_call(one_step)
+    metrics = box["metrics"]
+    where = (f"{cs.MICRO_BATCHES} x {cs.B} examples at L={cs.L}, bf16 "
+             f"compute, f32 parameters, dropout {cs.DROPOUT_P}, on {card}")
+    report(prof, f"one optimizer step (loss "
+           f"{float(metrics['train_loss']):.4f})", plain_ms, wall_ms, where,
+           say)
+    ops = {e.key: e for e in prof.key_averages()}
+    dec_us = sum(ops[name].self_device_time_total
+                 for name in DECODER_ATTENTION_OPS if name in ops)
+    say(f"[profile] of which plain decoder attention (operators "
+        f"{', '.join(DECODER_ATTENTION_OPS)}, which nothing else on this "
+        f"path calls): {dec_us / 1e3:.2f} ms")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=False) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step(state, micro, weights, cfg.seed)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
 
+def report(prof, what: str, plain_ms: float, wall_ms: float, where: str,
+           say, top: int = 20) -> None:
+    """The tables of one profiled call: host clock, the card's busy share,
+    device time by kind of kernel and by kernel."""
     by_kind, by_kernel, intervals = defaultdict(float), defaultdict(float), []
     calls = defaultdict(int)
     for name, start, end in device_events(prof):
@@ -199,29 +215,67 @@ def profile_train(card: str, say) -> None:
     if not device_us > 0.0:
         raise SystemExit("chip_profile: the profiler recorded no device time")
     busy = busy_us(intervals)
-    where = (f"{cs.MICRO_BATCHES} x {cs.B} examples at L={cs.L}, bf16 "
-             f"compute, f32 parameters, dropout {cs.DROPOUT_P}, on {card}")
-    say(f"[profile] one optimizer step: {plain_ms:.1f} ms host clock without "
-        f"the profiler (median of 3), {wall_ms:.1f} ms under it (it slows "
-        f"the host), loss {float(metrics['train_loss']):.4f}; {where}")
+    say(f"[profile] {what}: {plain_ms:.1f} ms host clock without the "
+        f"profiler (median of 3), {wall_ms:.1f} ms under it (it slows the "
+        f"host); {where}")
     say(f"[profile] device time {device_us / 1e3:.1f} ms in "
         f"{len(intervals)} kernels and copies; the card ran something for "
-        f"{busy / 1e3:.1f} ms: {busy / (plain_ms * 1e3):.1%} of the step "
+        f"{busy / 1e3:.1f} ms: {busy / (plain_ms * 1e3):.1%} of the call "
         f"without the profiler (idle {1 - busy / (plain_ms * 1e3):.1%}), "
-        f"{busy / (wall_ms * 1e3):.1%} of the profiled step")
+        f"{busy / (wall_ms * 1e3):.1%} of the profiled call")
     say("[profile] device time by kind:")
     for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         say(f"  {us / 1e3:9.2f} ms {us / device_us:6.1%}  {kind}")
-    ops = {e.key: e for e in prof.key_averages()}
-    dec_us = sum(ops[name].self_device_time_total
-                 for name in DECODER_ATTENTION_OPS if name in ops)
-    say(f"[profile] of which plain decoder attention (operators "
-        f"{', '.join(DECODER_ATTENTION_OPS)}, which nothing else on this "
-        f"path calls): {dec_us / 1e3:.2f} ms {dec_us / device_us:.1%}")
     say("[profile] kernels with the most device time:")
-    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]:
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
         say(f"  {us / 1e3:9.2f} ms {us / device_us:6.1%} {calls[name]:6d} "
             f"calls  {name[:110]}")
+
+
+def profile_call(fn):
+    """(median host ms of 3 calls, host ms under the profiler, profile)."""
+    plain_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=False) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return sorted(plain_ms)[1], wall_ms, prof
+
+
+def profile_serving(card: str, say) -> None:
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = Path(tmp) / "vocab.txt"
+        cs.write_text_vocab(vocab)
+        cfg = cs.base_config(vocab, param_dtype="bfloat16")
+        enc_tok, dec_tok = get_tokenizers(cfg)
+        module, _, _ = build_model(cfg, enc_tok, dec_tok,
+                                   torch.Generator().manual_seed(0))
+        batch = cs.make_requests(enc_tok, cs.B, cs.L)
+    gen = Generator(module, num_beams=cs.BEAMS, max_length=cs.DEC_LEN)
+    ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device="cuda")
+    mask = torch.as_tensor(batch["attention_mask"], device="cuda")
+    where = (f"B={cs.B} L={cs.L} beam {cs.BEAMS} dec {cs.DEC_LEN}, bf16 "
+             f"weights, on {card}")
+
+    def encode():
+        with torch.inference_mode():
+            module.encode(ids, mask)
+
+    for _ in range(2):
+        gen.generate(batch)
+    plain_ms, wall_ms, prof = profile_call(lambda: gen.generate(batch))
+    report(prof, f"one serving batch ({gen.last_steps} decode steps)",
+           plain_ms, wall_ms, where, say, top=12)
+    plain_ms, wall_ms, prof = profile_call(encode)
+    report(prof, "the encoder alone", plain_ms, wall_ms, where, say, top=8)
 
 
 if __name__ == "__main__":

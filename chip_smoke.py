@@ -13,7 +13,10 @@ Phases, each fatal on failure:
    version on the card, at the shapes the paths give it, in float32 and
    bfloat16, without dropout and at p = 0.1 with the kernel's own keep mask
    exported and fed to the plain version, each with a stated tolerance; the
-   mask's statistics; all timed (CUDA events, median of 20 calls queued
+   bfloat16 attention kernels (at both head dims, two lengths, a mask that
+   is no prefix, causal and not) also against the plain statement of their
+   own rounding points at a tenth of that tolerance, and their dropout bits
+   against the exported mask to the bit; the mask's statistics; all timed (CUDA events, median of 20 calls queued
    while the card is held busy, so device time) beside the least time the
    card could take and, for attention, beside
    F.scaled_dot_product_attention (timed only, used nowhere in the port);
@@ -114,19 +117,47 @@ BF16_ULP = 2.0 ** -7  # relative spacing of bf16 just above a power of two
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
+# 32-bit integer operations outside the tensor cores: an SM has half as many
+# integer lanes as f32 lanes, and an f32 FMA counts as two operations
+PEAK_INT32_OPS = PEAK_FLOPS[torch.float32] / 4
+# integer operations one Philox4x32-10 draw needs (csrc/philox.cuh), counted
+# as the fewest the function can be done with: in each of ten rounds two
+# 32 x 32 -> 64 bit products (one instruction each, taken at the full integer
+# rate above: no lower rate is published for the wide form, and a bound may
+# not assume one) and two three-way xors. The round keys depend on the
+# call's seed alone, so their additions are made once a call, not once a
+# draw, and are not counted. A draw serves four elements
+PHILOX_OPS_PER_DRAW = 10 * (2 + 2)
 
-# kernel vs plain, per dtype: (atol, rtol). f32: both sides compute in f32
-# and differ by summation order only. bf16: same f32 math, but each side
-# rounds its f32 result to bf16 (and the plain attention rounds the
-# probabilities to bf16 before meeting v, as the TPU kernel does), so a
-# result may land one bf16 ulp away
+# kernel vs plain, per dtype: (atol, rtol). f32 (the exact kernels): both
+# sides compute in f32 and differ by summation order only. bf16 (the
+# tensor-core kernels): products of bf16 operands summed in f32 on both
+# sides, the weights rounded to bf16 before they meet v on both sides (as in
+# the TPU kernel), and each side rounds its f32 result to bf16, so a result
+# may land one bf16 ulp away
 ATTN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 0.0)}
 LN_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (1.6e-2, BF16_ULP)}
 # gradients, kernel vs autograd through the plain version. f32: sums of up
 # to 512 (attention) or 768 (LN) terms in another order. bf16: each side
 # rounds its f32 gradient to bf16, half an ulp each, and the plain attention
-# rounds its weights to bf16 before they meet v
+# rounds its weights to bf16 before they meet v. The tensor-core backward
+# also rounds dS and the dropped probabilities to bf16 before their products
+# (as the TPU kernel does) where autograd keeps them in f32: a relative 2^-9
+# on each of up to 512 terms of mixed sign, which stays inside this bound
 GRAD_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (3e-2, 2.0 ** -6)}
+# the bf16 tensor-core kernels against `attention_rounding_reference`, the
+# plain statement of their own rounding points, (atol, rtol) for the output
+# and for the gradients: the two differ by the order of the f32 sums, by the
+# running maximum under which the kernel rounds a weight, and by the final
+# rounding to bf16 (one ulp of the value: the relative term). That bound is
+# a tenth of GRAD_TOL's, small against a typical gradient element (0.07 at
+# L = 512), so a wrong scale or a misplaced fragment cannot pass. It holds
+# for all but ROUNDING_OUTLIERS of the elements: where the two sides' f32
+# values of one large dS (a short row's dominant key) straddle a bf16
+# rounding boundary, that term moves by its ulp times |q| or |k|, up to
+# 5.4e-3 in the runs read; such an element stays within ROUNDING_OUTLIER_ATOL
+ROUNDING_TOL, ROUNDING_GRAD_TOL = (2e-3, BF16_ULP), (4e-3, BF16_ULP)
+ROUNDING_OUTLIERS, ROUNDING_OUTLIER_ATOL = 1e-6, 1e-2
 # row statistics (attention max and normaliser, LN mean and rstd), f32 in
 # every case: summation order only
 STATS_TOL = (1e-4, 1e-5)
@@ -387,6 +418,33 @@ def sdpa(q, k, v, key_mask, p):
         attn_mask=key_mask, dropout_p=p).transpose(1, 2)
 
 
+def check_rounding(tag, q, k, v, do, mask, scale, keep, p, causal, out,
+                   leaves) -> None:
+    """The bf16 tensor-core kernels' out, dq, dk and dv against the plain
+    statement of their own rounding points: within the tight bound in all
+    but a millionth of the elements, and those within the outlier bound."""
+    want = fused_attention.attention_rounding_reference(
+        q, k, v, do, mask, scale, keep, p, causal=causal)
+    got = (out, *(leaf.grad for leaf in leaves))
+    tols = (ROUNDING_TOL, *[ROUNDING_GRAD_TOL] * 3)
+    for name, a, ref, (atol, rtol) in zip(("out", "dq", "dk", "dv"), got,
+                                          want, tols):
+        ref = ref.float()
+        diff = (a.detach().float() - ref).abs()
+        over = diff - rtol * ref.abs()
+        outliers = int((over > atol).sum())
+        allowed = int(ROUNDING_OUTLIERS * diff.numel())
+        log(f"  {tag} {name} against the rounding statement: max_abs_err "
+            f"{float(diff.max()):.3e}; {outliers} of {diff.numel()} "
+            f"elements beyond atol {atol:g} + rtol {rtol:g} * |ref| "
+            f"({allowed} allowed, none beyond atol "
+            f"{ROUNDING_OUTLIER_ATOL:g})")
+        if not (torch.isfinite(a).all() and outliers <= allowed
+                and float(over.max()) <= ROUNDING_OUTLIER_ATOL):
+            raise AssertionError(f"{tag} {name}: kernel disagrees with the "
+                                 f"statement of its rounding points")
+
+
 def kernels_attention(results: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -440,6 +498,10 @@ def kernels_attention(results: dict) -> None:
                                 *GRAD_TOL[dtype])
                 if dtype == torch.bfloat16:
                     errs["bwd"] = max(errs["bwd"], e)
+            del ref, ref_leaves
+            if dtype == torch.bfloat16:
+                check_rounding(tag, q, k, v, do, mask, scale, keep, p, False,
+                               out, leaves)
             if dtype == torch.float32 and p == 0.0:
                 # row log-sum-exp from the saved (max, normaliser), valid
                 # rows only: in the all-masked row m is -1e9, where m + log l
@@ -449,10 +511,129 @@ def kernels_attention(results: dict) -> None:
                 lse = stats[..., 0] + torch.log(stats[..., 1])
                 check_close("attention f32 lse (rows 0..B-2)", lse[:-1],
                             torch.logsumexp(s, -1)[:-1], *STATS_TOL)
-            del ref, ref_leaves
         if dtype == torch.bfloat16:
             time_attention(results, q, k, v, do, mask, gen, scale, lengths,
                            errs)
+
+
+def ragged_holes_mask(batch: int, n: int, rng) -> np.ndarray:
+    """A key mask that is no prefix: holes anywhere, the first key tile
+    (64) masked whole, a middle tile masked whole in row 0 where there is
+    one, row 1 fully valid, the last row with no valid key."""
+    mask = rng.random((batch, n)) < 0.6
+    mask[:, :64] = False
+    if n >= 256:
+        mask[0, 128:192] = False
+    mask[1] = True
+    mask[-1] = False
+    return mask
+
+
+def kernels_attention_shapes() -> None:
+    """The bf16 tensor-core kernels at both head dims and two lengths under
+    a mask that is no prefix, non-causal (p = 0 and 0.1) and causal, against
+    the plain version with the kernel's own keep mask."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+    batch, dtype = 4, torch.bfloat16
+    for dim in fused_attention.SUPPORTED_HEAD_DIM:
+        for n in (128, L):
+            mask = torch.as_tensor(ragged_holes_mask(batch, n, rng),
+                                   dtype=torch.int32, device=dev)
+            q, k, v, do = (torch.randn(batch, n, HEADS, dim, generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            scale = dim ** -0.5
+            log(f"[kernels] attention bf16 B={batch} L={n} H={HEADS} "
+                f"D={dim}, mask with holes and whole tiles masked")
+            for causal, p in ((False, 0.0), (False, DROPOUT_P), (True, 0.0)):
+                tag = (f"{'causal ' if causal else ''}attention D={dim} "
+                       f"L={n} holes p={p}")
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                state = gen.get_state()
+                if causal:
+                    out = fused_attention.causal_attention(*leaves, mask,
+                                                           scale)
+                else:
+                    out = fused_attention.fused_dropout_attention(
+                        *leaves, mask, p, gen, scale)
+                out.backward(do)
+                keep = None
+                if p > 0.0:
+                    keep = fused_attention.keep_mask(drawn_seed(gen, state),
+                                                     batch, HEADS, n, p)
+                ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                ref = fused_attention.attention_reference(
+                    *ref_leaves, mask, scale, keep, p, causal=causal)
+                ref.backward(do)
+                torch.cuda.synchronize()
+                check_close(f"{tag} out", out, ref, *ATTN_TOL[dtype])
+                for name, a, b in zip("qkv", leaves, ref_leaves):
+                    check_close(f"{tag} d{name}", a.grad, b.grad,
+                                *GRAD_TOL[dtype])
+                check_rounding(tag, q, k, v, do, mask, scale, keep, p, causal,
+                               out, leaves)
+
+
+def attention_probe_inputs(dev, batch: int, heads: int, n: int, dim: int):
+    """(q, k, v) in bf16 that give the dropout bits away: q = 0 makes every
+    weight 1 / n, and k and v hold w(i) and 64 w(i) at column i % dim of
+    row i and 0 elsewhere, w = 1 below row dim and 2 from there. With v as
+    v (the forward), v as dO (dV) or dO of ones (dQ, through k), an output
+    element at n = 2 dim is a sum over two mask bits with weights 1 and 2."""
+    rows = torch.arange(n, device=dev)
+    probe = torch.zeros(n, dim, device=dev)
+    probe[rows, rows % dim] = torch.where(rows < dim, 1.0, 2.0)
+    probe = probe[None, :, None, :].expand(batch, n, heads, dim)
+    q = torch.zeros(batch, n, heads, dim, dtype=torch.bfloat16, device=dev)
+    return (q, probe.to(torch.bfloat16).contiguous(),
+            (64 * probe).to(torch.bfloat16).contiguous())
+
+
+def check_dropout_bits() -> None:
+    """The forward, the dQ pass and the dK/dV pass (which reads the bits
+    the dQ pass drew) work with the bits that `keep_mask` exports, shown on
+    `attention_probe_inputs` at L = 128 and p = 0.5: out and dv then hold
+    small integers and equal the plain statement of the kernels' arithmetic
+    to the bit; dq (dO of ones) is held to one bf16 ulp. One flipped bit in
+    the exported mask must break each of the three."""
+    dev = torch.device("cuda")
+    batch, heads, n, dim, p = 2, 2, 128, 64, 0.5
+    q, k, v = attention_probe_inputs(dev, batch, heads, n, dim)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    results = {}
+    for name, do in (("dv", v), ("dq", torch.ones_like(v))):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        state = gen.get_state()
+        out = fused_attention.fused_dropout_attention(*leaves, None, p, gen,
+                                                      1.0)
+        out.backward(do)
+        keep = fused_attention.keep_mask(drawn_seed(gen, state), batch,
+                                         heads, n, p)
+        flipped = keep.clone()
+        flipped[1, 1, 70, 5] = ~flipped[1, 1, 70, 5]
+        want = fused_attention.attention_rounding_reference(
+            q, k, v, do, None, 1.0, keep, p)
+        wrong = fused_attention.attention_rounding_reference(
+            q, k, v, do, None, 1.0, flipped, p)
+        got = dict(out=out, dq=leaves[0].grad, dv=leaves[2].grad)
+        torch.cuda.synchronize()
+        for key, i in (("out", 0), (name, 1 if name == "dq" else 3)):
+            if key == "dq":
+                def same(ref):
+                    diff = (got["dq"].float() - ref.float()).abs()
+                    return bool((diff <= 1e-3 + BF16_ULP
+                                 * ref.float().abs()).all())
+            else:
+                def same(ref, key=key):
+                    return torch.equal(got[key], ref)
+            results[key] = (same(want[i]), same(wrong[i]))
+    log(f"[kernels] attention dropout bits at L={n} p={p}, (agrees with the "
+        f"exported mask, agrees with one bit flipped): {results}")
+    if any(r != (True, False) for r in results.values()):
+        raise AssertionError("a kernel works with other bits than "
+                             "keep_mask exports")
 
 
 def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
@@ -497,23 +678,37 @@ def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
     lib_out = sdpa(*leaves, key_mask, p)
     lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, do,
                                                   retain_graph=True))
+    # with dropout, one draw per four elements over the valid keys, once in
+    # the forward and once in the backward (its dQ pass draws, its dK/dV
+    # pass reads those bits)
+    draw_ops = PHILOX_OPS_PER_DRAW * HEADS * L * keys / 4
+    draw_ms = draw_ops / PEAK_INT32_OPS * 1e3
+    fb0, fby0 = bound(fwd_bytes, fwd_flops, dtype)
     fb, fby = bound(fwd_bytes + stats_bytes, fwd_flops, dtype)
     bb, bby = bound(bwd_bytes, bwd_flops, dtype)
+    if draw_ms > fb:
+        fb, fby = draw_ms, "operations"
+    if draw_ms > bb:
+        bb, bby = draw_ms, "operations"
     log(f"  attention bf16 forward p={p} (writes row statistics): kernel "
         f"{fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, SDPA {lib_fwd:.4f} ms, "
         f"bound {fb:.4f} ms ({fby}: {fwd_flops / 1e9:.2f} GFLOP over valid "
-        f"keys, {(fwd_bytes + stats_bytes) / 1e6:.1f} MB)")
+        f"keys, {(fwd_bytes + stats_bytes) / 1e6:.1f} MB, "
+        f"{draw_ops / 1e9:.2f} G integer operations of the generator = "
+        f"{draw_ms:.4f} ms)")
     log(f"  attention bf16 forward p=0 (serving): kernel {ms_p0:.4f} ms, "
-        f"plain {plain_p0:.4f} ms, SDPA {lib_p0:.4f} ms")
+        f"plain {plain_p0:.4f} ms, SDPA {lib_p0:.4f} ms, bound {fb0:.4f} ms "
+        f"({fby0})")
     log(f"  attention bf16 backward p={p}: kernel {bwd_ms:.4f} ms, plain "
         f"autograd backward {plain_bwd:.4f} ms (forward + backward "
         f"{plain_fwd + plain_bwd:.4f} ms), SDPA backward {lib_bwd:.4f} ms, "
         f"bound {bb:.4f} ms ({bby}: {bwd_flops / 1e9:.2f} GFLOP, "
-        f"{bwd_bytes / 1e6:.1f} MB)")
+        f"{bwd_bytes / 1e6:.1f} MB, the generator once = "
+        f"{draw_ms:.4f} ms)")
     results["fused_attention_fwd"] = dict(
         max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd, bound_ms=fb,
         bound_by=fby, library_ms=lib_fwd, ms_p0=ms_p0, plain_ms_p0=plain_p0,
-        library_ms_p0=lib_p0)
+        library_ms_p0=lib_p0, bound_ms_p0=fb0, bound_by_p0=fby0)
     results["fused_attention_bwd"] = dict(
         max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd, bound_ms=bb,
         bound_by=bby, library_ms=lib_bwd,
@@ -575,6 +770,10 @@ def kernels_causal_attention(results: dict) -> None:
                 if dtype == torch.bfloat16:
                     results["causal_attention_bwd"]["max_abs_err"] = max(
                         results["causal_attention_bwd"]["max_abs_err"], e)
+            del ref, ref_leaves
+            if dtype == torch.bfloat16:
+                check_rounding(tag, q, k, v, do, mask, scale, None, 0.0, True,
+                               out, leaves)
             if dtype == torch.float32:
                 s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
                 s = s + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
@@ -583,7 +782,6 @@ def kernels_causal_attention(results: dict) -> None:
                 lse = stats[..., 0] + torch.log(stats[..., 1])
                 check_close(f"{tag} lse (rows 0..B-2)", lse[:-1],
                             torch.logsumexp(s, -1)[:-1], *STATS_TOL)
-            del ref, ref_leaves
         time_causal_attention(results, n, q, k, v, do, mask, scale, lengths)
 
 
@@ -750,7 +948,9 @@ def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs):
 
 def phase_kernels(results: dict) -> None:
     check_masks()
+    check_dropout_bits()
     kernels_attention(results)
+    kernels_attention_shapes()
     kernels_causal_attention(results)
     kernels_layernorm(results)
     kernels_topk_small()

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (attention_probe_inputs, drawn_seed,
+                        ragged_holes_mask)
 from textreact_tpu_torch.inference import Generator
 from textreact_tpu_torch.models import EncoderDecoder, TransformerConfig
 from textreact_tpu_torch.models.factory import init_weights
@@ -444,3 +446,216 @@ def test_causal_attention_kernel_raises_on_what_it_does_not_take(dev):
     with pytest.raises(TypeError):
         x = torch.randn(2, 128, 2, 64, device=dev).half()
         fused_attention.causal_attention(x, x, x, None)
+
+
+# ---- the bf16 tensor-core attention kernels (csrc/attention_mma.cuh) -------
+# bfloat16 reaches the `mma.sync` kernels and float32 the exact ones, by the
+# element type alone; the cases above already run both. These add what the
+# tensor-core design can get wrong: both head dims at every tile count,
+# masks that are no prefix (whole tiles masked, a row with no valid key
+# beside rows with some), the three kernels' dropout bits, and tile skipping.
+
+
+def _holes_mask(B, L, dev, seed=0):
+    """The smoke run's mask that is no prefix, on the card."""
+    mask = ragged_holes_mask(B, L, np.random.default_rng(seed))
+    return torch.as_tensor(mask, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("L", [128, 256, 512, 1024])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_tensor_core_attention_under_a_mask_with_holes(dev, D, L, p):
+    B, H, dtype = 4, 3, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(L + D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    mask = _holes_mask(B, L, dev, seed=L)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    state = g.get_state()
+    got = fused_attention.fused_dropout_attention(*leaves, mask, p, g)
+    got.backward(do)
+    keep = None
+    if p > 0.0:
+        keep = fused_attention.keep_mask(drawn_seed(g, state), B, H, L,
+                                         p)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = fused_attention.attention_reference(*ref_leaves, mask, D ** -0.5,
+                                              keep, p)
+    ref.backward(do)
+    assert torch.isfinite(got).all()
+    _close(got, ref, *ATTN_TOL[dtype])
+    if p == 0.0:  # the row with no valid key averages v
+        _close(got[-1], v[-1].float().mean(0, keepdim=True).expand(L, H, D),
+               *ATTN_TOL[dtype])
+    for a, b in zip(leaves, ref_leaves):
+        assert torch.isfinite(a.grad).all()
+        _close(a.grad, b.grad, *GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("L", [128, 256, 512, 1024])
+def test_tensor_core_causal_attention_under_a_mask_with_holes(dev, D, L):
+    """Key 0 is masked in every row here, so rows below the first valid key
+    see masked keys only and are uniform over what they see."""
+    B, H, dtype = 4, 3, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(L + D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    for mask in (_holes_mask(B, L, dev, seed=L), _mask(B, L, dev, seed=L)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = fused_attention.causal_attention(*leaves, mask)
+        got.backward(do)
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = fused_attention.attention_reference(*ref_leaves, mask,
+                                                  D ** -0.5, causal=True)
+        ref.backward(do)
+        assert torch.isfinite(got).all()
+        _close(got, ref, *ATTN_TOL[dtype])
+        for a, b in zip(leaves, ref_leaves):
+            assert torch.isfinite(a.grad).all()
+            _close(a.grad, b.grad, *GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tensor_core_attention_matches_its_rounding_statement(dev, D, causal):
+    """Against the plain statement of the kernels' own rounding points (dS
+    and the dropped probabilities rounded to bf16), the gradients agree to
+    one bf16 ulp of the value plus the rounding of single terms."""
+    B, L, H, dtype, p = 2, 256, 2, torch.bfloat16, 0.0 if causal else 0.1
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    mask = _mask(B, L, dev, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    state = g.get_state()
+    if causal:
+        got = fused_attention.causal_attention(*leaves, mask)
+    else:
+        got = fused_attention.fused_dropout_attention(*leaves, mask, p, g)
+    got.backward(do)
+    keep = None
+    if p > 0.0:
+        keep = fused_attention.keep_mask(drawn_seed(g, state), B, H, L,
+                                         p)
+    want = fused_attention.attention_rounding_reference(
+        q, k, v, do, mask, D ** -0.5, keep, p, causal=causal)
+    _close(got, want[0], 2e-3, 2.0 ** -7)
+    for leaf, ref in zip(leaves, want[1:]):
+        _close(leaf.grad, ref, 4e-3, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("which", ["out", "dv", "dq"])
+def test_attention_kernels_draw_the_bits_keep_mask_exports(dev, which):
+    """The forward (out), the dK/dV pass (dv, from the bits the dQ pass left
+    it) and the dQ pass (dq) each give their dropout bits away on the probe
+    inputs; out and dv are small
+    integers and equal the statement to the bit, dq to one bf16 ulp. One
+    flipped bit of the exported mask breaks the agreement: the check sees
+    single bits."""
+    B, H, L, D, p = 2, 2, 128, 64, 0.5
+    q, k, v = attention_probe_inputs(dev, B, H, L, D)
+    do = torch.ones_like(v) if which == "dq" else v
+    g = torch.Generator(device=dev).manual_seed(11)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    state = g.get_state()
+    out = fused_attention.fused_dropout_attention(*leaves, None, p, g, 1.0)
+    out.backward(do)
+    got = {"out": out, "dq": leaves[0].grad, "dv": leaves[2].grad}[which]
+    index = {"out": 0, "dq": 1, "dv": 3}[which]
+    keep = fused_attention.keep_mask(drawn_seed(g, state), B, H, L, p)
+    flipped = keep.clone()
+    flipped[1, 1, 70, 5] = ~flipped[1, 1, 70, 5]
+
+    def agrees(mask):
+        ref = fused_attention.attention_rounding_reference(
+            q, k, v, do, None, 1.0, mask, p)[index]
+        if which == "dq":
+            diff = (got.float() - ref.float()).abs()
+            return bool((diff <= 1e-3 + 2.0 ** -7 * ref.float().abs()).all())
+        return torch.equal(got, ref)
+
+    assert agrees(keep)
+    assert not agrees(flipped)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64])
+def test_tensor_core_attention_repeats_to_the_bit(dev, causal, D):
+    """No float atomics in either pass: one seed, the same bits, forward and
+    gradients."""
+    B, L, H = 3, 512, 4
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g,
+                               device=dev).bfloat16() for _ in range(4))
+    mask = _holes_mask(B, L, dev)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        g.manual_seed(7)
+        if causal:
+            out = fused_attention.causal_attention(*leaves, mask)
+        else:
+            out = fused_attention.fused_dropout_attention(*leaves, mask, 0.1,
+                                                          g)
+        out.backward(do)
+        runs.append([out.detach(), *(t.grad for t in leaves)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_skipping_masked_key_tiles_changes_no_bit(dev, p):
+    """A row of more than 64 key tiles is never scanned for masked tiles, so
+    at L = 4224 every tile is visited, and at L = 4096 the masked ones are
+    left out. With the keys from 4096 on masked and dO zero from row 4096 on,
+    the two calls state one problem on the first 4096 rows: out, dq, dk and
+    dv there are equal to the bit."""
+    H, D, n, extra = 1, 32, 4096, 128
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v, do = (torch.randn(1, n + extra, H, D, generator=g,
+                               device=dev).bfloat16() for _ in range(4))
+    do[:, n:] = 0
+    rng = np.random.default_rng(5)
+    mask = rng.random((1, n + extra)) < 0.7
+    for tile in (0, 3, 17, 40, 41, 63):   # key tiles masked whole
+        mask[0, 64 * tile:64 * (tile + 1)] = False
+    mask[0, n:] = False
+    mask = torch.as_tensor(mask, dtype=torch.int32, device=dev)
+    runs = []
+    for length in (n + extra, n):
+        leaves = [t[:, :length].clone().requires_grad_() for t in (q, k, v)]
+        g.manual_seed(3)
+        out = fused_attention.fused_dropout_attention(
+            *leaves, mask[:, :length].contiguous(), p, g)
+        out.backward(do[:, :length].contiguous())
+        runs.append([out.detach()[:, :n], *(t.grad[:, :n] for t in leaves)])
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    # the masked keys get no gradient at all
+    assert not runs[1][2][0, :64].any() and not runs[1][3][0, 64 * 17].any()
+
+
+def test_tensor_core_attention_raises_on_what_it_does_not_take(dev):
+    x = torch.randn(2, 128, 2, 64, device=dev).bfloat16()
+    for call in (fused_attention.fused_dropout_attention,
+                 fused_attention.causal_attention):
+        with pytest.raises(ValueError):   # a whole tile of 64, but not 128
+            y = torch.randn(2, 192, 2, 64, device=dev).bfloat16()
+            call(y, y, y, None)
+        with pytest.raises(ValueError):   # head dim
+            y = torch.randn(2, 128, 2, 16, device=dev).bfloat16()
+            call(y, y, y, None)
+        with pytest.raises(ValueError):   # one float32 operand
+            call(x, x.float(), x, None)
+        with pytest.raises(ValueError):   # not contiguous
+            y = torch.randn(2, 2, 128, 64, device=dev).bfloat16()
+            call(y.transpose(1, 2), y.transpose(1, 2), y.transpose(1, 2),
+                 None)
+        with pytest.raises(ValueError):   # mask of another shape
+            call(x, x, x, torch.ones(2, 64, dtype=torch.int32, device=dev))
+        with pytest.raises(ValueError):   # not 16-byte aligned
+            y = torch.randn(2 * 128 * 2 * 64 + 4, device=dev).bfloat16()
+            y = y[4:].view(2, 128, 2, 64)
+            call(y, y, y, None)

@@ -3,6 +3,13 @@
 // causal_attention_bwd.cu (causal, no dropout). What they compute and their
 // design are set out at the head of fused_attention_bwd.cu.
 //
+// Two pairs of kernels, chosen by the element type alone:
+// - `attention_bwd_dq_exact`, `attention_bwd_dkv_exact` (float32): f32 FMA
+//   arithmetic throughout, the path that shows the algorithm exact to
+//   summation order;
+// - `attention_bwd_dq_tc`, `attention_bwd_dkv_tc` (bfloat16): all five
+//   products on the tensor cores.
+//
 // kCausal: query row i sees keys 0 .. i only, so p = 0 above the diagonal.
 // The dQ pass of a block of rows streams the key tiles below its last row;
 // the dK/dV pass of a block of keys streams the query tiles from its first
@@ -11,8 +18,9 @@
 
 #pragma once
 
-#include "attention_common.cuh"
+#include <type_traits>
 
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -51,10 +59,10 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float* y) {
   y[3] = fmaf(a, x.w, y[3]);
 }
 
-// dQ pass; also writes delta = rowsum(dO * O) for the dK/dV pass.
+// dQ pass, exact path; also writes delta = rowsum(dO * O) for the dK/dV pass.
 template <typename T, int D, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ o,
                  const T* __restrict__ dout, const int32_t* __restrict__ mask,
                  const float2* __restrict__ stats, Dropout drop,
@@ -159,10 +167,10 @@ attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dK/dV pass; reads the delta that the dQ pass wrote.
+// dK/dV pass, exact path; reads the delta that the dQ pass wrote.
 template <typename T, int D, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const int32_t* __restrict__ mask,
                   const float2* __restrict__ stats,
@@ -279,27 +287,419 @@ attention_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Keys (dQ pass) or queries (dK/dV pass) a warp takes through its products
+// at a time: the streamed tile of 64 goes in pieces, which cuts the
+// accumulators of s and dP that are live beside those of the gradients. The
+// dK/dV pass holds two gradient accumulators and two operand fragments, so
+// it takes pieces of 16 and asks for three blocks an SM (168 registers;
+// timed against pieces of 32 at 230 registers and two blocks: 8% faster).
+constexpr int kChunkDq = 32;
+constexpr int kChunkDkv = 16;
+constexpr int kDkvBlocksPerSm = 3;
+
+// dQ pass, tensor-core path; also writes delta = rowsum(dO * O). A block of
+// four warps owns 64 query rows (16 a warp, q and dO as A fragments in
+// registers) and streams the key tiles as the forward does. Per piece of
+// kChunkDq keys: S = q k^T and dP = dO v^T, P = exp(S - m) / l, dS = P (keep
+// inv_keep dP - delta) scale rounded to bf16 in registers, dQ += dS k.
+template <int D, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(kTcThreads)
+attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ o,
+                    const bf16* __restrict__ dout,
+                    const int32_t* __restrict__ mask,
+                    const float2* __restrict__ stats, Dropout drop,
+                    bf16* __restrict__ dq, float* __restrict__ delta,
+                    uint32_t* __restrict__ keep_words, int L, int H,
+                    float scale) {
+  constexpr int LD = D + kPad;
+  constexpr int kChunk = kChunkDq;
+  static_assert(kChunkDq == 32, "a piece of keys fills one word of keep bits");
+  constexpr int NT = kChunk / 8;
+  __shared__ __align__(16) bf16 ks[2][kTcTile * LD];
+  __shared__ __align__(16) bf16 vs[2][kTcTile * LD];
+  __shared__ __align__(16) int32_t ms[2][kTcTile];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+    // with kCausal the last blocks of rows stream the most tiles: they start
+  // first (timed against blockIdx order: 1% faster at L=512 and L=1024)
+  const int qb = kCausal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
+  const int q0 = qb * kTcRows;
+  const int row0 = q0 + 16 * warp;
+  const int64_t HD = (int64_t)H * D;
+  const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
+  const uint32_t bh = (uint32_t)(b * H + h);
+  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
+  const float inv_keep = kDrop ? drop.inv_keep : 1.f;
+  const int32_t* mrow = mask == nullptr ? nullptr : mask + (int64_t)b * L;
+  const int n_tiles = kCausal ? qb + 1 : L / kTcTile;
+  const KeyTiles kt = scan_key_tiles<kCausal>(mrow, L / kTcTile, lane);
+
+  auto fetch = [&](int tile, int stage) {
+    const int64_t off = head + (int64_t)tile * kTcTile * HD;
+    copy_tile_async<D>(ks[stage], k + off, HD, t);
+    copy_tile_async<D>(vs[stage], v + off, HD, t);
+    if (mrow != nullptr && t < kTcTile / 4) {
+      cp_async16(&ms[stage][4 * t], mrow + tile * kTcTile + 4 * t);
+    }
+  };
+
+  // q and dO go through stage 1 into A fragments, once
+  copy_tile_async<D>(ks[1], q + head + (int64_t)q0 * HD, HD, t);
+  copy_tile_async<D>(vs[1], dout + head + (int64_t)q0 * HD, HD, t);
+  cp_async_commit();
+  int tile = next_tile(kt, 0, n_tiles);
+  fetch(tile, 0);
+  cp_async_commit();
+
+  // delta of the warp's 16 rows, two lanes a row, while the copies fly
+  float dl;
+  {
+    const int64_t own = head + (int64_t)(row0 + (lane >> 1)) * HD + (lane & 1) * (D / 2);
+    dl = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + own + 8 * c);
+      const uint4 gv = *reinterpret_cast<const uint4*>(dout + own + 8 * c);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(o2[i]), c2 = __bfloat1622float2(g2[i]);
+        dl = fmaf(a.x, c2.x, dl);
+        dl = fmaf(a.y, c2.y, dl);
+      }
+    }
+    dl += __shfl_xor_sync(kFullWarp, dl, 1);
+    if ((lane & 1) == 0) delta[(int64_t)bh * L + row0 + (lane >> 1)] = dl;
+  }
+  const float dl0 = __shfl_sync(kFullWarp, dl, 2 * g);       // row g
+  const float dl1 = __shfl_sync(kFullWarp, dl, 2 * g + 16);  // row g + 8
+  const float2 st0 = stats[(int64_t)bh * L + row0 + g];
+  const float2 st1 = stats[(int64_t)bh * L + row0 + g + 8];
+  const float m0 = st0.x, m1 = st1.x;
+  const float linv0 = 1.f / st0.y, linv1 = 1.f / st1.y;
+
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+  load_a<D>(qf, ks[1], 16 * warp, lane);
+  load_a<D>(gf, vs[1], 16 * warp, lane);
+  __syncthreads();  // stage 1 is free again
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int stage = 0;
+#pragma unroll 1
+  while (tile < n_tiles) {
+    const int next = next_tile(kt, tile + 1, n_tiles);
+    if (next < n_tiles) fetch(next, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int k0 = tile * kTcTile;
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTcTile; c0 += kChunk) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+      mma_nt<NT, D>(s, qf, ks[stage], c0, lane);
+      mma_nt<NT, D>(dp, gf, vs[stage], c0, lane);
+
+      uint32_t dsf[NT / 2][4];  // dS as A fragments of dS k
+      uint32_t w0 = 0u, w1 = 0u;  // keep bits of rows g, g + 8: bit = key % 32
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = c0 + 8 * j + 2 * tq;
+        float b0 = 0.f, b1 = 0.f;
+        if (mrow != nullptr) {
+          const int2 mm = *reinterpret_cast<const int2*>(&ms[stage][c]);
+          b0 = mm.x > 0 ? 0.f : kMaskBias;
+          b1 = mm.y > 0 ? 0.f : kMaskBias;
+        }
+        float p0 = __expf(fmaf(s[j][0], scale, b0) - m0) * linv0;
+        float p1 = __expf(fmaf(s[j][1], scale, b1) - m0) * linv0;
+        float p2 = __expf(fmaf(s[j][2], scale, b0) - m1) * linv1;
+        float p3 = __expf(fmaf(s[j][3], scale, b1) - m1) * linv1;
+        if (kCausal && tile == qb) {  // the tile on the diagonal
+          const int col = k0 + c, row = row0 + g;
+          if (col > row) p0 = 0.f;
+          if (col + 1 > row) p1 = 0.f;
+          if (col > row + 8) p2 = 0.f;
+          if (col + 1 > row + 8) p3 = 0.f;
+        }
+        float g0 = dp[j][0], g1 = dp[j][1], g2 = dp[j][2], g3 = dp[j][3];
+        if (kDrop) {
+          const uint32_t keep =
+              keep_bits(seed, drop.threshold, bh, row0, k0 + c0 + 8 * j, g, tq);
+          g0 = (keep & 1u) ? g0 * inv_keep : 0.f;
+          g1 = (keep & 2u) ? g1 * inv_keep : 0.f;
+          g2 = (keep & 4u) ? g2 * inv_keep : 0.f;
+          g3 = (keep & 8u) ? g3 * inv_keep : 0.f;
+          w0 |= (keep & 3u) << (8 * j + 2 * tq);
+          w1 |= (keep >> 2) << (8 * j + 2 * tq);
+        }
+        dsf[j >> 1][2 * (j & 1)] =
+            pack_bf16(p0 * (g0 - dl0) * scale, p1 * (g1 - dl0) * scale);
+        dsf[j >> 1][2 * (j & 1) + 1] =
+            pack_bf16(p2 * (g2 - dl1) * scale, p3 * (g3 - dl1) * scale);
+      }
+      if (kDrop) {
+        // the dK/dV pass reads these bits instead of drawing them again: a
+        // quad joins its rows' 32 bits, lane 0 stores row g, lane 1 row g + 8
+        w0 |= __shfl_xor_sync(kFullWarp, w0, 1);
+        w0 |= __shfl_xor_sync(kFullWarp, w0, 2);
+        w1 |= __shfl_xor_sync(kFullWarp, w1, 1);
+        w1 |= __shfl_xor_sync(kFullWarp, w1, 2);
+        if (tq < 2) {
+          const int64_t row =
+              (int64_t)(bh * (L / kTcTile) + tile) * L + row0 + g + 8 * tq;
+          keep_words[2 * row + c0 / 32] = tq == 0 ? w0 : w1;
+        }
+      }
+      mma_tn<NT / 2, D>(acc, dsf, ks[stage], c0, lane);
+    }
+
+    __syncthreads();  // every warp is done with this stage
+    tile = next;
+    stage ^= 1;
+  }
+
+  store_acc<D>(dq + head + (int64_t)row0 * HD, HD, acc, 1.f, 1.f, g, tq);
+}
+
+// dK/dV pass, tensor-core path; reads the delta that the dQ pass wrote. A
+// block of four warps owns 64 keys (16 a warp, k and v as A fragments in
+// registers) and streams the queries in tiles of 64 with their dO, m, l and
+// delta. It computes the TRANSPOSED tiles S^T = k q^T and dP^T = v dO^T, so
+// that P^T and dS^T come out as the A fragments of dV += (P keep inv_keep)^T
+// dO and dK += dS^T q without a trip through shared memory. It draws no
+// dropout bits: in the transposed tile the four keys of one Philox draw lie in
+// four lanes, and the dQ pass has drawn every bit already, so that pass leaves
+// them in `keep_words` (two 32-bit words for each (key tile, query): bit =
+// key % 32) and this one copies a query tile's 512 bytes in with the tile. A
+// block whose keys are all masked writes zeros where that is exact
+// (scan_key_tiles); the dQ pass leaves out the same tiles, so no word is read
+// that was not written.
+template <int D, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(kTcThreads, kDkvBlocksPerSm)
+attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const int32_t* __restrict__ mask,
+                     const float2* __restrict__ stats,
+                     const float* __restrict__ delta,
+                     const uint32_t* __restrict__ keep_words, Dropout drop,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H,
+                     float scale) {
+  constexpr int LD = D + kPad;
+  constexpr int kChunk = kChunkDkv;
+  constexpr int NT = kChunk / 8;
+  __shared__ __align__(16) bf16 qs[2][kTcTile * LD];
+  __shared__ __align__(16) bf16 dos[2][kTcTile * LD];
+  __shared__ __align__(16) float2 sts[2][kTcTile];  // row max, normaliser
+  __shared__ __align__(16) float dls[2][kTcTile];   // delta
+  // keep bits of (query, this block's 64 keys) as the dQ pass wrote them
+  __shared__ __align__(16) uint32_t kws[kDrop ? 2 : 1][kDrop ? kTcTile : 1][2];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int kb = blockIdx.x;  // with kCausal the first blocks stream most
+  const int key0 = kb * kTcRows + 16 * warp;  // this warp's first key
+  const int64_t HD = (int64_t)H * D;
+  const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
+  const uint32_t bh = (uint32_t)(b * H + h);
+  const float inv_keep = kDrop ? drop.inv_keep : 1.f;
+  const int32_t* mrow = mask == nullptr ? nullptr : mask + (int64_t)b * L;
+  // where this warp's keys g, g + 8 stand in a query's two words of bits
+  const int kw_half = warp >> 1, kw_shift = 16 * (warp & 1) + g;
+
+  const KeyTiles kt = scan_key_tiles<kCausal>(mrow, L / kTcTile, lane);
+  if (kt.skip && !((kt.valid >> kb) & 1ull)) {
+    // no query gives these keys any weight
+    constexpr int C = D / 8;
+    const int64_t base = head + (int64_t)kb * kTcRows * HD;
+    for (int i = t; i < kTcRows * C; i += kTcThreads) {
+      const int64_t off = base + (int64_t)(i / C) * HD + 8 * (i % C);
+      *reinterpret_cast<uint4*>(dk + off) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv + off) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+
+  auto fetch = [&](int tile, int stage) {
+    const int64_t off = head + (int64_t)tile * kTcTile * HD;
+    const int64_t row = (int64_t)bh * L + tile * kTcTile;
+    copy_tile_async<D>(qs[stage], q + off, HD, t);
+    copy_tile_async<D>(dos[stage], dout + off, HD, t);
+    if (t < kTcTile / 2) {
+      cp_async16(&sts[stage][2 * t], stats + row + 2 * t);
+    } else if (t < kTcTile / 2 + kTcTile / 4) {
+      const int i = t - kTcTile / 2;
+      cp_async16(&dls[stage][4 * i], delta + row + 4 * i);
+    }
+    if constexpr (kDrop) {
+      const int i = t - kTcTile;  // the block's upper half copies the bits
+      if (i >= 0 && i < kTcTile / 2) {
+        const int64_t qry =
+            (int64_t)(bh * (L / kTcTile) + kb) * L + tile * kTcTile + 2 * i;
+        cp_async16(&kws[stage][2 * i][0], keep_words + 2 * qry);
+      }
+    }
+  };
+
+  // k and v go through stage 1 into A fragments, once
+  copy_tile_async<D>(qs[1], k + head + (int64_t)kb * kTcRows * HD, HD, t);
+  copy_tile_async<D>(dos[1], v + head + (int64_t)kb * kTcRows * HD, HD, t);
+  cp_async_commit();
+  const int n_tiles = L / kTcTile;
+  int tile = kCausal ? kb : 0;  // the first query tile that sees these keys
+  fetch(tile, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, qs[1], 16 * warp, lane);
+  load_a<D>(vf, dos[1], 16 * warp, lane);
+  __syncthreads();  // stage 1 is free again
+
+  float kb0 = 0.f, kb1 = 0.f;  // the bias of keys g, g + 8
+  if (mrow != nullptr) {
+    kb0 = mrow[key0 + g] > 0 ? 0.f : kMaskBias;
+    kb1 = mrow[key0 + g + 8] > 0 ? 0.f : kMaskBias;
+  }
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
+    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+  }
+
+  int stage = 0;
+#pragma unroll 1
+  for (; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) fetch(tile + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int r0 = tile * kTcTile;  // the tile's first query
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTcTile; c0 += kChunk) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+      mma_nt<NT, D>(s, kf, qs[stage], c0, lane);
+      mma_nt<NT, D>(dp, vf, dos[stage], c0, lane);
+
+      uint32_t pf[NT / 2][4], dsf[NT / 2][4];  // (P keep inv_keep)^T, dS^T
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = c0 + 8 * j + 2 * tq;  // this lane's queries c, c + 1
+        const float4 st = *reinterpret_cast<const float4*>(&sts[stage][c]);
+        const float2 dl = *reinterpret_cast<const float2*>(&dls[stage][c]);
+        const float li0 = 1.f / st.y, li1 = 1.f / st.w;
+        float p0 = __expf(fmaf(s[j][0], scale, kb0) - st.x) * li0;
+        float p1 = __expf(fmaf(s[j][1], scale, kb0) - st.z) * li1;
+        float p2 = __expf(fmaf(s[j][2], scale, kb1) - st.x) * li0;
+        float p3 = __expf(fmaf(s[j][3], scale, kb1) - st.z) * li1;
+        if (kCausal && tile == kb) {  // the tile on the diagonal
+          const int qry = r0 + c, key = key0 + g;
+          if (qry < key) p0 = 0.f;
+          if (qry + 1 < key) p1 = 0.f;
+          if (qry < key + 8) p2 = 0.f;
+          if (qry + 1 < key + 8) p3 = 0.f;
+        }
+        float g0 = dp[j][0], g1 = dp[j][1], g2 = dp[j][2], g3 = dp[j][3];
+        float d0 = p0, d1 = p1, d2 = p2, d3 = p3;  // the weights that met v
+        if constexpr (kDrop) {
+          const uint4 kw = *reinterpret_cast<const uint4*>(&kws[stage][c][0]);
+          const uint32_t wa = (kw_half ? kw.y : kw.x) >> kw_shift;  // query c
+          const uint32_t wb = (kw_half ? kw.w : kw.z) >> kw_shift;  // c + 1
+          g0 = (wa & 1u) ? g0 * inv_keep : 0.f;
+          g1 = (wb & 1u) ? g1 * inv_keep : 0.f;
+          g2 = (wa & 256u) ? g2 * inv_keep : 0.f;
+          g3 = (wb & 256u) ? g3 * inv_keep : 0.f;
+          d0 = (wa & 1u) ? d0 * inv_keep : 0.f;
+          d1 = (wb & 1u) ? d1 * inv_keep : 0.f;
+          d2 = (wa & 256u) ? d2 * inv_keep : 0.f;
+          d3 = (wb & 256u) ? d3 * inv_keep : 0.f;
+        }
+        pf[j >> 1][2 * (j & 1)] = pack_bf16(d0, d1);
+        pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(d2, d3);
+        dsf[j >> 1][2 * (j & 1)] =
+            pack_bf16(p0 * (g0 - dl.x) * scale, p1 * (g1 - dl.y) * scale);
+        dsf[j >> 1][2 * (j & 1) + 1] =
+            pack_bf16(p2 * (g2 - dl.x) * scale, p3 * (g3 - dl.y) * scale);
+      }
+      mma_tn<NT / 2, D>(dva, pf, dos[stage], c0, lane);
+      mma_tn<NT / 2, D>(dka, dsf, qs[stage], c0, lane);
+    }
+
+    __syncthreads();  // every warp is done with this stage
+    stage ^= 1;
+  }
+
+  store_acc<D>(dk + head + (int64_t)key0 * HD, HD, dka, 1.f, 1.f, g, tq);
+  store_acc<D>(dv + head + (int64_t)key0 * HD, HD, dva, 1.f, 1.f, g, tq);
+}
+
+// float32 takes the exact kernels, bfloat16 the tensor-core kernels. The dQ
+// pass writes the delta, and with dropout the keep bits (`keep_words`, L^2 / 8
+// bytes a head; unused by the exact kernels), that the dK/dV pass reads: the
+// stream orders them.
 template <typename T, int D, bool kDrop, bool kCausal>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const int32_t* mask,
                        const void* stats, Dropout drop, void* dq, void* dk,
-                       void* dv, void* delta, int B, int L, int H, float scale,
-                       cudaStream_t stream) {
+                       void* dv, void* delta, void* keep_words, int B, int L,
+                       int H, float scale, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(dout);
   const float2* st = static_cast<const float2*>(stats);
   float* dl = static_cast<float*>(delta);
-  const dim3 grid(L / kRows, H, B);
-  attention_bwd_dq<T, D, kDrop, kCausal><<<grid, kThreads, 0, stream>>>(
-      qt, kt, vt, static_cast<const T*>(o), gt, mask, st, drop,
-      static_cast<T*>(dq), dl, L, H, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attention_bwd_dkv<T, D, kDrop, kCausal><<<grid, kThreads, 0, stream>>>(
-      qt, kt, vt, gt, mask, st, dl, drop, static_cast<T*>(dk),
-      static_cast<T*>(dv), L, H, scale);
+  if constexpr (std::is_same<T, float>::value) {
+    if (L % kRows != 0) return cudaErrorInvalidValue;
+    const dim3 grid(L / kRows, H, B);
+    attention_bwd_dq_exact<T, D, kDrop, kCausal><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, static_cast<const T*>(o), gt, mask, st, drop,
+        static_cast<T*>(dq), dl, L, H, scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attention_bwd_dkv_exact<T, D, kDrop, kCausal><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, gt, mask, st, dl, drop, static_cast<T*>(dk),
+        static_cast<T*>(dv), L, H, scale);
+  } else {
+    if (L % kTcTile != 0 || (kDrop && keep_words == nullptr)) {
+      return cudaErrorInvalidValue;
+    }
+    uint32_t* kw = static_cast<uint32_t*>(keep_words);
+    const dim3 grid(L / kTcRows, H, B);
+    attention_bwd_dq_tc<D, kDrop, kCausal><<<grid, kTcThreads, 0, stream>>>(
+        qt, kt, vt, static_cast<const T*>(o), gt, mask, st, drop,
+        static_cast<T*>(dq), dl, kw, L, H, scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attention_bwd_dkv_tc<D, kDrop, kCausal><<<grid, kTcThreads, 0, stream>>>(
+        qt, kt, vt, gt, mask, st, dl, kw, drop, static_cast<T*>(dk),
+        static_cast<T*>(dv), L, H, scale);
+  }
   return cudaGetLastError();
 }
 

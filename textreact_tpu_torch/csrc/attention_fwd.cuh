@@ -1,17 +1,24 @@
-// The attention forward kernel, shared by fused_attention.cu (non-causal,
+// The attention forward kernels, shared by fused_attention.cu (non-causal,
 // with and without dropout) and causal_attention.cu (causal, no dropout).
-// What it computes, its bound and its design are set out at the head of
-// fused_attention.cu; the causal variant's at the head of
+// What they compute, their bound and their design are set out at the head
+// of fused_attention.cu; the causal variant's at the head of
 // causal_attention.cu. The two sources are separate libraries so that their
-// unrolled variants compile side by side.
+// variants compile side by side.
+//
+// Two kernels, chosen by the element type alone:
+// - `attention_fwd_exact` (float32): f32 FMA arithmetic throughout, the path
+//   that shows the algorithm exact to summation order;
+// - `attention_fwd_tc` (bfloat16): both products on the tensor cores.
 
 #pragma once
 
-#include "attention_common.cuh"
+#include <type_traits>
+
+#include "attention_mma.cuh"
 
 namespace {
 
-// kCausal: query row i sees keys 0 .. i only. The block of query rows
+// The exact path. kCausal: query row i sees keys 0 .. i only. The block of query rows
 // q0 .. q0 + kBQ - 1 then streams the key tiles below q0 + kBQ and no
 // others; inside the tiles that cross the diagonal a key above the row gets
 // the score -inf, so its weight is exactly 0 (every row sees key 0, so the
@@ -19,7 +26,7 @@ namespace {
 // additive -1e9 of the non-causal kernel.
 template <typename T, int D, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kBQ)
-attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
+attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int32_t* __restrict__ mask,
               T* __restrict__ out, float2* __restrict__ stats, Dropout drop,
               int L, int H, float scale) {
@@ -120,15 +127,194 @@ attention_fwd(const T* __restrict__ q, const T* __restrict__ k,
   if (stats != nullptr) stats[((int64_t)bh) * L + row] = make_float2(m, l);
 }
 
+// The tensor-core path (bf16). A block of four warps owns 64 query rows of
+// one (batch, head), 16 a warp, and streams the keys in tiles of 64 that stay
+// bf16 in shared memory, copied asynchronously into two stages so the next
+// tile's loads run under this tile's products. Per tile and warp: S = q k^T
+// (16 x 64, f32 accumulators), the online softmax on those accumulators in
+// registers (a row lives in the four lanes of a quad), the weights added to
+// l, then masked by the dropout bits, rounded to bf16 and fed back as the A
+// fragments of P v. Key tiles that hold no valid key are left out where that
+// changes no bit (scan_key_tiles); with kCausal the tiles above the diagonal
+// are never visited, the diagonal tile gets -inf above the diagonal, and the
+// blocks with the most tiles start first.
+template <int D, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(kTcThreads)
+attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int32_t* __restrict__ mask,
+                 bf16* __restrict__ out, float2* __restrict__ stats, Dropout drop,
+                 int L, int H, float scale) {
+  constexpr int LD = D + kPad;
+  constexpr int NT = kTcTile / 8;  // score tiles of 8 keys
+  __shared__ __align__(16) bf16 ks[2][kTcTile * LD];
+  __shared__ __align__(16) bf16 vs[2][kTcTile * LD];
+  __shared__ __align__(16) int32_t ms[2][kTcTile];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+    // with kCausal the last blocks of rows stream the most tiles: they start
+  // first (timed against blockIdx order: 1% faster at L=512 and L=1024)
+  const int qb = kCausal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
+  const int q0 = qb * kTcRows;
+  const int row0 = q0 + 16 * warp;  // this warp's first row; the lane's are
+                                    // row0 + g and row0 + g + 8
+  const int64_t HD = (int64_t)H * D;
+  const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
+  const uint32_t bh = (uint32_t)(b * H + h);
+  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
+  const int32_t* mrow = mask == nullptr ? nullptr : mask + (int64_t)b * L;
+  // tiles this block of rows can see, and those among them worth a visit
+  const int n_tiles = kCausal ? qb + 1 : L / kTcTile;
+  const KeyTiles kt = scan_key_tiles<kCausal>(mrow, L / kTcTile, lane);
+
+  auto fetch = [&](int tile, int stage) {
+    const int64_t off = head + (int64_t)tile * kTcTile * HD;
+    copy_tile_async<D>(ks[stage], k + off, HD, t);
+    copy_tile_async<D>(vs[stage], v + off, HD, t);
+    if (mrow != nullptr && t < kTcTile / 4) {
+      cp_async16(&ms[stage][4 * t], mrow + tile * kTcTile + 4 * t);
+    }
+  };
+
+  // q goes through stage 1 of the k buffer into A fragments, once
+  copy_tile_async<D>(ks[1], q + head + (int64_t)q0 * HD, HD, t);
+  cp_async_commit();
+  int tile = next_tile(kt, 0, n_tiles);
+  fetch(tile, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_a<D>(qf, ks[1], 16 * warp, lane);
+  __syncthreads();  // stage 1 is free again
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;  // this lane's share of the rows' normalisers
+
+  int stage = 0;
+#pragma unroll 1
+  while (tile < n_tiles) {
+    const int next = next_tile(kt, tile + 1, n_tiles);
+    if (next < n_tiles) fetch(next, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile has landed; the next may be in flight
+    __syncthreads();
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_nt<NT, D>(s, qf, ks[stage], 0, lane);
+
+    const int k0 = tile * kTcTile;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = 8 * j + 2 * tq;
+      float b0 = 0.f, b1 = 0.f;
+      if (mrow != nullptr) {
+        const int2 mm = *reinterpret_cast<const int2*>(&ms[stage][c]);
+        b0 = mm.x > 0 ? 0.f : kMaskBias;
+        b1 = mm.y > 0 ? 0.f : kMaskBias;
+      }
+      s[j][0] = fmaf(s[j][0], scale, b0);
+      s[j][1] = fmaf(s[j][1], scale, b1);
+      s[j][2] = fmaf(s[j][2], scale, b0);
+      s[j][3] = fmaf(s[j][3], scale, b1);
+      if (kCausal && tile == qb) {  // the tile on the diagonal
+        const int col = k0 + c, row = row0 + g;
+        if (col > row) s[j][0] = -INFINITY;
+        if (col + 1 > row) s[j][1] = -INFINITY;
+        if (col > row + 8) s[j][2] = -INFINITY;
+        if (col + 1 > row + 8) s[j][3] = -INFINITY;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFullWarp, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFullWarp, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFullWarp, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFullWarp, mx1, 2));
+    // 0 on the first tile (m = -inf); the max is finite from then on: every
+    // score is finite but those above the diagonal, and a causal block's
+    // first tile is tile 0, whose key 0 every row sees
+    const float corr0 = __expf(m0 - mx0), corr1 = __expf(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= corr0;
+    l1 *= corr1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= corr0;
+      o[j][1] *= corr0;
+      o[j][2] *= corr1;
+      o[j][3] *= corr1;
+    }
+
+    uint32_t pf[NT / 2][4];  // the weights as A fragments of p v
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float p0 = __expf(s[j][0] - m0), p1 = __expf(s[j][1] - m0);
+      float p2 = __expf(s[j][2] - m1), p3 = __expf(s[j][3] - m1);
+      l0 += p0 + p1;  // the normaliser runs over the undropped weights
+      l1 += p2 + p3;
+      if (kDrop) {
+        const uint32_t keep =
+            keep_bits(seed, drop.threshold, bh, row0, k0 + 8 * j, g, tq);
+        if (!(keep & 1u)) p0 = 0.f;
+        if (!(keep & 2u)) p1 = 0.f;
+        if (!(keep & 4u)) p2 = 0.f;
+        if (!(keep & 8u)) p3 = 0.f;
+      }
+      pf[j >> 1][2 * (j & 1)] = pack_bf16(p0, p1);
+      pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(p2, p3);
+    }
+    mma_tn<NT / 2, D>(o, pf, vs[stage], 0, lane);
+
+    __syncthreads();  // every warp is done with this stage
+    tile = next;
+    stage ^= 1;
+  }
+
+  l0 += __shfl_xor_sync(kFullWarp, l0, 1);
+  l0 += __shfl_xor_sync(kFullWarp, l0, 2);
+  l1 += __shfl_xor_sync(kFullWarp, l1, 1);
+  l1 += __shfl_xor_sync(kFullWarp, l1, 2);
+  const float inv_keep = kDrop ? drop.inv_keep : 1.f;
+  store_acc<D>(out + head + (int64_t)row0 * HD, HD, o, inv_keep / l0,
+               inv_keep / l1, g, tq);
+  if (stats != nullptr && tq == 0) {
+    float2* st = stats + (int64_t)bh * L + row0 + g;
+    st[0] = make_float2(m0, l0);
+    st[8] = make_float2(m1, l1);
+  }
+}
+
+// float32 takes the exact kernel, bfloat16 the tensor-core kernel.
 template <typename T, int D, bool kDrop, bool kCausal>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int32_t* mask, void* out, void* stats,
                        Dropout drop, int B, int L, int H, float scale,
                        cudaStream_t stream) {
-  attention_fwd<T, D, kDrop, kCausal><<<dim3(L / kBQ, H, B), kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out),
-      static_cast<float2*>(stats), drop, L, H, scale);
+  if constexpr (std::is_same<T, float>::value) {
+    if (L % kBQ != 0) return cudaErrorInvalidValue;
+    attention_fwd_exact<float, D, kDrop, kCausal>
+        <<<dim3(L / kBQ, H, B), kBQ, 0, stream>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), mask, static_cast<float*>(out),
+            static_cast<float2*>(stats), drop, L, H, scale);
+  } else {
+    if (L % kTcTile != 0) return cudaErrorInvalidValue;
+    attention_fwd_tc<D, kDrop, kCausal>
+        <<<dim3(L / kTcRows, H, B), kTcThreads, 0, stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), mask, static_cast<bf16*>(out),
+            static_cast<float2*>(stats), drop, L, H, scale);
+  }
   return cudaGetLastError();
 }
 

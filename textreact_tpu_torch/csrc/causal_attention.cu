@@ -18,17 +18,22 @@
 // min(512, L) and skips the blocks above the diagonal; its caller transposes
 // q, k, v in and the result out. Here q, k, v and out stay in the model's
 // (B, L, H * D) activation layout, so no transpose runs around a call, and
-// the skipping is the loop bound of attention_fwd.cuh: a block of 128 query
-// rows streams the key tiles below its last row only. Segment ids do not
-// exist here: the key mask is the (B, L) int32 array itself.
+// the skipping is the loop bound of the kernels in attention_fwd.cuh: a
+// block of query rows streams the key tiles up to its diagonal only, and the
+// blocks with the most tiles are started first, so that the card's last wave
+// is made of the short ones. Segment ids do not exist here: the key mask is
+// the (B, L) int32 array itself.
+//
+// The two paths of fused_attention.cu, chosen by the element type alone:
+// bfloat16 takes the tensor-core kernel (`mma.sync` products, 64 query rows
+// a block, key tiles of 64, the diagonal tile masked with -inf in the
+// accumulators), float32 the exact FMA kernel (128 rows a block).
 //
 // Bound at the decoder shape (B=32, L=512, H=12, D=64, bf16): the bytes of
 // the non-causal kernel (4 * 25 MB moved, 30 us) and about half its
-// operations (the triangle: 2 * B * H * D * L * (L + 128) = 15.5 GFLOP for
-// the tiles this kernel visits, 16 us at the bf16 tensor-core peak): bytes
-// bind. The kernel's f32 FMA arithmetic is far from either, as its
-// non-causal sibling's is; what the causal loop bound buys is that about
-// half of that arithmetic goes away.
+// operations (the triangle: 2 * B * H * D * L * (L + 64) = 14.5 GFLOP for
+// the tiles the bf16 kernel visits, 15 us at the bf16 tensor-core peak):
+// bytes bind.
 
 #include "attention_fwd.cuh"
 
@@ -38,7 +43,6 @@ template <typename T>
 cudaError_t fwd(const void* q, const void* k, const void* v, const int32_t* mask,
                 void* out, void* stats, int B, int L, int H, int D, float scale,
                 cudaStream_t stream) {
-  if (L % kBQ != 0) return cudaErrorInvalidValue;
   const Dropout drop = make_dropout(nullptr, 0u, 1.f);
   if (D == 64) {
     return launch_fwd<T, 64, false, true>(q, k, v, mask, out, stats, drop, B, L, H,

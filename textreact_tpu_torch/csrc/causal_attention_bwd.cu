@@ -12,7 +12,10 @@
 // row, a block of keys only the query rows from its first key on, so about
 // half of the non-causal backward's arithmetic goes away (bytes bind as
 // there: 8 * 25 MB at B=32, L=512, H=12, D=64 in bf16, 60 us). No atomics:
-// a call is deterministic.
+// a call is deterministic. bfloat16 takes the tensor-core kernels, float32
+// the exact FMA kernels, as in fused_attention_bwd.cu; the dQ blocks with
+// the most key tiles, and the dK/dV blocks with the most query tiles, are
+// started first.
 
 #include "attention_bwd.cuh"
 
@@ -23,15 +26,16 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const int32_t* mask, const void* stats,
                 void* dq, void* dk, void* dv, void* delta, int B, int L, int H,
                 int D, float scale, cudaStream_t stream) {
-  if (L % kRows != 0) return cudaErrorInvalidValue;
   const Dropout drop = make_dropout(nullptr, 0u, 1.f);
   if (D == 64) {
     return launch_bwd<T, 64, false, true>(q, k, v, o, dout, mask, stats, drop, dq,
-                                          dk, dv, delta, B, L, H, scale, stream);
+                                          dk, dv, delta, nullptr, B, L, H, scale,
+                                          stream);
   }
   if (D == 32) {
     return launch_bwd<T, 32, false, true>(q, k, v, o, dout, mask, stats, drop, dq,
-                                          dk, dv, delta, B, L, H, scale, stream);
+                                          dk, dv, delta, nullptr, B, L, H, scale,
+                                          stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -29,25 +29,54 @@
 // Bounds at the slice's shape (B=32, L=512, H=12, D=64, bf16): forward
 // 4 * B * H * L^2 * D = 25.8 GFLOP (26 us at the bf16 tensor-core peak)
 // against 4 * 25 MB moved (30 us); backward 10 * B * H * L^2 * D = 64 GFLOP
-// (65 us) against 8 * 25 MB (60 us). Either way close to the card's balance
-// point, and far below what these kernels take: their f32 FMA arithmetic
-// runs at 67 TFLOP/s at most.
+// (65 us) against 8 * 25 MB (60 us): close to the card's balance point. With
+// dropout the generator's integer work joins them. A Philox4x32-10 draw
+// serves four elements and needs at least 40 integer instructions: ten
+// rounds of two 32 x 32 -> 64 bit products and two three-way xors (the round
+// keys belong to the call's seed, not to the draw; as compiled here a draw
+// takes more, some 70, with the halves of a product made apart).
+// B * H * L^2 / 4 = 25 M draws a pass are 1.0 G instructions at the least,
+// which the card's integer units (64 lanes an SM a clock, 16.75 T a second)
+// take 60 us for: twice the forward's other bounds, level with the
+// backward's.
 //
-// Design (simple first; tensor cores come later). All arithmetic is f32 FMA
-// through shared-memory tiles, outputs in the input dtype, no atomics, so a
+// Two paths, chosen by the element type alone, never by a failed build or
+// launch:
+// - bfloat16, the type of the main path on the card (serving: bf16 weights;
+//   training: bf16 compute): the tensor-core kernels. What binds an
+//   attention kernel on this card is arithmetic outside the tensor cores: at
+//   67 TFLOP/s of f32 FMA the two products alone take 0.39 ms forward and
+//   1.35 ms backward, 15 to 20 times the bounds above. So every product is
+//   an `mma.sync.aligned.m16n8k16` of bf16 into f32 accumulators (the same
+//   roundings as the TPU kernel: inputs bf16, sums f32, the weights and dS
+//   rounded to bf16 before their second product), and what is left on the
+//   ordinary units is the softmax (one exp a score), the dropout bits and
+//   the address arithmetic. Shared memory holds bf16 tiles only, filled by
+//   16-byte `cp.async` into two stages so that loads run under products,
+//   rows padded by 16 bytes so that `ldmatrix` meets no bank conflict; the
+//   weights never leave registers between the two products, because the
+//   accumulator layout of one m16n8k16 is the A layout of the next. One Philox
+//   draw is made per four elements and its words are exchanged by shuffle
+//   between the lanes that hold them. Key tiles with no valid key are not
+//   visited where leaving them out changes no bit (attention_mma.cuh).
+// - float32: the exact kernels, f32 FMA arithmetic through f32 shared-memory
+//   tiles. They show the algorithm right to summation order (2e-5 against the
+//   plain version), which TF32 products would not, and are what a float32
+//   model runs. One thread per query row, keys in tiles of 32; they are
+//   bound by the card's f32 FMA rate and are not the path that is timed.
+// Either way outputs are in the input dtype and there are no atomics, so a
 // call is deterministic.
-// - forward: one block per (query tile of 128 rows, head, batch), one thread
-//   per query row holding its q row and its f32 accumulator in registers,
-//   streaming over keys in tiles of 32 staged in shared memory. The keep
-//   mask is applied to the unnormalised weight AFTER it is added to l, and
-//   inv_keep / l scales the output once.
+//
+// - forward: the keep mask is applied to the unnormalised weight AFTER it is
+//   added to l, and inv_keep / l scales the output once.
 // - backward: a dQ pass and a dK/dV pass that recompute p = exp(s - m) / l
 //   tile by tile, with dS = p * (keep * inv_keep * (dO v^T) - delta) * scale
 //   and delta = rowsum(dO * O); set out in fused_attention_bwd.cu.
 //
 // This file holds the forward's entry point and the test-only mask export;
-// the kernel itself is attention_fwd.cuh, which causal_attention.cu shares;
-// the backward is fused_attention_bwd.cu.
+// the kernels themselves are in attention_fwd.cuh, which causal_attention.cu
+// shares, on the building blocks of attention_mma.cuh; the backward is
+// fused_attention_bwd.cu.
 
 #include "attention_fwd.cuh"
 
@@ -78,7 +107,6 @@ template <typename T>
 cudaError_t fwd(const void* q, const void* k, const void* v, const int32_t* mask,
                 void* out, void* stats, Dropout drop, int B, int L, int H, int D,
                 float scale, cudaStream_t stream) {
-  if (L % kBQ != 0) return cudaErrorInvalidValue;
   const bool dropout = drop.seed != nullptr;
 #define TR_FWD(DV, DR)                                                         \
   return launch_fwd<T, DV, DR, false>(q, k, v, mask, out, stats, drop, B, L, H, \

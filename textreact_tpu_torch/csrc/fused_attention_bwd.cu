@@ -7,32 +7,50 @@
 //
 // Design. Two passes, no atomics, so a call is deterministic:
 // - dQ pass: one block per (tile of 64 queries, head, batch); writes
-//   delta = rowsum(dO * O) on its way, streams over keys in tiles of 32
-//   staged in shared memory and accumulates dQ += dS k.
+//   delta = rowsum(dO * O) on its way, streams over the keys and accumulates
+//   dQ += dS k.
 // - dK/dV pass: one block per (tile of 64 keys, head, batch); streams over
-//   queries in tiles of 32 with their m, l and delta, and accumulates
+//   the queries with their m, l and delta, and accumulates
 //   dV += (p * keep * inv_keep)^T dO and dK += dS^T q.
 // with p = exp(s - m) / l and dS = p * (keep * inv_keep * (dO v^T) - delta)
 // * scale. A masked key gives p = 0 exactly, as in the forward; in an
-// all-masked row s - m is 0 for every key and p is uniform.
+// all-masked row s - m is 0 for every key and p is uniform. The scores are
+// recomputed in both passes (seven products for the five a one-pass design
+// with atomics would need): that buys the determinism.
 //
-// Registers are the scarce resource: a thread that held a 64-wide
-// accumulator beside two 64-wide operand rows would need more than the 255
-// a thread can have. So TWO threads share a row, each holding every other
-// group of four head-dim elements of the row's operands and accumulators
-// (96 or 128 registers), and a dot product over the head dim is two partial
-// sums joined by one warp shuffle. The streamed tile is read from shared
-// memory as 16-byte broadcasts; the pair's two addresses are 16 bytes apart,
-// so they fall into different banks. The loop over the streamed tile is not
-// unrolled beyond a few steps: unrolled whole, the compiler hoists a tile's
-// worth of shared-memory loads into (spilled) registers.
+// Two paths, chosen by the element type alone (see fused_attention.cu):
+// - bfloat16: the tensor-core kernels. All seven products are `mma.sync`
+//   m16n8k16 of bf16 into f32. Per streamed tile of 64 (copied by `cp.async`
+//   into two stages of padded bf16 shared memory) a warp owns 16 rows whose
+//   operands stay in registers as A fragments, computes s and dP for 32
+//   (dQ pass) or 16 (dK/dV pass) columns at a time, forms p and dS on the
+//   accumulators and feeds them,
+//   rounded to bf16 in registers as the TPU kernel rounds them, straight
+//   into the next product. The dK/dV pass computes the TRANSPOSED tiles
+//   k q^T and v dO^T for that reason: p^T and dS^T then have the layout of
+//   an A fragment. Registers are the scarce resource (two 16 x 64 f32
+//   gradient accumulators, two operand fragments, s and dP), hence the
+//   pieces. In the transposed tile the four keys of one Philox draw lie
+//   in four lanes, and the dQ pass has drawn every bit already (one draw for
+//   four keys of a row, shared by the two lanes that hold them): it leaves
+//   them, one bit an element, in a workspace of L^2 / 8 bytes a head, and
+//   the dK/dV pass copies them in with its query tiles, so it makes no draw
+//   at all and the backward draws each bit once (timed at B=32 L=512 H=12:
+//   a dK/dV pass that draws its own bits takes 0.33 ms, one that reads the
+//   12.6 MB of bits 0.20 ms, and writing them costs the dQ pass 0.014 ms).
+//   Key tiles (dQ) and key blocks (dK/dV) with no valid key are left out
+//   where that changes no bit.
+// - float32: the exact kernels. TWO threads share a row, each holding every
+//   other group of four head-dim elements of the row's operands and
+//   accumulators, and a dot product over the head dim is two partial sums
+//   joined by one warp shuffle; the streamed tile is read from f32 shared
+//   memory as 16-byte broadcasts. The pair shares the work of drawing
+//   dropout bits. The loop over the streamed tile is not unrolled beyond a
+//   few steps: unrolled whole, the compiler hoists a tile's worth of
+//   shared-memory loads into (spilled) registers.
 //
-// The kernels themselves are attention_bwd.cuh, which
+// The kernels themselves are in attention_bwd.cuh, which
 // causal_attention_bwd.cu shares.
-//
-// The pair also shares the work of drawing dropout bits: each thread runs
-// Philox for half of the elements the pair needs and the two exchange words
-// by shuffle.
 
 #include "attention_bwd.cuh"
 
@@ -41,13 +59,14 @@ namespace {
 template <typename T>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const int32_t* mask, const void* stats,
-                Dropout drop, void* dq, void* dk, void* dv, void* delta, int B,
-                int L, int H, int D, float scale, cudaStream_t stream) {
-  if (L % kRows != 0) return cudaErrorInvalidValue;
+                Dropout drop, void* dq, void* dk, void* dv, void* delta,
+                void* keep_words, int B, int L, int H, int D, float scale,
+                cudaStream_t stream) {
   const bool dropout = drop.seed != nullptr;
 #define TR_BWD(DV, DR)                                                         \
   return launch_bwd<T, DV, DR, false>(q, k, v, o, dout, mask, stats, drop, dq, dk, \
-                                      dv, delta, B, L, H, scale, stream);
+                                      dv, delta, keep_words, B, L, H, scale,      \
+                                      stream);
   TR_DISPATCH(TR_BWD);
 #undef TR_BWD
   return cudaErrorInvalidValue;
@@ -61,25 +80,27 @@ extern "C" {
 // q, k, v, o, dout, dq, dk, dv: (B, L, H * D) contiguous, 16-byte aligned;
 // mask: (B, L) int32 {0, 1} or null; stats: (B, H, L, 2) float32 (row max,
 // normaliser) as the forward wrote them; delta: (B, H, L) float32 workspace;
-// seed: one int64 in device memory, or null for no dropout; threshold and
+// keep_words: (B, H, L / 64, L, 2) int32 workspace, needed with bfloat16 and
+// dropout, else null; seed: one int64 in device memory, or null for no dropout; threshold and
 // inv_keep as in philox.cuh. Returns cudaGetLastError() after the launches.
 
 int tr_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const void* mask,
                      const void* stats, const void* seed, uint32_t threshold,
                      float inv_keep, void* dq, void* dk, void* dv, void* delta,
-                     int B, int L, int H, int D, float scale, void* stream) {
+                     void* keep_words, int B, int L, int H, int D, float scale,
+                     void* stream) {
   const int32_t* m = static_cast<const int32_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dropout drop = make_dropout(seed, threshold, inv_keep);
   if (B == 0) return 0;
   if (dtype == 0) {
-    return bwd<float>(q, k, v, o, dout, m, stats, drop, dq, dk, dv, delta, B, L, H, D,
-                      scale, st);
+    return bwd<float>(q, k, v, o, dout, m, stats, drop, dq, dk, dv, delta, nullptr,
+                      B, L, H, D, scale, st);
   }
   if (dtype == 1) {
-    return bwd<__nv_bfloat16>(q, k, v, o, dout, m, stats, drop, dq, dk, dv, delta, B,
-                              L, H, D, scale, st);
+    return bwd<__nv_bfloat16>(q, k, v, o, dout, m, stats, drop, dq, dk, dv, delta,
+                              keep_words, B, L, H, D, scale, st);
   }
   return cudaErrorInvalidValue;
 }

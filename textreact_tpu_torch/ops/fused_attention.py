@@ -10,17 +10,28 @@ normaliser over the undropped weights (torch/HF semantics).
 
 On a CUDA tensor the wrapper launches the hand-written kernels
 (csrc/fused_attention.cu: forward; csrc/fused_attention_bwd.cu: a backward
-of two passes; joined by a `torch.autograd.Function`) or raises; on a CPU tensor it runs the plain
-version below under ordinary autograd. The kernels draw their dropout bits
+of two passes; joined by a `torch.autograd.Function`) or raises; on a CPU
+tensor it runs the plain version below under ordinary autograd. The element
+type alone picks the kernels: bfloat16, the type of the serving and training
+paths on the card, takes the tensor-core kernels (every product an
+`mma.sync` of bf16 into f32, the weights and dS rounded to bf16 before
+their second product, as `attention_rounding_reference` states in plain
+PyTorch); float32 takes the exact kernels (f32 FMA arithmetic throughout,
+right to summation order). Nothing falls back from one to the other. Key
+tiles that hold no valid key are not visited where that changes no bit of
+the result. The kernels draw their dropout bits
 from a counter-based generator keyed by one 64-bit seed per call
 (csrc/philox.cuh); the seed is drawn from the caller's `torch.Generator`,
 stays on the device, and is saved for the backward, which regenerates the
-mask. `keep_mask` exports that mask for tests.
+mask (the tensor-core backward draws it in its dQ pass and hands the bits to
+its dK/dV pass through a workspace). `keep_mask` exports that mask for
+tests.
 
 `causal_attention` is the causal call: query row i sees keys 0 .. i, no
 dropout. Its kernels (csrc/causal_attention.cu, csrc/causal_attention_bwd.cu)
 are the same device functions with the causal flag set, so a block of query
-rows streams only the key tiles at or below its diagonal.
+rows streams only the key tiles at or below its diagonal, and the blocks
+with the most tiles start first.
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "tr_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F,
-                         _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+                         _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -88,6 +99,21 @@ def load_causal_bwd_kernel():
     return _build.load("causal_attention_bwd", _CAUSAL_BWD_SIGNATURES)
 
 
+def _weights(q, k, mask_kv, sm_scale, causal):
+    """(unnormalised softmax weights (B, H, L, L), their row sums), f32."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    if mask_kv is not None:
+        bias = torch.where(mask_kv > 0, 0.0, NEG_INF).to(torch.float32)
+        s = s + bias[:, None, None, :]
+    if causal:
+        Lq, Lk = s.shape[-2:]
+        above = torch.ones(Lq, Lk, dtype=torch.bool,
+                           device=s.device).triu(diagonal=1)
+        s = s.masked_fill(above, float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e, e.sum(-1, keepdim=True)
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_kv: Optional[torch.Tensor], sm_scale: float,
                         keep: Optional[torch.Tensor] = None,
@@ -102,17 +128,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `causal`: a key above the diagonal scores -inf, so its weight is exactly
     0 whatever the key mask says (every row sees key 0, so no row is empty);
     the key mask stays the additive -1e9."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
-    if mask_kv is not None:
-        bias = torch.where(mask_kv > 0, 0.0, NEG_INF).to(torch.float32)
-        s = s + bias[:, None, None, :]
-    if causal:
-        Lq, Lk = s.shape[-2:]
-        above = torch.ones(Lq, Lk, dtype=torch.bool,
-                           device=s.device).triu(diagonal=1)
-        s = s.masked_fill(above, float("-inf"))
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    l = e.sum(-1, keepdim=True)
+    e, l = _weights(q, k, mask_kv, sm_scale, causal)
     inv = 1.0
     if keep is not None:
         e = torch.where(keep, e, 0.0)
@@ -120,6 +136,45 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ctx = torch.einsum("bhqk,bkhd->bhqd", e.to(v.dtype).float(), v.float())
     ctx = ctx * (inv / l)
     return ctx.transpose(1, 2).to(q.dtype)
+
+
+def attention_rounding_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, dout: torch.Tensor,
+                                 mask_kv: Optional[torch.Tensor],
+                                 sm_scale: float,
+                                 keep: Optional[torch.Tensor] = None,
+                                 dropout_p: float = 0.0,
+                                 causal: bool = False):
+    """Forward and backward of the tensor-core kernels written out in plain
+    PyTorch with the kernels' rounding points, for tests: returns (out, dq,
+    dk, dv) in q's dtype.
+
+    Every product takes operands of q's dtype and sums in f32. The
+    unnormalised weights are rounded to q's dtype before they meet v (as in
+    `attention_reference`); in the backward the dropped, rescaled
+    probabilities are rounded before they meet dO, and dS before it meets k
+    and q. Autograd through `attention_reference` keeps dS in f32; the TPU
+    kernel (ops/fused_attention.py:_bwd_kernel) rounds it as here."""
+    dt = q.dtype
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    e, l = _weights(q, k, mask_kv, sm_scale, causal)
+    inv = 1.0 if keep is None else 1.0 / (1.0 - dropout_p)
+    kept = e if keep is None else torch.where(keep, e, 0.0)
+    ctx = torch.einsum("bhqk,bkhd->bhqd", kept.to(dt).float(), vf) * (inv / l)
+    out = ctx.transpose(1, 2).to(dt)
+
+    prob = e / l
+    delta = (gf * out.float()).sum(-1).transpose(1, 2)[..., None]  # b h q 1
+    dprob = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    dropped = prob * inv if keep is None else torch.where(keep, prob * inv,
+                                                          0.0)
+    if keep is not None:
+        dprob = torch.where(keep, dprob * inv, 0.0)
+    ds = (prob * (dprob - delta) * sm_scale).to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", dropped.to(dt).float(), gf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return out, dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def fused_dropout_attention(q: torch.Tensor, k: torch.Tensor,
@@ -215,7 +270,9 @@ def _check(q, k, v, mask_kv) -> Optional[torch.Tensor]:
     if mask_kv.shape != (B, L) or mask_kv.device != q.device:
         raise ValueError(f"fused_dropout_attention: mask "
                          f"{tuple(mask_kv.shape)} on {mask_kv.device}")
-    return mask_kv.to(torch.int32).contiguous()
+    mask = mask_kv.to(torch.int32).contiguous()
+    # the kernels copy the mask 16 bytes at a time
+    return mask if mask.data_ptr() % 16 == 0 else mask.clone()
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -265,17 +322,24 @@ class _FusedAttention(torch.autograd.Function):
                   _build.ptr(v), _build.ptr(out), _build.ptr(dout),
                   _build.ptr(mask), _build.ptr(stats))
         outputs = (_build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
-                   _build.ptr(delta), B, L, H, D, ctx.sm_scale,
-                   _build.stream())
+                   _build.ptr(delta))
+        shape = (B, L, H, D, ctx.sm_scale, _build.stream())
         if ctx.causal:
             lib = load_causal_bwd_kernel()
-            err = lib.tr_causal_attention_bwd(*inputs, *outputs)
+            err = lib.tr_causal_attention_bwd(*inputs, *outputs, *shape)
             _build.check(lib, err, "causal_attention backward")
             CAUSAL_BWD_LAUNCHES += 1
         else:
+            # the tensor-core dQ pass leaves its dropout bits here for the
+            # dK/dV pass: two words of 32 keys per (key tile of 64, query)
+            keep_words = None
+            if seed is not None and q.dtype == torch.bfloat16:
+                keep_words = torch.empty((B, H, L // 64, L, 2),
+                                         dtype=torch.int32, device=q.device)
             lib = load_bwd_kernel()
             err = lib.tr_attention_bwd(
-                *inputs, *_build.dropout_args(seed, ctx.dropout_p), *outputs)
+                *inputs, *_build.dropout_args(seed, ctx.dropout_p), *outputs,
+                _build.ptr(keep_words), *shape)
             _build.check(lib, err, "fused_dropout_attention backward")
             BWD_LAUNCHES += 1
         return dq, dk, dv, None, None, None, None, None, None
