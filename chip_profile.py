@@ -24,7 +24,9 @@ one Generator.generate and one encoder pass the same way.
 `--path retrieval` makes chip_smoke.py's two retrieval shapes and records
 one FlatIndex.search of 8192 queries per shape and kernel layout: host
 clock from numpy in to numpy out, and device time of the scan kernel, the
-merge kernel and the copies to and from the card.
+merge kernel and the copies to and from the card; then it times the
+corpus-split layout at 1, 2 and 4 work items a multiprocessor (CUDA events,
+median of 5), the choice behind ops/topk.py::ITEMS_PER_SM.
 Every line names the card and its power limit. The tables also go to
 DIR/profile_<path>.txt (default profile_out/). Exits non-zero without CUDA.
 """
@@ -45,6 +47,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from textreact_tpu_torch.inference import Generator
 from textreact_tpu_torch.models import build_model
+from textreact_tpu_torch.ops import topk
 from textreact_tpu_torch.retrieval import FlatIndex
 from textreact_tpu_torch.tokenizers import get_tokenizers
 from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
@@ -90,19 +93,6 @@ def busy_us(intervals) -> float:
     return total
 
 
-def device_events(prof):
-    """(name, start, end) of every kernel and copy the profiler saw on the
-    card. Ranges that the host opened (the optimizer's own annotation) are
-    mirrored on the device's track: they are no kernels."""
-    events = prof.events()
-    host_names = {ev.name for ev in events
-                  if ev.device_type != torch.autograd.DeviceType.CUDA}
-    return [(ev.name, ev.time_range.start, ev.time_range.end)
-            for ev in events
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.name not in host_names]
-
-
 def profile_retrieval(card: str, say) -> None:
     k = cs.TOPK_K
     for shape in ("bench", "rcr"):
@@ -118,7 +108,7 @@ def profile_retrieval(card: str, say) -> None:
                 index.search(queries, k=k, banned=banned)
                 wall_ms = (time.perf_counter() - t0) * 1e3
             by_kernel = defaultdict(float)
-            events = device_events(prof)
+            events = cs.device_events(prof)
             for kernel, start, end in events:
                 by_kernel[kernel] += end - start
             if not by_kernel:
@@ -133,7 +123,30 @@ def profile_retrieval(card: str, say) -> None:
                 f"the search without the profiler); on {card}")
             for kernel, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
                 say(f"  {us / 1e3:9.3f} ms {us / busy:6.1%}  {kernel[:110]}")
-        del index
+            # the profiler has lost launches: say so where it lost the scan's
+            scans = sum("topk_scan" in kernel for kernel, _, _ in events)
+            if scans != 1:
+                say(f"  the profiler saw {scans} scan launches of 1: this "
+                    f"breakdown is not complete")
+        # the corpus-split layout's slab count: work items per multiprocessor
+        q_dev = torch.from_numpy(queries).cuda()
+        b_dev = None if banned is None else torch.from_numpy(banned).cuda()
+        default = topk.ITEMS_PER_SM
+        try:
+            for items in (1, 2, 4):
+                topk.ITEMS_PER_SM = items
+                slabs = topk.split_slabs(len(queries), len(corpus),
+                                         q_dev.device)
+                ms = cs.time_ms(lambda: topk.exact_topk_l2(
+                    q_dev, index.corpus, index.norms, b_dev, k=k,
+                    corpus_resident=True), reps=5)
+                say(f"[profile] {shape} corpus-split at {items} work items "
+                    f"an SM ({slabs} slabs): {ms:.3f} ms device time"
+                    f"{' (the default)' if items == default else ''}; on "
+                    f"{card}")
+        finally:
+            topk.ITEMS_PER_SM = default
+        del index, q_dev, b_dev
         torch.cuda.empty_cache()
 
 
@@ -206,7 +219,7 @@ def report(prof, what: str, plain_ms: float, wall_ms: float, where: str,
     device time by kind of kernel and by kernel."""
     by_kind, by_kernel, intervals = defaultdict(float), defaultdict(float), []
     calls = defaultdict(int)
-    for name, start, end in device_events(prof):
+    for name, start, end in cs.device_events(prof):
         by_kind[kind_of(name)] += end - start
         by_kernel[name] += end - start
         calls[name] += 1

@@ -4,18 +4,17 @@ package's Pallas kernels in interpret mode with bf16 inputs, on the CPU.
 
 The CUDA kernels cannot run here. What can be held here is their arithmetic:
 bf16 operands, f32 sums, the softmax weights rounded to bf16 before they meet
-v, and dS rounded to bf16 before it meets k and q, which is where the TPU
-kernel rounds too (ops/fused_attention.py:94, :156). The card-only tests
-hold the kernels against the same statement.
+v, dS rounded to bf16 before it meets k and q, and dV taken from the
+unnormalised dropped weights and dO scaled by inv_keep / l, both rounded,
+which is where the TPU kernel rounds too (ops/fused_attention.py:94,
+:140-141, :156). The card-only tests hold the kernels against the same
+statement.
 
 On random inputs the two agree within bounds that the rounding itself would
 also pass, so those cases check the algebra in bf16. Where the rounding
-falls is told by the last three cases, on inputs whose unrounded answer
-cancels: there the statement equals the Pallas kernels to the bit (dq, dk)
-or far closer than without its rounding (out). dv is not held that way: the
-TPU kernel rounds the unnormalised weights and folds 1/l into dO, the
-statement (and the CUDA kernel) round the normalised ones, so the two differ
-there by design.
+falls is told by the last four cases, on inputs whose unrounded answer
+cancels: there the statement equals the Pallas kernels to the bit (dq, dk,
+dv) or far closer than without its rounding (out).
 """
 
 import jax
@@ -32,10 +31,9 @@ BF16_ULP = 2.0 ** -7  # relative spacing of bf16 just above a power of two
 
 # bf16 on both sides. Each side rounds its f32 result to bf16 (half an ulp
 # each, so one ulp of the value apart at worst: the relative term), and the
-# two round their intermediate weights at slightly different places (the TPU
-# kernel rounds the unnormalised weights and folds 1/l into dO for dV, the
-# statement rounds the normalised ones), each a relative 2^-9 on terms whose
-# sum is of order 1: the absolute term
+# two take their exp and sums in another order, so an intermediate weight or
+# dS near a rounding boundary may round the other way, a relative 2^-9 on
+# terms whose sum is of order 1: the absolute term
 OUT_TOL = dict(atol=1e-2, rtol=BF16_ULP)
 GRAD_TOL = dict(atol=2e-2, rtol=2 * BF16_ULP)
 # the statement in f32 against autograd through the plain version: the same
@@ -169,7 +167,7 @@ def test_rounding_dS_to_bf16_moves_gradients_by_less_than_the_card_bound():
         assert float(excess.max()) <= 0.0
 
 
-# The three cases below tell where the rounding falls, which the bounds above
+# The four cases below tell where the rounding falls, which the bounds above
 # cannot (rounding dS or the weights moves a result by less than they allow).
 # Each builds inputs on which the unrounded answer cancels, so that the
 # rounding of single terms is all that is left, and holds the statement with
@@ -177,13 +175,14 @@ def test_rounding_dS_to_bf16_moves_gradients_by_less_than_the_card_bound():
 # does not) against the Pallas kernels with bf16 inputs.
 
 
-def _pallas(q, k, v, do, scale):
+def _pallas(q, k, v, do, scale, mask=None):
     """(out, dq, dk, dv) of the Pallas kernels in interpret mode on bf16
-    inputs, without a mask or dropout, as f32 torch tensors."""
+    inputs, without dropout, as f32 torch tensors."""
     jdo = jnp.asarray(do, dtype=jnp.bfloat16).astype(jnp.float32)
+    jmask = None if mask is None else jnp.asarray(mask)
 
     def jloss(q, k, v):
-        out = jax_attention(q, k, v, None, 0.0, None, sm_scale=scale)
+        out = jax_attention(q, k, v, jmask, 0.0, None, sm_scale=scale)
         return jnp.sum(out.astype(jnp.float32) * jdo), out
 
     (_, out), grads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
@@ -266,3 +265,40 @@ def test_rounding_of_the_weights_falls_where_the_pallas_kernel_rounds():
     near = float((rounded - want).abs().mean())
     far = float((unrounded - want).abs().mean())
     assert far > 0 and near < 0.1 * far, (near, far)
+
+
+def test_rounding_of_dv_falls_where_the_pallas_kernel_rounds():
+    """Zero scores under a key mask make every valid key's weight exactly 1
+    and l the count of valid keys (100 and 77: no power of two, so 1 / l and
+    dO / l are not exact in bf16). dv of a valid key is then the sum over
+    the queries of round(dO / l); integer dO whose columns sum to zero make
+    the unrounded answer vanish, and what is left is the sum of the
+    roundings. Every term is a bf16 number between 2^-7 and 2^-1 and the sum
+    stays below 2^6, so f32 adds them exactly in any order: the statement
+    equals the Pallas kernel to the bit. Rounding the normalised weights
+    instead, round(1 / l) times the sum of dO, gives exactly zero, and the
+    statement without its rounding nearly zero."""
+    B, L, H, D = 2, 128, 2, 64
+    rng = np.random.default_rng(8)
+    do = _zero_sum_integers(rng, B, L, H, D, 15)
+    v = rng.integers(-4, 5, (B, L, H, D)).astype(np.float32)
+    q = k = np.zeros((B, L, H, D), np.float32)
+    mask = np.zeros((B, L), np.int32)
+    mask[0, :100], mask[1, 5:82] = 1, 1
+    scale = D ** -0.5
+    want = _pallas(q, k, v, do, scale, mask)[3]
+    args = [torch.from_numpy(t) for t in (q, k, v, do)]
+    rounded = fused_attention.attention_rounding_reference(
+        *(t.bfloat16() for t in args), torch.from_numpy(mask),
+        scale)[3].float()
+    unrounded = fused_attention.attention_rounding_reference(
+        *args, torch.from_numpy(mask), scale)[3]
+    valid = torch.from_numpy(mask > 0)[:, :, None, None].expand_as(want)
+    assert float((want[valid] != 0).float().mean()) > 0.5
+    assert not want[~valid].any()
+    assert torch.equal(rounded, want)
+    counts = torch.from_numpy(mask.sum(1).astype(np.float32))
+    normalised_first = (1.0 / counts).bfloat16().float()[:, None, None, None] \
+        * torch.from_numpy(do).sum(1, keepdim=True)
+    assert not normalised_first.any()
+    assert float(unrounded.abs().max()) < 1e-3 * float(want.abs().max())

@@ -51,7 +51,8 @@ def _mask(B, L, dev, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,H,D", [(128, 2, 64), (256, 4, 32), (512, 12, 64)])
+@pytest.mark.parametrize("L,H,D", [(128, 2, 64), (256, 4, 32), (512, 12, 64),
+                                   (256, 2, 128)])
 @pytest.mark.parametrize("masked", [True, False])
 def test_attention_kernel_matches_plain(dev, dtype, L, H, D, masked):
     B = 3
@@ -77,7 +78,7 @@ def test_attention_kernel_raises_on_what_it_does_not_take(dev):
         x = torch.randn(2, 100, 2, 64, device=dev)
         fused_attention.fused_dropout_attention(x, x, x, None)
     with pytest.raises(ValueError):
-        x = torch.randn(2, 128, 1, 128, device=dev)
+        x = torch.randn(2, 128, 1, 96, device=dev)   # head dims 32, 64, 128
         fused_attention.fused_dropout_attention(x, x, x, None)
     with pytest.raises(ValueError):
         x = torch.randn(2, 2, 128, 64, device=dev).transpose(1, 2)
@@ -128,7 +129,8 @@ GRAD_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (3e-2, 2.0 ** -6)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,H,D", [(128, 2, 64), (256, 4, 32), (512, 3, 64)])
+@pytest.mark.parametrize("L,H,D", [(128, 2, 64), (256, 4, 32), (512, 3, 64),
+                                   (256, 2, 128)])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_attention_kernel_forward_and_gradients_match_plain(dev, dtype, L, H,
                                                             D, p):
@@ -271,6 +273,45 @@ def test_model_on_card_matches_cpu(dev):
     np.testing.assert_allclose(scores, cpu_scores, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hidden,heads", [(256, 2), (640, 10)],
+                         ids=["h2d128", "hidden640"])
+def test_wide_heads_and_hidden_sizes_run_their_kernels(dev, hidden, heads,
+                                                       dtype):
+    """Heads of 128 and a hidden size of 640 on the card: attention and
+    LayerNorm launch their kernels (2 layers: 2 and 4 launches), and the
+    encoder states equal those of the plain functions on the same card
+    (f32: summation order; bf16: the kernels' own rounding points)."""
+    from chip_smoke import set_kernels
+    enc = TransformerConfig(vocab_size=64, hidden_size=hidden,
+                            num_hidden_layers=2, num_attention_heads=heads,
+                            intermediate_size=2 * hidden,
+                            max_position_embeddings=128, type_vocab_size=2,
+                            attention_impl="flash", layernorm_impl="fused")
+    dec = enc.replace(vocab_size=40, max_position_embeddings=16,
+                      type_vocab_size=1, is_decoder=True,
+                      add_cross_attention=True, bos_token_id=1,
+                      eos_token_id=2)
+    model = EncoderDecoder(enc, dec, dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.eval().to(dev)
+    batch = _batch()
+    ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev)
+    mask = torch.as_tensor(batch["attention_mask"], device=dev)
+    attn, ln = fused_attention.LAUNCHES, fused_layernorm.LAUNCHES
+    with torch.inference_mode():
+        got = model.encode(ids, mask)
+        torch.cuda.synchronize()
+        launched = (fused_attention.LAUNCHES - attn,
+                    fused_layernorm.LAUNCHES - ln)
+        set_kernels(model, False)
+        ref = model.encode(ids, mask)
+    assert launched == (2, 4), launched
+    assert torch.isfinite(got).all()
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
 def _fps(rng, n, d, kind):
     if kind == "binary":
         return (rng.random((n, d)) < 0.08).astype(np.int8)
@@ -346,6 +387,71 @@ def test_topk_kernels_corpus_smaller_than_k(dev, N):
                        (topk.BIG + qn)[:, None].expand(-1, 20 - N))
 
 
+@pytest.mark.parametrize("M,N,d,k,nb,kind", [
+    (65, 129, 16, 1, 0, "counts"), (63, 255, 2048, 128, 3, "full"),
+    (200, 1000, 48, 128, 2, "binary"), (129, 3000, 2048, 20, 1, "counts"),
+    (64, 128, 16, 128, 0, "full"), (1, 700, 1024, 20, 3, "binary"),
+    (70, 700, 128, 20, 0, "equal"), (70, 700, 128, 128, 2, "equal")])
+def test_topk_scan_at_the_edges_of_its_tiles(dev, M, N, d, k, nb, kind):
+    """The wgmma scan at the edges of its tiles and of its ring: a corpus
+    that ends inside a tile, queries that end inside a warpgroup's 64, d of
+    one 16-byte piece and of sixteen 128-byte stages, k = 1 and k = 128
+    (three stages beside the lists), 0-3 banned ids a query, and a corpus of
+    equal rows, where every distance ties and the order is the index's."""
+    rng = np.random.default_rng(M + N + d + k + nb)
+    if kind == "equal":
+        corpus = np.repeat(_fps(rng, 1, d, "counts"), N, axis=0)
+    else:
+        corpus = _fps(rng, N, d, kind)
+        corpus[rng.integers(0, N, N // 3)] = corpus[rng.integers(0, N, N // 3)]
+    queries = _fps(rng, M, d, "counts" if kind == "equal" else kind)
+    queries[: M // 2] = corpus[rng.integers(0, N, M // 2)]
+    banned = None
+    if nb:
+        banned = rng.integers(-1, N, (M, nb)).astype(np.int32)
+    _, idx = _topk_both_layouts(queries, corpus, N, banned, k, dev)
+    if kind == "equal" and banned is None:
+        assert (idx.cpu().numpy() == np.arange(k)).all()
+
+
+@pytest.mark.parametrize("case", ["many_query_tiles", "many_slabs"])
+def test_topk_scan_walks_several_items_a_block(dev, monkeypatch, case):
+    """More work items than three times the card's SMs, so every persistent
+    block walks several: its lists and k-th scores start afresh at each item
+    and its ring's phase runs on from one item into the next. Many query
+    tiles (both layouts, 4-5 items a block), and many slabs of two tiles
+    with four items an SM (corpus split; half the slabs lie past the
+    corpus's end and yield empty lists). Both layouts equal the plain
+    version, tolerance 0."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(len(case))
+    if case == "many_query_tiles":
+        M, N, d, nb, kind = 4 * sms * topk.TILE_Q + 5, 300, 16, 2, "full"
+    else:
+        monkeypatch.setattr(topk, "ITEMS_PER_SM", 4)
+        M, N, d, nb, kind = 300, 200 * topk.TILE_C + 7, 32, 1, "binary"
+    corpus = _fps(rng, N, d, kind)
+    corpus[rng.integers(0, N, N // 3)] = corpus[rng.integers(0, N, N // 3)]
+    queries = _fps(rng, M, d, kind)
+    queries[: M // 2] = corpus[rng.integers(0, N, M // 2)]
+    banned = rng.integers(-1, N, (M, nb)).astype(np.int32)
+    items = -(-M // topk.TILE_Q) * topk.split_slabs(M, N, dev)
+    assert items > 3 * sms, items
+    _topk_both_layouts(queries, corpus, N, banned, 20, dev)
+
+
+def test_ring_fits_beside_the_lists(dev):
+    """Every k the kernels take leaves the scan a ring of 2-4 stages and
+    stays inside the 227 KB a block may use; k = 20 keeps all four stages.
+    The numbers are the library's own (tr_topk_scan_shared)."""
+    for k in range(1, topk.MAX_K + 1):
+        stages, nbytes = topk.scan_shared(k)
+        assert 2 <= stages <= 4 and nbytes <= 227 * 1024
+    assert topk.scan_shared(20)[0] == 4 and topk.scan_shared(128)[0] == 3
+    with pytest.raises(ValueError, match=f"1..{topk.MAX_K}"):
+        topk.scan_shared(topk.MAX_K + 1)
+
+
 def test_topk_kernel_raises_on_what_it_does_not_take(dev):
     q = torch.zeros((4, 128), dtype=torch.int8, device=dev)
     c = torch.zeros((50, 128), dtype=torch.int8, device=dev)
@@ -384,7 +490,7 @@ def test_flat_index_on_card_chunks_and_layouts(dev, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,H,D", [(128, 2, 64), (256, 4, 32), (512, 3, 64),
-                                   (384, 2, 32)])
+                                   (384, 2, 32), (256, 2, 128)])
 @pytest.mark.parametrize("masked", [True, False])
 def test_causal_attention_kernel_forward_and_gradients_match_plain(
         dev, dtype, L, H, D, masked):
@@ -441,7 +547,7 @@ def test_causal_attention_kernel_raises_on_what_it_does_not_take(dev):
         x = torch.randn(2, 160, 2, 64, device=dev)
         fused_attention.causal_attention(x, x, x, None)
     with pytest.raises(ValueError):
-        x = torch.randn(2, 128, 1, 128, device=dev)
+        x = torch.randn(2, 128, 1, 96, device=dev)
         fused_attention.causal_attention(x, x, x, None)
     with pytest.raises(TypeError):
         x = torch.randn(2, 128, 2, 64, device=dev).half()
@@ -451,7 +557,7 @@ def test_causal_attention_kernel_raises_on_what_it_does_not_take(dev):
 # ---- the bf16 tensor-core attention kernels (csrc/attention_mma.cuh) -------
 # bfloat16 reaches the `mma.sync` kernels and float32 the exact ones, by the
 # element type alone; the cases above already run both. These add what the
-# tensor-core design can get wrong: both head dims at every tile count,
+# tensor-core design can get wrong: every head dim at every tile count,
 # masks that are no prefix (whole tiles masked, a row with no valid key
 # beside rows with some), the three kernels' dropout bits, and tile skipping.
 
@@ -462,7 +568,7 @@ def _holes_mask(B, L, dev, seed=0):
     return torch.as_tensor(mask, dtype=torch.int32, device=dev)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("L", [128, 256, 512, 1024])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_tensor_core_attention_under_a_mask_with_holes(dev, D, L, p):
@@ -493,7 +599,7 @@ def test_tensor_core_attention_under_a_mask_with_holes(dev, D, L, p):
         _close(a.grad, b.grad, *GRAD_TOL[dtype])
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("L", [128, 256, 512, 1024])
 def test_tensor_core_causal_attention_under_a_mask_with_holes(dev, D, L):
     """Key 0 is masked in every row here, so rows below the first valid key
@@ -517,7 +623,7 @@ def test_tensor_core_causal_attention_under_a_mask_with_holes(dev, D, L):
             _close(a.grad, b.grad, *GRAD_TOL[dtype])
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_tensor_core_attention_matches_its_rounding_statement(dev, D, causal):
     """Against the plain statement of the kernels' own rounding points (dS
@@ -581,7 +687,7 @@ def test_attention_kernels_draw_the_bits_keep_mask_exports(dev, which):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_tensor_core_attention_repeats_to_the_bit(dev, causal, D):
     """No float atomics in either pass: one seed, the same bits, forward and
     gradients."""

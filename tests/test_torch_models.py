@@ -217,6 +217,81 @@ def test_plain_attention_paths_match_jax(case):
                                    rtol=RTOL, atol=ATOL)
 
 
+def _geometry_configs(hidden, heads):
+    enc, dec = jax_configs(heads)
+    enc = enc.replace(hidden_size=hidden, intermediate_size=2 * hidden)
+    dec = dec.replace(hidden_size=hidden, intermediate_size=2 * hidden)
+    return enc, dec
+
+
+@pytest.mark.parametrize("hidden,heads", [(256, 2), (640, 10)],
+                         ids=["h2d128", "hidden640"])
+def test_wide_heads_and_hidden_sizes_match_jax(hidden, heads, monkeypatch):
+    """Heads of 128 and a hidden size of 640, shapes the JAX package runs
+    in its Pallas kernels: the port's model sends both ops through their
+    wrappers (the kernels on the card, the plain versions here) and equals
+    the JAX twin with converted weights."""
+    from textreact_tpu_torch.models import layers
+    enc, dec = _geometry_configs(hidden, heads)
+    jmodel = JaxEncoderDecoder(encoder_config=enc, decoder_config=dec,
+                               dtype=jnp.float32)
+    batch = make_batch(seed=5)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    params = random_params(jmodel, jbatch, seed=3)
+    jout = jax.jit(lambda p, b: jmodel.apply(p, **b))(params, jbatch)
+    tmodel = EncoderDecoder(port_config(enc), port_config(dec),
+                            dtype=torch.float32)
+    tmodel.load_state_dict(from_flax(jax.device_get(params)))
+    calls = {"attention": 0, "layernorm": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(layers, "fused_dropout_attention",
+                        counted("attention", layers.fused_dropout_attention))
+    monkeypatch.setattr(layers, "fused_residual_layernorm",
+                        counted("layernorm", layers.fused_residual_layernorm))
+    with torch.no_grad():
+        tout = tmodel.eval()(**{k: torch.as_tensor(v)
+                                for k, v in batch.items()})
+    for key in ("encoder_last_hidden_state", "logits"):
+        np.testing.assert_allclose(tout[key].numpy(), np.asarray(jout[key]),
+                                   rtol=RTOL, atol=ATOL)
+    assert calls["attention"] > 0 and calls["layernorm"] > 0, calls
+
+
+@pytest.mark.parametrize("hidden,heads,attention,layernorm,refused", [
+    (256, 2, "flash", "fused", False), (640, 10, "flash", "fused", False),
+    (384, 4, "flash", "xla", True), (384, 4, "xla", "fused", False),
+    (1536, 12, "xla", "fused", True), (1536, 12, "flash", "xla", False),
+    (1000, 8, "xla", "fused", False)],
+    ids=["d128", "hidden640", "d96", "d96-plain", "hidden1536",
+         "hidden1536-plain", "hidden1000-unaligned"])
+def test_kernel_shape_rule_refuses_before_any_batch(hidden, heads, attention,
+                                                    layernorm, refused):
+    """On the card `build_model` refuses a model that would reach a kernel
+    with a shape the port's kernels do not take (heads of 96; an aligned
+    hidden size past 1024) rather than run a plain version in its place.
+    The plain functions, the reference's own rule for unaligned hidden
+    sizes, and attention that never reaches the kernels (the decoder's)
+    pass."""
+    from textreact_tpu_torch.models.factory import check_kernel_shapes
+    cfg = TransformerConfig(hidden_size=hidden, num_attention_heads=heads,
+                            attention_impl=attention,
+                            layernorm_impl=layernorm)
+    if refused:
+        with pytest.raises(ValueError, match="take"):
+            check_kernel_shapes(cfg)
+    else:
+        check_kernel_shapes(cfg)
+    if attention == "flash":
+        check_kernel_shapes(cfg.replace(layernorm_impl="xla"),
+                            attention=False)
+
+
 class _Tok:
     pad_token_id, bos_token_id, eos_token_id = 0, 12, 13
 

@@ -293,9 +293,25 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
 // dK/dV pass holds two gradient accumulators and two operand fragments, so
 // it takes pieces of 16 and asks for three blocks an SM (168 registers;
 // timed against pieces of 32 at 230 registers and two blocks: 8% faster).
+// At D = 128 those accumulators alone are 128 registers a thread and its
+// shared memory (89.6 KB) holds two blocks an SM at most: it asks for one,
+// which leaves ptxas all 255 registers.
 constexpr int kChunkDq = 32;
 constexpr int kChunkDkv = 16;
 constexpr int kDkvBlocksPerSm = 3;
+
+constexpr int dkv_blocks_per_sm(int D) { return D <= 64 ? kDkvBlocksPerSm : 1; }
+
+template <int D>
+constexpr int dq_tc_shared_bytes() {
+  return 4 * tile_bytes<D>() + 2 * kTcTile * (int)sizeof(int32_t);
+}
+
+template <int D, bool kDrop>
+constexpr int dkv_tc_shared_bytes() {
+  return 5 * tile_bytes<D>() + 2 * kTcTile * (int)(sizeof(float2) + sizeof(float)) +
+         (kDrop ? 2 * kTcTile * 2 * (int)sizeof(uint32_t) : 0);
+}
 
 // dQ pass, tensor-core path; also writes delta = rowsum(dO * O). A block of
 // four warps owns 64 query rows (16 a warp, q and dO as A fragments in
@@ -316,9 +332,11 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kChunk = kChunkDq;
   static_assert(kChunkDq == 32, "a piece of keys fills one word of keep bits");
   constexpr int NT = kChunk / 8;
-  __shared__ __align__(16) bf16 ks[2][kTcTile * LD];
-  __shared__ __align__(16) bf16 vs[2][kTcTile * LD];
-  __shared__ __align__(16) int32_t ms[2][kTcTile];
+  // two stages of k and v, then of the key mask (dq_tc_shared_bytes)
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16 (*ks)[kTcTile * LD] = reinterpret_cast<bf16 (*)[kTcTile * LD]>(tc_smem);
+  bf16 (*vs)[kTcTile * LD] = ks + 2;
+  int32_t (*ms)[kTcTile] = reinterpret_cast<int32_t (*)[kTcTile]>(vs + 2);
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5, g = lane >> 2, tq = lane & 3;
@@ -481,17 +499,20 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // block of four warps owns 64 keys (16 a warp, k and v as A fragments in
 // registers) and streams the queries in tiles of 64 with their dO, m, l and
 // delta. It computes the TRANSPOSED tiles S^T = k q^T and dP^T = v dO^T, so
-// that P^T and dS^T come out as the A fragments of dV += (P keep inv_keep)^T
-// dO and dK += dS^T q without a trip through shared memory. It draws no
-// dropout bits: in the transposed tile the four keys of one Philox draw lie in
-// four lanes, and the dQ pass has drawn every bit already, so that pass leaves
+// that E^T and dS^T come out as the A fragments of dV += (E keep)^T (dO
+// inv_keep / l) and dK += dS^T q without a trip through shared memory. dV
+// rounds where the TPU kernel does (ops/fused_attention.py:140-141): the
+// unnormalised dropped weights E keep, and dO scaled per query row by
+// inv_keep / l, which the block writes once a tile into its own buffer. It
+// draws no dropout bits: in the transposed tile the four keys of one Philox
+// draw lie in four lanes, and the dQ pass has drawn every bit already, so that pass leaves
 // them in `keep_words` (two 32-bit words for each (key tile, query): bit =
 // key % 32) and this one copies a query tile's 512 bytes in with the tile. A
 // block whose keys are all masked writes zeros where that is exact
 // (scan_key_tiles); the dQ pass leaves out the same tiles, so no word is read
 // that was not written.
 template <int D, bool kDrop, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads, kDkvBlocksPerSm)
+__global__ void __launch_bounds__(kTcThreads, dkv_blocks_per_sm(D))
 attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const int32_t* __restrict__ mask,
@@ -503,12 +524,17 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = D + kPad;
   constexpr int kChunk = kChunkDkv;
   constexpr int NT = kChunk / 8;
-  __shared__ __align__(16) bf16 qs[2][kTcTile * LD];
-  __shared__ __align__(16) bf16 dos[2][kTcTile * LD];
-  __shared__ __align__(16) float2 sts[2][kTcTile];  // row max, normaliser
-  __shared__ __align__(16) float dls[2][kTcTile];   // delta
-  // keep bits of (query, this block's 64 keys) as the dQ pass wrote them
-  __shared__ __align__(16) uint32_t kws[kDrop ? 2 : 1][kDrop ? kTcTile : 1][2];
+  // dkv_tc_shared_bytes: two stages of q and of dO, dO inv_keep / l rounded
+  // (dsc), two stages of the rows' (max, normaliser) and delta, and with
+  // dropout two of the keep bits of (query, this block's 64 keys) as the dQ
+  // pass wrote them
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16 (*qs)[kTcTile * LD] = reinterpret_cast<bf16 (*)[kTcTile * LD]>(tc_smem);
+  bf16 (*dos)[kTcTile * LD] = qs + 2;
+  bf16* dsc = dos[2];
+  float2 (*sts)[kTcTile] = reinterpret_cast<float2 (*)[kTcTile]>(dsc + kTcTile * LD);
+  float (*dls)[kTcTile] = reinterpret_cast<float (*)[kTcTile]>(sts + 2);
+  uint32_t (*kws)[kTcTile][2] = reinterpret_cast<uint32_t (*)[kTcTile][2]>(dls + 2);
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5, g = lane >> 2, tq = lane & 3;
@@ -593,6 +619,21 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    // the B operand of dV: every warp has left the last tile's (above)
+    for (int i = t; i < kTcTile * (D / 8); i += kTcThreads) {
+      const int r = i / (D / 8), c = 8 * (i % (D / 8));
+      const float f = inv_keep / sts[stage][r].y;
+      const uint4 raw = *reinterpret_cast<const uint4*>(&dos[stage][r * LD + c]);
+      const bf16* x = reinterpret_cast<const bf16*>(&raw);
+      uint4 scaled;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&scaled);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[j] = pack_bf16(__bfloat162float(x[2 * j]) * f, __bfloat162float(x[2 * j + 1]) * f);
+      }
+      *reinterpret_cast<uint4*>(&dsc[r * LD + c]) = scaled;
+    }
+    __syncthreads();
 
     const int r0 = tile * kTcTile;  // the tile's first query
 #pragma unroll 1
@@ -606,26 +647,27 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mma_nt<NT, D>(s, kf, qs[stage], c0, lane);
       mma_nt<NT, D>(dp, vf, dos[stage], c0, lane);
 
-      uint32_t pf[NT / 2][4], dsf[NT / 2][4];  // (P keep inv_keep)^T, dS^T
+      uint32_t pf[NT / 2][4], dsf[NT / 2][4];  // (E keep)^T, dS^T
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int c = c0 + 8 * j + 2 * tq;  // this lane's queries c, c + 1
         const float4 st = *reinterpret_cast<const float4*>(&sts[stage][c]);
         const float2 dl = *reinterpret_cast<const float2*>(&dls[stage][c]);
         const float li0 = 1.f / st.y, li1 = 1.f / st.w;
-        float p0 = __expf(fmaf(s[j][0], scale, kb0) - st.x) * li0;
-        float p1 = __expf(fmaf(s[j][1], scale, kb0) - st.z) * li1;
-        float p2 = __expf(fmaf(s[j][2], scale, kb1) - st.x) * li0;
-        float p3 = __expf(fmaf(s[j][3], scale, kb1) - st.z) * li1;
+        float e0 = __expf(fmaf(s[j][0], scale, kb0) - st.x);
+        float e1 = __expf(fmaf(s[j][1], scale, kb0) - st.z);
+        float e2 = __expf(fmaf(s[j][2], scale, kb1) - st.x);
+        float e3 = __expf(fmaf(s[j][3], scale, kb1) - st.z);
         if (kCausal && tile == kb) {  // the tile on the diagonal
           const int qry = r0 + c, key = key0 + g;
-          if (qry < key) p0 = 0.f;
-          if (qry + 1 < key) p1 = 0.f;
-          if (qry < key + 8) p2 = 0.f;
-          if (qry + 1 < key + 8) p3 = 0.f;
+          if (qry < key) e0 = 0.f;
+          if (qry + 1 < key) e1 = 0.f;
+          if (qry < key + 8) e2 = 0.f;
+          if (qry + 1 < key + 8) e3 = 0.f;
         }
+        const float p0 = e0 * li0, p1 = e1 * li1, p2 = e2 * li0, p3 = e3 * li1;
         float g0 = dp[j][0], g1 = dp[j][1], g2 = dp[j][2], g3 = dp[j][3];
-        float d0 = p0, d1 = p1, d2 = p2, d3 = p3;  // the weights that met v
+        float d0 = e0, d1 = e1, d2 = e2, d3 = e3;  // the weights that met v
         if constexpr (kDrop) {
           const uint4 kw = *reinterpret_cast<const uint4*>(&kws[stage][c][0]);
           const uint32_t wa = (kw_half ? kw.y : kw.x) >> kw_shift;  // query c
@@ -634,10 +676,10 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           g1 = (wb & 1u) ? g1 * inv_keep : 0.f;
           g2 = (wa & 256u) ? g2 * inv_keep : 0.f;
           g3 = (wb & 256u) ? g3 * inv_keep : 0.f;
-          d0 = (wa & 1u) ? d0 * inv_keep : 0.f;
-          d1 = (wb & 1u) ? d1 * inv_keep : 0.f;
-          d2 = (wa & 256u) ? d2 * inv_keep : 0.f;
-          d3 = (wb & 256u) ? d3 * inv_keep : 0.f;
+          d0 = (wa & 1u) ? d0 : 0.f;
+          d1 = (wb & 1u) ? d1 : 0.f;
+          d2 = (wa & 256u) ? d2 : 0.f;
+          d3 = (wb & 256u) ? d3 : 0.f;
         }
         pf[j >> 1][2 * (j & 1)] = pack_bf16(d0, d1);
         pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(d2, d3);
@@ -646,7 +688,7 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dsf[j >> 1][2 * (j & 1) + 1] =
             pack_bf16(p2 * (g2 - dl.x) * scale, p3 * (g3 - dl.y) * scale);
       }
-      mma_tn<NT / 2, D>(dva, pf, dos[stage], c0, lane);
+      mma_tn<NT / 2, D>(dva, pf, dsc, c0, lane);
       mma_tn<NT / 2, D>(dka, dsf, qs[stage], c0, lane);
     }
 
@@ -691,12 +733,20 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     }
     uint32_t* kw = static_cast<uint32_t*>(keep_words);
     const dim3 grid(L / kTcRows, H, B);
-    attention_bwd_dq_tc<D, kDrop, kCausal><<<grid, kTcThreads, 0, stream>>>(
+    constexpr int dq_bytes = dq_tc_shared_bytes<D>();
+    constexpr int dkv_bytes = dkv_tc_shared_bytes<D, kDrop>();
+    auto dq_kernel = &attention_bwd_dq_tc<D, kDrop, kCausal>;
+    auto dkv_kernel = &attention_bwd_dkv_tc<D, kDrop, kCausal>;
+    cudaError_t err = allow_shared(dq_kernel, dq_bytes);
+    if (err != cudaSuccess) return err;
+    err = allow_shared(dkv_kernel, dkv_bytes);
+    if (err != cudaSuccess) return err;
+    dq_kernel<<<grid, kTcThreads, dq_bytes, stream>>>(
         qt, kt, vt, static_cast<const T*>(o), gt, mask, st, drop,
         static_cast<T*>(dq), dl, kw, L, H, scale);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    attention_bwd_dkv_tc<D, kDrop, kCausal><<<grid, kTcThreads, 0, stream>>>(
+    dkv_kernel<<<grid, kTcThreads, dkv_bytes, stream>>>(
         qt, kt, vt, gt, mask, st, dl, kw, drop, static_cast<T*>(dk),
         static_cast<T*>(dv), L, H, scale);
   }

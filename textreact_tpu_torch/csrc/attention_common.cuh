@@ -40,6 +40,8 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
   do {                                                                         \
     if (D == 64) {                                                             \
       if (dropout) CALL(64, true) else CALL(64, false)                         \
+    } else if (D == 128) {                                                     \
+      if (dropout) CALL(128, true) else CALL(128, false)                       \
     } else if (D == 32) {                                                      \
       if (dropout) CALL(32, true) else CALL(32, false)                         \
     } else {                                                                   \

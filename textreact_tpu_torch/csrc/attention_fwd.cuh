@@ -146,9 +146,11 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int L, int H, float scale) {
   constexpr int LD = D + kPad;
   constexpr int NT = kTcTile / 8;  // score tiles of 8 keys
-  __shared__ __align__(16) bf16 ks[2][kTcTile * LD];
-  __shared__ __align__(16) bf16 vs[2][kTcTile * LD];
-  __shared__ __align__(16) int32_t ms[2][kTcTile];
+  // two stages of k and v, then of the key mask (fwd_tc_shared_bytes)
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16 (*ks)[kTcTile * LD] = reinterpret_cast<bf16 (*)[kTcTile * LD]>(tc_smem);
+  bf16 (*vs)[kTcTile * LD] = ks + 2;
+  int32_t (*ms)[kTcTile] = reinterpret_cast<int32_t (*)[kTcTile]>(vs + 2);
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5, g = lane >> 2, tq = lane & 3;
@@ -294,6 +296,11 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
+constexpr int fwd_tc_shared_bytes() {
+  return 4 * tile_bytes<D>() + 2 * kTcTile * (int)sizeof(int32_t);
+}
+
 // float32 takes the exact kernel, bfloat16 the tensor-core kernel.
 template <typename T, int D, bool kDrop, bool kCausal>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
@@ -309,8 +316,11 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
             static_cast<float2*>(stats), drop, L, H, scale);
   } else {
     if (L % kTcTile != 0) return cudaErrorInvalidValue;
-    attention_fwd_tc<D, kDrop, kCausal>
-        <<<dim3(L / kTcRows, H, B), kTcThreads, 0, stream>>>(
+    constexpr int bytes = fwd_tc_shared_bytes<D>();
+    auto kernel = &attention_fwd_tc<D, kDrop, kCausal>;
+    const cudaError_t err = allow_shared(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(L / kTcRows, H, B), kTcThreads, bytes, stream>>>(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), mask, static_cast<bf16*>(out),
             static_cast<float2*>(stats), drop, L, H, scale);

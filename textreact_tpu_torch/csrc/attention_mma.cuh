@@ -27,7 +27,7 @@ namespace {
 constexpr int kTcThreads = 128;  // four warps
 constexpr int kTcRows = 64;      // rows of the block's own tile, 16 a warp
 constexpr int kTcTile = 64;      // rows of a streamed tile
-// A head's row is D bf16 = 128 or 64 bytes. Stored at that stride, the eight
+// A head's row is D bf16 = 256, 128 or 64 bytes. Stored at that stride, the eight
 // rows an `ldmatrix` reads would share their banks; eight more elements (16
 // bytes) a row shift each row by four banks, so the eight 16-byte reads of
 // one 8 x 8 matrix cover all 32 banks once.
@@ -35,6 +35,22 @@ constexpr int kPad = 8;
 constexpr uint32_t kFullWarp = 0xffffffffu;
 
 using bf16 = __nv_bfloat16;
+
+// Bytes of one padded tile [kTcTile][D + kPad] of bf16.
+template <int D>
+constexpr int tile_bytes() {
+  return kTcTile * (D + kPad) * (int)sizeof(bf16);
+}
+
+// The tensor-core kernels take their shared memory dynamically (carved from
+// `tc_smem`): at D = 128 their stages outgrow the 48 KB that a block may
+// declare statically, and past those 48 KB a kernel must ask for more.
+template <typename Kernel>
+cudaError_t allow_shared(Kernel* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -84,8 +100,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Start the copy of 64 rows of one head (D bf16 each, row stride HD in
 // global memory) into a padded shared-memory tile [64][D + kPad]: 16 bytes a
-// thread a turn, eight (D = 64) or four (D = 32) neighbouring threads on one
-// row, so global memory is read in whole 128- or 64-byte runs.
+// thread a turn, D / 8 neighbouring threads on one row, so global memory is
+// read in whole runs of 2 D bytes.
 template <int D>
 __device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src,
                                                 int64_t HD, int t) {

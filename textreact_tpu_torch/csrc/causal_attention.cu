@@ -52,6 +52,10 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int32_t* mask
     return launch_fwd<T, 32, false, true>(q, k, v, mask, out, stats, drop, B, L, H,
                                           scale, stream);
   }
+  if (D == 128) {
+    return launch_fwd<T, 128, false, true>(q, k, v, mask, out, stats, drop, B, L, H,
+                                          scale, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

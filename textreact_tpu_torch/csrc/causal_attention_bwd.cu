@@ -37,6 +37,11 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                                           dk, dv, delta, nullptr, B, L, H, scale,
                                           stream);
   }
+  if (D == 128) {
+    return launch_bwd<T, 128, false, true>(q, k, v, o, dout, mask, stats, drop, dq,
+                                          dk, dv, delta, nullptr, B, L, H, scale,
+                                          stream);
+  }
   return cudaErrorInvalidValue;
 }
 

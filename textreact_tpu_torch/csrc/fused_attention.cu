@@ -65,7 +65,9 @@
 //   model runs. One thread per query row, keys in tiles of 32; they are
 //   bound by the card's f32 FMA rate and are not the path that is timed.
 // Either way outputs are in the input dtype and there are no atomics, so a
-// call is deterministic.
+// call is deterministic. Both take head dims 32, 64 and 128 (TR_DISPATCH);
+// the TPU kernel takes any, and a model whose heads are of another width is
+// refused on the card before its first batch (models/factory.py).
 //
 // - forward: the keep mask is applied to the unnormalised weight AFTER it is
 //   added to l, and inv_keep / l scales the output once.

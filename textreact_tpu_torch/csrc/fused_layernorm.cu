@@ -29,7 +29,11 @@
 // fixed order and writes one (2, H) row of a workspace, and a second small
 // kernel sums the workspace's columns, again in a fixed order. The TPU
 // kernel's small-row fallback (a Mosaic tiling rule) has no counterpart: any
-// row count works.
+// row count works. Hidden sizes: every multiple of 128 up to 1024
+// (TR_HIDDEN_CASES). A lane's backward holds 24 values a group of four
+// columns, 192 registers at 1024, which is where the register file ends; the
+// TPU kernel takes larger rows, and a model with one is refused on the card
+// before its first batch (models/factory.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -275,7 +279,9 @@ __global__ void row_keep_mask(const int64_t* __restrict__ seed, uint32_t thresho
     case 256: CALL(256) break;                                                 \
     case 384: CALL(384) break;                                                 \
     case 512: CALL(512) break;                                                 \
+    case 640: CALL(640) break;                                                 \
     case 768: CALL(768) break;                                                 \
+    case 896: CALL(896) break;                                                 \
     case 1024: CALL(1024) break;                                               \
     default: return cudaErrorInvalidValue;                                     \
   }

@@ -9,7 +9,9 @@ import torch
 from torch import nn
 
 from ..config import ExperimentConfig
-from .config import resolve_config
+from ..ops.fused_attention import SUPPORTED_HEAD_DIM
+from ..ops.fused_layernorm import SUPPORTED_HIDDEN
+from .config import TransformerConfig, resolve_config
 from .decoder import Decoder
 from .encdec import EncoderDecoder
 from .layers import LayerNorm, MLMHead, ResidualLayerNorm
@@ -28,6 +30,32 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port runs on the GPU unless the caller "
             "passes device='cpu'")
     return torch.device("cuda")
+
+
+def check_kernel_shapes(config: TransformerConfig,
+                        attention: bool = True) -> None:
+    """Refuse, before any batch, a model that would reach a kernel with a
+    shape the port's kernels do not take: heads outside SUPPORTED_HEAD_DIM
+    under attention_impl='flash', or a hidden size that is a multiple of 128
+    (the reference's rule for its LN kernel, layers.py:374) outside
+    SUPPORTED_HIDDEN under layernorm_impl='fused'. The JAX package's Pallas
+    kernels take those shapes; on the card the port has no kernel for them
+    and runs no plain version in a kernel's place. The plain functions
+    (impl 'xla') take any shape. `attention=False` for a stack whose
+    attention always carries a bias and so never reaches the kernels (the
+    decoder's, layers.py:201-203)."""
+    if (attention and config.attention_impl == "flash"
+            and config.head_dim not in SUPPORTED_HEAD_DIM):
+        raise ValueError(
+            f"head dim {config.head_dim} (hidden {config.hidden_size} / "
+            f"{config.num_attention_heads} heads): the attention kernels take "
+            f"{SUPPORTED_HEAD_DIM}; use attention_impl='xla' for others")
+    if (config.layernorm_impl == "fused" and config.hidden_size % 128 == 0
+            and config.hidden_size not in SUPPORTED_HIDDEN):
+        raise ValueError(
+            f"hidden size {config.hidden_size}: the LayerNorm kernel takes "
+            f"multiples of 128 up to {max(SUPPORTED_HIDDEN)}; use "
+            f"layernorm_impl='xla' for others")
 
 
 def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
@@ -64,6 +92,9 @@ def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
         bos_token_id=dec_tokenizer.bos_token_id,
         eos_token_id=dec_tokenizer.eos_token_id,
     )
+    if device.type == "cuda":
+        check_kernel_shapes(enc_config)
+        check_kernel_shapes(dec_config, attention=False)
     module = EncoderDecoder(encoder_config=enc_config,
                             decoder_config=dec_config,
                             dtype=DTYPES[cfg.compute_dtype],

@@ -44,7 +44,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e9
-SUPPORTED_HEAD_DIM = (32, 64)
+SUPPORTED_HEAD_DIM = (32, 64, 128)  # TR_DISPATCH in csrc/attention_common.cuh
 SEQ_MULTIPLE = 128  # the kernels' row tile
 LAUNCHES = 0      # forward kernel launches since the last reset
 BWD_LAUNCHES = 0  # backward launches (one per dQ + dK/dV pair)
@@ -144,37 +144,43 @@ def attention_rounding_reference(q: torch.Tensor, k: torch.Tensor,
                                  sm_scale: float,
                                  keep: Optional[torch.Tensor] = None,
                                  dropout_p: float = 0.0,
-                                 causal: bool = False):
+                                 causal: bool = False,
+                                 out: Optional[torch.Tensor] = None):
     """Forward and backward of the tensor-core kernels written out in plain
     PyTorch with the kernels' rounding points, for tests: returns (out, dq,
-    dk, dv) in q's dtype.
+    dk, dv) in q's dtype. `out`, (B, L, H, D): the forward output that the
+    backward reads for delta = rowsum(dO out), as the kernels' backward and
+    the TPU kernel's (o_ref) read the forward's; default the statement's own.
 
     Every product takes operands of q's dtype and sums in f32. The
     unnormalised weights are rounded to q's dtype before they meet v (as in
-    `attention_reference`); in the backward the dropped, rescaled
-    probabilities are rounded before they meet dO, and dS before it meets k
-    and q. Autograd through `attention_reference` keeps dS in f32; the TPU
-    kernel (ops/fused_attention.py:_bwd_kernel) rounds it as here."""
+    `attention_reference`); in the backward dV is (E keep)^T (dO inv / l)
+    with both factors rounded, E the unnormalised weights and l their row
+    sums, and dS is rounded before it meets k and q. These are the TPU
+    kernel's rounding points (ops/fused_attention.py:_bwd_kernel :140-141
+    and :156); autograd through `attention_reference` keeps all three in
+    f32."""
     dt = q.dtype
     qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
     e, l = _weights(q, k, mask_kv, sm_scale, causal)
     inv = 1.0 if keep is None else 1.0 / (1.0 - dropout_p)
     kept = e if keep is None else torch.where(keep, e, 0.0)
     ctx = torch.einsum("bhqk,bkhd->bhqd", kept.to(dt).float(), vf) * (inv / l)
-    out = ctx.transpose(1, 2).to(dt)
+    own = ctx.transpose(1, 2).to(dt)
+    read = own if out is None else out
 
     prob = e / l
-    delta = (gf * out.float()).sum(-1).transpose(1, 2)[..., None]  # b h q 1
+    delta = (gf * read.float()).sum(-1).transpose(1, 2)[..., None]  # b h q 1
     dprob = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-    dropped = prob * inv if keep is None else torch.where(keep, prob * inv,
-                                                          0.0)
     if keep is not None:
         dprob = torch.where(keep, dprob * inv, 0.0)
     ds = (prob * (dprob - delta) * sm_scale).to(dt).float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", dropped.to(dt).float(), gf)
+    row_scale = (inv / l)[..., 0].transpose(1, 2)[..., None]  # b q h 1
+    dv = torch.einsum("bhqk,bqhd->bkhd", kept.to(dt).float(),
+                      (gf * row_scale).to(dt).float())
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    return out, dq.to(dt), dk.to(dt), dv.to(dt)
+    return own, dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def fused_dropout_attention(q: torch.Tensor, k: torch.Tensor,

@@ -25,7 +25,9 @@ import torch
 
 from . import _build
 
-SUPPORTED_HIDDEN = (128, 256, 384, 512, 768, 1024)
+# every multiple of 128 up to 1024, where a lane's backward fills the
+# register file (TR_HIDDEN_CASES in the .cu)
+SUPPORTED_HIDDEN = tuple(range(128, 1025, 128))
 BWD_MAX_BLOCKS = 512  # backward grid cap: rows of the dscale/dbias workspace
 BWD_WARPS = 4         # rows in flight per backward block (kWarps in the .cu)
 LAUNCHES = 0      # forward kernel launches since the last reset

@@ -11,12 +11,14 @@ filled come back as (`BIG` + |q|^2, `BIG`).
 
 On CUDA tensors the wrapper launches the hand-written kernels of
 csrc/exact_topk.cu or raises; on CPU tensors it runs the plain version
-below. Two layouts compute the same function. `corpus_resident=False` is
-the query-outer grid: one block per 128 queries walks the whole corpus.
-`corpus_resident=True` stands for the TPU kernel's corpus-resident grid:
-the corpus is cut into slabs, block (query tile, slab) keeps a partial list,
-and a second kernel merges the slabs' lists per query. `LAUNCHES` counts the
-launches of each.
+below. Both layouts run one persistent scan (wgmma products from shared
+memory that TMA fills, the selection on the accumulators in registers) over
+work items of (query tile, corpus slab), a block an SM walking items
+blockIdx, blockIdx + grid, ... `corpus_resident=False` is the query-outer
+layout: one slab, the whole corpus, per query tile. `corpus_resident=True`
+stands for the TPU kernel's corpus-resident grid: the corpus is cut into
+slabs, each item keeps a partial list, and a second kernel merges the slabs'
+lists per query. `LAUNCHES` counts the launches of each.
 
 `numpy_reference_topk` is the host oracle (a float64 BLAS scan, exact for
 these integers).
@@ -36,11 +38,16 @@ from . import _build
 
 BIG = 2**30  # distance and index of a slot that no corpus row filled
 MAX_K = 128  # kMaxK in the .cu: the sorted lists live in shared memory
-TILE_Q = 128  # queries a block (kTileQ in the .cu)
-TILE_C = 128  # corpus rows a tile (kTileC): slabs are whole tiles
-# corpus-split grid: blocks to aim for, per multiprocessor (two are resident
-# on each, and two rounds of them even out the slabs' unequal ends)
-BLOCKS_PER_SM = 4
+TILE_Q = 128  # queries a work item: two warpgroups of 64 (kTileQ in the .cu)
+TILE_C = 128  # corpus rows a tile, the wgmma's N (kTileC): slabs are whole tiles
+# corpus-split: work items to aim for, per multiprocessor (one persistent
+# block an SM walks them). One: every slab restarts its lists from empty,
+# and a list that has seen n columns still takes a new one with a
+# probability of about k / n, so short slabs send many more tiles down the
+# rare path. `chip_profile.py --path retrieval` on an H100 at 8192 queries,
+# k = 20: 1, 2 and 4 items an SM took 5.49, 6.57 and 7.16 ms at N = 200,000
+# x 1024 and 23.56, 25.53 and 26.84 ms at N = 700,000 x 2048
+ITEMS_PER_SM = 1
 LAUNCHES = {"query_outer": 0, "corpus_split": 0}
 
 _P = ctypes.c_void_p
@@ -49,6 +56,7 @@ _SIGNATURES = {
     "tr_topk_query_outer": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tr_topk_corpus_split": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                              _I, _P],
+    "tr_topk_scan_shared": [_I, ctypes.POINTER(_I)],
 }
 
 
@@ -63,11 +71,29 @@ def _cdiv(a: int, b: int) -> int:
 
 def split_slabs(m: int, n: int, device: torch.device) -> int:
     """How many slabs the corpus-split layout cuts `n` corpus rows into for
-    `m` queries: enough that (query tiles) x (slabs) fills the card, never
-    more than the corpus has tiles."""
+    `m` queries: about ITEMS_PER_SM work items (query tiles x slabs) for
+    each multiprocessor, never more slabs than the corpus has tiles."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return slab_count(m, n, sms)
+
+
+def slab_count(m: int, n: int, sms: int) -> int:
+    """`split_slabs` for a card of `sms` multiprocessors."""
     q_tiles = _cdiv(max(m, 1), TILE_Q)
-    return max(1, min(BLOCKS_PER_SM * sms // q_tiles, _cdiv(n, TILE_C)))
+    return max(1, min(ITEMS_PER_SM * sms // q_tiles, _cdiv(n, TILE_C)))
+
+
+def scan_shared(k: int) -> Tuple[int, int]:
+    """(stages of the scan's ring, bytes of dynamic shared memory a block
+    takes) for k, as the library computes them for its launches: a ring of
+    2-4 stages of 128 queries and 128 corpus rows x 128 bytes beside 128
+    sorted lists of k keys."""
+    stages = _I(0)
+    lib = load_kernel()
+    nbytes = lib.tr_topk_scan_shared(k, ctypes.byref(stages))
+    if nbytes < 0:
+        raise ValueError(f"exact_topk_l2: k={k} outside 1..{MAX_K}")
+    return stages.value, nbytes
 
 
 def workspace_bytes(m: int, k: int, slabs: int) -> int:

@@ -25,6 +25,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..ops.topk import MAX_K
 from ..utils.logging import log, setup_logging
 from ..utils.table import read_csv
 from .engine import FlatIndex
@@ -42,7 +43,9 @@ def get_args(argv: Optional[List[str]] = None):
     p.add_argument("--field", type=str, default="canonical_rxn")
     p.add_argument("--before", type=int, default=-1)
     p.add_argument("--output_path", type=str, required=True)
-    p.add_argument("--k", type=int, default=20)
+    p.add_argument("--k", type=int, default=20,
+                   help=f"neighbours per query, 1..{MAX_K} (the top-k kernels "
+                        f"keep each query's list in shared memory)")
     p.add_argument("--num_workers", type=int, default=0)
     p.add_argument("--check_parity", action="store_true",
                    help="verify kernel results against the numpy oracle")
@@ -51,7 +54,11 @@ def get_args(argv: Optional[List[str]] = None):
                         "yet)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if not 1 <= args.k <= MAX_K:
+        p.error(f"--k {args.k} outside 1..{MAX_K}: the top-k kernels keep "
+                f"each query's list in shared memory")
+    return args
 
 
 def fingerprint_fn(field: str, num_workers: int):

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..models.factory import resolve_device
-from ..ops.topk import (corpus_norms_padded, exact_topk_l2,
+from ..ops.topk import (MAX_K, corpus_norms_padded, exact_topk_l2,
                         numpy_reference_topk, pad_matrix, split_slabs,
                         workspace_bytes)
 
@@ -87,28 +87,36 @@ class FlatIndex:
                banned: Optional[np.ndarray] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k (distances, indices), faiss-flat semantics. `banned` is
-        (M, NB) int32 global corpus ids to exclude per query (-1 = none)."""
+        (M, NB) int32 global corpus ids to exclude per query (-1 = none).
+        1 <= k <= MAX_K on every device: the kernels keep each query's list
+        in shared memory, so a larger k is refused before any device work.
+
+        On the card each chunk's queries and banned ids go up through pinned
+        staging buffers and the results come back through pinned buffers,
+        every copy asynchronous on the kernels' stream."""
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"FlatIndex.search: k={k} outside 1..{MAX_K}: "
+                             f"the top-k kernels keep each query's list in "
+                             f"shared memory")
         assert queries.dtype == np.int8, queries.dtype
         M = queries.shape[0]
         q = pad_matrix(queries, 1, 16)
         assert q.shape[1] == self.dim, (q.shape, self.dim)
         nb = 1 if banned is None else banned.shape[1]
-        chunk = self.max_queries(k, nb)
+        chunk = min(self.max_queries(k, nb), max(M, 1))
         out_v = np.empty((M, k), np.int32)
         out_i = np.empty((M, k), np.int32)
+        stage = _Staging(self.device, chunk, self.dim,
+                         None if banned is None else nb, k)
         for start in range(0, M, chunk):
             stop = min(start + chunk, M)
-            b = None
-            if banned is not None:
-                b = torch.from_numpy(np.ascontiguousarray(
-                    banned[start:stop], dtype=np.int32)).to(self.device)
-            vals, idx = exact_topk_l2(
-                torch.from_numpy(np.ascontiguousarray(q[start:stop])
-                                 ).to(self.device),
-                self.corpus, self.norms, b, k=k,
-                corpus_resident=self.corpus_resident)
-            out_v[start:stop] = vals.cpu().numpy()
-            out_i[start:stop] = idx.cpu().numpy()
+            q_dev, b_dev = stage.up(q[start:stop],
+                                    None if banned is None
+                                    else banned[start:stop])
+            vals, idx = exact_topk_l2(q_dev, self.corpus, self.norms, b_dev,
+                                      k=k,
+                                      corpus_resident=self.corpus_resident)
+            out_v[start:stop], out_i[start:stop] = stage.down(vals, idx)
         return out_v, out_i
 
     def reference_search(self, queries: np.ndarray, k: int = 20,
@@ -117,6 +125,52 @@ class FlatIndex:
         corpus = self.corpus[: self.n_real].cpu().numpy()
         return numpy_reference_topk(pad_matrix(queries, 1, 16), corpus, k,
                                     banned)
+
+
+class _Staging:
+    """Host buffers of one search. On the card: pinned, reused chunk after
+    chunk (each chunk's results are read before the next chunk's queries
+    are written); on the CPU the arrays are used in place."""
+
+    def __init__(self, device: torch.device, rows: int, dim: int,
+                 nb: Optional[int], k: int):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        if self.pinned:
+            self.q = torch.empty((rows, dim), dtype=torch.int8,
+                                 pin_memory=True)
+            self.b = (None if nb is None else
+                      torch.empty((rows, nb), dtype=torch.int32,
+                                  pin_memory=True))
+            self.v = torch.empty((rows, k), dtype=torch.int32,
+                                 pin_memory=True)
+            self.i = torch.empty_like(self.v, pin_memory=True)
+
+    def up(self, q: np.ndarray, banned: Optional[np.ndarray]):
+        """(queries, banned ids) of one chunk on the device."""
+        if not self.pinned:
+            b = (None if banned is None else torch.from_numpy(
+                np.ascontiguousarray(banned, dtype=np.int32)))
+            return torch.from_numpy(np.ascontiguousarray(q)), b
+        n = q.shape[0]
+        self.q[:n].numpy()[...] = q
+        q_dev = self.q[:n].to(self.device, non_blocking=True)
+        b_dev = None
+        if banned is not None:
+            self.b[:n].numpy()[...] = banned
+            b_dev = self.b[:n].to(self.device, non_blocking=True)
+        return q_dev, b_dev
+
+    def down(self, vals: torch.Tensor, idx: torch.Tensor):
+        """The chunk's results as numpy arrays (views of the staging
+        buffers on the card: read them before the next chunk)."""
+        if not self.pinned:
+            return vals.numpy(), idx.numpy()
+        n = vals.shape[0]
+        self.v[:n].copy_(vals, non_blocking=True)
+        self.i[:n].copy_(idx, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return self.v[:n].numpy(), self.i[:n].numpy()
 
 
 def merge_topk(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]], k: int
