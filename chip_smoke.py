@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's RCR serving, training, retrieval, causal-decoder
-and command-line paths once on one CUDA GPU.
+and command-line paths, and its template-based retrosynthesis path, once on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -72,17 +73,36 @@ Phases, each fatal on failure:
    dropout 0.1, batch 32 x accumulation 4, 512 training reactions, 2 epochs,
    --do_train --do_valid --do_test, beam 15; a falling loss, published
    checkpoints, two prediction files, kernel launches that match the steps
-   run; then the same command with one more epoch resumes.
+   run; then the same command with one more epoch resumes;
+11. template-based retrosynthesis (scripts/parity_run.py's RetroSyn_tb:
+   SciBERT-base encoder at full width and depth over the joint SMILES +
+   text vocabulary, L=512, bf16, dropout 0.1, lr 2e-4, 4 x 32) on synthetic
+   drug and ester products of 21-50 heavy atoms with 400 atom and 60 bond
+   template classes and neighbour text filling L: three optimizer steps
+   under the bond mask (a falling loss, changed parameters, 96 + 96
+   residual-LN launches a step and no attention launch), one step without
+   it (48 + 48 attention launches); the eval step's top 500 edits, and
+   `device_topk_edits` on the card equal to `rank_edits` on the host on the
+   same probabilities, ties included; the ester decode through the own
+   template engine gives the gold reactants; the loader's bond masks, the
+   step (host clock and the card's busy time) and one layer's plain
+   bond-masked attention beside the fused kernel and SDPA, timed; kernels
+   against plain functions in f32 with and without the bond mask; then
+   `python -m textreact_tpu_torch --task retro --template_based
+   --unattend_nonbonds` in-process (train, validate, test with the decode).
 
-Prints a JSON line of per-kernel results, then, as the last line,
-{"ok": true, "device": {...}}. Exits non-zero without CUDA.
+Prints JSON lines of the runtime's and the template path's numbers and of
+per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
+Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
 
+import ast
 import csv
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -95,22 +115,33 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from textreact_tpu_torch.chem import canonical_smiles, parse_smiles
+from textreact_tpu_torch.chem.smarts import find_matches, parse_smarts
 from textreact_tpu_torch.cli import main as runtime_cli
 from textreact_tpu_torch.config import ExperimentConfig
-from textreact_tpu_torch.data import Collator, apply_span_mlm
+from textreact_tpu_torch.data import (Collator, RetrosynthesisDataset,
+                                      apply_span_mlm, example_rng,
+                                      read_corpus)
+from textreact_tpu_torch.data.collate import _pad_2d
+from textreact_tpu_torch.evaluation import (device_topk_edits,
+                                            edits_from_topk, rank_edits)
+from textreact_tpu_torch.evaluation.template_decode import \
+    decode_template_predictions
 from textreact_tpu_torch.inference import Generator, predictions_from_beams
 from textreact_tpu_torch.models import build_model
 from textreact_tpu_torch.models.config import PRESETS
-from textreact_tpu_torch.models.layers import TransformerBlock
+from textreact_tpu_torch.models.layers import (TransformerBlock, dropout,
+                                               mask_to_bias)
 from textreact_tpu_torch.ops import (_build, fused_attention, fused_layernorm,
                                      topk)
 from textreact_tpu_torch.retrieval import FlatIndex
 from textreact_tpu_torch.retrieval import cli as retrieval_cli
 from textreact_tpu_torch.tokenizers import get_tokenizers
-from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
-                                       make_eval_step, make_loss_fn,
-                                       make_optimizer)
+from textreact_tpu_torch.train import (TrainState, losses,
+                                       make_accum_train_step, make_eval_step,
+                                       make_loss_fn, make_optimizer)
 from textreact_tpu_torch.train.step import to_device
+from textreact_tpu_torch.utils.table import read_csv
 
 # shapes of the two paths: B=32 requests or examples of L=512 tokens, 12
 # heads of 64; LN rows are B*L in the encoder, B*beams in a decode step and
@@ -221,6 +252,47 @@ CAUSAL_KERNELS = ("causal_attention_fwd", "causal_attention_bwd")
 CAUSAL_LENGTHS, UNALIGNED_LENGTH = (L, 128), 160
 # retrieval shapes: 8192 queries, k = 20
 TOPK_M, TOPK_K = 8192, 20
+
+# the template phase: scripts/parity_run.py's RetroSyn_tb recipe
+# (train_RetroSyn_tb.sh with --unattend_nonbonds, lr 2e-4, no MLM). Synthetic
+# tables of 400 atom and 60 bond template classes (USPTO-50K's own are not
+# bundled); bond class 1 is ester hydrolysis, the rest placeholders that
+# the decode skips. Reactions of the command-line run, a split each
+TEMPLATE_CLASSES = {"atom": 400, "bond": 60}
+TEMPLATE_SIZES = {"train": 256, "val": 32, "test": 32}
+TEMPLATE_EDITS = 500                  # reference combined_edit top 500
+DECODE_K = 20                         # the retro metric's largest k
+PLANT_RANK = 250                      # the gold edit's rank in the decode
+ESTER_TEMPLATE = ("[C:1](=[O:2])-[O;H0;D2;+0:3]>>"
+                  "[C:1](=[O:2])-[OH;D1;+0:4].[OH;D1;+0:3]")
+ESTER_INFO = {"edit_site": {"B": [(1, 3)]},
+              "change_H": {1: 0, 2: 0, 3: 1},
+              "change_C": {1: 0, 2: 0, 3: 0},
+              "change_S": {1: 0, 2: 0, 3: 0}}
+# products of 21 to 50 heavy atoms: drugs, and esters with their
+# hydrolysis products as the gold reactants
+DRUGS = [
+    "Cc1ccc(NC(=O)c2ccc(CN3CCN(C)CC3)cc2)cc1Nc1nccc(-c2cccnc2)n1",
+    "CC(C)c1c(C(=O)Nc2ccccc2)c(-c2ccccc2)c(-c2ccc(F)cc2)n1CC[C@@H](O)"
+    "C[C@@H](O)CC(=O)O",
+    "CCCc1nn(C)c2c(=O)[nH]c(-c3cc(S(=O)(=O)N4CCN(C)CC4)ccc3OCC)nc12",
+    "CCCCc1nc(Cl)c(CO)n1Cc1ccc(-c2ccccc2-c2nnn[nH]2)cc1",
+    "Cc1ccc(-c2cc(C(F)(F)F)nn2-c2ccc(S(N)(=O)=O)cc2)cc1",
+    "CC(C)c1nc(N(C)S(C)(=O)=O)nc(-c2ccc(F)cc2)c1/C=C/[C@@H](O)C[C@@H](O)"
+    "CC(=O)O",
+    "CC/C(=C(\\c1ccccc1)c1ccc(OCCN(C)C)cc1)c1ccccc1",
+    "CC(C)C[C@H](NC(=O)[C@H](Cc1ccccc1)NC(=O)[C@H](CCC(=O)OC(C)(C)C)"
+    "NC(=O)OCc1ccccc1)C(=O)OCc1ccccc1",
+    "COc1cc2ncnc(Nc3ccc(F)c(Cl)c3)c2cc1OCCCN1CCOCC1",
+    "CN(C)C(=O)Cc1c(-c2ccc(C)cc2)nc2ccc(C)cn12"]
+ESTERS = {
+    "CCOC(=O)c1ccc(NC(=O)c2ccc(C)cc2)cc1":
+        "CCO.Cc1ccc(C(=O)Nc2ccc(C(=O)O)cc2)cc1",
+    "COC(=O)c1ccc(-c2ccc(C(F)(F)F)cc2)cc1Nc1ncccn1":
+        "CO.O=C(O)c1ccc(-c2ccc(C(F)(F)F)cc2)cc1Nc1ncccn1",
+    "CCOC(=O)CCc1ccc(OCc2ccccc2)cc1": "CCO.O=C(O)CCc1ccc(OCc2ccccc2)cc1",
+    "CC(C)OC(=O)c1cc(Cl)ccc1NS(=O)(=O)c1ccc(C)cc1":
+        "CC(C)O.Cc1ccc(S(=O)(=O)Nc2ccc(Cl)cc2C(=O)O)cc1"}
 
 WORDS = ("the mixture was stirred at room temperature for 2 h then "
          "concentrated under reduced pressure and the residue purified by "
@@ -1378,7 +1450,8 @@ def phase_train_pad_microbatch(cfg, enc_tok, dec_tok, micro, tmp: Path):
         raise AssertionError("a weight-0 micro-batch changed the update")
 
 
-def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro) -> None:
+def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro,
+                                 pad_id: int, tag: str = "train") -> None:
     """One micro-batch (8 examples, full width and depth) in f32 without
     dropout: loss and every gradient, kernels against plain functions."""
     n = 8
@@ -1387,7 +1460,7 @@ def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro) -> None:
                                torch.Generator().manual_seed(0))
     set_dropout(module, 0.0)
     module.train()
-    loss_fn = make_loss_fn(module, cfg, dec_tok.pad_token_id)
+    loss_fn = make_loss_fn(module, cfg, pad_id)
     batch = to_device({k: v[0][:n] for k, v in micro.items()},
                       torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1418,7 +1491,7 @@ def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro) -> None:
         rel = diff / max(float(g.abs().max()), floor)
         if rel > worst:
             worst, worst_name, worst_abs = rel, name, diff
-    log(f"[train] kernels vs plain functions, f32, p=0, {n} examples at "
+    log(f"[{tag}] kernels vs plain functions, f32, p=0, {n} examples at "
         f"L={L}, full width and depth: loss {loss_k:.6f} vs {loss_p:.6f} "
         f"(bound {TRAIN_LOSS_BOUND:g}); worst gradient tensor {worst_name}: "
         f"max abs diff {worst_abs:.3e}, over max(its max abs, {floor:.3e}) "
@@ -2195,6 +2268,608 @@ def phase_runtime(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
         f"{seconds:.1f} s")
 
 
+def write_template_fixture(root: Path, seed: int = 0) -> None:
+    """The template tables (TEMPLATE_CLASSES; bond class 1 the ester
+    hydrolysis, with its template_infos.csv row), a split each of
+    TEMPLATE_SIZES reactions over DRUGS and ESTERS with template labels
+    drawn from `seed` (an ester is labelled at its ester bond with class 1,
+    any other product with a random atom and a random bond class), the
+    preprocessed label files, a corpus row a training reaction and
+    neighbour files of five training ids each."""
+    import random
+    rng = random.Random(seed)
+    root.mkdir(parents=True)
+
+    def write(name, header, rows):
+        with open(root / name, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(header)
+            w.writerows(rows)
+
+    n_atom, n_bond = TEMPLATE_CLASSES["atom"], TEMPLATE_CLASSES["bond"]
+    write("atom_templates.csv", ["Template", "Frequency", "Class"],
+          [[f"[T{i}]>>[U{i}]", 1000 - i, i + 1] for i in range(n_atom)])
+    write("bond_templates.csv", ["Template", "Frequency", "Class"],
+          [[ESTER_TEMPLATE, 500, 1]]
+          + [[f"[B{i}]>>[V{i}]", 500 - i, i + 1] for i in range(1, n_bond)])
+    write("template_infos.csv",
+          ["Template", "edit_site", "change_H", "change_C", "change_S"],
+          [[ESTER_TEMPLATE] + [repr(ESTER_INFO[k]) for k in
+                               ("edit_site", "change_H", "change_C",
+                                "change_S")]])
+    ester_site = parse_smarts(ESTER_TEMPLATE.split(">>")[0])
+    products = DRUGS + list(ESTERS)
+    train_ids = [f"train_{i}" for i in range(TEMPLATE_SIZES["train"])]
+    for split, n in TEMPLATE_SIZES.items():
+        rows, pre, nn = [], [], []
+        for i in range(n):
+            prod = products[(i + rng.randrange(3)) % len(products)]
+            mol = parse_smiles(prod)
+            bonds = sorted({p for b in mol.bonds
+                            for p in ((b.a1, b.a2), (b.a2, b.a1))})
+            if prod in ESTERS:
+                match = find_matches(ester_site, mol)[0]
+                labels = [("b", (match[0], match[2]), 1)]
+            else:
+                labels = [("a", rng.randrange(len(mol.atoms)),
+                           rng.randrange(1, n_atom + 1)),
+                          ("b", rng.choice(bonds),
+                           rng.randrange(2, n_bond + 1))]
+            rows.append([f"{split}_{i}", prod, ESTERS.get(prod, prod + ".O")])
+            pre.append([repr(labels), repr(list(range(len(mol.atoms)))),
+                        repr(set(bonds))])
+            nn.append({"id": f"{split}_{i}", "nn": rng.sample(train_ids, 5)})
+        write(f"{split}.csv", ["id", "product_smiles", "reactant_smiles"],
+              rows)
+        write(f"preprocessed_{split}.csv",
+              ["Labels", "ProductAtomIdx2CanonIdx", "ProductCanonBonds"],
+              pre)
+        (root / f"{split}_nn.json").write_text(json.dumps(nn))
+    write_corpus(root / "corpus.csv", train_ids, seed)
+
+
+def template_config(data: Path, vocab: Path, **kw) -> ExperimentConfig:
+    """scripts/parity_run.py's RetroSyn_tb: SciBERT-base encoder over the
+    joint SMILES + text vocabulary, --unattend_nonbonds, 3 neighbours with
+    the gold one, L=512, lr 2e-4, warmup 0.02, global batch 128 (4 x 32),
+    bf16 compute; clip 5, AdamW, cosine (the defaults); no MLM."""
+    cfg = ExperimentConfig(
+        task="retro", template_based=True, unattend_nonbonds=True,
+        encoder="scibert_base", encoder_tokenizer="smiles_text",
+        text_vocab_file=str(vocab), data_path=str(data),
+        template_path=str(data), train_file="train.csv",
+        valid_file="val.csv", test_file="test.csv",
+        corpus_file=str(data / "corpus.csv"), nn_path=str(data),
+        train_nn_file="train_nn.json", valid_nn_file="val_nn.json",
+        test_nn_file="test_nn.json", num_neighbors=3,
+        use_gold_neighbor=True, max_length=L, batch_size=B * MICRO_BATCHES,
+        test_batch_size=B, lr=2e-4, warmup_ratio=0.02, num_beams=20,
+        compute_dtype="bfloat16", attention_impl="flash",
+        layernorm_impl="fused")
+    return dataclasses.replace(cfg, **kw)
+
+
+def device_span_ms(fn, reps: int = 2) -> float:
+    """Median device ms of `reps` calls of `fn`, each after a synchronize,
+    from a CUDA event recorded on the stream before the call to one after
+    it, after a warm-up call: the card's span from its first operation of
+    the call to its last, idle gaps (the host issuing) included."""
+    fn()
+    spans = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    return statistics.median(spans)
+
+
+def device_busy_ms(fn, expect: dict, tries: int = 4) -> tuple:
+    """(ms in which the card ran at least one kernel or copy during one call
+    of `fn`, kernels and copies seen), from torch.profiler after a warm-up
+    call. The profiler has lost launches here, so a trace counts only where
+    it saw exactly `expect` ({fragment of a kernel's name: its launches a
+    call}) and as many kernels and copies in all as the trace before it;
+    after `tries` traces without such a pair both read None: not
+    measured."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    previous, seen = None, []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+            fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        counts = {fragment: sum(fragment in name for name, _, _ in events)
+                  for fragment in expect}
+        seen.append((len(events), counts))
+        if counts != expect or len(events) != previous:
+            previous = len(events) if counts == expect else None
+            continue
+        spans = sorted((start, end) for _, start, end in events)
+        busy, reach = 0.0, None
+        for start, end in spans:
+            if reach is None or start > reach:
+                busy += end - start
+                reach = end
+            elif end > reach:
+                busy += end - reach
+                reach = end
+        return busy / 1e3, len(spans)
+    log(f"  profiler: traces saw (kernels and copies, named launches) {seen},"
+        f" expected {expect} in two traces alike: not measured")
+    return None, None
+
+
+def plain_bond_masked_attention(q, k, v, bias, p, gen):
+    """The plain path of models/layers.py::MultiHeadAttention that a bond
+    mask sends every self-attention down (layers.py:201-203 of the JAX
+    package): f32 scores + bias, softmax, dropout, bf16 weights against v."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(
+        q.shape[-1])
+    probs = dropout(torch.softmax(s + bias, dim=-1), p, gen)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(),
+                        v.float()).to(q.dtype)
+
+
+def time_bond_masked_attention(card: str, mask3d: torch.Tensor) -> dict:
+    """One layer's self-attention at B=32 L=512 H=12 D=64, bf16, p=0.1,
+    forward and forward + backward (device ms, CUDA events): the plain path
+    under the micro-batch's bond mask as a bias, the fused kernel under its
+    key mask (the mask's diagonal) and F.scaled_dot_product_attention under
+    the same bias in bf16 (timed only, used nowhere in the port)."""
+    dev = mask3d.device
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(B, L, HEADS, HEAD_DIM, generator=g,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = mask_to_bias(mask3d)
+    key_mask = torch.diagonal(mask3d, dim1=1, dim2=2).contiguous()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    paths = {
+        "plain": lambda *a: plain_bond_masked_attention(*a, bias, DROPOUT_P,
+                                                        g),
+        "fused": lambda *a: fused_attention.fused_dropout_attention(
+            *a, key_mask, DROPOUT_P, g, scale),
+        "sdpa": lambda *a: sdpa(*a, bias.to(torch.bfloat16), DROPOUT_P)}
+    out = {}
+    for name, fn in paths.items():
+        with torch.no_grad():
+            fwd = time_ms(lambda: fn(q, k, v), reps=10)
+        both = time_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, do),
+                       reps=10)
+        out[name] = {"fwd_ms": fwd, "fwd_bwd_ms": both}
+    log(f"[template] one layer's self-attention, B={B} L={L} H={HEADS} "
+        f"D={HEAD_DIM}, bf16, p={DROPOUT_P}, device ms (CUDA events, median "
+        f"of 10), forward / forward + backward: plain under the bond mask "
+        f"{out['plain']['fwd_ms']:.4f} / {out['plain']['fwd_bwd_ms']:.4f}; "
+        f"fused kernel under the key mask {out['fused']['fwd_ms']:.4f} / "
+        f"{out['fused']['fwd_bwd_ms']:.4f}; SDPA under the bond mask "
+        f"{out['sdpa']['fwd_ms']:.4f} / {out['sdpa']['fwd_bwd_ms']:.4f}; "
+        f"on {card}")
+    return out
+
+
+def check_edit_ranking(module, batch: dict) -> int:
+    """device_topk_edits on the card against rank_edits on the host, on the
+    same probabilities, exactly: the model's own, and the same rounded to
+    sixty-fourths so that values tie. Returns the edits compared."""
+    with torch.no_grad():
+        atom_logits, bond_logits = module(
+            input_ids=batch["input_ids"],
+            attention_mask=batch["attention_mask"],
+            atom_indices=batch["atom_indices"],
+            bond_pairs=batch["bond_pairs"])["logits"]
+    a_labels = batch["atom_template_labels"]
+    b_labels = batch["bond_template_labels"]
+    probs = (losses.masked_probs(atom_logits, a_labels),
+             losses.masked_probs(bond_logits, b_labels))
+    n_a1, n_b1 = atom_logits.shape[-1], bond_logits.shape[-1]
+    compared = 0
+    for tag, (pa, pb) in (("model", probs),
+                          ("tied", tuple((x * 64).round() / 64
+                                         for x in probs))):
+        top = [t.cpu().numpy() for t in device_topk_edits(
+            pa, pb, b_labels != losses.IGNORE_INDEX, TEMPLATE_EDITS)]
+        pa, pb = pa.cpu().numpy(), pb.cpu().numpy()
+        pairs = batch["bond_pairs"].cpu().numpy()
+        n_bonds = batch["bond_mask"].sum(1).cpu().numpy()
+        ties = 0
+        for b in range(pa.shape[0]):
+            bonds = [tuple(x) for x in pairs[b, :n_bonds[b]]]
+            got = edits_from_topk(*(t[b] for t in top), n_a1, n_b1, bonds,
+                                  top_num=TEMPLATE_EDITS)
+            want = rank_edits(pa[b], pb[b], bonds, top_num=TEMPLATE_EDITS)
+            if got != want:
+                raise AssertionError(f"edit ranking, {tag} probabilities, "
+                                     f"example {b}: the card's top "
+                                     f"{TEMPLATE_EDITS} differ from the "
+                                     f"host's")
+            compared += len(got[0])
+            ties += sum(x == y for x, y in zip(got[1], got[1][1:]))
+        log(f"[template] edit ranking, {tag} probabilities: the card's top "
+            f"{TEMPLATE_EDITS} of every example equal the host's rank_edits "
+            f"(ties among neighbours: {ties})")
+    return compared
+
+
+def check_ester_decode(data: Path, cfg, enc_tok, tables, eval_step) -> dict:
+    """The ester products of the test split through the own template
+    engine, three ways: (1) the gold edit alone decodes to the gold
+    reactants; (2) the model's own top TEMPLATE_EDITS edits, from the eval
+    step on the card: where the gold edit is among them, the gold reactants
+    are within the decode's top DECODE_K; (3) the same list with the gold
+    edit moved to rank PLANT_RANK (scored as its neighbour above): the
+    decode walks the model's edits before it and still finds the gold
+    within its top DECODE_K. The other products' gold edits, placeholder
+    templates, decode to nothing."""
+    table = read_csv(str(data / "test.csv"))
+    labels = read_csv(str(data / "preprocessed_test.csv"))["Labels"]
+    gold_edits = [tuple(ast.literal_eval(lab)[0]) for lab in labels]
+    esters = [i for i, prod in enumerate(table["product_smiles"])
+              if prod in ESTERS]
+    if not esters:
+        raise AssertionError("the test split holds no ester")
+    golds = {i: canonical_smiles(table["reactant_smiles"][i])
+             for i in esters}
+
+    # the model's own ranking of the test split, as the trainer's _predict
+    ds = RetrosynthesisDataset(cfg, str(data / "test.csv"), enc_tok, tables,
+                               split="test")
+    ds.load_corpus(read_corpus(cfg.corpus_file), str(data / "test_nn.json"))
+    examples = [ds.example(i) for i in range(len(ds))]
+    batch = Collator(cfg, enc_tok.pad_token_id, 0)(examples,
+                                                    fixed_enc_len=L)
+    res = eval_step(batch.arrays)
+    top = [res[k].cpu().numpy() for k in ("atom_topk_vals", "atom_topk_idx",
+                                           "bond_topk_vals", "bond_topk_idx")]
+    n_a1, n_b1 = tables.num_atom_templates + 1, tables.num_bond_templates + 1
+    model = {}
+    for i in esters:
+        model[i] = edits_from_topk(*(t[i] for t in top), n_a1, n_b1,
+                                   batch.host["bonds"][i],
+                                   top_num=TEMPLATE_EDITS)
+        if len(model[i][0]) != TEMPLATE_EDITS:
+            raise AssertionError(f"test product {i}: {len(model[i][0])} "
+                                 f"ranked edits")
+
+    def planted(i):
+        edits, scores = ([e for e in model[i][0] if e != gold_edits[i]],
+                         [x for e, x in zip(*model[i]) if e != gold_edits[i]])
+        at = PLANT_RANK - 1
+        return (edits[:at] + [gold_edits[i]] + edits[at:],
+                scores[:at] + [scores[at - 1]] + scores[at:])
+
+    def decode(ranked, top_k):
+        prediction = {i: {"prediction": [], "score": []}
+                      for i in range(len(table))}
+        for i, (edits, scores) in ranked.items():
+            prediction[i] = {"prediction": edits, "score": scores}
+        t0 = time.perf_counter()
+        out = decode_template_predictions(prediction, table, str(data),
+                                          top_k)
+        return out, time.perf_counter() - t0
+
+    gold_only, _ = decode({i: ([e], [1.0]) for i, e in enumerate(gold_edits)},
+                          1)
+    own, own_s = decode(model, DECODE_K)
+    plant, plant_s = decode({i: planted(i) for i in esters}, DECODE_K)
+    found = [i for i in esters if gold_edits[i] in model[i][0]]
+    for i in esters:
+        prod = table["product_smiles"][i]
+        if gold_only[i] != [golds[i]]:
+            raise AssertionError(f"ester decode of {prod}: {gold_only[i]}, "
+                                 f"gold {golds[i]}")
+        if i in found and golds[i] not in own[i]:
+            raise AssertionError(f"{prod}: the gold edit is at rank "
+                                 f"{model[i][0].index(gold_edits[i]) + 1} of "
+                                 f"the model's, its decode {own[i]} lacks "
+                                 f"the gold {golds[i]}")
+        if golds[i] not in plant[i]:
+            raise AssertionError(f"{prod}: the model's edits with the gold "
+                                 f"at rank {PLANT_RANK} decode to "
+                                 f"{plant[i]}, gold {golds[i]}")
+    if any(gold_only[i] for i in range(len(table)) if i not in esters):
+        raise AssertionError("placeholder templates decoded to reactants")
+    log(f"[template] ester decode through the own engine, {len(esters)} of "
+        f"{len(table)} test products: the gold edit alone gives the gold "
+        f"reactants (e.g. {golds[esters[0]]}); the model's top "
+        f"{TEMPLATE_EDITS} edits hold the gold edit for {len(found)} of them "
+        f"and decode to {sum(map(len, (own[i] for i in esters)))} reactant "
+        f"sets in {own_s:.2f} s; with the gold edit at rank {PLANT_RANK} "
+        f"every ester's top {DECODE_K} holds the gold (at positions "
+        f"{[plant[i].index(golds[i]) + 1 for i in esters]}), {plant_s:.2f} s")
+    return {"esters": len(esters), "gold_in_model_top": len(found),
+            "decode_s": own_s, "planted_decode_s": plant_s}
+
+
+def phase_template(card: str, tmp: Path, vocab: Path,
+                   results: dict) -> None:
+    """Template-based retrosynthesis at full width and depth: three
+    optimizer steps under the bond mask, one without it, the edit ranking
+    and the ester decode, the self-attention's cost under the bond mask,
+    kernels against plain functions, then the command line."""
+    data = tmp / "template_data"
+    write_template_fixture(data)
+    cfg = template_config(data, vocab)
+    enc_tok, tables = get_tokenizers(cfg)
+    t0 = time.perf_counter()
+    module, enc_cfg, dec_cfg = build_model(cfg, enc_tok, tables,
+                                           torch.Generator().manual_seed(0))
+    if dec_cfg is not None:
+        raise AssertionError("a template model has no decoder")
+    log(f"[template] model built in {time.perf_counter() - t0:.1f} s: "
+        f"encoder {enc_cfg.num_hidden_layers}x{enc_cfg.hidden_size} vocab "
+        f"{enc_cfg.vocab_size}, heads {tables.num_atom_templates + 1} atom "
+        f"and {tables.num_bond_templates + 1} bond classes, "
+        f"{sum(p.numel() for p in module.parameters()) / 1e6:.1f} M params, "
+        f"compute {cfg.compute_dtype}, dropout "
+        f"{enc_cfg.hidden_dropout_prob}/{enc_cfg.attention_probs_dropout_prob}")
+
+    # one global batch as the loader builds it
+    ds = RetrosynthesisDataset(cfg, str(data / "train.csv"), enc_tok, tables)
+    ds.load_corpus(read_corpus(cfg.corpus_file), str(data / "train_nn.json"))
+    examples = [ds.example(i, example_rng(cfg.seed, 0, i))
+                for i in range(cfg.batch_size)]
+    collate = Collator(cfg, enc_tok.pad_token_id, 0)
+    batch = collate(examples, fixed_enc_len=L)
+    micro = as_microbatches(batch, MICRO_BATCHES)
+    tokens = [len(ex["input_ids"]) for ex in examples]
+    atoms = [len(ex["atom_indices"]) for ex in examples]
+    log(f"[template] {cfg.batch_size} examples as {MICRO_BATCHES} x {B}: "
+        f"tokens {min(tokens)}-{max(tokens)}, atoms {min(atoms)}-{max(atoms)}"
+        f"; " + ", ".join(f"{k} {v.shape[1:]}" for k, v in micro.items()))
+    # the loader's host cost of the bond masks of one micro-batch
+    mb = examples[:B]
+    t0 = time.perf_counter()
+    masks = [ds._bond_mask(ex) for ex in mb]
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _pad_2d(masks, L, B)
+    pad_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(B):
+        ds.example(i, example_rng(cfg.seed, 1, i))
+    example_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    collate(mb, fixed_enc_len=L)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[template] loader, one micro-batch of {B} on the host: bond masks "
+        f"{mask_ms:.1f} ms (int32 arrays of {L} x {L}), their copy into one "
+        f"({B}, {L}, {L}) array {pad_ms:.1f} ms; whole examples (tokenize, "
+        f"neighbours, labels, masks) {example_ms:.1f} ms; the collator "
+        f"{collate_ms:.1f} ms")
+
+    # three optimizer steps under the bond mask (the schedule spans them
+    # and the step without the mask; the profiled steps run at lr 0)
+    optimizer = make_optimizer(cfg, TRAIN_STEPS + 1, module.parameters())
+    state = TrainState.create(module, optimizer)
+    train_step = make_accum_train_step(module, cfg, optimizer, 0)
+    before = [p.detach().clone() for p in module.parameters()]
+    weights = np.ones(MICRO_BATCHES, np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, micro, weights, cfg.seed)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+        log(f"[template] step {state.step}: {history[-1]} "
+            f"{step_ms[-1]:.1f} ms")
+    counts = read_counts()
+    layers = enc_cfg.num_hidden_layers
+    per_step = 2 * layers * MICRO_BATCHES
+    want = {name: 0 for name in counts}
+    want.update(fused_layernorm_fwd=per_step * TRAIN_STEPS,
+                fused_layernorm_bwd=per_step * TRAIN_STEPS)
+    log(f"[template] launches over {TRAIN_STEPS} steps under the bond mask: "
+        f"{counts}")
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    for name in ("fused_layernorm_fwd", "fused_layernorm_bwd",
+                 "fused_attention_fwd", "fused_attention_bwd"):
+        results[name]["launches_template"] = counts[name]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"non-finite metric: {history}")
+    if not history[-1]["train_loss"] < history[0]["train_loss"]:
+        raise AssertionError(f"the loss did not fall: {history}")
+    changed = sum(int(not torch.equal(a, b))
+                  for a, b in zip(before, module.parameters()))
+    if changed != len(before):
+        raise AssertionError(f"only {changed} of {len(before)} parameter "
+                             f"tensors changed")
+    del before
+
+    # the same batch without the bond mask: the fused attention kernels
+    keyed = dict(micro, attention_mask=np.ascontiguousarray(np.diagonal(
+        micro["attention_mask"], axis1=2, axis2=3)))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, keyed, weights, cfg.seed)
+    torch.cuda.synchronize()
+    keyed_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    want = dict(want, fused_layernorm_fwd=per_step,
+                fused_layernorm_bwd=per_step,
+                fused_attention_fwd=layers * MICRO_BATCHES,
+                fused_attention_bwd=layers * MICRO_BATCHES)
+    if counts != want or not np.isfinite(float(metrics["train_loss"])):
+        raise AssertionError(f"the step without the bond mask: launches "
+                             f"{counts}, expected {want}; {metrics}")
+    for name in ("fused_attention_fwd", "fused_attention_bwd"):
+        results[name]["launches_template_no_mask"] = counts[name]
+    # the card's span of a step (CUDA events) and its busy time (a profiler
+    # trace that saw every launch of the kernels the step is known to make)
+    ln = {"residual_layernorm_fwd": per_step, "residual_layernorm_bwd":
+          per_step}
+    attn = {"attention_fwd": layers * MICRO_BATCHES,
+            "attention_bwd_dq": layers * MICRO_BATCHES,
+            "attention_bwd_dkv": layers * MICRO_BATCHES}
+    step_span = device_span_ms(lambda: train_step(state, micro, weights,
+                                                  cfg.seed))
+    keyed_span = device_span_ms(lambda: train_step(state, keyed, weights,
+                                                   cfg.seed))
+    step_busy, step_kernels = device_busy_ms(
+        lambda: train_step(state, micro, weights, cfg.seed),
+        dict(ln, **dict.fromkeys(attn, 0)))
+    keyed_busy, keyed_kernels = device_busy_ms(
+        lambda: train_step(state, keyed, weights, cfg.seed), dict(ln, **attn))
+    med = statistics.median(step_ms[1:])
+    log(f"[template] {med:.1f} ms per optimizer step under the bond mask "
+        f"(host clock, median of steps 2-{TRAIN_STEPS}; step 1 "
+        f"{step_ms[0]:.1f} ms), the card's span {step_span:.1f} ms (CUDA "
+        f"events, median of 2), busy {fmt_ms(step_busy, 1)} of a profiled "
+        f"step ({step_kernels} kernels and copies), peak device memory "
+        f"{peak_gb:.1f} GB; without the bond mask {keyed_ms:.1f} ms, span "
+        f"{keyed_span:.1f} ms, busy {fmt_ms(keyed_busy, 1)} "
+        f"({keyed_kernels}); launches of that step {counts}; "
+        f"{cfg.batch_size} examples at L={L}, on {card}")
+
+    # the eval step at the test pass's edit_topk, the ranking, the decode
+    eval_step = make_eval_step(module, cfg, 0, edit_topk=TEMPLATE_EDITS)
+    first = {k: v[0] for k, v in micro.items()}
+    res = eval_step(first)
+    if res["loss"].shape != (B,) or not bool(torch.isfinite(
+            res["loss"]).all()) or res["atom_topk_idx"].shape != (
+            B, TEMPLATE_EDITS):
+        raise AssertionError(f"eval step: {res['loss'].shape} "
+                             f"{res['atom_topk_idx'].shape}")
+    eval_ms = wall_ms(lambda: eval_step(first))
+    compared = check_edit_ranking(module, to_device(first,
+                                                    torch.device("cuda")))
+    log(f"[template] eval step, top {TEMPLATE_EDITS} edits on the card: "
+        f"{eval_ms:.1f} ms a micro-batch of {B} (host clock), mean loss "
+        f"{float(res['loss'].mean()):.4f}; {compared} ranked edits compared")
+    decode = check_ester_decode(data, cfg, enc_tok, tables, eval_step)
+
+    # what the bond mask costs one layer's attention
+    attention = time_bond_masked_attention(card, to_device(
+        {"m": micro["attention_mask"][0]}, torch.device("cuda"))["m"])
+    plain_ms = layers * MICRO_BATCHES * attention["plain"]["fwd_bwd_ms"]
+    attention["step_plain_ms"] = plain_ms
+    attention["share_of_span"] = plain_ms / step_span
+    attention["share_of_busy"] = (None if step_busy is None
+                                  else plain_ms / step_busy)
+    log(f"[template] {layers * MICRO_BATCHES} passes of the plain bond-masked"
+        f" attention (forward + backward) take {plain_ms:.1f} ms: "
+        f"{attention['share_of_span'] * 100:.1f}% of the step's span on the "
+        f"card, " + ("busy time not measured" if step_busy is None else
+                     f"{attention['share_of_busy'] * 100:.1f}% of its busy "
+                     f"time") + f"; on {card}")
+    del module, optimizer, state, train_step, eval_step
+    torch.cuda.empty_cache()
+
+    # kernels against plain functions, with and without the bond mask
+    phase_train_kernels_vs_plain(cfg, enc_tok, tables, micro, 0,
+                                 tag="template, bond mask")
+    phase_train_kernels_vs_plain(cfg, enc_tok, tables, keyed, 0,
+                                 tag="template, key mask")
+    torch.cuda.empty_cache()
+
+    # the command line
+    cli = phase_template_cli(card, data, vocab, tmp / "template_run", layers)
+    results["template"] = dict(
+        step_ms=med, step_span_ms=step_span, step_busy_ms=step_busy,
+        step_kernels=step_kernels, no_mask_step_ms=keyed_ms,
+        no_mask_span_ms=keyed_span, no_mask_busy_ms=keyed_busy,
+        peak_gb=peak_gb, bond_mask_ms=mask_ms, bond_mask_copy_ms=pad_ms,
+        examples_ms=example_ms, collate_ms=collate_ms, eval_ms=eval_ms,
+        attention=attention, decode=decode, **cli)
+
+
+def template_cli_argv(data: Path, vocab: Path, save: Path) -> list:
+    """The RetroSyn_tb recipe's command line on the phase's CSVs: one epoch,
+    --do_train --do_valid --do_test."""
+    return [
+        "--task", "retro", "--template_based", "--unattend_nonbonds",
+        "--do_train", "--do_valid", "--do_test", "--data_path", str(data),
+        "--template_path", str(data), "--train_file", "train.csv",
+        "--valid_file", "val.csv", "--test_file", "test.csv",
+        "--corpus_file", str(data / "corpus.csv"), "--nn_path", str(data),
+        "--train_nn_file", "train_nn.json", "--valid_nn_file", "val_nn.json",
+        "--test_nn_file", "test_nn.json", "--encoder", "scibert_base",
+        "--encoder_tokenizer", "smiles_text", "--text_vocab_file",
+        str(vocab), "--num_neighbors", "3", "--use_gold_neighbor",
+        "--max_length", str(L), "--batch_size", str(B),
+        "--gradient_accumulation_steps", str(MICRO_BATCHES),
+        "--test_batch_size", str(B), "--epochs", "1", "--lr", "2e-4",
+        "--warmup", "0.02", "--max_grad_norm", "5", "--num_beams", "20",
+        "--compute_dtype", "bfloat16", "--save_path", str(save),
+        "--log_every", "1", "--debug"]
+
+
+def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
+                       layers: int) -> dict:
+    """python -m textreact_tpu_torch --task retro --template_based
+    --unattend_nonbonds, in-process on the card: one epoch of
+    TEMPLATE_SIZES on the phase's CSVs, validate, test with the decode."""
+    accum = MICRO_BATCHES
+    reset_counts()
+    t0 = time.perf_counter()
+    accuracies = runtime_cli.main(template_cli_argv(data, vocab, save))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    mbs = -(-TEMPLATE_SIZES["train"] // B)
+    evals = 2 * 2 * -(-TEMPLATE_SIZES["val"] // B)  # fit's and --do_valid's
+    tests = 2 * -(-TEMPLATE_SIZES["test"] // B)     # two corpora each
+    want = {name: 0 for name in counts}
+    want.update(fused_layernorm_fwd=2 * layers * (mbs + evals + tests),
+                fused_layernorm_bwd=2 * layers * mbs)
+    if counts != want:
+        raise AssertionError(f"the command line launched {counts}, "
+                             f"expected {want}")
+    records = read_metrics(save)
+    losses_seen = [r["train_loss"] for r in records if "train_loss" in r]
+    val = [r for r in records if "val_acc" in r]
+    if len(losses_seen) != mbs // accum or not all(
+            np.isfinite(v) for v in losses_seen):
+        raise AssertionError(f"train_loss records: {losses_seen}")
+    if len(val) != 1 or "val_acc/1" not in val[0]:
+        raise AssertionError(f"validation records: {val}")
+    for li in (0, 1):
+        preds = json.loads((save / f"prediction_test_{li}.json").read_text())
+        if sorted(map(int, preds)) != list(range(TEMPLATE_SIZES["test"])):
+            raise AssertionError(f"prediction_test_{li}.json: {len(preds)}")
+        for p in preds.values():
+            scores = p["score"]
+            if not (0 < len(p["prediction"]) == len(scores) <= TEMPLATE_EDITS
+                    and all(a >= b for a, b in zip(scores, scores[1:]))):
+                raise AssertionError(f"prediction_test_{li}.json: {p}")
+    if len(accuracies) != 2 or any(
+            set(a) != {1, 2, 3, 5, 10, 20}
+            or not all(0.0 <= v <= 1.0 for v in a.values())
+            for a in accuracies):
+        raise AssertionError(f"retro top-k dicts: {accuracies}")
+    timing = [r for r in records if "epoch_seconds" in r][0]
+    tests_s = sum(r["test_seconds"] for r in records if "test_seconds" in r)
+    log(f"[template] command line: train {TEMPLATE_SIZES['train']} "
+        f"reactions ({len(losses_seen)} optimizer steps of {accum} x {B}, "
+        f"train_loss {losses_seen}), validate, test and decode "
+        f"{TEMPLATE_SIZES['test']} x 2 corpora in {seconds:.1f} s: epoch "
+        f"{timing['epoch_seconds']:.1f} s, test passes {tests_s:.1f} s "
+        f"(top {TEMPLATE_EDITS} edits on the card), val_acc "
+        f"{val[0]['val_acc']:.3f} / {val[0]['val_acc/1']:.3f}, retro top-k "
+        f"{accuracies[0]} / {accuracies[1]}; launches {counts}; on {card}")
+    return dict(cli_seconds=seconds, cli_epoch_seconds=timing["epoch_seconds"],
+                cli_test_seconds=tests_s)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2212,7 +2887,8 @@ def main() -> int:
             card, vocab, results)
         torch.cuda.empty_cache()
         phase_train_pad_microbatch(cfg, enc_tok, dec_tok, micro, Path(tmp))
-        phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro)
+        phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro,
+                                     dec_tok.pad_token_id)
         del cfg, enc_tok, dec_tok, micro
         torch.cuda.empty_cache()
         log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
@@ -2223,7 +2899,11 @@ def main() -> int:
         log(f"[time] causal path done at "
             f"{time.perf_counter() - t_start:.0f} s")
         phase_runtime(card, Path(tmp), vocab, bare_step_ms, results)
+        torch.cuda.empty_cache()
+        log(f"[time] runtime done at {time.perf_counter() - t_start:.0f} s")
+        phase_template(card, Path(tmp), vocab, results)
     runtime = results.pop("runtime")
+    template = results.pop("template")
     for name in KERNELS:
         if not results[name].get("launches", 0) > 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -2231,6 +2911,7 @@ def main() -> int:
                for name, meta in KERNELS.items()]
     log(f"[time] all phases done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"runtime": runtime}))
+    print(json.dumps({"template": template}))
     print(json.dumps({"kernels": kernels}))
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,

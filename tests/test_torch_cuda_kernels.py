@@ -765,3 +765,73 @@ def test_tensor_core_attention_raises_on_what_it_does_not_take(dev):
             y = torch.randn(2 * 128 * 2 * 64 + 4, device=dev).bfloat16()
             y = y[4:].view(2, 128, 2, 64)
             call(y, y, y, None)
+
+
+@pytest.mark.parametrize("bond_mask", [True, False],
+                         ids=["bond_mask", "key_mask"])
+def test_template_model_with_kernels_matches_plain(dev, bond_mask):
+    """The template model (2 layers, hidden 128, L = 128) in f32 at p = 0:
+    loss and every gradient through the kernels against the plain
+    functions. Under the bond mask the self-attention carries a bias and
+    launches no attention kernel; the residual LNs launch theirs."""
+    from chip_smoke import set_kernels
+    from textreact_tpu_torch.config import ExperimentConfig
+    from textreact_tpu_torch.data import Collator, RetrosynthesisDataset
+    from textreact_tpu_torch.models import TemplateBasedModel
+    from textreact_tpu_torch.train import make_loss_fn
+    from textreact_tpu_torch.train.step import to_device
+
+    L, n_a, n_b = 128, 37, 11
+    config = TransformerConfig(
+        vocab_size=64, hidden_size=128, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=256,
+        max_position_embeddings=L, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0)
+    module = TemplateBasedModel(config, n_a, n_b, dtype=torch.float32)
+    init_weights(module, torch.Generator().manual_seed(0))
+    module.to(dev).train()
+    cfg = ExperimentConfig(task="retro", template_based=True,
+                           template_path="x", compute_dtype="float32",
+                           max_length=L)
+    rng = np.random.default_rng(0)
+    examples = []
+    for i, (length, atoms) in enumerate([(128, 20), (70, 9), (100, 14)]):
+        bonds = sorted({p for a in range(atoms - 1)
+                        for p in ((a, a + 1), (a + 1, a))})
+        ex = {"id": str(i), "index": i,
+              "input_ids": [int(t) for t in rng.integers(5, 64, length)],
+              "attention_mask": [1] * length,
+              "atom_indices": list(range(1, atoms + 1)), "bonds": bonds,
+              "decoder_atom_template_locs": [1],
+              "decoder_atom_template_ids": [int(rng.integers(1, n_a))],
+              "decoder_bond_template_locs": [bonds[0]],
+              "decoder_bond_template_ids": [int(rng.integers(1, n_b))],
+              "decoder_raw_template_labels": []}
+        if bond_mask:
+            ex["attention_mask"] = RetrosynthesisDataset._bond_mask(ex)
+        examples.append(ex)
+    batch = to_device(Collator(cfg, 0, 0)(examples, fixed_batch=4,
+                                          fixed_enc_len=L), dev)
+    runs = []
+    for on in (True, False):
+        set_kernels(module, on)
+        module.zero_grad(set_to_none=True)
+        before = (fused_attention.LAUNCHES, fused_layernorm.LAUNCHES,
+                  fused_layernorm.BWD_LAUNCHES)
+        loss, _ = make_loss_fn(module, cfg, 0)(
+            batch, torch.Generator(device=dev).manual_seed(0))
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (fused_attention.LAUNCHES - before[0],
+                    fused_layernorm.LAUNCHES - before[1],
+                    fused_layernorm.BWD_LAUNCHES - before[2])
+        want = ((0 if bond_mask else 2, 4, 4) if on else (0, 0, 0))
+        assert launched == want, (on, launched)
+        runs.append((float(loss), {n: p.grad.clone()
+                                   for n, p in module.named_parameters()}))
+    (loss_k, grads_k), (loss_p, grads_p) = runs
+    assert abs(loss_k - loss_p) <= 1e-5
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    for name, g in grads_p.items():
+        diff = float((grads_k[name] - g).abs().max())
+        assert diff <= 1e-3 * max(float(g.abs().max()), 1e-4 * top), name

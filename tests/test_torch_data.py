@@ -85,10 +85,24 @@ def test_tokenizers_give_the_same_ids(tmp_path, mode, task):
 
 
 def test_template_based_tokenizers_wait_for_their_slice(tmp_path):
-    _, pcfg = _cfgs(tmp_path, encoder_tokenizer="smiles", task="retro",
-                    template_based=True, template_path="x")
-    with pytest.raises(NotImplementedError):
-        port_tok.get_tokenizers(pcfg)
+    """The template branch of get_tokenizers, which raised until its slice:
+    the SMILES encoder tokenizer and the template tables as the decoder's,
+    equal to the JAX package's."""
+    from test_torch_template import PRODUCTS, _write_template_data
+    root = _write_template_data(str(tmp_path / "tpl"), PRODUCTS)
+    jcfg, pcfg = _cfgs(tmp_path, encoder_tokenizer="smiles", task="retro",
+                       template_based=True, template_path=root)
+    (jenc, jdec), (penc, pdec) = (jax_tok.get_tokenizers(jcfg),
+                                  port_tok.get_tokenizers(pcfg))
+    assert penc(PRODUCTS[0]) == jenc(PRODUCTS[0])
+    assert isinstance(pdec, port_data.TemplateTables)
+    assert (pdec.atom_templates, pdec.bond_templates) \
+        == (jdec.atom_templates, jdec.bond_templates)
+    assert (pdec.num_atom_templates, pdec.num_bond_templates) == (4, 3)
+    assert pdec.atom_template(1) == jdec.atom_template(1) == "[T0]>>[U0]"
+    with pytest.raises(ValueError, match="smiles encoder"):
+        port_tok.get_tokenizers(dataclasses.replace(
+            pcfg, encoder_tokenizer="text"))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -137,6 +151,44 @@ def test_collator_gives_the_same_arrays(tmp_path, static_shapes):
         np.testing.assert_array_equal(arr, b.arrays[name], err_msg=name)
     assert b.size == 5 and b["mlm_labels"].shape[1] % 16 == 0
     assert "ids" in b and b["ids"][0] == "r0"
+
+
+@pytest.mark.parametrize("bond_mask", [False, True])
+@pytest.mark.parametrize("static_shapes", [False, True])
+def test_collator_gives_the_same_template_arrays(tmp_path, static_shapes,
+                                                 bond_mask):
+    """The template fields of collate.py (reference dataset.py:362-380):
+    atom positions and mask, bond pairs and mask, both label arrays, the
+    (B, L, L) bond mask, bucketed and static shapes."""
+    from test_torch_template import _examples as template_examples
+    from test_torch_template import as_lists
+    kw = dict(task="retro", template_based=True, template_path="x",
+              max_length=128, length_buckets=(64, 128))
+    jcfg = jax_config.ExperimentConfig(**kw)
+    pcfg = port_config.ExperimentConfig(**kw)
+    examples = template_examples(5, seed=1, bond_mask=bond_mask)
+    a = jax_collate.Collator(jcfg, 0, 0, static_shapes=static_shapes)(
+        as_lists(examples), fixed_batch=8)
+    b = port_data.Collator(pcfg, 0, 0, static_shapes=static_shapes)(
+        examples, fixed_batch=8)
+    assert set(a.arrays) == set(b.arrays) == {
+        "input_ids", "attention_mask", "atom_indices", "atom_mask",
+        "bond_pairs", "bond_mask", "atom_template_labels",
+        "bond_template_labels", "example_mask", "indices"}
+    for name, arr in a.arrays.items():
+        assert arr.dtype == b.arrays[name].dtype, name
+        np.testing.assert_array_equal(arr, b.arrays[name], err_msg=name)
+    assert a.host == b.host
+    # the port's collator takes the JAX package's lists of rows as well
+    c = port_data.Collator(pcfg, 0, 0, static_shapes=static_shapes)(
+        as_lists(examples), fixed_batch=8)
+    for name, arr in a.arrays.items():
+        np.testing.assert_array_equal(arr, c.arrays[name], err_msg=name)
+    L = b["input_ids"].shape[1]
+    assert b["attention_mask"].shape == ((8, L, L) if bond_mask else (8, L))
+    if static_shapes:
+        assert L == 128 and b["atom_indices"].shape[1] == 128
+        assert b["bond_pairs"].shape[1] == 256
 
 
 # --- the retrieval slice's copies: chem kit, retrieval helpers, logging ---
@@ -337,3 +389,115 @@ def test_loader_and_profiling_helpers_match():
     for t in (ta, tb):
         t.tick(), t.tick()
     assert ta.steps_per_sec > 0 and tb.steps_per_sec > 0
+
+
+# ---- the template slice's copies: the template engine, tables, infos ------
+
+ESTER_TPL = ("[C:1](=[O:2])-[O;H0;D2;+0:3]>>"
+             "[C:1](=[O:2])-[OH;D1;+0:4].[OH;D1;+0:3]")
+AMIDE_TPL = ("[C:1](=[O:2])-[N;H1;D2;+0:3]>>"
+             "[C:1](=[O:2])-[OH;D1;+0:4].[NH2;D1;+0:3]")
+BR_TPL = "[Br;H0;D1;+0:1]-[c:2]>>[Br;H0;D1;+0:1]-[Br;H0;D1;+0:3].[cH:2]"
+RING_TPL = "[c:1]-[CH3;D1:2]>>[#6:1].[CH3:2]"
+SPLIT_TPL = "[C:1]-[OH;D1;+0:2]>>[C:1].[OH;D1;+0:2]"
+ENGINE_TEMPLATES = [ESTER_TPL, AMIDE_TPL, BR_TPL, RING_TPL, SPLIT_TPL,
+                    "[#7;a:1]:[c:2]>>[N:1]=[C:2]", "[C;R:1]-[C;!R:2]>>[C:1].[C:2]"]
+
+
+def test_template_engine_has_the_same_public_names():
+    import inspect
+    for name in ("chem.smarts", "chem.reaction", "evaluation.edit_rank",
+                 "evaluation._own_template_apply",
+                 "evaluation.template_decode", "data.templates"):
+        a = __import__(f"textreact_tpu.{name}", fromlist=["x"])
+        b = __import__(f"textreact_tpu_torch.{name}", fromlist=["x"])
+        # the framework's and the readers' module names aside, and the
+        # switch to the RDKit engine, which the port does not copy: its
+        # template decode has the own engine only
+        assert _public(a) - {"pd", "jax", "jnp", "ast", "HAS_RDKIT"} \
+            == _public(b) - {"torch", "Table", "read_csv", "ast"}, name
+    # smarts and reaction are copies: every function's source is the same
+    for name in ("smarts", "reaction"):
+        a = __import__(f"textreact_tpu.chem.{name}", fromlist=["x"])
+        b = __import__(f"textreact_tpu_torch.chem.{name}", fromlist=["x"])
+        for fname, f in vars(a).items():
+            if inspect.isfunction(f) and f.__module__ == a.__name__:
+                assert inspect.getsource(f) \
+                    == inspect.getsource(getattr(b, fname)), fname
+
+
+def _engine_outcome(kit, smiles, template):
+    """find_matches of the template's product side and every
+    run_retro_template result (reactant SMILES and the three maps), or the
+    name of the exception's class."""
+    from importlib import import_module
+    smarts = import_module(f"{kit}.chem.smarts")
+    reaction = import_module(f"{kit}.chem.reaction")
+    chem = import_module(f"{kit}.chem")
+
+    def run():
+        mol = chem.parse_smiles(smiles)
+        lhs = template.split(">>")[0]
+        matches = smarts.find_matches(smarts.parse_smarts(lhs), mol)
+        local = ">>".join(f"({part})" for part in template.split(">>"))
+        applied = [(reaction.mol_fragments_smiles(a.mol), a.map_to_product,
+                    a.map_to_new, a.new_to_product)
+                   for a in reaction.run_retro_template(
+                       mol, local, check_valence=False)]
+        return matches, applied
+    return _outcome(run)
+
+
+@pytest.mark.parametrize("source", ["fixtures", "goldens"])
+def test_template_engine_gives_the_same_outputs(source):
+    """`find_matches` and `run_retro_template` of both packages on the
+    SMILES of the template fixtures and a stride of the canonicalizer's
+    goldens, under templates that match, cut rings and fail."""
+    if source == "fixtures":
+        smiles = ["CCOC(C)=O", "COC(=O)CC", "CCOC(=O)C(C)C", "O=C1CCCO1",
+                  "O=C1CCCN1", "Brc1ccc2[nH]ccc2c1", "Cc1ccccc1",
+                  "CC(=O)Oc1ccccc1C(=O)O", "OCC[C@H](O)C", "not a smiles"]
+    else:
+        smiles = _golden_smiles()[::9]
+    hits = set()
+    for s in smiles:
+        for tpl in ENGINE_TEMPLATES:
+            ref = _engine_outcome("textreact_tpu", s, tpl)
+            got = _engine_outcome("textreact_tpu_torch", s, tpl)
+            assert got == ref, (s, tpl)
+            if isinstance(got, tuple) and got[1]:
+                hits.add(tpl)
+    assert len(hits) >= 4, hits
+
+
+def test_template_tables_and_infos_read_what_pandas_reads(tmp_path):
+    """`data/templates.py` and `template_decode.load_template_infos` over
+    utils/table.py against the JAX package's over pandas, on the template
+    fixtures; the `Class` column comes back as ints, as pandas infers it,
+    so the decode's class lookups meet the predicted ints."""
+    import pandas as pd
+    import textreact_tpu.data.templates as jt
+    import textreact_tpu.evaluation.template_decode as jd
+    import textreact_tpu_torch.data.templates as pt
+    import textreact_tpu_torch.evaluation.template_decode as pd_
+    from test_torch_template import (PRODUCTS, _write_template_data,
+                                     write_ester_data)
+    from textreact_tpu_torch.utils.table import read_csv
+    for root in (_write_template_data(str(tmp_path / "tpl"), PRODUCTS),
+                 write_ester_data(str(tmp_path / "ester"))):
+        a, b = jt.load_template_tables(root), pt.load_template_tables(root)
+        assert (b.atom_templates, b.bond_templates) \
+            == (a.atom_templates, a.bond_templates)
+        for split in ("train", "val", "test"):
+            assert pt.load_preprocessed_labels(root, split) \
+                == jt.load_preprocessed_labels(root, split)
+        for name in ("atom_templates.csv", "bond_templates.csv"):
+            df = pd.read_csv(os.path.join(root, name))
+            table = read_csv(os.path.join(root, name))
+            assert table["Class"] == df["Class"].tolist()
+            assert all(type(c) is int for c in table["Class"])
+            assert dict(zip(table["Class"], table["Template"])) \
+                == dict(zip(df["Class"], df["Template"]))
+    assert pd_.load_template_infos(root) == jd.load_template_infos(root)
+    assert pt.load_preprocessed_labels(
+        str(tmp_path / "tpl"), "train")[2][3] == []    # 'set()'

@@ -355,10 +355,32 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
     assert m16.encoder.layers[0].attention_norm.weight.dtype == torch.float32
     std = float(w32.detach().std())
     assert 0.015 < std < 0.025
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, template_based=True,
-                                        template_path="x"),
-                    _Tok(70), _Tok(30), device="cpu")
+    # the template branch: the encoder and three f32 heads sized from the
+    # tables, drawn normal(0, initializer_range) with zero biases, and no
+    # decoder
+    from textreact_tpu_torch.data import TemplateTables
+    from textreact_tpu_torch.models import TemplateBasedModel
+    tables = TemplateTables(["a"] * 300, ["b"] * 40)
+    tcfg = dataclasses.replace(cfg, template_based=True, template_path="x",
+                               mlm=False, compute_dtype="bfloat16")
+    tm, t_enc, t_dec = build_model(tcfg, _Tok(70), tables,
+                                   torch.Generator().manual_seed(0),
+                                   device="cpu")
+    assert isinstance(tm, TemplateBasedModel) and t_dec is None
+    assert not tm.training and not hasattr(tm, "mlm_head")
+    assert t_enc.max_position_embeddings == 128 and t_enc.vocab_size == 70
+    head = tm.head
+    assert head.atom_head.weight.shape == (301, 128)
+    assert head.bond_head_left.weight.shape == (41, 128)
+    assert head.bond_head_right.bias is None
+    assert head.atom_head.weight.dtype == torch.float32
+    for w in (head.atom_head.weight, head.bond_head_left.weight,
+              head.bond_head_right.weight):
+        assert 0.015 < float(w.detach().std()) < 0.025
+    assert not head.atom_head.bias.any() and not head.bond_head_left.bias.any()
+    # the encoder draws what the seq2seq model's encoder draws from the seed
+    torch.testing.assert_close(tm.encoder.layers[0].ffn.intermediate.weight,
+                               w32)
 
 
 def test_port_imports_no_jax_or_pandas():
@@ -382,8 +404,12 @@ def test_port_imports_no_jax_or_pandas():
                  "data.corpus", "data.neighbors", "data.datasets",
                  "data.loader", "evaluation.condition", "evaluation.retro",
                  "train.checkpoint", "train.trainer", "cli.main",
-                 "__main__"):
+                 "chem.smarts", "chem.reaction", "data.templates",
+                 "evaluation.edit_rank", "evaluation.template_decode",
+                 "evaluation._own_template_apply", "__main__"):
         assert "textreact_tpu_torch." + name in names
+    # the template decode has one engine, the own one: no RDKit twin
+    assert "textreact_tpu_torch.evaluation._rdkit_template_apply" not in names
     code = ("import sys, importlib\n"
             f"for name in {names!r} + ['chip_smoke', 'chip_profile']:\n"
             "    importlib.import_module(name)\n"

@@ -127,15 +127,46 @@ def test_retro_dataset_gives_the_same_examples(retro_root, split, file, mode):
         assert b.example(0)["id"] == b.example(2)["id"] != b.example(3)["id"]
 
 
-def test_template_based_dataset_waits_for_its_slice(retro_root):
-    _, pcfg = _both(retro_root, "retro", template_based=True,
-                    template_path=retro_root)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_data.RetrosynthesisDataset(
-            pcfg, os.path.join(retro_root, "train.csv"), None, None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_eval.evaluate_retrosynthesis({}, Table({"reactant_smiles": []}),
-                                          20, template_based=True)
+def test_template_based_dataset_waits_for_its_slice(tmp_path):
+    """The template-based dataset and the template decode, which raised
+    until their slice, now run: examples with template labels, atom
+    positions and the bond mask equal to the JAX package's, and the retro
+    metric through the ester decode equal to its, with the gold edit
+    ranked first."""
+    from test_torch_template import (PRODUCTS, _write_template_data,
+                                     write_ester_data)
+    root = _write_template_data(str(tmp_path / "tpl"), PRODUCTS)
+    kw = dict(template_based=True, template_path=root, num_neighbors=-1,
+              encoder_tokenizer="smiles", corpus_file=None,
+              unattend_nonbonds=True, shuffle_smiles=True)
+    jcfg, pcfg = _both(root, "retro", **kw)
+    datasets = []
+    for cfg, data, tok in ((jcfg, jax_data, jax_tok),
+                           (pcfg, port_data, port_tok)):
+        enc, dec = tok.get_tokenizers(cfg)
+        datasets.append(data.RetrosynthesisDataset(
+            cfg, os.path.join(root, "train.csv"), enc, dec))
+    a, b = datasets
+    for i in range(len(a)):
+        ea = a.example(i, rng=jax_data.example_rng(5, 0, i))
+        eb = b.example(i, rng=port_data.example_rng(5, 0, i))
+        mask = eb.pop("attention_mask")    # (L, L) array, JAX: lists
+        assert mask.tolist() == ea.pop("attention_mask") and eb == ea, i
+    assert mask.shape == (len(eb["input_ids"]),) * 2
+    assert eb["decoder_raw_template_labels"]
+
+    ester = write_ester_data(str(tmp_path / "ester"))
+    table = port_data.load_preprocessed_labels(ester, "test")[0]
+    prediction = {i: {"prediction": [tuple(labels[0])], "score": [0.9]}
+                  for i, labels in enumerate(table)}
+    got = port_eval.evaluate_retrosynthesis(
+        prediction, Table({k: list(v) for k, v in pd.read_csv(
+            os.path.join(ester, "test.csv")).items()}), 20,
+        template_based=True, template_path=ester)
+    want = jax_eval.evaluate_retrosynthesis(
+        prediction, pd.read_csv(os.path.join(ester, "test.csv")), 20,
+        template_based=True, template_path=ester)
+    assert got == want and got[1] == 1.0
 
 
 @pytest.mark.parametrize("kw", [
@@ -416,9 +447,7 @@ def test_mesh_options_raise_until_their_slice(workdir, flags, match):
 
 @pytest.mark.parametrize("flags,match", [
     (["--decoder_pretrained"], "item 9"),
-    (["--encoder_pretrained", "--encoder", "DIR"], "item 9"),
-    (["--template_based", "--template_path", "x", "--task", "retro"],
-     "item 7")])
+    (["--encoder_pretrained", "--encoder", "DIR"], "item 9")])
 def test_unported_options_raise_naming_their_item(workdir, flags, match):
     flags = [workdir if f == "DIR" else f for f in flags]
     cfg = parse_config(_argv(workdir, "out_unported", *flags))

@@ -416,10 +416,9 @@ def test_entry_points_default_to_the_card(pair):
             make(pair.module, pair.cfg, pair.optimizer, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_eval_step(pair.module, pair.cfg, 0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         make_eval_step(pair.module,
-                       dataclasses.replace(pair.cfg, template_based=True), 0,
-                       device="cpu")
+                       dataclasses.replace(pair.cfg, template_based=True), 0)
 
 
 def test_train_step_dropout_is_reproducible_from_the_seed():

@@ -1,9 +1,9 @@
 """Host-side chemistry kit (own SMILES stack; optional RDKit fast path).
 
-Own copies of what fingerprinting needs from textreact_tpu/chem: mol, canon,
-aromatic, rdkit_bridge and fingerprints, pure Python. The C++ accelerator
-(native.py) and the template modules (reaction.py, smarts.py) are not part
-of this package yet."""
+Own copies of textreact_tpu/chem, pure Python: mol, canon, aromatic,
+rdkit_bridge and fingerprints, and the template engine (smarts.py,
+reaction.py) that decodes template-based retro predictions. The C++
+accelerator (native.py) is not part of this package yet."""
 
 from .canon import (canonical_ranks, canonical_rxn_smiles, canonical_smiles,
                     canonical_smiles_strict, random_smiles, write_smiles)

@@ -47,15 +47,14 @@ def _pad_1d(seqs: Sequence[Sequence[int]], length: int, pad: int,
     return out
 
 
-def _pad_2d(masks: Sequence[Sequence[Sequence[int]]], length: int,
-            batch: int) -> np.ndarray:
+def _pad_2d(masks: Sequence, length: int, batch: int) -> np.ndarray:
+    """Square (L, L) masks (arrays, or lists of rows) into one (batch,
+    length, length) int32 array, zero-padded."""
     out = np.zeros((batch, length, length), dtype=np.int32)
     for i, m in enumerate(masks):
+        m = np.asarray(m)
         n = min(len(m), length)
-        for r in range(n):
-            row = m[r]
-            c = min(len(row), length)
-            out[i, r, :c] = row[:c]
+        out[i, :n, :n] = m[:n, :n]
     return out
 
 
@@ -98,7 +97,7 @@ class Collator:
         arrays["input_ids"] = _pad_1d([ex["input_ids"] for ex in examples], L,
                                       self.enc_pad_id, B)
         first_mask = examples[0]["attention_mask"]
-        if first_mask and isinstance(first_mask[0], list):
+        if np.ndim(first_mask[:1]) == 2:    # (L, L) bond masks
             arrays["attention_mask"] = _pad_2d(
                 [ex["attention_mask"] for ex in examples], L, B)
         else:

@@ -47,10 +47,6 @@ def evaluate_retrosynthesis(prediction: Dict[int, Dict[str, Any]],
                             template_based: bool = False,
                             template_path: Optional[str] = None,
                             num_workers: int = 0) -> Dict[int, float]:
-    if template_based:
-        raise NotImplementedError(
-            "template-based retrosynthesis (evaluation/template_decode.py) "
-            "is not ported yet: ROADMAP.md Queue 1 item 7")
     num_example = len(data_df)
     golds = list(data_df["reactant_smiles"])
     if num_workers > 1:
@@ -58,7 +54,13 @@ def evaluate_retrosynthesis(prediction: Dict[int, Dict[str, Any]],
             gold_list = p.map(_canon, golds)
     else:
         gold_list = [_canon(g) for g in golds]
-    pred_list = [prediction[i]["prediction"] for i in range(num_example)]
+
+    if template_based:
+        from .template_decode import decode_template_predictions
+        pred_list = decode_template_predictions(
+            prediction, data_df, template_path, top_k, num_workers=num_workers)
+    else:
+        pred_list = [prediction[i]["prediction"] for i in range(num_example)]
 
     # per-example prediction canonicalization + compare is the slow link at
     # USPTO-50K scale (num_beams x N strings): pooled like the reference

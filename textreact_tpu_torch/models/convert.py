@@ -7,7 +7,10 @@ joined with dots, with three renames:
 - a LayerNorm `scale` and an Embed `embedding` -> `weight`.
 
 The decoder's `word_embedding`, tied to its LM head, stays one parameter
-(`decoder.word_embedding`); `lm_head/bias` and the MLM head carry across.
+(`decoder.word_embedding`); `lm_head/bias` and the MLM head carry across,
+and so do the template heads of TemplateBasedModel: `head/atom_head`,
+`head/bond_head_left` (kernel and bias) and `head/bond_head_right` (kernel
+only) become `head.atom_head.{weight,bias}` and so on.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Model factory: experiment config + tokenizers -> torch module (twin of
-textreact_tpu/models/factory.py, seq2seq only)."""
+textreact_tpu/models/factory.py): seq2seq, or template-based where the
+decoder "tokenizer" is the TemplateTables."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from ..ops.fused_attention import SUPPORTED_HEAD_DIM
 from ..ops.fused_layernorm import SUPPORTED_HIDDEN
 from .config import TransformerConfig, resolve_config
 from .decoder import Decoder
-from .encdec import EncoderDecoder
+from .encdec import EncoderDecoder, TemplateBasedModel
 from .layers import LayerNorm, MLMHead, ResidualLayerNorm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -62,15 +63,15 @@ def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
                 generator: Optional[torch.Generator] = None, device=None):
     """Returns (module, enc_config, dec_config), on `device` (None: the CUDA
     card; raises without one), in eval mode, with weights drawn from
-    `generator` (seeded with cfg.seed when None).
+    `generator` (seeded with cfg.seed when None). Template-based models
+    have no decoder: dec_config is None.
 
     Parameters are stored in cfg.param_dtype: 'float32' (the default, what
     training needs) or the compute dtype's name for pre-cast serving
     weights; the compute dtype is cfg.compute_dtype."""
     device = resolve_device(device)
-    if cfg.template_based:
-        raise NotImplementedError(
-            "template-based retrosynthesis is not ported yet")
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
     enc_config = resolve_config(cfg.encoder)
     enc_config = enc_config.replace(
         max_position_embeddings=max(enc_config.max_position_embeddings,
@@ -79,6 +80,19 @@ def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
         attention_impl=cfg.attention_impl,
         layernorm_impl=cfg.layernorm_impl,
     )
+    mlm_layer = cfg.mlm_layer if cfg.mlm else None
+    if cfg.template_based:
+        tables = dec_tokenizer  # TemplateTables
+        if device.type == "cuda":
+            check_kernel_shapes(enc_config)
+        module = TemplateBasedModel(
+            encoder_config=enc_config,
+            num_atom_templates=tables.num_atom_templates,
+            num_bond_templates=tables.num_bond_templates,
+            dtype=DTYPES[cfg.compute_dtype], mlm_layer=mlm_layer,
+            param_dtype=DTYPES[cfg.param_dtype], remat=cfg.remat)
+        init_weights(module, generator)
+        return module.to(device).eval(), enc_config, None
     dec_config = resolve_config(cfg.decoder)
     dec_config = dec_config.replace(
         vocab_size=max(dec_config.vocab_size, len(dec_tokenizer)),
@@ -98,27 +112,31 @@ def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
     module = EncoderDecoder(encoder_config=enc_config,
                             decoder_config=dec_config,
                             dtype=DTYPES[cfg.compute_dtype],
-                            mlm_layer=cfg.mlm_layer if cfg.mlm else None,
+                            mlm_layer=mlm_layer,
                             param_dtype=DTYPES[cfg.param_dtype],
                             remat=cfg.remat)
-    if generator is None:
-        generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(module, generator)
     return module.to(device).eval(), enc_config, dec_config
 
 
 @torch.no_grad()
-def init_weights(module: EncoderDecoder, generator: torch.Generator) -> None:
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisers: normal(0, initializer_range) for
-    dense kernels and embedding tables, zero biases, unit LN scales. Values
+    dense kernels and embedding tables, zero biases, unit LN scales; the
+    template heads (TemplateBasedModel) take normal(0, the encoder's
+    initializer_range) and a zero bias, as encdec.py:129 draws them. Values
     are drawn in f32 on the CPU, so a seed gives the same model on any
     device and in any compute dtype."""
 
     def normal_(p: torch.Tensor, std: float) -> None:
         p.copy_(torch.empty(p.shape).normal_(0.0, std, generator=generator))
 
-    parts = [(module.encoder, module.encoder_config),
-             (module.decoder, module.decoder_config)]
+    if isinstance(module, TemplateBasedModel):
+        parts = [(module.encoder, module.encoder_config),
+                 (module.head, module.encoder_config)]
+    else:
+        parts = [(module.encoder, module.encoder_config),
+                 (module.decoder, module.decoder_config)]
     if module.mlm_layer:
         parts.append((module.mlm_head, module.encoder_config))
     for part, config in parts:
@@ -126,7 +144,8 @@ def init_weights(module: EncoderDecoder, generator: torch.Generator) -> None:
         for m in part.modules():
             if isinstance(m, nn.Linear):
                 normal_(m.weight, std)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 normal_(m.weight, std)
             elif isinstance(m, (LayerNorm, ResidualLayerNorm)):

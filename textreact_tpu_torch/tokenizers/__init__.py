@@ -45,8 +45,8 @@ def get_tokenizers(cfg):
     if getattr(cfg, "template_based", False):
         if not mode.startswith("smiles"):
             raise ValueError("template-based retro requires a smiles encoder tokenizer")
-        raise NotImplementedError(
-            "template-based retrosynthesis is not ported yet")
+        from ..data.templates import load_template_tables
+        dec = load_template_tables(cfg.template_path)
     elif cfg.task == "condition":
         dec = ConditionTokenizer(cfg.vocab_file)
     elif cfg.task == "retro":

@@ -76,17 +76,18 @@ def _dropout_generator(gen: torch.Generator, seed: int,
 def _model_inputs(batch: Dict[str, Tensor], template_based: bool,
                   mlm_prefix_len: Optional[int],
                   mlm_fused: bool = False) -> Dict[str, Any]:
-    if template_based:
-        raise NotImplementedError(
-            "template-based retrosynthesis is not ported yet")
     kw: Dict[str, Any] = dict(
         input_ids=batch["input_ids"],
         attention_mask=batch["attention_mask"],
-        decoder_input_ids=batch["decoder_input_ids"],
-        decoder_attention_mask=batch.get("decoder_attention_mask"),
     )
     if "position_ids" in batch:
         kw["position_ids"] = batch["position_ids"]
+    if template_based:
+        kw["atom_indices"] = batch["atom_indices"]
+        kw["bond_pairs"] = batch["bond_pairs"]
+    else:
+        kw["decoder_input_ids"] = batch["decoder_input_ids"]
+        kw["decoder_attention_mask"] = batch.get("decoder_attention_mask")
     if mlm_prefix_len is not None:
         kw["mlm_prefix_len"] = mlm_prefix_len
         if mlm_fused:   # fold projection + CE into the forward (ops/fused_ce)
@@ -107,8 +108,15 @@ def make_loss_fn(module: torch.nn.Module, cfg, dec_pad_id: int) -> Callable:
                       if cfg.mlm and "mlm_labels" in batch else None)
         out = module(**_model_inputs(batch, template_based, mlm_prefix,
                                      mlm_fused), generator=generator)
-        loss = losses.seq2seq_loss(out["logits"], batch["decoder_input_ids"],
-                                   dec_pad_id, cfg.label_smoothing)
+        if template_based:
+            atom_logits, bond_logits = out["logits"]
+            loss = losses.template_loss(atom_logits, bond_logits,
+                                        batch["atom_template_labels"],
+                                        batch["bond_template_labels"])
+        else:
+            loss = losses.seq2seq_loss(out["logits"],
+                                       batch["decoder_input_ids"],
+                                       dec_pad_id, cfg.label_smoothing)
         metrics = {"train_loss": loss}
         if mlm_prefix is not None:
             if "mlm_loss_sum" in out:
@@ -194,19 +202,40 @@ def make_accum_train_step(module: torch.nn.Module, cfg, optimizer: Optimizer,
 
 
 def make_eval_step(module: torch.nn.Module, cfg, dec_pad_id: int,
-                   device=None) -> Callable:
+                   edit_topk: int = 500, device=None) -> Callable:
     """Per-example val scores (reference validation_step, main.py:177-188):
-    acc = greedy exact match, loss = per-example mean CE."""
-    if cfg.template_based:
-        raise NotImplementedError(
-            "template-based retrosynthesis is not ported yet")
+    acc = greedy exact match, loss = per-example mean CE.
+
+    Template-based models return the top-`edit_topk` edit candidates ranked
+    on the device (`device_topk_edits` over the flattened atom and bond
+    probabilities) instead of the full (B, A, n_a+1) / (B, MB, n_b+1)
+    probability tensors: the host merges two k-long lists per example
+    (edits_from_topk), where the reference argsorts the full grids on the
+    host (utils.py:79-108)."""
+    template_based = cfg.template_based
     device = _check_device(module, device)
 
     @torch.no_grad()
     def eval_step(batch: Mapping[str, Any]) -> Dict[str, Tensor]:
         module.eval()
         batch = to_device(batch, device)
-        out = module(**_model_inputs(batch, False, None))
+        out = module(**_model_inputs(batch, template_based, None))
+        if template_based:
+            from ..evaluation.edit_rank import device_topk_edits
+            atom_logits, bond_logits = out["logits"]
+            atom_labels = batch["atom_template_labels"]
+            bond_labels = batch["bond_template_labels"]
+            res = {"example_mask": batch["example_mask"],
+                   "indices": batch["indices"],
+                   "loss": losses.template_loss(
+                       atom_logits, bond_logits, atom_labels, bond_labels,
+                       reduction="none")}
+            (res["atom_topk_vals"], res["atom_topk_idx"],
+             res["bond_topk_vals"], res["bond_topk_idx"]) = device_topk_edits(
+                losses.masked_probs(atom_logits, atom_labels),
+                losses.masked_probs(bond_logits, bond_labels),
+                bond_labels != losses.IGNORE_INDEX, edit_topk)
+            return res
         return {
             "example_mask": batch["example_mask"],
             "indices": batch["indices"],

@@ -13,8 +13,13 @@ False). The trainer runs on the CUDA card unless the caller passes
 `device=`; without a card it raises.
 
 Parameters come from `build_model`, drawn from `cfg.seed`. Loading
-pretrained weights (`models/import_hf.py`) waits for item 9 and the
-template-based task for item 7; both raise here.
+pretrained weights (`models/import_hf.py`) waits for item 9 and raises
+here.
+
+Template-based retrosynthesis (--template_based) trains the encoder and the
+atom/bond template heads, validates with the greedy template top-1, and
+tests by ranking the top 500 edits on the device and decoding them through
+the template engine.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from ..config import ExperimentConfig
 from ..data import (DATASET_CLS, Batch, Collator, DataLoader,
                     gather_prediction_each_neighbor,
                     generate_train_label_corpus, read_corpus)
-from ..evaluation import evaluate_reaction_condition, evaluate_retrosynthesis
+from ..evaluation import (edits_from_topk, evaluate_reaction_condition,
+                          evaluate_retrosynthesis)
 from ..inference.predictor import Generator, predictions_from_beams
 from ..models import build_model
 from ..models.factory import resolve_device
@@ -45,9 +51,6 @@ from .optim import make_optimizer
 from .step import (TrainState, make_accum_train_step, make_eval_step,
                    make_train_step)
 
-_TEMPLATE_MESSAGE = ("template-based retrosynthesis is not ported yet: "
-                     "ROADMAP.md Queue 1 item 7")
-
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None):
@@ -58,8 +61,6 @@ class Trainer:
         _random.seed(cfg.seed)
         np.random.seed(cfg.seed)
 
-        if cfg.template_based:
-            raise NotImplementedError(_TEMPLATE_MESSAGE)
         if cfg.decoder_pretrained or (
                 cfg.encoder_pretrained and cfg.encoder
                 and os.path.isdir(cfg.encoder)):
@@ -73,7 +74,10 @@ class Trainer:
             cfg, self.enc_tokenizer, self.dec_tokenizer, device=self.device)
         self.ckpt = CheckpointManager(cfg.save_path, cfg.val_metric)
         self.metrics = MetricLogger(cfg.save_path, use_wandb=not cfg.debug)
-        self.dec_pad_id = self.dec_tokenizer.pad_token_id
+        if cfg.template_based:
+            self.dec_pad_id = 0
+        else:
+            self.dec_pad_id = self.dec_tokenizer.pad_token_id
         self.collator = Collator(cfg, self.enc_tokenizer.pad_token_id,
                                  self.dec_pad_id, static_shapes=False)
         self.train_dataset = None
@@ -120,7 +124,7 @@ class Trainer:
         ex = dataset.example(0, rng=_random.Random(0), augment=False)
         log.info("example encoder input: %s",
                  self.enc_tokenizer.decode(ex["input_ids"]))
-        if "decoder_input_ids" in ex:
+        if not self.cfg.template_based and "decoder_input_ids" in ex:
             log.info("example decoder input: %s",
                      self.dec_tokenizer.decode(ex["decoder_input_ids"]))
 
@@ -188,7 +192,7 @@ class Trainer:
                 self.module, cfg, state.optimizer, self.dec_pad_id,
                 device=self.device)
         eval_step = make_eval_step(self.module, cfg, self.dec_pad_id,
-                                   device=self.device)
+                                   edit_topk=1, device=self.device)
 
         # every dropout mask of a step is drawn from a generator reseeded
         # from (this seed, state.step), and state.step is in the checkpoint:
@@ -294,7 +298,10 @@ class Trainer:
             for batch in loader:
                 res = eval_step(batch)
                 key = "acc" if cfg.val_metric == "val_acc" and "acc" in res else "loss"
-                scores = res[key].float().cpu().numpy()
+                if cfg.template_based and cfg.val_metric == "val_acc":
+                    scores = self._template_top1(res, batch)
+                else:
+                    scores = res[key].float().cpu().numpy()
                 mask = res["example_mask"].cpu().numpy().astype(bool)
                 idxs = res["indices"].cpu().numpy()
                 for i, s in zip(idxs[mask], scores[mask]):
@@ -303,9 +310,28 @@ class Trainer:
             out[name] = float(np.mean(list(per_example.values())))
         return out
 
+    def _topk_edits(self, res) -> tuple:
+        """The eval step's top-k edit values and indices, on the host."""
+        return tuple(res[k].cpu().numpy() for k in (
+            "atom_topk_vals", "atom_topk_idx", "bond_topk_vals",
+            "bond_topk_idx"))
+
     def _template_top1(self, res, batch: Batch) -> np.ndarray:
-        """Greedy template accuracy (reference main.py:139-149)."""
-        raise NotImplementedError(_TEMPLATE_MESSAGE)
+        """Greedy template accuracy (reference main.py:139-149): top-ranked
+        edit in the gold raw label set, scaled by 1/len(labels). The edit
+        ranking itself runs on the device (device_topk_edits in the eval
+        step); only the two per-example top-1 candidates reach the host."""
+        av, ai, bv, bi = self._topk_edits(res)
+        n_a1 = self.module.num_atom_templates + 1
+        n_b1 = self.module.num_bond_templates + 1
+        out = np.zeros((av.shape[0],), dtype=np.float32)
+        for b, (bonds, raw) in enumerate(zip(batch.host["bonds"],
+                                             batch.host["raw_template_labels"])):
+            edits, _ = edits_from_topk(av[b], ai[b], bv[b], bi[b],
+                                       n_a1, n_b1, bonds, top_num=1)
+            hit = bool(edits) and edits[0] in [tuple(r) for r in raw]
+            out[b] = float(hit) / max(len(raw), 1)
+        return out
 
     def validate(self) -> Dict[str, float]:
         self._load_for_eval()
@@ -352,9 +378,33 @@ class Trainer:
 
     def _predict(self, loader) -> Dict[int, Dict[str, Any]]:
         cfg = self.cfg
-        if cfg.template_based:
-            raise NotImplementedError(_TEMPLATE_MESSAGE)
         predictions: Dict[int, Dict[str, Any]] = {}
+        if cfg.template_based:
+            # top-500 edit ranking on the device (reference combined_edit
+            # top 500, main.py:211-216): the host receives 2 x 500
+            # candidates an example instead of the full probability grids
+            eval_step = make_eval_step(self.module, cfg, self.dec_pad_id,
+                                       edit_topk=500, device=self.device)
+            n_a1 = self.module.num_atom_templates + 1
+            n_b1 = self.module.num_bond_templates + 1
+            for batch in loader:
+                res = eval_step(batch)
+                av, ai, bv, bi = self._topk_edits(res)
+                mask = res["example_mask"].cpu().numpy().astype(bool)
+                idxs = res["indices"].cpu().numpy()
+                for b in np.nonzero(mask)[0]:
+                    bonds = batch.host["bonds"][b]
+                    raw = [tuple(r) for r in batch.host["raw_template_labels"][b]]
+                    edits, probs = edits_from_topk(av[b], ai[b], bv[b], bi[b],
+                                                   n_a1, n_b1, bonds,
+                                                   top_num=500)
+                    predictions[int(idxs[b])] = {
+                        "prediction": edits,
+                        "score": probs,
+                        "raw_template_labels": raw,
+                        "top1_template_match": bool(edits) and edits[0] in raw,
+                    }
+            return predictions
         generator = Generator(self.module, cfg.num_beams, cfg.max_dec_length)
         for batch in loader:
             seqs, scores = generator.generate(batch.arrays)
