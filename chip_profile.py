@@ -26,7 +26,11 @@ one FlatIndex.search of 8192 queries per shape and kernel layout: host
 clock from numpy in to numpy out, and device time of the scan kernel, the
 merge kernel and the copies to and from the card; then it times the
 corpus-split layout at 1, 2 and 4 work items a multiprocessor (CUDA events,
-median of 5), the choice behind ops/topk.py::ITEMS_PER_SM.
+median of 5), the choice behind ops/topk.py::ITEMS_PER_SM; last, at the
+bench shape, the index in two corpus shards on the card: host clock beside
+the shards searched one after another (the design before the shards were
+queued together; five pairs, alternating which goes first), the host's
+merge alone, and one sharded search's device time as above.
 Every line names the card and its power limit. The tables also go to
 DIR/profile_<path>.txt (default profile_out/). Exits non-zero without CUDA.
 """
@@ -148,6 +152,57 @@ def profile_retrieval(card: str, say) -> None:
             topk.ITEMS_PER_SM = default
         del index, q_dev, b_dev
         torch.cuda.empty_cache()
+        if shape == "bench":
+            profile_sharded_retrieval(card, say, corpus, queries)
+
+
+def profile_sharded_retrieval(card: str, say, corpus, queries) -> None:
+    """The bench corpus in two shards on the card (chip_smoke.py's leg C):
+    where its numpy-in to numpy-out time goes."""
+    from textreact_tpu_torch.retrieval.engine import BIG, merge_topk
+    k = cs.TOPK_K
+    index = FlatIndex(corpus, devices=["cuda:0", "cuda:0"])
+
+    def shards_in_turn():
+        parts = []
+        for first, shard in index.shards:
+            vals, idx = shard.search(queries, k=k)
+            parts.append((torch.from_numpy(vals.copy()), torch.from_numpy(
+                np.where(idx >= BIG, idx, idx + first).astype(np.int32))))
+        return merge_topk(parts, k), parts
+
+    (ref_v, ref_i), parts = shards_in_turn()
+    got = index.search(queries, k=k)
+    if not (np.array_equal(got[0], ref_v.numpy())
+            and np.array_equal(got[1], ref_i.numpy())):
+        raise SystemExit("chip_profile: the sharded search and the shards "
+                         "in turn differ")
+    together, in_turn = [], []
+    for rep in range(5):
+        order = ((together, lambda: index.search(queries, k=k)),
+                 (in_turn, shards_in_turn))
+        for times, fn in (order if rep % 2 == 0 else order[::-1]):
+            times.append(cs.wall_ms(fn, reps=1))
+    merge_ms = cs.wall_ms(lambda: merge_topk(parts, k))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        index.search(queries, k=k)
+    events = cs.device_events(prof)
+    by_kernel = defaultdict(float)
+    for kernel, start, end in events:
+        by_kernel[kernel] += end - start
+    busy = busy_us([(a, b) for _, a, b in events])
+    say(f"[profile] bench, 2 shards on cuda:0: FlatIndex.search host clock "
+        f"{sorted(together)} ms (shards queued together) and "
+        f"{sorted(in_turn)} ms (shards in turn), five pairs; the host's "
+        f"merge of the two lists alone {merge_ms:.2f} ms (median of 5); "
+        f"the card ran something for {busy / 1e3:.2f} ms of one search; on "
+        f"{card}")
+    for kernel, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        say(f"  {us / 1e3:9.3f} ms {us / max(busy, 1e-9):6.1%}  "
+            f"{kernel[:110]}")
+    del index
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -186,7 +241,7 @@ def profile_train(card: str, say) -> None:
                                    torch.Generator().manual_seed(0))
         batch = cs.make_train_batch(cfg, enc_tok, dec_tok, cfg.batch_size)
     micro = cs.as_microbatches(batch, cs.MICRO_BATCHES)
-    optimizer = make_optimizer(cfg, 100, module.parameters())
+    optimizer = make_optimizer(cfg, 100, module.named_parameters())
     state = TrainState.create(module, optimizer)
     step = make_accum_train_step(module, cfg, optimizer, dec_tok.pad_token_id)
     weights = np.ones(cs.MICRO_BATCHES, np.float32)

@@ -89,10 +89,25 @@ Phases, each fatal on failure:
    bond-masked attention beside the fused kernel and SDPA, timed; kernels
    against plain functions in f32 with and without the bond mask; then
    `python -m textreact_tpu_torch --task retro --template_based
-   --unattend_nonbonds` in-process (train, validate, test with the decode).
+   --unattend_nonbonds` in-process (train, validate, test with the decode);
+12. the multi-device slice (textreact_tpu_torch/parallel), each leg printing
+   its backend, world size and device count: the attention kernels on 6 of
+   12 heads with the head offset against the full layer's keep mask and the
+   plain version; leg A, this process as a world of one over NCCL
+   (dp=1 x tp=1, ZeRO-1): 3 steps of the training recipe at p=0 equal to
+   one device's to the bit (losses, norms, every parameter), then 3 at
+   p=0.1, timed beside the train phase; leg B, dp=1 x tp=2 in two processes
+   (NCCL with two cards, else both on the one card over gloo): the p=0
+   loss within TP_LOSS_BOUND of leg A's, the replicated parameters equal
+   to the bit on both ranks after 3 steps at p=0.1, attention at 6 heads a
+   rank; leg C, FlatIndex over two corpus shards at the bench shape, equal
+   to the unsharded index and the numpy oracle to the bit, timed; leg D,
+   tp=2 beam-15 generation in f32 at B=32 L=512, the unsharded model's
+   sequences and its scores within 1e-5 + 1e-5 * |score| (the JAX gate's
+   allclose).
 
-Prints JSON lines of the runtime's and the template path's numbers and of
-per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
+Prints JSON lines of the runtime's, the template path's and the parallel
+legs' numbers and of per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
 
@@ -1333,7 +1348,7 @@ def phase_train(card: str, vocab: Path, results: dict):
         f"of {B}: " + ", ".join(f"{k} {v.shape[1:]}"
                                 for k, v in micro.items()))
     # a 3-step run: warmup int(3 * 0.02) = 0 steps, then the cosine decay
-    optimizer = make_optimizer(cfg, TRAIN_STEPS, module.parameters())
+    optimizer = make_optimizer(cfg, TRAIN_STEPS, module.named_parameters())
     state = TrainState.create(module, optimizer)
     train_step = make_accum_train_step(module, cfg, optimizer,
                                        dec_tok.pad_token_id)
@@ -1430,7 +1445,7 @@ def phase_train_pad_microbatch(cfg, enc_tok, dec_tok, micro, tmp: Path):
         module, _, _ = build_model(cfg, enc_tok, dec_tok,
                                    torch.Generator().manual_seed(0))
         set_dropout(module, 0.0)
-        optimizer = make_optimizer(cfg, TRAIN_STEPS, module.parameters())
+        optimizer = make_optimizer(cfg, TRAIN_STEPS, module.named_parameters())
         step = make_accum_train_step(module, cfg, optimizer,
                                      dec_tok.pad_token_id)
         state, metrics = step(TrainState.create(module, optimizer), micro_n,
@@ -2652,7 +2667,7 @@ def phase_template(card: str, tmp: Path, vocab: Path,
 
     # three optimizer steps under the bond mask (the schedule spans them
     # and the step without the mask; the profiled steps run at lr 0)
-    optimizer = make_optimizer(cfg, TRAIN_STEPS + 1, module.parameters())
+    optimizer = make_optimizer(cfg, TRAIN_STEPS + 1, module.named_parameters())
     state = TrainState.create(module, optimizer)
     train_step = make_accum_train_step(module, cfg, optimizer, 0)
     before = [p.detach().clone() for p in module.parameters()]
@@ -2870,6 +2885,388 @@ def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
                 cli_test_seconds=tests_s)
 
 
+# --- 12. the multi-device slice --------------------------------------------
+
+# leg B's loss at p = 0 against leg A's, both bf16 at full width: tp adds
+# the two ranks' bf16 partial products of every row-split layer in f32, one
+# more rounding per layer than one device, through 12 + 6 layers
+TP_LOSS_BOUND = 1e-2
+# leg D: the JAX gate's bound on beam scores (__graft_entry__.py:516), its
+# allclose's: |diff| <= TP_SCORE_BOUND + TP_SCORE_BOUND * |reference|
+TP_SCORE_BOUND = 1e-5
+PARALLEL_KERNELS = ("fused_attention_fwd", "fused_attention_bwd",
+                    "fused_layernorm_fwd", "fused_layernorm_bwd")
+
+
+def check_head_offset() -> None:
+    """The attention kernels on half of a layer's heads with a head offset
+    (a tp=2 rank's share) draw the masks of those heads in the whole
+    layer: the exported mask against the full one, and the forward and
+    backward against the plain version fed the full mask's heads."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    half = HEADS // 2
+    seed = _build.draw_seed(gen, dev)
+    full = fused_attention.keep_mask(seed, B, HEADS, L, DROPOUT_P)
+    for r in (0, 1):
+        part = fused_attention.keep_mask(seed, B, half, L, DROPOUT_P,
+                                         head_offset=r * half,
+                                         total_heads=HEADS)
+        if not torch.equal(part, full[:, r * half:(r + 1) * half]):
+            raise AssertionError(f"keep mask of heads {r * half}.. differs "
+                                 f"from the full layer's")
+    log(f"[parallel] keep masks of heads 0-{half - 1} and {half}-"
+        f"{HEADS - 1} (offset, total {HEADS}) equal the full layer's, "
+        f"B={B} L={L}")
+    mask = torch.ones(B, L, dtype=torch.int32, device=dev)
+    mask[1, L // 3:] = 0
+    scale = HEAD_DIM ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(B, L, half, HEAD_DIM, generator=gen,
+                                   device=dev).to(dtype) for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        state = gen.get_state()
+        out = fused_attention.fused_dropout_attention(
+            *leaves, mask, DROPOUT_P, gen, scale, head_offset=half,
+            total_heads=HEADS)
+        out.backward(do)
+        keep = fused_attention.keep_mask(drawn_seed(gen, state), B, HEADS, L,
+                                         DROPOUT_P)[:, half:]
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = fused_attention.attention_reference(*ref_leaves, mask, scale,
+                                                  keep, DROPOUT_P)
+        ref.backward(do)
+        tag = f"heads {half}-{HEADS - 1} of {HEADS} {str(dtype)[6:]}"
+        check_close(f"{tag} out", out, ref, *ATTN_TOL[dtype])
+        for name, a, b in zip("qkv", leaves, ref_leaves):
+            check_close(f"{tag} d{name}", a.grad, b.grad, *GRAD_TOL[dtype])
+
+
+def parallel_train(cfg, enc_tok, dec_tok, micro, mesh, p: float,
+                   steps: int, device="cuda", zero1: bool = False,
+                   module=None):
+    """(module, state, metrics of each step, host ms of each step):
+    `steps` accumulated optimizer steps at dropout p of the RCR training
+    model built from seed 0, cut by `mesh` (None: one device)."""
+    from textreact_tpu_torch.parallel import shard_params
+    if module is None:
+        module, _, _ = build_model(cfg, enc_tok, dec_tok,
+                                   torch.Generator().manual_seed(0),
+                                   device=device)
+        shard_params(mesh, module)
+    set_dropout(module, p)
+    cfg = dataclasses.replace(cfg, zero1=zero1)
+    optimizer = make_optimizer(cfg, TRAIN_STEPS, module.named_parameters(),
+                               mesh=mesh, tp_axes=module.tp_axes)
+    state = TrainState.create(module, optimizer)
+    step = make_accum_train_step(module, cfg, optimizer,
+                                 dec_tok.pad_token_id, device=device)
+    weights = np.ones(MICRO_BATCHES, np.float32)
+    history, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, micro, weights, cfg.seed)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+    return module, state, history, ms
+
+
+def _world(tag: str, world_size: int, backend: str) -> str:
+    return (f"[parallel] leg {tag}: backend {backend}, world size "
+            f"{world_size}, torch.cuda.device_count() "
+            f"{torch.cuda.device_count()}")
+
+
+def tp_train_rank(rank: int, world_size: int, device: str, vocab: str,
+                  out: str) -> None:
+    """Leg B, one rank of dp=1 x tp=2 at full width: one step at p = 0,
+    three at p = 0.1; the replicated parameters compared over the tp
+    group; rank 0 writes what it saw."""
+    import torch.distributed as dist
+
+    from textreact_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(Path(vocab))
+    enc_tok, dec_tok = get_tokenizers(cfg)
+    micro = as_microbatches(make_train_batch(cfg, enc_tok, dec_tok,
+                                             cfg.batch_size), MICRO_BATCHES)
+    mesh = make_mesh(1, 2)
+    reset_counts()
+    module, state, first, _ = parallel_train(cfg, enc_tok, dec_tok, micro,
+                                             mesh, 0.0, 1, device)
+    set_dropout(module, DROPOUT_P)
+    step = make_accum_train_step(module, cfg, state.optimizer,
+                                 dec_tok.pad_token_id, device=device)
+    weights = np.ones(MICRO_BATCHES, np.float32)
+    history, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, micro, weights, cfg.seed)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+    counts = read_counts()
+    heads = {m.num_heads for m in module.modules()
+             if hasattr(m, "head_offset")}
+    unequal = []
+    for name, prm in module.named_parameters():
+        if name in module.tp_axes:
+            continue
+        pieces = [torch.empty(prm.shape) for _ in range(2)]
+        dist.all_gather(pieces, prm.detach().cpu(), group=mesh.tp_group)
+        if not torch.equal(pieces[0], pieces[1]):
+            unequal.append(name)
+    if rank == 0:
+        Path(out).write_text(json.dumps({
+            "loss_p0": first[0]["train_loss"], "history": history, "ms": ms,
+            "counts": counts, "local_heads": sorted(heads),
+            "unequal": unequal, "backend": dist.get_backend(),
+            "world": world_size,
+            "device_count": torch.cuda.device_count()}))
+
+
+def generate_config(vocab: Path) -> ExperimentConfig:
+    """The serving recipe in float32 (leg D's comparison is tight)."""
+    return dataclasses.replace(base_config(vocab), compute_dtype="float32",
+                               param_dtype="float32")
+
+
+def tp_generate_rank(rank: int, world_size: int, device: str, vocab: str,
+                     out: str) -> None:
+    """Leg D, one rank of dp=1 x tp=2: beam-15 generation on tp-sharded
+    f32 parameters; rank 0 writes the beams."""
+    import torch.distributed as dist
+
+    from textreact_tpu_torch.parallel import make_mesh, shard_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = generate_config(Path(vocab))
+    enc_tok, dec_tok = get_tokenizers(cfg)
+    module, _, _ = build_model(cfg, enc_tok, dec_tok,
+                               torch.Generator().manual_seed(0),
+                               device=device)
+    shard_params(make_mesh(1, 2), module)
+    reset_counts()
+    gen = Generator(module, num_beams=BEAMS, max_length=DEC_LEN)
+    seqs, scores = gen.generate(make_requests(enc_tok, B, L))
+    torch.cuda.synchronize()
+    if rank == 0:
+        np.savez(out, seqs=seqs, scores=scores)
+        Path(out + ".json").write_text(json.dumps({
+            "counts": read_counts(), "steps": gen.last_steps,
+            "backend": dist.get_backend(), "world": world_size,
+            "device_count": torch.cuda.device_count()}))
+
+
+def leg_a(card, cfg, enc_tok, dec_tok, micro, ref_hist, ref_ms, ref_params,
+          bare_step_ms, results) -> dict:
+    """Leg A in this process, a world of one: 3 steps at p=0 against one
+    device's (`ref_hist`, `ref_params`), then 3 at p=0.1, timed."""
+    import torch.distributed as dist
+
+    from textreact_tpu_torch.parallel import make_mesh
+    log(_world("A", dist.get_world_size(), dist.get_backend()))
+    mesh = make_mesh(1, 1)
+    reset_counts()
+    module, _, hist, ms = parallel_train(cfg, enc_tok, dec_tok, micro, mesh,
+                                         0.0, TRAIN_STEPS, zero1=True)
+    if hist != ref_hist:
+        raise AssertionError(f"leg A at p=0: {hist} != one device {ref_hist}")
+    same = [n for n, p in module.named_parameters()
+            if not torch.equal(p.detach(), ref_params[n])]
+    if same:
+        raise AssertionError(f"leg A: {len(same)} parameters differ from "
+                             f"one device's, e.g. {same[:3]}")
+    log(f"[parallel] leg A, p=0, {TRAIN_STEPS} steps: losses "
+        f"{[h['train_loss'] for h in hist]} and all "
+        f"{len(ref_params)} parameter tensors equal to one device's to the "
+        f"bit")
+    del module, ref_params
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    _, _, hist_p, ms_p = parallel_train(cfg, enc_tok, dec_tok, micro, mesh,
+                                        DROPOUT_P, TRAIN_STEPS, zero1=True)
+    counts = read_counts()
+    for name in PARALLEL_KERNELS:
+        if not counts[name] > 0:
+            raise AssertionError(f"leg A launched no {name}")
+        results[name]["launches_parallel"] = counts[name]
+    if not hist_p[-1]["train_loss"] < hist_p[0]["train_loss"]:
+        raise AssertionError(f"leg A at p=0.1: the loss did not fall {hist_p}")
+    med_a = statistics.median(ms_p[1:])
+    log(f"[parallel] leg A, p=0.1: losses "
+        f"{[round(h['train_loss'], 4) for h in hist_p]}, "
+        f"{med_a:.1f} ms per optimizer step (host clock, median of steps "
+        f"2-{TRAIN_STEPS}) beside the train phase's {bare_step_ms:.1f}; at "
+        f"p=0 {statistics.median(ref_ms[1:]):.1f} one device, "
+        f"{statistics.median(ms[1:]):.1f} leg A; launches {counts}; on "
+        f"{card}")
+    return {"backend": dist.get_backend(), "world": 1,
+            "device_count": torch.cuda.device_count(),
+            "ms_p01": med_a, "train_phase_ms": bare_step_ms,
+            "ms_p0_one_device": statistics.median(ref_ms[1:]),
+            "ms_p0": statistics.median(ms[1:]),
+            "loss_p0": hist[0]["train_loss"], "history_p0": hist}
+
+
+def leg_d(tmp: Path, vocab: Path, backend: str, devices) -> dict:
+    """Leg D: tp=2 beam-15 generation at f32 against the unsharded model."""
+    from textreact_tpu_torch.parallel.multihost import spawn
+    gcfg = generate_config(vocab)
+    enc_tok, dec_tok = get_tokenizers(gcfg)
+    module, _, _ = build_model(gcfg, enc_tok, dec_tok,
+                               torch.Generator().manual_seed(0))
+    ref_seqs, ref_scores = Generator(module, num_beams=BEAMS,
+                                     max_length=DEC_LEN).generate(
+        make_requests(enc_tok, B, L))
+    del module
+    torch.cuda.empty_cache()
+    out = str(tmp / "leg_d.npz")
+    spawn("chip_smoke:tp_generate_rank", 2,
+          {"vocab": str(vocab), "out": out}, backend=backend,
+          devices=devices, threads=None, timeout=600)
+    d = json.loads(Path(out + ".json").read_text())
+    got = np.load(out)
+    log(_world("D", d["world"], d["backend"]) + f" (rank 0 saw "
+        f"{d['device_count']})")
+    if not np.array_equal(got["seqs"], ref_seqs):
+        rows = np.nonzero((got["seqs"] != ref_seqs).any((1, 2)))[0]
+        raise AssertionError(f"leg D: beams differ in requests {rows}")
+    diff = np.abs(got["scores"] - ref_scores)
+    err = float(diff.max())
+    share = float((diff / (TP_SCORE_BOUND
+                           + TP_SCORE_BOUND * np.abs(ref_scores))).max())
+    log(f"[parallel] leg D: B={B} L={L} beam {BEAMS}, {d['steps']} decode "
+        f"steps, f32: sequences identical to the unsharded model's, scores "
+        f"max |diff| {err:.3e}, max |diff| / ({TP_SCORE_BOUND:g} + "
+        f"{TP_SCORE_BOUND:g} * |ref|) = {share:.3f} (bound 1); rank 0's "
+        f"launches {d['counts']}")
+    if not share <= 1.0:
+        raise AssertionError("leg D: beam scores depart")
+    if not d["counts"]["fused_attention_fwd"] > 0:
+        raise AssertionError("leg D launched no attention kernel")
+    return {"backend": d["backend"], "world": d["world"],
+            "device_count": d["device_count"], "score_err": err,
+            "score_share": share}
+
+
+def phase_parallel(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
+                   results: dict) -> dict:
+    """Legs A-D of the multi-device slice (see the module's docstring)."""
+    import torch.distributed as dist
+
+    from textreact_tpu_torch.parallel.multihost import (
+        initialize_distributed, spawn)
+    report: dict = {}
+    check_head_offset()
+
+    # leg A: one process, NCCL, world size 1, dp=1 x tp=1, ZeRO-1 on. The
+    # two p=0 runs take torch's deterministic algorithms: the embedding
+    # tables' gradients otherwise sum by atomics in any order, and two
+    # runs of one device differ in their last bits
+    cfg = train_config(vocab)
+    enc_tok, dec_tok = get_tokenizers(cfg)
+    micro = as_microbatches(make_train_batch(cfg, enc_tok, dec_tok,
+                                             cfg.batch_size), MICRO_BATCHES)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ref_module, _, ref_hist, ref_ms = parallel_train(
+        cfg, enc_tok, dec_tok, micro, None, 0.0, TRAIN_STEPS)
+    ref_params = {n: p.detach().clone()
+                  for n, p in ref_module.named_parameters()}
+    del ref_module
+    torch.cuda.empty_cache()
+    initialize_distributed("file://" + str(tmp / "leg_a_store"), 1, 0,
+                           backend="nccl", device="cuda:0")
+    try:
+        report["A"] = leg_a(card, cfg, enc_tok, dec_tok, micro, ref_hist,
+                            ref_ms, ref_params, bare_step_ms, results)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()   # else NCCL holds the exit
+    hist0 = report["A"].pop("history_p0")
+    torch.cuda.empty_cache()
+
+    # legs B and D: two ranks; on one card two processes share it over
+    # gloo (NCCL refuses two ranks on one device)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    devices = (["cuda:0", "cuda:1"] if cards >= 2 else ["cuda:0", "cuda:0"])
+    out = tmp / "leg_b.json"
+    t0 = time.perf_counter()
+    spawn("chip_smoke:tp_train_rank", 2,
+          {"vocab": str(vocab), "out": str(out)}, backend=backend,
+          devices=devices, threads=None, timeout=900)
+    b = json.loads(out.read_text())
+    log(_world("B", b["world"], b["backend"]) + f" (rank 0 saw "
+        f"{b['device_count']}), {time.perf_counter() - t0:.0f} s")
+    err = abs(b["loss_p0"] - hist0[0]["train_loss"])
+    log(f"[parallel] leg B, p=0: loss {b['loss_p0']:.6f} vs leg A "
+        f"{hist0[0]['train_loss']:.6f}, |diff| {err:.3e} (bound "
+        f"{TP_LOSS_BOUND:g})")
+    if not err <= TP_LOSS_BOUND:
+        raise AssertionError("leg B's loss departs from leg A's")
+    if b["unequal"]:
+        raise AssertionError(f"leg B: replicated parameters differ across "
+                             f"the tp ranks: {b['unequal'][:5]}")
+    if b["local_heads"] != [HEADS // 2]:
+        raise AssertionError(f"leg B's attention ran {b['local_heads']} heads")
+    for name in PARALLEL_KERNELS:
+        if not b["counts"][name] > 0:
+            raise AssertionError(f"leg B launched no {name}")
+    med_b = statistics.median(b["ms"][1:])
+    log(f"[parallel] leg B, p=0.1: losses "
+        f"{[round(h['train_loss'], 4) for h in b['history']]}; every "
+        f"replicated parameter equal to the bit on both tp ranks after "
+        f"{TRAIN_STEPS} steps; attention at {HEADS // 2} heads a rank; rank "
+        f"0's launches {b['counts']}; {med_b:.1f} ms per optimizer step "
+        f"(host clock, median of steps 2-{TRAIN_STEPS})")
+    report["B"] = {"backend": b["backend"], "world": b["world"],
+                   "device_count": b["device_count"], "ms_p01": med_b,
+                   "loss_p0": b["loss_p0"], "loss_p0_err": err}
+
+    # leg C: the corpus-sharded index, two shards on the card(s)
+    corpus, queries, banned = retrieval_data("bench")
+    shards = ([f"cuda:{i}" for i in range(2)] if cards >= 2
+              else ["cuda:0", "cuda:0"])
+    whole = FlatIndex(corpus)
+    sharded = FlatIndex(corpus, devices=shards)
+    one = whole.search(queries, k=TOPK_K)
+    reset_counts()
+    got = sharded.search(queries, k=TOPK_K)
+    counts = read_counts()
+    for a, c in zip(got, one):
+        if not np.array_equal(a, c):
+            raise AssertionError("leg C: sharded index differs from one")
+    oracle = sharded.reference_search(queries[:64], k=TOPK_K)
+    for a, c in zip(got, oracle):
+        if not np.array_equal(a[:64], c):
+            raise AssertionError("leg C: sharded index differs from the "
+                                 "numpy oracle")
+    launches = counts["exact_topk_corpus_split"]
+    if not launches > 0:
+        raise AssertionError("leg C launched no corpus-split scan")
+    results["exact_topk_corpus_split"]["launches_parallel"] = launches
+    ms_whole = wall_ms(lambda: whole.search(queries, k=TOPK_K))
+    ms_sharded = wall_ms(lambda: sharded.search(queries, k=TOPK_K))
+    log(_world("C", 1, "none (one process, one shard a device)"))
+    log(f"[parallel] leg C: {len(shards)} shards on {shards}, N = "
+        f"{corpus.shape[0]} x {corpus.shape[1]}, {len(queries)} queries, "
+        f"k={TOPK_K}: equal to the unsharded index (all queries) and to the "
+        f"numpy oracle (first 64) to the bit; {launches} scan launches; "
+        f"numpy in to numpy out {ms_sharded:.2f} ms sharded, {ms_whole:.2f} "
+        f"ms unsharded (host clock, median of 5)")
+    report["C"] = {"shards": shards, "ms": ms_sharded,
+                   "ms_unsharded": ms_whole,
+                   "device_count": torch.cuda.device_count()}
+    del whole, sharded, corpus
+    torch.cuda.empty_cache()
+
+    report["D"] = leg_d(tmp, vocab, backend, devices)
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2902,6 +3299,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"[time] runtime done at {time.perf_counter() - t_start:.0f} s")
         phase_template(card, Path(tmp), vocab, results)
+        torch.cuda.empty_cache()
+        log(f"[time] template done at {time.perf_counter() - t_start:.0f} s")
+        parallel = phase_parallel(card, Path(tmp), vocab, bare_step_ms,
+                                  results)
     runtime = results.pop("runtime")
     template = results.pop("template")
     for name in KERNELS:
@@ -2912,6 +3313,7 @@ def main() -> int:
     log(f"[time] all phases done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"template": template}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,

@@ -32,7 +32,7 @@ def _state(v, steps=0):
         module.weight.fill_(float(v))
         module.bias.fill_(float(v))
     optimizer = make_optimizer(ExperimentConfig(lr=0.1), 10,
-                               module.parameters())
+                               module.named_parameters())
     state = TrainState.create(module, optimizer)
     for _ in range(steps):
         optimizer.zero_grad()

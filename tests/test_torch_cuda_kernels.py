@@ -175,6 +175,46 @@ def test_attention_dropout_mask_is_a_function_of_the_seed(dev):
     assert bool((a | ~d).all())
 
 
+@pytest.mark.parametrize("offset", [0, 2, 4])
+def test_keep_mask_with_a_head_offset_is_the_full_layers(dev, offset):
+    """A tensor-parallel rank's heads offset .. + H of a layer of 6 heads
+    draw exactly the masks the whole layer draws for them."""
+    seed = torch.tensor([4321], device=dev)
+    full = fused_attention.keep_mask(seed, 3, 6, 128, 0.1)
+    part = fused_attention.keep_mask(seed, 3, 2, 128, 0.1,
+                                     head_offset=offset, total_heads=6)
+    assert torch.equal(part, full[:, offset:offset + 2])
+    assert not torch.equal(part, full[:, :2]) or offset == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_attention_with_a_head_offset_matches_plain_on_the_full_mask(
+        dev, dtype, D):
+    """Forward and backward on heads 3..5 of a layer of 6: the kernels draw
+    the full layer's mask of those heads (held by the plain version fed
+    that mask)."""
+    B, L, H, total, offset, p = 3, 256, 3, 6, 3, 0.1
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    mask = _mask(B, L, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    state = g.get_state()
+    got = fused_attention.fused_dropout_attention(
+        *leaves, mask, p, g, head_offset=offset, total_heads=total)
+    got.backward(do)
+    keep = fused_attention.keep_mask(drawn_seed(g, state), B, total, L,
+                                     p)[:, offset:offset + H]
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = fused_attention.attention_reference(*ref_leaves, mask, D ** -0.5,
+                                              keep, p)
+    ref.backward(do)
+    _close(got, ref, *ATTN_TOL[dtype])
+    for a, b in zip(leaves, ref_leaves):
+        _close(a.grad, b.grad, *GRAD_TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H", fused_layernorm.SUPPORTED_HIDDEN)
 @pytest.mark.parametrize("R", [1, 7, 480, 5000])
@@ -483,6 +523,28 @@ def test_flat_index_on_card_chunks_and_layouts(dev, monkeypatch):
         got = index.search(queries, k=20)
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("banned", [False, True])
+def test_sharded_flat_index_on_card_chunks(dev, monkeypatch, banned):
+    """FlatIndex over two shards on the card (two cards where there are
+    two, else the one card twice), its queries cut into chunks that each
+    go to both shards before either is read, against the numpy oracle."""
+    from textreact_tpu_torch.retrieval import engine
+    rng = np.random.default_rng(1)
+    corpus, queries = _fps(rng, 2001, 1000, "counts"), _fps(rng, 700, 1000,
+                                                            "counts")
+    ban = (rng.integers(-1, 2001, (700, 3)).astype(np.int32) if banned
+           else None)
+    ref = topk.numpy_reference_topk(queries, corpus, 20, ban)
+    monkeypatch.setattr(engine, "SEARCH_BUDGET_BYTES", 256 * 2000)
+    devices = [f"cuda:{min(s, torch.cuda.device_count() - 1)}"
+               for s in range(2)]
+    index = FlatIndex(corpus, devices=devices)
+    assert index.shards[0][1].max_queries(20, 3) < 700
+    got = index.search(queries, k=20, banned=ban)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
 
 
 # ---- causal attention (csrc/causal_attention.cu, causal_attention_bwd.cu) --

@@ -384,7 +384,8 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
 
 
 def test_port_imports_no_jax_or_pandas():
-    """The port's modules, chip_smoke and chip_profile load where JAX,
+    """The port's modules, chip_smoke, chip_profile and the multi-process
+    tests' rank bodies (tests/_torch_parallel_worker.py) load where JAX,
     pandas and the JAX package are absent: nothing of them is in
     sys.modules afterwards."""
     import pkgutil
@@ -406,12 +407,16 @@ def test_port_imports_no_jax_or_pandas():
                  "train.checkpoint", "train.trainer", "cli.main",
                  "chem.smarts", "chem.reaction", "data.templates",
                  "evaluation.edit_rank", "evaluation.template_decode",
-                 "evaluation._own_template_apply", "__main__"):
+                 "evaluation._own_template_apply", "__main__", "parallel",
+                 "parallel.mesh", "parallel.multihost", "parallel.sharding",
+                 "entry"):
         assert "textreact_tpu_torch." + name in names
     # the template decode has one engine, the own one: no RDKit twin
     assert "textreact_tpu_torch.evaluation._rdkit_template_apply" not in names
     code = ("import sys, importlib\n"
-            f"for name in {names!r} + ['chip_smoke', 'chip_profile']:\n"
+            "sys.path.insert(0, 'tests')\n"
+            f"for name in {names!r} + ['chip_smoke', 'chip_profile', "
+            "'_torch_parallel_worker']:\n"
             "    importlib.import_module(name)\n"
             "bad = [m for m in sys.modules if m == 'textreact_tpu' "
             "or m.startswith('textreact_tpu.') "

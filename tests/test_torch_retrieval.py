@@ -361,10 +361,18 @@ def test_retrieval_cli_writes_the_same_files(tmp_path, capsys, task):
 
 
 def test_retrieval_cli_refuses_what_is_not_ported(tmp_path):
+    """--shard_corpus is ported: with --device cpu it searches two shards
+    and writes the files of the unsharded run byte for byte. Without a card
+    and without --device the command still refuses."""
     root = make_condition_data(str(tmp_path / "data"))
     args = _cli_args("condition", root, str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_cli.main(args + ["--device", "cpu", "--shard_corpus"])
+    port_cli.main(args + ["--device", "cpu"])
+    sharded = _cli_args("condition", root, str(tmp_path / "out_sharded"))
+    port_cli.main(sharded + ["--device", "cpu", "--shard_corpus"])
+    for name in ("train.json", "val.json", "test.json"):
+        assert (open(os.path.join(tmp_path, "out", name), "rb").read()
+                == open(os.path.join(tmp_path, "out_sharded", name),
+                        "rb").read()), name
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_cli.main(args)

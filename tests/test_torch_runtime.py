@@ -433,14 +433,26 @@ def test_entry_points_default_to_the_card_and_raise_without_one(workdir):
     from textreact_tpu_torch.train import run
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run(parse_config(argv))
+    from textreact_tpu_torch.entry import dryrun_multichip
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(4)
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--dp_size", "2"], "item 8"), (["--tp_size", "2"], "item 8"),
-    (["--zero1"], "item 8")])
+    (["--dp_size", "2"], "torchrun"), (["--tp_size", "2"], "torchrun"),
+    (["--zero1"], None)])
 def test_mesh_options_raise_until_their_slice(workdir, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        parse_config(_argv(workdir, "out_mesh", *flags))
+    """The mesh options parse since the multi-device slice; a mesh of more
+    than one rank needs as many processes, so a process started alone
+    refuses it (tests/test_torch_multihost.py runs them under a launcher),
+    and ZeRO-1 on one process shards nothing."""
+    cfg = parse_config(_argv(workdir, "out_mesh", *flags))
+    if match is None:
+        assert cfg.zero1
+        assert Trainer(cfg, device="cpu").mesh is None
+    else:
+        with pytest.raises(ValueError, match=match):
+            Trainer(cfg, device="cpu")
     for ok in (["--dp_size", "1"], ["--dp_size", "-1"]):
         assert parse_config(_argv(workdir, "out_mesh", *ok)).tp_size == 1
 

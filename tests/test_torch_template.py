@@ -179,7 +179,7 @@ class Pair:
         assert not keys.missing_keys and not keys.unexpected_keys
         self.tx = jax_optim.make_optimizer(self.jcfg, NUM_STEPS)
         self.optimizer = make_optimizer(self.cfg, NUM_STEPS,
-                                        self.module.parameters())
+                                        self.module.named_parameters())
 
     def logits(self):
         """Both packages' logits on `self.batch`, computed once: the JAX

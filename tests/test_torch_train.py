@@ -151,7 +151,7 @@ def test_adamw_decays_every_parameter_and_counts_from_zero():
     cfg = ExperimentConfig(lr=1e-2, weight_decay=0.5, warmup_ratio=0.5,
                            scheduler="constant", max_grad_norm=1e9)
     p = torch.nn.Parameter(torch.ones(3))
-    opt = make_optimizer(cfg, 4, [p])
+    opt = make_optimizer(cfg, 4, [("p", p)])
     p.grad = torch.zeros(3)
     opt.update()
     assert torch.equal(p.detach(), torch.ones(3)) and opt.count == 1
@@ -159,6 +159,37 @@ def test_adamw_decays_every_parameter_and_counts_from_zero():
     opt.update()  # lr = 1e-2 * 1/2; a zero gradient leaves only the decay
     torch.testing.assert_close(p.detach(),
                                torch.full((3,), 1 - 0.005 * 0.5))
+
+
+@pytest.mark.parametrize("fault", ["bare_parameters", "other_names",
+                                   "other_shape"])
+def test_optimizer_refuses_what_would_lose_its_moments(fault):
+    """The optimizer takes named parameters only (the names key the saved
+    moments), and a restore refuses moments of a parameter it does not
+    hold or of another shape, leaving its state as it was."""
+    cfg = ExperimentConfig(lr=1e-2, max_grad_norm=1e9)
+    module = torch.nn.Linear(3, 2)
+    if fault == "bare_parameters":
+        with pytest.raises(TypeError, match="named_parameters"):
+            make_optimizer(cfg, 4, module.parameters())
+        return
+    opt = make_optimizer(cfg, 4, module.named_parameters())
+    module(torch.ones(1, 3)).sum().backward()
+    opt.update()
+    state = opt.state_dict()
+    assert sorted(state["moments"]) == ["bias", "weight"]
+    if fault == "other_names":
+        state["moments"] = {str(i): m for i, m in enumerate(
+            state["moments"].values())}
+        error = KeyError
+    else:
+        m = state["moments"]["weight"]
+        m["exp_avg"] = m["exp_avg_sq"] = torch.zeros(3, 2)
+        error = ValueError
+    fresh = make_optimizer(cfg, 4, module.named_parameters())
+    with pytest.raises(error):
+        fresh.load_state_dict(state)
+    assert fresh.count == 0 and not fresh.adamw.state
 
 
 # --- (f) the slice as a whole ------------------------------------------------
@@ -251,7 +282,7 @@ class Pair:
         self.module.load_state_dict(from_flax(jax.device_get(self.params)))
         self.tx = jax_optim.make_optimizer(self.jcfg, NUM_STEPS)
         self.optimizer = make_optimizer(self.cfg, NUM_STEPS,
-                                        self.module.parameters())
+                                        self.module.named_parameters())
 
     def compare_params(self, jparams, atol):
         ref = from_flax(jax.device_get(jparams))
@@ -457,7 +488,7 @@ def test_training_with_dropout_learns_a_toy_rule():
     cfg = ExperimentConfig(**dict(EXPERIMENT, mlm=False, lr=2e-3,
                                   warmup_ratio=0.0, scheduler="constant"))
     steps = 60
-    optimizer = make_optimizer(cfg, steps, module.parameters())
+    optimizer = make_optimizer(cfg, steps, module.named_parameters())
     step = make_train_step(module, cfg, optimizer, 0, device="cpu")
     state = TrainState.create(module, optimizer)
     rng = np.random.default_rng(0)

@@ -4,9 +4,13 @@ surface (main.py:26-97), so the six reference training scripts translate
 
 Usage:  python -m textreact_tpu_torch --task condition --do_train ...
 
-Runs on the CUDA card; `--device cpu` is for rehearsals and tests. The mesh
-flags (--dp_size > 1, --tp_size > 1, --zero1) are accepted and raise until
-the multi-GPU slice ports them.
+Runs on the CUDA card; `--device cpu` is for rehearsals and tests. On
+several devices, one process each, start it with torchrun:
+
+    python -m torch.distributed.run --nproc_per_node 4 -m textreact_tpu_torch \
+        --dp_size 2 --tp_size 2 --zero1 ...
+
+(NCCL between cards; with `--device cpu` the processes join over gloo).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compat flag: 16/16-mixed map to bfloat16 compute")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--gpus", type=int, default=None,
-                   help="compat no-op: the port runs on one device")
+                   help="compat no-op: torchrun's --nproc_per_node sets "
+                        "the processes")
     p.add_argument("--print_freq", type=int, default=200)
     p.add_argument("--debug", action="store_true")
     # Model

@@ -90,8 +90,8 @@ class ExperimentConfig:
     test_num_neighbors: int = 1
 
     # --- framework extras (no reference equivalent) ---
-    dp_size: int = -1                   # -1 or 1: one device (mesh: item 8)
-    tp_size: int = 1                    # 1: one device (mesh: item 8)
+    dp_size: int = -1                   # -1: every process not on the tp axis
+    tp_size: int = 1                    # tensor-parallel ranks a row
     param_dtype: str = "float32"        # 'float32' (training) | 'compute':
     #                                     store weights pre-cast (serving)
     compute_dtype: str = "bfloat16"
@@ -109,7 +109,7 @@ class ExperimentConfig:
     decode_scores_dtype: str = "bfloat16"
     dropout_rng_impl: str = "unsafe_rbg"   # JAX runtime only: the port's
     #                                     masks come from a torch.Generator
-    zero1: bool = False                 # raises until item 8
+    zero1: bool = False                 # shard AdamW moments over dp
     profile: bool = False               # torch.profiler trace of fit()
     #                                     under save_path/profile
     remat: bool = False                 # recompute each encoder block in
@@ -123,11 +123,8 @@ class ExperimentConfig:
         assert self.mlm_impl in ("fused", "xla"), self.mlm_impl
         if self.template_based:
             assert self.template_path is not None
-        if self.dp_size not in (-1, 1) or self.tp_size != 1 or self.zero1:
-            raise NotImplementedError(
-                f"dp_size={self.dp_size}, tp_size={self.tp_size}, "
-                f"zero1={self.zero1}: the port runs on one device until the "
-                f"multi-GPU slice (ROADMAP.md Queue 1 item 8)")
+        assert self.dp_size == -1 or self.dp_size >= 1, self.dp_size
+        assert self.tp_size >= 1, self.tp_size
         return self
 
 

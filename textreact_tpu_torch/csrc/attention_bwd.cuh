@@ -82,6 +82,7 @@ attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
   const int64_t own = head + (int64_t)row * HD;  // this thread's row
   const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t dbh = tr::dropout_head(drop, b, h);  // its dropout coordinate
   const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
   const float inv_keep = kDrop ? drop.inv_keep : 1.f;
 
@@ -123,7 +124,7 @@ attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
       // draws four of them
       uint32_t mine[4] = {0u, 0u, 0u, 0u}, theirs[4] = {0u, 0u, 0u, 0u};
       if (kDrop) {
-        tr::attention_bits(seed, bh, (uint32_t)row,
+        tr::attention_bits(seed, dbh, (uint32_t)row,
                            (uint32_t)((k0 + j8 + 4 * half) >> 2), mine);
 #pragma unroll
         for (int w = 0; w < 4; ++w) theirs[w] = __shfl_xor_sync(0xffffffffu, mine[w], 1);
@@ -193,6 +194,7 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
   const int64_t own = head + (int64_t)col * HD;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t dbh = tr::dropout_head(drop, b, h);  // its dropout coordinate
   const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
   const float inv_keep = kDrop ? drop.inv_keep : 1.f;
   const float kb = (mask == nullptr || mask[(int64_t)b * L + col] > 0) ? 0.f : kMaskBias;
@@ -235,7 +237,7 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           uint32_t bits[4];
-          tr::attention_bits(seed, bh, (uint32_t)(q0 + i4 + 2 * half + r),
+          tr::attention_bits(seed, dbh, (uint32_t)(q0 + i4 + 2 * half + r),
                              (uint32_t)(col >> 2), bits);
           mine[r] = word == 0 ? bits[0] : word == 1 ? bits[1] : word == 2 ? bits[2] : bits[3];
           theirs[r] = __shfl_xor_sync(0xffffffffu, mine[r], 1);
@@ -350,6 +352,7 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t HD = (int64_t)H * D;
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t dbh = tr::dropout_head(drop, b, h);  // its dropout coordinate
   const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
   const float inv_keep = kDrop ? drop.inv_keep : 1.f;
   const int32_t* mrow = mask == nullptr ? nullptr : mask + (int64_t)b * L;
@@ -458,7 +461,7 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float g0 = dp[j][0], g1 = dp[j][1], g2 = dp[j][2], g3 = dp[j][3];
         if (kDrop) {
           const uint32_t keep =
-              keep_bits(seed, drop.threshold, bh, row0, k0 + c0 + 8 * j, g, tq);
+              keep_bits(seed, drop.threshold, dbh, row0, k0 + c0 + 8 * j, g, tq);
           g0 = (keep & 1u) ? g0 * inv_keep : 0.f;
           g1 = (keep & 2u) ? g1 * inv_keep : 0.f;
           g2 = (keep & 4u) ? g2 * inv_keep : 0.f;

@@ -41,6 +41,7 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t HD = (int64_t)H * D;
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t dbh = tr::dropout_head(drop, b, h);  // its dropout coordinate
   const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
   // one past the last key this block of rows can see
   const int k_end = kCausal ? (int)(blockIdx.x + 1) * kBQ : L;
@@ -104,7 +105,7 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
       l += p;
       if (kDrop) {
         if ((j & 3) == 0) {
-          tr::attention_bits(seed, bh, (uint32_t)row_i, (uint32_t)((k0 + j) >> 2), bits);
+          tr::attention_bits(seed, dbh, (uint32_t)row_i, (uint32_t)((k0 + j) >> 2), bits);
         }
         if (bits[j & 3] < drop.threshold) p = 0.f;
       }
@@ -165,6 +166,7 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t HD = (int64_t)H * D;
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
   const uint32_t bh = (uint32_t)(b * H + h);
+  const uint32_t dbh = tr::dropout_head(drop, b, h);  // its dropout coordinate
   const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
   const int32_t* mrow = mask == nullptr ? nullptr : mask + (int64_t)b * L;
   // tiles this block of rows can see, and those among them worth a visit
@@ -266,7 +268,7 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l1 += p2 + p3;
       if (kDrop) {
         const uint32_t keep =
-            keep_bits(seed, drop.threshold, bh, row0, k0 + 8 * j, g, tq);
+            keep_bits(seed, drop.threshold, dbh, row0, k0 + 8 * j, g, tq);
         if (!(keep & 1u)) p0 = 0.f;
         if (!(keep & 2u)) p1 = 0.f;
         if (!(keep & 4u)) p2 = 0.f;

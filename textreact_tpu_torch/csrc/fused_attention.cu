@@ -84,19 +84,22 @@
 
 namespace {
 
-// Test-only: the keep mask of (seed, B * H, L, L), one byte per element.
-__global__ void attention_keep_mask(const int64_t* __restrict__ seed,
-                                    uint32_t threshold, uint8_t* __restrict__ out,
-                                    int64_t BH, int L) {
+// Test-only: the keep mask of (seed, B * H, L, L), one byte per element,
+// for heads head_offset .. + H of total_heads (the Dropout's fields).
+__global__ void attention_keep_mask(Dropout drop, uint8_t* __restrict__ out,
+                                    int64_t B, int H, int L) {
   const int L4 = L / 4;
-  const int64_t n = BH * L * L4;
+  const int64_t n = B * H * L * L4;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint32_t col4 = (uint32_t)(i % L4);
   const uint32_t row = (uint32_t)((i / L4) % L);
-  const uint32_t bh = (uint32_t)(i / ((int64_t)L4 * L));
+  const int64_t bh = i / ((int64_t)L4 * L);
+  const uint32_t threshold = drop.threshold;
   uint32_t bits[4];
-  tr::attention_bits((uint64_t)*seed, bh, row, col4, bits);
+  tr::attention_bits((uint64_t)*drop.seed,
+                     tr::dropout_head(drop, (int)(bh / H), (int)(bh % H)), row,
+                     col4, bits);
   uchar4 keep;
   keep.x = bits[0] >= threshold;
   keep.y = bits[1] >= threshold;
@@ -126,16 +129,20 @@ extern "C" {
 // q, k, v, out, o, dout, dq, dk, dv: (B, L, H * D) contiguous; mask: (B, L)
 // int32 {0, 1} or null; stats: (B, H, L, 2) float32 (row max, normaliser);
 // delta: (B, H, L) float32 workspace; seed: one int64 in device memory, or
-// null for no dropout; threshold and inv_keep as in philox.cuh. Returns
-// cudaGetLastError() after the launch.
+// null for no dropout; threshold and inv_keep as in philox.cuh; the H heads
+// are heads head_offset .. + H of a layer of total_heads (0: H) and draw
+// that layer's masks. Returns cudaGetLastError() after the launch.
 
 int tr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                      const void* mask, void* out, void* stats, const void* seed,
-                     uint32_t threshold, float inv_keep, int B, int L, int H,
-                     int D, float scale, void* stream) {
+                     uint32_t threshold, float inv_keep, uint32_t head_offset,
+                     uint32_t total_heads, int B, int L, int H, int D, float scale,
+                     void* stream) {
   const int32_t* m = static_cast<const int32_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(seed, threshold, inv_keep);
+  if (total_heads == 0) total_heads = (uint32_t)H;
+  if (head_offset + (uint32_t)H > total_heads) return cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, head_offset, total_heads);
   if (B == 0) return 0;
   if (dtype == 0) return fwd<float>(q, k, v, m, out, stats, drop, B, L, H, D, scale, st);
   if (dtype == 1) {
@@ -144,16 +151,21 @@ int tr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// Test-only: out (B * H, L, L) uint8, 1 where the element is kept.
+// Test-only: out (B, H, L, L) uint8, 1 where the element is kept, for heads
+// head_offset .. + H of a layer of total_heads (0: H).
 int tr_attention_keep_mask(const void* seed, uint32_t threshold, void* out,
-                           int64_t BH, int L, void* stream) {
+                           int64_t B, int H, uint32_t head_offset,
+                           uint32_t total_heads, int L, void* stream) {
   if (L % 4 != 0) return cudaErrorInvalidValue;
-  const int64_t n = BH * L * (L / 4);
+  if (total_heads == 0) total_heads = (uint32_t)H;
+  if (head_offset + (uint32_t)H > total_heads) return cudaErrorInvalidValue;
+  const int64_t n = B * H * L * (L / 4);
   if (n == 0) return 0;
   const int threads = 256;
   attention_keep_mask<<<(unsigned)((n + threads - 1) / threads), threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(seed), threshold, static_cast<uint8_t*>(out), BH, L);
+      make_dropout(seed, threshold, 1.f, head_offset, total_heads),
+      static_cast<uint8_t*>(out), B, H, L);
   return cudaGetLastError();
 }
 

@@ -82,17 +82,20 @@ extern "C" {
 // normaliser) as the forward wrote them; delta: (B, H, L) float32 workspace;
 // keep_words: (B, H, L / 64, L, 2) int32 workspace, needed with bfloat16 and
 // dropout, else null; seed: one int64 in device memory, or null for no dropout; threshold and
-// inv_keep as in philox.cuh. Returns cudaGetLastError() after the launches.
+// inv_keep as in philox.cuh; head_offset and total_heads as the forward took
+// them. Returns cudaGetLastError() after the launches.
 
 int tr_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const void* mask,
                      const void* stats, const void* seed, uint32_t threshold,
-                     float inv_keep, void* dq, void* dk, void* dv, void* delta,
-                     void* keep_words, int B, int L, int H, int D, float scale,
-                     void* stream) {
+                     float inv_keep, uint32_t head_offset, uint32_t total_heads,
+                     void* dq, void* dk, void* dv, void* delta, void* keep_words,
+                     int B, int L, int H, int D, float scale, void* stream) {
   const int32_t* m = static_cast<const int32_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(seed, threshold, inv_keep);
+  if (total_heads == 0) total_heads = (uint32_t)H;
+  if (head_offset + (uint32_t)H > total_heads) return cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(seed, threshold, inv_keep, head_offset, total_heads);
   if (B == 0) return 0;
   if (dtype == 0) {
     return bwd<float>(q, k, v, o, dout, m, stats, drop, dq, dk, dv, delta, nullptr,

@@ -41,7 +41,8 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
 }
 
 // Attention probabilities: element (bh = batch * H + head, query row, key
-// column). `col4` is column / 4; the words are columns 4 * col4 .. + 3.
+// column), H and head counted over the layer's heads (dropout_head below).
+// `col4` is column / 4; the words are columns 4 * col4 .. + 3.
 __device__ __forceinline__ void attention_bits(uint64_t seed, uint32_t bh,
                                                uint32_t row, uint32_t col4,
                                                uint32_t out[4]) {
@@ -56,18 +57,32 @@ __device__ __forceinline__ void row_bits(uint64_t seed, uint64_t row,
 }
 
 // What a kernel is told about its dropout; `seed` null means none.
+// A call may compute heads head_offset .. + H of a layer with total_heads
+// heads (a tensor-parallel rank's share): its masks are then those of those
+// heads in the whole layer, never those of heads 0 .. H - 1.
 struct Dropout {
-  const int64_t* seed;  // one 64-bit seed in device memory, or null
-  uint32_t threshold;   // keep iff bits >= threshold
-  float inv_keep;       // 1 / (1 - p)
+  const int64_t* seed;   // one 64-bit seed in device memory, or null
+  uint32_t threshold;    // keep iff bits >= threshold
+  float inv_keep;        // 1 / (1 - p)
+  uint32_t head_offset;  // the layer's head of this call's head 0
+  uint32_t total_heads;  // the layer's heads
 };
 
-inline Dropout make_dropout(const void* seed, uint32_t threshold, float inv_keep) {
+inline Dropout make_dropout(const void* seed, uint32_t threshold, float inv_keep,
+                            uint32_t head_offset = 0, uint32_t total_heads = 0) {
   Dropout d;
   d.seed = static_cast<const int64_t*>(seed);
   d.threshold = threshold;
   d.inv_keep = inv_keep;
+  d.head_offset = head_offset;
+  d.total_heads = total_heads;
   return d;
+}
+
+// The Philox coordinate bh of this call's (batch b, head h): b * total_heads
+// + head_offset + h.
+__device__ __forceinline__ uint32_t dropout_head(const Dropout& d, int b, int h) {
+  return (uint32_t)b * d.total_heads + d.head_offset + (uint32_t)h;
 }
 
 }  // namespace tr

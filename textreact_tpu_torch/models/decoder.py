@@ -100,7 +100,9 @@ class Decoder(nn.Module):
         """Empty self-attention caches for `rows` decode rows and the cross
         K/V from the trained projections of this decoder."""
         cfg = self.config
-        shape = (rows, cache_len, cfg.num_attention_heads, cfg.head_dim)
+        # the heads of this rank (all of them without tensor parallelism)
+        shape = (rows, cache_len, self.layers[0].attention.num_heads,
+                 cfg.head_dim)
         dev = encoder_states.device
         cross = [layer.crossattention.project_kv(encoder_states)
                  for layer in self.layers]

@@ -74,26 +74,46 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, p: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax nn.Dropout: keep with probability 1 - p and rescale."""
+            generator: Optional[torch.Generator],
+            head_offset: int = 0, total_heads: Optional[int] = None
+            ) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - p and rescale.
+
+    For (B, H, Lq, Lk) attention weights of heads head_offset .. + H of a
+    layer with `total_heads` (a tp rank's heads), the mask is drawn for
+    every head and this rank's heads are cut from it, so that the ranks'
+    heads carry the masks of the unsharded layer."""
     if p <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    shape = x.shape
+    if total_heads is not None and total_heads != shape[1]:
+        shape = (shape[0], total_heads) + tuple(shape[2:])
+    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    if shape != x.shape:
+        keep = keep[:, head_offset:head_offset + x.shape[1]]
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 class Linear(nn.Linear):
     """flax nn.Dense(dtype=compute dtype): input, weight and bias are cast
-    to the compute dtype at use; the parameters keep their own dtype."""
+    to the compute dtype at use; the parameters keep their own dtype.
+
+    `tp_reduce` (set by parallel.sharding.shard_params on a row-split
+    output layer) sums the tp ranks' partial products in float32 and adds
+    the bias once, after the sum."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, param_dtype: torch.dtype):
         super().__init__(in_features, out_features, dtype=param_dtype)
         self.compute_dtype = dtype
+        self.tp_reduce = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.tp_reduce is None:
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        y = self.tp_reduce.reduce(F.linear(x.to(dt), self.weight.to(dt)))
+        return (y + self.bias.to(dt).float()).to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -186,11 +206,25 @@ class MultiHeadAttention(nn.Module):
         self.key = Linear(cfg.hidden_size, H * D, dtype, param_dtype)
         self.value = Linear(cfg.hidden_size, H * D, dtype, param_dtype)
         self.output = Linear(H * D, cfg.hidden_size, dtype, param_dtype)
+        # the heads this module computes: all of them, or under tensor
+        # parallelism heads head_offset .. + num_heads of total_heads
+        self.num_heads, self.head_offset, self.total_heads = H, 0, H
+        self.tp = None
+
+    def set_tensor_parallel(self, tp) -> None:
+        """Compute heads tp.rank * H / tp.size onward (the projections'
+        weights are cut by parallel.sharding.shard_params)."""
+        self.tp = tp
+        self.num_heads = self.total_heads // tp.size
+        self.head_offset = tp.rank * self.num_heads
+        self.output.tp_reduce = tp
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.tp is None else self.tp.enter(x)
 
     def _heads(self, y: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        return y.view(y.shape[0], y.shape[1], cfg.num_attention_heads,
-                      cfg.head_dim)
+        return y.view(y.shape[0], y.shape[1], self.num_heads,
+                      self.config.head_dim)
 
     def _out(self, ctx: torch.Tensor) -> torch.Tensor:
         ctx = ctx.to(self.dtype)
@@ -202,7 +236,8 @@ class MultiHeadAttention(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
         D = cfg.head_dim
-        kv_in = x if kv is None else kv
+        x = self._enter(x)
+        kv_in = x if kv is None else self._enter(kv)
         drop_p = cfg.attention_probs_dropout_prob if self.training else 0.0
         q = self._heads(self.query(x))
         k = self._heads(self.key(kv_in))
@@ -217,7 +252,8 @@ class MultiHeadAttention(nn.Module):
                     q, k, v, mask_kv, sm_scale=1.0 / math.sqrt(D)))
             return self._out(fused_dropout_attention(
                 q, k, v, mask_kv, drop_p, generator,
-                sm_scale=1.0 / math.sqrt(D)))
+                sm_scale=1.0 / math.sqrt(D), head_offset=self.head_offset,
+                total_heads=self.total_heads))
         if mask_kv is not None:
             extra = mask_to_bias(mask_kv)
             bias = extra if bias is None else bias + extra
@@ -227,7 +263,8 @@ class MultiHeadAttention(nn.Module):
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
         if bias is not None:
             s = s + bias.float()
-        probs = dropout(torch.softmax(s, dim=-1), drop_p, generator)
+        probs = dropout(torch.softmax(s, dim=-1), drop_p, generator,
+                        self.head_offset, self.total_heads)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(self.dtype).float(),
                            v.float())
         return self._out(ctx)
@@ -243,8 +280,7 @@ class MultiHeadAttention(nn.Module):
         """x: (Bk*G, 1, d) with G beams per example; k, v: (Bk, H, L, D);
         bias: (Bk, 1, 1, L). Beams attend as G query rows of their example
         (layers.py:162-194)."""
-        cfg = self.config
-        H, D = cfg.num_attention_heads, cfg.head_dim
+        H, D = self.num_heads, self.config.head_dim
         Bk = k.shape[0]
         G = x.shape[0] // Bk
         q = self.query(x).view(Bk, G, H, D).transpose(1, 2)     # (Bk, H, G, D)
@@ -311,8 +347,17 @@ class FeedForward(nn.Module):
                                    param_dtype)
         self.output = Linear(config.intermediate_size, config.hidden_size,
                              dtype, param_dtype)
+        self.tp = None
+
+    def set_tensor_parallel(self, tp) -> None:
+        """Compute intermediate columns of this tp rank (the weights are cut
+        by parallel.sharding.shard_params)."""
+        self.tp = tp
+        self.output.tp_reduce = tp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         h = self.intermediate(x)
         if self.config.hidden_act == "gelu":
             h = F.gelu(h, approximate="tanh")   # flax nn.gelu default

@@ -59,12 +59,13 @@ _F = ctypes.c_float
 LIBRARIES = ("fused_attention", "fused_attention_bwd", "causal_attention",
              "causal_attention_bwd")
 _SIGNATURES = {
-    "tr_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _U, _F,
+    "tr_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _U, _F, _U, _U,
                          _I, _I, _I, _I, _F, _P],
-    "tr_attention_keep_mask": [_P, _U, _P, ctypes.c_int64, _I, _P],
+    "tr_attention_keep_mask": [_P, _U, _P, ctypes.c_int64, _I, _U, _U, _I,
+                               _P],
 }
 _BWD_SIGNATURES = {
-    "tr_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F,
+    "tr_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F, _U, _U,
                          _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
@@ -188,20 +189,30 @@ def fused_dropout_attention(q: torch.Tensor, k: torch.Tensor,
                             dropout_p: float = 0.0,
                             generator: Optional[torch.Generator] = None,
                             sm_scale: Optional[float] = None,
-                            keep: Optional[torch.Tensor] = None
+                            keep: Optional[torch.Tensor] = None,
+                            head_offset: int = 0,
+                            total_heads: Optional[int] = None
                             ) -> torch.Tensor:
     """Attention over (B, L, H, D) inputs; returns (B, L, H, D) in q's dtype.
 
     Differentiable in q, k, v. With dropout_p > 0 the mask comes from
     `generator` (its device must be the tensors'); `keep`, an explicit
-    (B, H, L, L) bool mask, is for CPU tensors only."""
+    (B, H, L, L) bool mask, is for CPU tensors only. The H heads are heads
+    head_offset .. + H of a layer of `total_heads` (default H), as a
+    tensor-parallel rank holds them: their masks are that layer's masks of
+    those heads."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    B, L, H, _ = q.shape
+    total_heads = H if total_heads is None else total_heads
+    if not 0 <= head_offset <= total_heads - H:
+        raise ValueError(f"fused_dropout_attention: heads {head_offset} .. "
+                         f"+ {H} of {total_heads}")
     if not q.is_cuda:
         if dropout_p > 0.0 and keep is None:
-            B, L, H, _ = q.shape
-            keep = torch.rand((B, H, L, k.shape[1]),
+            keep = torch.rand((B, total_heads, L, k.shape[1]),
                               generator=generator) >= dropout_p
+            keep = keep[:, head_offset:head_offset + H]
         return attention_reference(q, k, v, mask_kv, sm_scale,
                                    keep if dropout_p > 0.0 else None,
                                    dropout_p)
@@ -213,7 +224,8 @@ def fused_dropout_attention(q: torch.Tensor, k: torch.Tensor,
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     return _FusedAttention.apply(q, k, v, mask, seed, float(dropout_p),
-                                 float(sm_scale), needs_grad, False)
+                                 float(sm_scale), needs_grad, False,
+                                 (head_offset, total_heads))
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -236,18 +248,21 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     return _FusedAttention.apply(q, k, v, mask, None, 0.0, float(sm_scale),
-                                 needs_grad, True)
+                                 needs_grad, True, (0, q.shape[2]))
 
 
 def keep_mask(seed: torch.Tensor, B: int, H: int, L: int,
-              dropout_p: float) -> torch.Tensor:
+              dropout_p: float, head_offset: int = 0,
+              total_heads: Optional[int] = None) -> torch.Tensor:
     """The (B, H, L, L) bool keep mask the kernels draw for `seed` (a (1,)
-    int64 CUDA tensor), written by the library's test-only entry point."""
+    int64 CUDA tensor) and heads head_offset .. + H of `total_heads`
+    (default H), written by the library's test-only entry point."""
     out = torch.empty((B, H, L, L), dtype=torch.uint8, device=seed.device)
     lib = load_kernel()
     err = lib.tr_attention_keep_mask(
         _build.ptr(seed), _build.dropout_threshold(dropout_p),
-        _build.ptr(out), B * H, L, _build.stream())
+        _build.ptr(out), B, H, head_offset,
+        H if total_heads is None else total_heads, L, _build.stream())
     _build.check(lib, err, "attention keep mask")
     return out.bool()
 
@@ -288,7 +303,7 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, dropout_p, sm_scale, needs_grad,
-                causal):
+                causal, heads):
         global LAUNCHES, CAUSAL_LAUNCHES
         B, L, H, D = q.shape
         out = torch.empty_like(q)
@@ -306,12 +321,13 @@ class _FusedAttention(torch.autograd.Function):
         else:
             lib = load_kernel()
             err = lib.tr_attention_fwd(
-                *tensors, *_build.dropout_args(seed, dropout_p), B, L, H, D,
-                sm_scale, _build.stream())
+                *tensors, *_build.dropout_args(seed, dropout_p), *heads,
+                B, L, H, D, sm_scale, _build.stream())
             _build.check(lib, err, "fused_dropout_attention")
             LAUNCHES += 1
         ctx.save_for_backward(q, k, v, out, stats, mask, seed)
         ctx.dropout_p, ctx.sm_scale, ctx.causal = dropout_p, sm_scale, causal
+        ctx.heads = heads
         return out
 
     @staticmethod
@@ -344,8 +360,8 @@ class _FusedAttention(torch.autograd.Function):
                                          dtype=torch.int32, device=q.device)
             lib = load_bwd_kernel()
             err = lib.tr_attention_bwd(
-                *inputs, *_build.dropout_args(seed, ctx.dropout_p), *outputs,
-                _build.ptr(keep_words), *shape)
+                *inputs, *_build.dropout_args(seed, ctx.dropout_p),
+                *ctx.heads, *outputs, _build.ptr(keep_words), *shape)
             _build.check(lib, err, "fused_dropout_attention backward")
             BWD_LAUNCHES += 1
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None

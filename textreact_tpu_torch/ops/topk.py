@@ -176,10 +176,19 @@ def exact_topk_l2(queries: torch.Tensor, corpus: torch.Tensor,
     |values| <= 127 and d <= 2048 keep every score inside int32.
 
     Returns (distances (M, k) int32 INCLUDING |q|^2, indices (M, k) int32),
-    on the inputs' device."""
+    on the inputs' device. On the card the kernel runs on that device's
+    current stream, whichever device is current (an index sharded over
+    several cards calls it for each)."""
     if not queries.is_cuda:
         return exact_topk_l2_reference(queries, corpus, corpus_norms, banned,
                                        k=k)
+    with torch.cuda.device(queries.device):
+        return _exact_topk_l2_cuda(queries, corpus, corpus_norms, banned, k,
+                                   corpus_resident)
+
+
+def _exact_topk_l2_cuda(queries, corpus, corpus_norms, banned, k: int,
+                        corpus_resident: bool):
     M, d = queries.shape
     N = corpus.shape[0]
     if banned is None:

@@ -10,7 +10,9 @@ report (retrieve_faiss.py:132-144). `--before` filters the train corpus by
 year for the time split (retrieve_faiss.py:102-103). The CSVs are read by
 utils/table.py, which repeats pandas' type inference where it shows in the
 outputs. `--device` names the device (default: the CUDA card; the command
-fails without one).
+fails without one). `--shard_corpus` cuts the corpus into one shard per
+visible card (`FlatIndex(devices=...)`); with `--device cpu` into two CPU
+shards, a rehearsal of the sharded path.
 
 Usage: python -m textreact_tpu_torch.retrieval.cli --data_path ... --train_file ...
 """
@@ -24,7 +26,9 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from ..models.factory import resolve_device
 from ..ops.topk import MAX_K
 from ..utils.logging import log, setup_logging
 from ..utils.table import read_csv
@@ -50,8 +54,8 @@ def get_args(argv: Optional[List[str]] = None):
     p.add_argument("--check_parity", action="store_true",
                    help="verify kernel results against the numpy oracle")
     p.add_argument("--shard_corpus", action="store_true",
-                   help="shard the corpus over all local devices (not ported "
-                        "yet)")
+                   help="shard the corpus over every visible card (two "
+                        "shards with --device cpu)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
@@ -96,11 +100,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = get_args(argv)
     os.makedirs(args.output_path, exist_ok=True)
 
-    if args.shard_corpus:
-        raise NotImplementedError(
-            "--shard_corpus waits for the multi-GPU slice of the port: the "
-            "corpus is searched on one device")
-
     train_df = read_csv(os.path.join(args.data_path, args.train_file))
     val_df = read_csv(os.path.join(args.data_path, args.valid_file))
     test_df = read_csv(os.path.join(args.data_path, args.test_file))
@@ -119,7 +118,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                  time.time() - t0)
         np.save(fp_cache, train_fps)
 
-    index = FlatIndex(train_fps, device=args.device)
+    devices = None
+    if args.shard_corpus:
+        device = resolve_device(args.device)
+        devices = ([device, device] if device.type == "cpu" else
+                   [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        log.info("corpus sharded over %d devices", len(devices))
+    index = FlatIndex(train_fps, device=args.device, devices=devices)
     log.info("flat index over %s on %s", train_fps.shape, index.device)
     train_ids = list(train_df["id"])
 

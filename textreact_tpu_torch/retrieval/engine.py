@@ -11,9 +11,15 @@ fingerprint vectors and query top-20 neighbours.
   filter;
 - `merge_topk` merges partial results over parts of a corpus with a
   two-key order (distance, then corpus index) that preserves the faiss tie
-  order. Sharding the corpus rows over several devices (the JAX engine's
-  `mesh` argument) is not ported yet: it will search each shard and call
-  `merge_topk`.
+  order;
+- `FlatIndex(corpus, devices=[...])` cuts the corpus rows into one shard
+  per listed device, as the JAX engine's single-controller `mesh` does
+  (engine.py:48-121): one process queues every shard's upload, top-k
+  kernel and download on its own device's stream, then waits for them,
+  offsets each shard's indices and merges the lists with `merge_topk`; the
+  shards on different cards run at once. A device may be listed twice
+  (`["cuda:0", "cuda:0"]`, `["cpu", "cpu"]`), so the sharded path runs on
+  one card and on the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import numpy as np
 import torch
 
 from ..models.factory import resolve_device
-from ..ops.topk import (MAX_K, corpus_norms_padded, exact_topk_l2,
+from ..ops.topk import (BIG, MAX_K, corpus_norms_padded, exact_topk_l2,
                         numpy_reference_topk, pad_matrix, split_slabs,
                         workspace_bytes)
 
@@ -48,11 +54,18 @@ class FlatIndex:
     """Exact (flat) L2 index over int8 fingerprint vectors.
 
     `device=None` is the CUDA card and raises without one. `corpus_resident`
-    picks the kernel layout (None: the measured rule above)."""
+    picks the kernel layout (None: the measured rule above). `devices`, a
+    list of devices, shards the corpus rows over them in order (shard s
+    holds rows s * ceil(N / S) onward) instead of putting it on `device`."""
 
     def __init__(self, corpus_fps: np.ndarray, device=None,
-                 corpus_resident: Optional[bool] = None):
+                 corpus_resident: Optional[bool] = None,
+                 devices: Optional[Sequence] = None):
         assert corpus_fps.dtype == np.int8, corpus_fps.dtype
+        self.shards: List[Tuple[int, "FlatIndex"]] = []
+        if devices is not None:
+            self._shard(corpus_fps, list(devices), corpus_resident)
+            return
         self.device = resolve_device(device)
         self.n_real = corpus_fps.shape[0]
         self.corpus_resident = (CORPUS_RESIDENT_DEFAULT
@@ -69,8 +82,22 @@ class FlatIndex:
                                        ).to(self.device)
         self.norms = torch.from_numpy(norms).to(self.device)
 
+    def _shard(self, corpus_fps: np.ndarray, devices: List,
+               corpus_resident: Optional[bool]) -> None:
+        """One index over each shard of rows, with the shard's first row."""
+        self.n_real = corpus_fps.shape[0]
+        self.device = resolve_device(devices[0])
+        rows = -(-self.n_real // len(devices))
+        for s, dev in enumerate(devices):
+            part = corpus_fps[s * rows:(s + 1) * rows]
+            self.shards.append((s * rows, FlatIndex(
+                part, device=dev, corpus_resident=corpus_resident)))
+        self.dim = self.shards[0][1].dim
+        self.corpus_resident = self.shards[0][1].corpus_resident
+
     def max_queries(self, k: int, nb: int) -> int:
-        """Most queries one kernel call takes inside SEARCH_BUDGET_BYTES."""
+        """Most queries one kernel call takes inside SEARCH_BUDGET_BYTES
+        (of an unsharded index, or of one shard)."""
         n = self.corpus.shape[0]
         m = 1 << 16
         while m > 128:
@@ -93,7 +120,10 @@ class FlatIndex:
 
         On the card each chunk's queries and banned ids go up through pinned
         staging buffers and the results come back through pinned buffers,
-        every copy asynchronous on the kernels' stream."""
+        every copy asynchronous on the kernels' stream. A sharded index
+        queues a chunk on every shard before it waits for any of them, then
+        merges the shards' lists (banned ids made local to each shard, its
+        results offset to global ids) in (distance, index) order."""
         if not 1 <= k <= MAX_K:
             raise ValueError(f"FlatIndex.search: k={k} outside 1..{MAX_K}: "
                              f"the top-k kernels keep each query's list in "
@@ -103,26 +133,55 @@ class FlatIndex:
         q = pad_matrix(queries, 1, 16)
         assert q.shape[1] == self.dim, (q.shape, self.dim)
         nb = 1 if banned is None else banned.shape[1]
-        chunk = min(self.max_queries(k, nb), max(M, 1))
+        parts = self.shards or [(0, self)]
+        chunk = min([index.max_queries(k, nb) for _, index in parts]
+                    + [max(M, 1)])
+        stages = [_Staging(index.device, chunk, self.dim,
+                           None if banned is None else nb, k)
+                  for _, index in parts]
         out_v = np.empty((M, k), np.int32)
         out_i = np.empty((M, k), np.int32)
-        stage = _Staging(self.device, chunk, self.dim,
-                         None if banned is None else nb, k)
         for start in range(0, M, chunk):
             stop = min(start + chunk, M)
-            q_dev, b_dev = stage.up(q[start:stop],
-                                    None if banned is None
-                                    else banned[start:stop])
-            vals, idx = exact_topk_l2(q_dev, self.corpus, self.norms, b_dev,
-                                      k=k,
-                                      corpus_resident=self.corpus_resident)
-            out_v[start:stop], out_i[start:stop] = stage.down(vals, idx)
+            chunk_banned = None if banned is None else banned[start:stop]
+            for (first, index), stage in zip(parts, stages):
+                local = chunk_banned
+                if self.shards and banned is not None:
+                    local = np.where(
+                        (chunk_banned >= first)
+                        & (chunk_banned < first + index.n_real),
+                        chunk_banned - first, -1).astype(np.int32)
+                index._launch(stage, q[start:stop], local, k)
+            if not self.shards:
+                out_v[start:stop], out_i[start:stop] = stages[0].collect()
+                continue
+            lists = []
+            for (first, _), stage in zip(parts, stages):
+                vals, idx = stage.collect()
+                lists.append((torch.from_numpy(vals.copy()), torch.from_numpy(
+                    np.where(idx >= BIG, idx, idx + first).astype(np.int32))))
+            vals, idx = merge_topk(lists, k)
+            out_v[start:stop], out_i[start:stop] = vals.numpy(), idx.numpy()
         return out_v, out_i
+
+    def _launch(self, stage: "_Staging", q: np.ndarray,
+                banned: Optional[np.ndarray], k: int) -> None:
+        """Queue one chunk's upload, kernel and download on this index's
+        device; `stage.collect()` waits for it."""
+        q_dev, b_dev = stage.up(q, banned)
+        vals, idx = exact_topk_l2(q_dev, self.corpus, self.norms, b_dev, k=k,
+                                  corpus_resident=self.corpus_resident)
+        stage.down(vals, idx)
 
     def reference_search(self, queries: np.ndarray, k: int = 20,
                          banned: Optional[np.ndarray] = None):
         """Brute-force numpy oracle over the same (unpadded) data."""
-        corpus = self.corpus[: self.n_real].cpu().numpy()
+        if self.shards:
+            corpus = np.concatenate([
+                index.corpus[: index.n_real].cpu().numpy()
+                for _, index in self.shards])
+        else:
+            corpus = self.corpus[: self.n_real].cpu().numpy()
         return numpy_reference_topk(pad_matrix(queries, 1, 16), corpus, k,
                                     banned)
 
@@ -161,16 +220,25 @@ class _Staging:
             b_dev = self.b[:n].to(self.device, non_blocking=True)
         return q_dev, b_dev
 
-    def down(self, vals: torch.Tensor, idx: torch.Tensor):
-        """The chunk's results as numpy arrays (views of the staging
-        buffers on the card: read them before the next chunk)."""
+    def down(self, vals: torch.Tensor, idx: torch.Tensor) -> None:
+        """Queue the copy of the chunk's results to the host."""
         if not self.pinned:
-            return vals.numpy(), idx.numpy()
+            self.result = (vals.numpy(), idx.numpy())
+            return
         n = vals.shape[0]
         self.v[:n].copy_(vals, non_blocking=True)
         self.i[:n].copy_(idx, non_blocking=True)
+        self.result = (self.v[:n], self.i[:n])
+
+    def collect(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The queued results as numpy arrays, once the device is done
+        (views of the staging buffers on the card: read them before the
+        next chunk)."""
+        if not self.pinned:
+            return self.result
         torch.cuda.current_stream(self.device).synchronize()
-        return self.v[:n].numpy(), self.i[:n].numpy()
+        v, i = self.result
+        return v.numpy(), i.numpy()
 
 
 def merge_topk(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]], k: int

@@ -10,7 +10,11 @@ here, a directory there), `{name}.meta.json`, a `.ckpt.tmp` while a write is
 under way, `save_eval` keeping 'last' always and 'best' on improvement.
 
 What is saved: the module's parameters, the optimizer's moments and update
-count, and `TrainState.step`. A train step updates all of these IN PLACE, so
+count, and `TrainState.step`. Parameters and moments are saved whole, keyed
+by parameter name, whatever mesh the run has: on a mesh every rank takes
+part in gathering them from their tp and ZeRO-1 shards, and rank 0 alone
+writes. `restore` places the whole tensors into any (dp, tp) shape, so a
+run may resume on another mesh than the one that saved it. A train step updates all of these IN PLACE, so
 `save` copies them to host memory before it returns, and the copy is
 complete, not merely queued, when it does (a blocking device-to-host copy
 per tensor): the next optimizer step cannot reach into a checkpoint. A
@@ -31,6 +35,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from ..parallel.multihost import barrier, is_primary
+from ..parallel.sharding import full_state_dict, load_full_state_dict
 from .step import TrainState, _check_device
 
 METRIC_MODE = {"val_loss": "min", "val_acc": "max"}
@@ -51,8 +57,11 @@ def _to_host(tree: Any) -> Any:
 
 class CheckpointManager:
     def __init__(self, save_path: str, val_metric: str = "val_acc",
-                 async_save: bool = True):
+                 async_save: bool = True, mesh=None):
+        """`mesh`: the ranks that save and restore together (default: the
+        whole world); its rank 0 writes."""
         self.save_path = os.path.abspath(save_path)
+        self.group = None if mesh is None else mesh.group
         self.val_metric = val_metric
         self.mode = METRIC_MODE[val_metric]
         os.makedirs(self.save_path, exist_ok=True)
@@ -96,25 +105,33 @@ class CheckpointManager:
 
     def exists(self, name: str) -> bool:
         self._flush()
+        barrier(self.group)   # every rank sees what rank 0 has published
         return os.path.isfile(self._file(name))
 
     def clear(self) -> None:
         """--overwrite: delete stale checkpoints (reference utils.py:47-52)."""
         self._flush()
+        if not is_primary():
+            barrier(self.group)
+            return
         for entry in os.listdir(self.save_path):
             if (entry.endswith(".ckpt") or entry.endswith(".meta.json")
                     or entry.endswith(".ckpt.tmp")):
                 full = os.path.join(self.save_path, entry)
                 shutil.rmtree(full) if os.path.isdir(full) else os.remove(full)
+        barrier(self.group)
 
     # --- save/load ---
     def save(self, name: str, state: TrainState,
              meta: Optional[dict] = None) -> None:
         self._flush()  # at most one write in flight
         t0 = time.perf_counter()
-        payload = _to_host({"module": state.module.state_dict(),
-                            "optimizer": state.optimizer.state_dict(),
-                            "step": state.step})
+        payload = {"module": full_state_dict(state.module),
+                   "optimizer": state.optimizer.state_dict(),
+                   "step": state.step}
+        if not is_primary():
+            return
+        payload = _to_host(payload)
         self.last_blocking_seconds = time.perf_counter() - t0
         final = self._file(name)
         tmp = final + ".tmp"
@@ -138,9 +155,10 @@ class CheckpointManager:
         be restorable)."""
         self._flush()
         device = _check_device(target.module, device)
+        barrier(self.group)
         payload = torch.load(self._file(name), map_location=device,
                              weights_only=True)
-        target.module.load_state_dict(payload["module"])
+        load_full_state_dict(target.module, payload["module"])
         target.optimizer.load_state_dict(payload["optimizer"])
         target.step = int(payload["step"])
         meta = {}

@@ -11,11 +11,15 @@ compute_mlm_loss), including the exact reduction semantics:
 
 Batch-padding rows (example_mask == 0) carry all-ignored labels, so they
 contribute nothing to sums; per-example outputs are masked by the caller.
+
+A 'mean' may be given its denominator (`denom`): a data-parallel rank
+divides its own sum by the count of the whole global batch, so that the
+ranks' terms add up to the global mean (train/step.py).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -38,19 +42,24 @@ def cross_entropy_elements(logits: Tensor, labels: Tensor, ignore_id: int,
     return torch.where(valid, nll, 0.0), valid
 
 
-def masked_mean(loss_elems: Tensor, valid: Tensor) -> Tensor:
-    return loss_elems.sum() / valid.sum().clamp(min=1)
+def masked_mean(loss_elems: Tensor, valid: Tensor,
+                denom: Optional[Tensor] = None) -> Tensor:
+    """The sum over valid elements divided by their count, or by `denom`."""
+    if denom is None:
+        denom = valid.sum().clamp(min=1)
+    return loss_elems.sum() / denom
 
 
 def seq2seq_loss(logits: Tensor, decoder_input_ids: Tensor, pad_id: int,
                  label_smoothing: float = 0.0,
-                 reduction: str = "mean") -> Tensor:
+                 reduction: str = "mean",
+                 denom: Optional[Tensor] = None) -> Tensor:
     """CE over shifted decoder tokens, pad ignored (main.py:128-133)."""
     labels = decoder_input_ids[:, 1:]
     elems, valid = cross_entropy_elements(logits[:, :-1], labels, pad_id,
                                           label_smoothing)
     if reduction == "mean":
-        return masked_mean(elems, valid)
+        return masked_mean(elems, valid, denom)
     return elems.mean(1)  # per-example mean over all positions
 
 
@@ -66,24 +75,28 @@ def seq2seq_greedy_acc(logits: Tensor, decoder_input_ids: Tensor,
 
 def template_loss(atom_logits: Tensor, bond_logits: Tensor,
                   atom_labels: Tensor, bond_labels: Tensor,
-                  reduction: str = "mean") -> Tensor:
+                  reduction: str = "mean",
+                  denoms: Optional[Sequence[Tensor]] = None) -> Tensor:
     """Atom + bond template CE (main.py:114-126). Labels are IGNORE_INDEX at
-    non-atoms / non-bonds / padding."""
+    non-atoms / non-bonds / padding. `denoms`: (atom, bond) denominators."""
     a_elems, a_valid = cross_entropy_elements(atom_logits, atom_labels,
                                               IGNORE_INDEX)
     b_elems, b_valid = cross_entropy_elements(bond_logits, bond_labels,
                                               IGNORE_INDEX)
     if reduction == "mean":
-        return masked_mean(a_elems, a_valid) + masked_mean(b_elems, b_valid)
+        a_d, b_d = (None, None) if denoms is None else denoms
+        return (masked_mean(a_elems, a_valid, a_d)
+                + masked_mean(b_elems, b_valid, b_d))
     return a_elems.mean(1) + b_elems.mean(1)
 
 
-def mlm_loss(mlm_logits: Tensor, mlm_labels: Tensor) -> Tensor:
+def mlm_loss(mlm_logits: Tensor, mlm_labels: Tensor,
+             denom: Optional[Tensor] = None) -> Tensor:
     """CE over the masked prefix (main.py:158-162; torch CE default mean
     over non-ignored)."""
     elems, valid = cross_entropy_elements(mlm_logits, mlm_labels,
                                           IGNORE_INDEX)
-    return masked_mean(elems, valid)
+    return masked_mean(elems, valid, denom)
 
 
 def masked_probs(logits: Tensor, labels: Tensor) -> Tensor:

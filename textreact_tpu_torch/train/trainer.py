@@ -5,12 +5,18 @@ epoch loop with one eager update per optimizer step, dual-corpus evaluation
 every eval_per_epoch epochs, best/last checkpointing on the val metric,
 resume, beam-search testing with prediction JSON + accuracy dicts.
 
-One process on one device: the JAX trainer's mesh, parameter sharding and
-cross-host gathers (trainer.py:49-50,175,185-186,201-212,330-331,371,379)
-have no counterpart until the multi-GPU slice (ROADMAP.md Queue 1 item 8),
-and the collator never needs host-independent shapes (`static_shapes` is
-False). The trainer runs on the CUDA card unless the caller passes
-`device=`; without a card it raises.
+One process per device. Started alone it runs on one device; started by
+`torchrun` (`python -m torch.distributed.run --nproc_per_node N -m
+textreact_tpu_torch ...`; NCCL between cards, gloo with `--device cpu`)
+its processes form the (dp, tp) mesh of cfg.dp_size x cfg.tp_size
+(trainer.py:49-50): the parameters are cut by `shard_params`, each rank
+loads the rows of its dp index (batch_size / dp of them a step, a global
+batch of batch_size), the step reduces over the mesh (train/step.py), the
+validation scores and test predictions are gathered id-keyed from every
+rank, and rank 0 alone writes metrics, predictions and checkpoints. With
+dp > 1 the collator pads every batch to one shape (`static_shapes`), so
+that the ranks' accumulation windows stay in step. The trainer runs on the
+CUDA card unless the caller passes `device=`; without a card it raises.
 
 Parameters come from `build_model`, drawn from `cfg.seed`. Loading
 pretrained weights (`models/import_hf.py`) waits for item 9 and raises
@@ -43,6 +49,11 @@ from ..evaluation import (edits_from_topk, evaluate_reaction_condition,
 from ..inference.predictor import Generator, predictions_from_beams
 from ..models import build_model
 from ..models.factory import resolve_device
+from ..parallel.mesh import make_mesh
+from ..parallel.multihost import (gather_prediction_dict, gather_score_dict,
+                                  initialize_distributed, is_primary,
+                                  local_device)
+from ..parallel.sharding import shard_params
 from ..tokenizers import get_tokenizers
 from ..utils.logging import MetricLogger, log, setup_logging
 from ..utils.profiling import StepTimer, trace
@@ -52,12 +63,28 @@ from .step import (TrainState, make_accum_train_step, make_eval_step,
                    make_train_step)
 
 
+class _NoMetrics:
+    """The metric log of a rank other than 0: writes nothing."""
+
+    def log(self, metrics, step) -> None:
+        pass
+
+
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None):
         setup_logging()
         cfg.validate()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # under torchrun: card LOCAL_RANK, and the process group
+        self.device = local_device(resolve_device(device))
+        initialize_distributed(device=self.device)
+        # None: one process, no collective
+        self.mesh = (make_mesh(cfg.dp_size, cfg.tp_size)
+                     if torch.distributed.is_initialized() else None)
+        if self.mesh is None and (cfg.dp_size > 1 or cfg.tp_size > 1):
+            raise ValueError(f"dp_size={cfg.dp_size} x tp_size="
+                             f"{cfg.tp_size} needs that many processes: "
+                             f"start the run with torchrun")
         _random.seed(cfg.seed)
         np.random.seed(cfg.seed)
 
@@ -72,14 +99,19 @@ class Trainer:
         # parameters are initialised here, from cfg.seed
         self.module, self.enc_config, self.dec_config = build_model(
             cfg, self.enc_tokenizer, self.dec_tokenizer, device=self.device)
-        self.ckpt = CheckpointManager(cfg.save_path, cfg.val_metric)
-        self.metrics = MetricLogger(cfg.save_path, use_wandb=not cfg.debug)
+        shard_params(self.mesh, self.module)
+        self.ckpt = CheckpointManager(cfg.save_path, cfg.val_metric,
+                                      mesh=self.mesh)
+        self.metrics = (MetricLogger(cfg.save_path, use_wandb=not cfg.debug)
+                        if is_primary() else _NoMetrics())
         if cfg.template_based:
             self.dec_pad_id = 0
         else:
             self.dec_pad_id = self.dec_tokenizer.pad_token_id
+        self.dp_size = 1 if self.mesh is None else self.mesh.dp_size
         self.collator = Collator(cfg, self.enc_tokenizer.pad_token_id,
-                                 self.dec_pad_id, static_shapes=False)
+                                 self.dec_pad_id,
+                                 static_shapes=self.dp_size > 1)
         self.train_dataset = None
         self.val_dataset = None
         self.test_dataset = None
@@ -134,14 +166,22 @@ class Trainer:
         # background-thread prefetch overlaps host batch assembly with device
         # steps; the loader's fork-pool mode (num_workers>1) is for offline
         # use: forking after the CUDA runtime initializes is unsafe
-        kw = dict(collator=self.collator, batch_size=bs, seed=cfg.seed)
+        # on a mesh: the rows of this rank's dp index, a 1/dp share of the
+        # global batch (the tp ranks of a row load the same rows)
+        kw = dict(collator=self.collator, batch_size=bs // self.dp_size,
+                  seed=cfg.seed)
         if not eval_mode:
-            return [DataLoader(dataset, shuffle=True, **kw)]
-        loaders = [DataLoader(dataset, shuffle=False, augment=False, **kw)]
-        if cfg.corpus_file:
-            # dual-corpus eval: full + gold-removed (main.py:330-340)
-            loaders.append(DataLoader(dataset.with_skip_gold(), shuffle=False,
-                                      augment=False, **kw))
+            loaders = [DataLoader(dataset, shuffle=True, **kw)]
+        else:
+            loaders = [DataLoader(dataset, shuffle=False, augment=False, **kw)]
+            if cfg.corpus_file:
+                # dual-corpus eval: full + gold-removed (main.py:330-340)
+                loaders.append(DataLoader(dataset.with_skip_gold(),
+                                          shuffle=False, augment=False, **kw))
+        if self.mesh is not None:
+            for loader in loaders:
+                loader.shard_across_processes(self.mesh.dp_rank,
+                                              self.mesh.dp_size)
         return loaders
 
     # ------------------------------------------------------------------
@@ -149,7 +189,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def _new_state(self, num_steps: int) -> TrainState:
         optimizer = make_optimizer(self.cfg, num_steps,
-                                   self.module.parameters())
+                                   self.module.named_parameters(),
+                                   mesh=self.mesh,
+                                   tp_axes=self.module.tp_axes)
         return TrainState.create(self.module, optimizer)
 
     def _num_training_steps(self) -> int:
@@ -306,6 +348,8 @@ class Trainer:
                 idxs = res["indices"].cpu().numpy()
                 for i, s in zip(idxs[mask], scores[mask]):
                     per_example[int(i)] = float(s)
+            # every rank's examples, id-keyed (padding repeats collapse)
+            per_example = gather_score_dict(per_example)
             name = cfg.val_metric if li == 0 else f"{cfg.val_metric}/{li}"
             out[name] = float(np.mean(list(per_example.values())))
         return out
@@ -347,14 +391,17 @@ class Trainer:
     def test(self) -> List[Dict]:
         cfg = self.cfg
         self._load_for_eval()
-        results = []
+        results = []   # rank 0's; the other ranks return []
         for li, loader in enumerate(self._loaders(self.test_dataset, True)):
             t0 = self._clock()
-            predictions = self._predict(loader)
+            # every rank's predictions, id-keyed (padding repeats collapse)
+            predictions = gather_prediction_dict(self._predict(loader))
             self.metrics.log({"test_loader": li,
                               "test_examples": len(predictions),
                               "test_seconds": self._clock() - t0},
                              int(self._state.step))
+            if not is_primary():   # rank 0 writes and scores
+                continue
             if cfg.test_each_neighbor:
                 predictions = gather_prediction_each_neighbor(
                     predictions, cfg.test_num_neighbors)
