@@ -8,7 +8,8 @@ one CUDA GPU.
 Phases, each fatal on failure:
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: compile every CUDA kernel from textreact_tpu_torch/csrc, one nvcc
-   process per source, started together;
+   process per source, and the two C++ host libraries (tokenizer,
+   chemistry) with g++, all started together;
 3. kernels: each of the four encoder kernels (attention forward and
    backward, residual-LayerNorm forward and backward) against its plain PyTorch
    version on the card, at the shapes the paths give it, in float32 and
@@ -74,7 +75,21 @@ Phases, each fatal on failure:
    --do_train --do_valid --do_test, beam 15; a falling loss, published
    checkpoints, two prediction files, kernel launches that match the steps
    run; then the same command with one more epoch resumes;
-11. template-based retrosynthesis (scripts/parity_run.py's RetroSyn_tb:
+11. the pretrained start: two HF checkpoint directories written from a
+   seed (SciBERT-base as model.safetensors; a 6-layer BERT of vocab 300
+   with the MaskedLM head as pytorch_model.bin with the `bert.` prefix),
+   then `python -m textreact_tpu_torch` in-process with scripts/train_RCR.sh's
+   flags and `--encoder <dir> --encoder_pretrained --decoder <dir>
+   --decoder_pretrained` on phase 10's data: before the first step every
+   imported parameter equal to its file's tensor to the bit, the rest
+   (cross-attention, MLM head, rows past the file's table) to the seeded
+   initialisation, nothing unread but the poolers; one epoch of 4 x 32 and
+   a validation pass with exact kernel launch counts; then every example of
+   the run built through the C++ tokenizer equal to the Python route's,
+   the C++ fingerprints and canonical SMILES equal to the Python route's on
+   the run's reactions and molecules (and on non-ASCII strings), both
+   routes timed;
+12. template-based retrosynthesis (scripts/parity_run.py's RetroSyn_tb:
    SciBERT-base encoder at full width and depth over the joint SMILES +
    text vocabulary, L=512, bf16, dropout 0.1, lr 2e-4, 4 x 32) on synthetic
    drug and ester products of 21-50 heavy atoms with 400 atom and 60 bond
@@ -90,7 +105,7 @@ Phases, each fatal on failure:
    against plain functions in f32 with and without the bond mask; then
    `python -m textreact_tpu_torch --task retro --template_based
    --unattend_nonbonds` in-process (train, validate, test with the decode);
-12. the multi-device slice (textreact_tpu_torch/parallel), each leg printing
+13. the multi-device slice (textreact_tpu_torch/parallel), each leg printing
    its backend, world size and device count: the attention kernels on 6 of
    12 heads with the head offset against the full layer's keep mask and the
    plain version; leg A, this process as a world of one over NCCL
@@ -106,14 +121,15 @@ Phases, each fatal on failure:
    sequences and its scores within 1e-5 + 1e-5 * |score| (the JAX gate's
    allclose).
 
-Prints JSON lines of the runtime's, the template path's and the parallel
-legs' numbers and of per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
+Prints JSON lines of the runtime's, the pretrained start's, the template
+path's and the parallel legs' numbers and of per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
 
 import ast
+import contextlib
 import csv
 import dataclasses
 import json
@@ -124,13 +140,16 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from textreact_tpu_torch.chem import canonical_smiles, parse_smiles
+from textreact_tpu_torch.chem import native as native_chem
 from textreact_tpu_torch.chem.smarts import find_matches, parse_smarts
 from textreact_tpu_torch.cli import main as runtime_cli
 from textreact_tpu_torch.config import ExperimentConfig
@@ -152,6 +171,7 @@ from textreact_tpu_torch.ops import (_build, fused_attention, fused_layernorm,
 from textreact_tpu_torch.retrieval import FlatIndex
 from textreact_tpu_torch.retrieval import cli as retrieval_cli
 from textreact_tpu_torch.tokenizers import get_tokenizers
+from textreact_tpu_torch.tokenizers import native as native_tokenizer
 from textreact_tpu_torch.train import (TrainState, losses,
                                        make_accum_train_step, make_eval_step,
                                        make_loss_fn, make_optimizer)
@@ -424,17 +444,24 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.build_all([*fused_attention.LIBRARIES, "fused_layernorm",
-                      "exact_topk"])
+    # the two C++ host libraries (g++) build beside the CUDA sources (nvcc)
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        host = [pool.submit(native_tokenizer.get_lib),
+                pool.submit(native_chem.get_lib)]
+        _build.build_all([*fused_attention.LIBRARIES, "fused_layernorm",
+                          "exact_topk"])
+        for future in host:
+            future.result()
     fused_attention.load_kernel()
     fused_attention.load_bwd_kernel()
     fused_attention.load_causal_kernel()
     fused_attention.load_causal_bwd_kernel()
     fused_layernorm.load_kernel()
     topk.load_kernel()
-    log(f"[build] six libraries (eight kernels) loaded in "
-        f"{time.perf_counter() - t0:.1f} s, built in parallel (nvcc seconds "
-        f"per source: {_build.BUILD_SECONDS or 'cached'})")
+    log(f"[build] six libraries (eight kernels) and the two C++ host "
+        f"libraries loaded in {time.perf_counter() - t0:.1f} s, built in "
+        f"parallel (nvcc seconds per source: "
+        f"{_build.BUILD_SECONDS or 'cached'})")
     for name, text in _build.BUILD_LOG.items():
         lines = text.splitlines()
         regs = [int(ln.split("Used ")[1].split(" registers")[0])
@@ -2283,6 +2310,445 @@ def phase_runtime(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
         f"{seconds:.1f} s")
 
 
+# --- the pretrained start (--encoder_pretrained / --decoder_pretrained) ---
+
+# allenai/scibert_scivocab_uncased's config.json; the decoder checkpoint is
+# a 6-layer BERT of the same width whose vocab (300) is smaller than the
+# condition vocab, so the decoder's word table keeps seeded rows past it
+SCIBERT_HF_CONFIG = {
+    "architectures": ["BertForMaskedLM"], "model_type": "bert",
+    "vocab_size": 31090, "hidden_size": 768, "num_hidden_layers": 12,
+    "num_attention_heads": 12, "intermediate_size": 3072,
+    "max_position_embeddings": 512, "type_vocab_size": 2,
+    "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+    "attention_probs_dropout_prob": 0.1, "layer_norm_eps": 1e-12,
+    "initializer_range": 0.02, "pad_token_id": 0}
+DECODER_HF_CONFIG = dict(SCIBERT_HF_CONFIG, num_hidden_layers=6,
+                         vocab_size=300)
+# text with non-ASCII bytes: the C++ tokenizer and chemistry leave it to
+# the Python route (tokenizer) or fail to parse it as the Python code does
+NON_ASCII = ["naïve café µ-wave heating, 100 °C for 2 h", "C°C", "Cé",
+             "c1ccccc1µ", "CCO ", "反应 was stirred", "CC(=O)Cl.OCé"]
+_SAFETENSORS_CODES = {torch.float64: "F64", torch.float32: "F32",
+                      torch.float16: "F16", torch.int64: "I64",
+                      torch.int32: "I32", torch.int8: "I8", torch.uint8: "U8",
+                      torch.bool: "BOOL"}
+# an HF BERT name (without `bert.`) -> the port's, under encoder/decoder;
+# stated here apart from models/import_hf.py, which it checks
+_HF_RULES = [
+    (r"encoder\.layer\.(\d+)\.attention\.self\.(query|key|value)\.",
+     r"layers.\1.attention.\2."),
+    (r"encoder\.layer\.(\d+)\.attention\.output\.dense\.",
+     r"layers.\1.attention.output."),
+    (r"encoder\.layer\.(\d+)\.attention\.output\.LayerNorm\.",
+     r"layers.\1.attention_norm."),
+    (r"encoder\.layer\.(\d+)\.intermediate\.dense\.",
+     r"layers.\1.ffn.intermediate."),
+    (r"encoder\.layer\.(\d+)\.output\.dense\.", r"layers.\1.ffn.output."),
+    (r"encoder\.layer\.(\d+)\.output\.LayerNorm\.", r"layers.\1.ffn_norm."),
+    (r"embeddings\.LayerNorm\.", "embeddings.layer_norm."),
+    (r"embeddings\.(word|position|token_type)_embeddings\.weight$",
+     r"embeddings.\1_embeddings.weight"),
+]
+_HF_HEAD_RULES = [
+    (r"cls\.predictions\.transform\.dense\.", "lm_head.transform."),
+    (r"cls\.predictions\.transform\.LayerNorm\.", "lm_head.transform_norm."),
+    (r"cls\.predictions\.bias$", "lm_head.bias"),
+]
+
+
+def hf_bert_tensors(config: dict, seed: int, prefix: str = "",
+                    mlm_head: bool = False, std: float = 0.02) -> dict:
+    """A BERT checkpoint's tensors in HF's names (with `prefix`), pooler
+    and, with `mlm_head`, the MaskedLM head's transform and bias included:
+    weights, tables and biases drawn from N(0, std), LayerNorm weights from
+    N(1, std), in f32 from `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    d, ffn = config["hidden_size"], config["intermediate_size"]
+    shapes = {
+        "embeddings.word_embeddings.weight": (config["vocab_size"], d),
+        "embeddings.position_embeddings.weight":
+            (config["max_position_embeddings"], d),
+        "embeddings.token_type_embeddings.weight":
+            (config["type_vocab_size"], d),
+        "embeddings.LayerNorm.weight": (d,), "embeddings.LayerNorm.bias": (d,)}
+    for i in range(config["num_hidden_layers"]):
+        hf = f"encoder.layer.{i}"
+        for name, shape in (("attention.self.query", (d, d)),
+                            ("attention.self.key", (d, d)),
+                            ("attention.self.value", (d, d)),
+                            ("attention.output.dense", (d, d)),
+                            ("intermediate.dense", (ffn, d)),
+                            ("output.dense", (d, ffn))):
+            shapes[f"{hf}.{name}.weight"] = shape
+            shapes[f"{hf}.{name}.bias"] = shape[:1]
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[f"{hf}.{name}.weight"] = (d,)
+            shapes[f"{hf}.{name}.bias"] = (d,)
+    shapes.update({"pooler.dense.weight": (d, d), "pooler.dense.bias": (d,)})
+    out = {prefix + k: torch.randn(shape, generator=g) * std
+           for k, shape in shapes.items()}
+    if mlm_head:
+        out.update({
+            "cls.predictions.transform.dense.weight":
+                torch.randn(d, d, generator=g) * std,
+            "cls.predictions.transform.dense.bias":
+                torch.randn(d, generator=g) * std,
+            "cls.predictions.transform.LayerNorm.weight":
+                torch.randn(d, generator=g) * std,
+            "cls.predictions.transform.LayerNorm.bias":
+                torch.randn(d, generator=g) * std,
+            "cls.predictions.bias":
+                torch.randn(config["vocab_size"], generator=g) * std})
+    for k, v in out.items():
+        if "LayerNorm.weight" in k:
+            v += 1.0
+    return out
+
+
+def write_safetensors(path: Path, tensors: dict,
+                      metadata: Optional[dict] = None) -> None:
+    """The safetensors layout: an 8-byte little-endian header length, the
+    JSON header (padded with spaces to 8 bytes), the tensors' bytes."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFETENSORS_CODES[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    if metadata is not None:
+        header["__metadata__"] = metadata
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().numpy().tobytes())
+
+
+def write_hf_checkpoint(root: Path, config: dict, tensors: dict,
+                        fmt: str) -> None:
+    """An HF model directory: config.json and `model.safetensors` (with the
+    metadata `save_pretrained` writes) or `pytorch_model.bin`."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(config, indent=2))
+    if fmt == "safetensors":
+        write_safetensors(root / "model.safetensors", tensors,
+                          {"format": "pt"})
+    else:
+        torch.save(tensors, root / "pytorch_model.bin")
+
+
+def hf_port_name(part: str, name: str) -> Optional[str]:
+    """The port parameter an HF BERT tensor lands in when imported into
+    `part` ('encoder' or 'decoder'), or None for a tensor that is not
+    imported (the pooler; the MLM head into the encoder)."""
+    name = name[len("bert."):] if name.startswith("bert.") else name
+    if part == "decoder" and name == "embeddings.word_embeddings.weight":
+        return "decoder.word_embedding"
+    rules = _HF_RULES + (_HF_HEAD_RULES if part == "decoder" else [])
+    for pattern, repl in rules:
+        new, n = re.subn("^" + pattern, repl, name)
+        if n:
+            return f"{part}.{new}"
+    return None
+
+
+def check_pretrained_import(params: dict, seeded: dict, files: dict,
+                            read: dict) -> tuple:
+    """Every imported parameter equal to the file's tensor to the bit, rows
+    past the file's table (and every parameter no file names, such as the
+    cross-attention) equal to the seeded initialisation `seeded`, and no
+    tensor of a file unread but the pooler's. `params` and `seeded` map the
+    port's names to CPU tensors; `files` maps 'encoder'/'decoder' to the
+    file's {name: tensor}, `read` to the names the import read. Returns
+    (imported, seeded) element counts."""
+    covered = {}
+    for part, tensors in files.items():
+        unread = sorted(k for k in set(tensors) - read[part]
+                        if "pooler." not in k)
+        if unread:
+            raise AssertionError(f"{part}: the import left {unread} unread")
+        for name, src in tensors.items():
+            port = hf_port_name(part, name)
+            if port is None:
+                continue
+            p = params[port]
+            n = min(p.shape[0], src.shape[0])
+            if not torch.equal(p[:n], src[:n].to(p.dtype)):
+                raise AssertionError(f"{port} differs from {part}'s {name}")
+            covered[port] = n
+    n_imported = n_seeded = 0
+    for name, p in params.items():
+        n = covered.get(name, 0)
+        if not torch.equal(p[n:], seeded[name][n:]):
+            raise AssertionError(f"{name}[{n}:] is not the seeded "
+                                 f"initialisation")
+        n_imported += p[:n].numel()
+        n_seeded += p[n:].numel()
+    return n_imported, n_seeded
+
+
+@contextlib.contextmanager
+def before_fit(check):
+    """Run `check(trainer)` when a Trainer's fit starts, before its first
+    step: the command line builds and trains its trainer out of reach."""
+    from textreact_tpu_torch.train.trainer import Trainer
+    fit = Trainer.fit
+
+    def checked_fit(self):
+        check(self)
+        return fit(self)
+
+    Trainer.fit = checked_fit
+    try:
+        yield
+    finally:
+        Trainer.fit = fit
+
+
+def pretrained_argv(data: Path, nn_dir: Path, vocab: Path, enc_dir: Path,
+                    dec_dir: Path, save: Path) -> list:
+    """scripts/train_RCR.sh's flags on the runtime phase's data, with both
+    halves pretrained: one epoch of 4 x 32 at L=512, then validation."""
+    return [
+        "--task", "condition", "--do_train",
+        "--data_path", str(data), "--train_file", "train.csv",
+        "--valid_file", "val.csv", "--test_file", "test.csv",
+        "--corpus_file", str(data / "corpus.csv"),
+        "--nn_path", str(nn_dir), "--train_nn_file", "train.json",
+        "--valid_nn_file", "val.json", "--test_nn_file", "test.json",
+        "--encoder", str(enc_dir), "--encoder_pretrained",
+        "--decoder", str(dec_dir), "--decoder_pretrained",
+        "--encoder_tokenizer", "text", "--text_vocab_file", str(vocab),
+        "--num_neighbors", "3", "--use_gold_neighbor", "--shuffle_smiles",
+        "--max_length", str(L), "--max_dec_length", str(DEC_LEN),
+        "--batch_size", str(B), "--gradient_accumulation_steps",
+        str(MICRO_BATCHES), "--test_batch_size", str(B), "--epochs", "1",
+        "--lr", "1e-4", "--warmup", "0.02", "--max_grad_norm", "5",
+        "--mlm", "--mlm_ratio", "0.15", "--mlm_layer", "mlp",
+        "--mlm_lambda", "0.1", "--compute_dtype", "bfloat16",
+        "--save_path", str(save), "--log_every", "1", "--debug"]
+
+
+def check_native_tokenization(cfg: ExperimentConfig) -> dict:
+    """Every example of the run's three splits built through the C++
+    tokenizer equals the one built through the Python route; the encoder
+    inputs' tokenization timed per micro-batch of the training split, both
+    routes (the Python route's word cache cold, then warm, as the loader's
+    is after its first pass), and the share of inputs with non-ASCII bytes,
+    which take the Python route."""
+    from textreact_tpu_torch.data import DATASET_CLS
+    from textreact_tpu_torch.tokenizers import (JointSmilesTextTokenizer,
+                                                WordPieceTokenizer)
+    native_tok, dec_tok = get_tokenizers(cfg)
+    corpus = read_corpus(cfg.corpus_file)
+
+    def dataset(enc_tok, file, nn_file, split):
+        ds = DATASET_CLS[cfg.task](cfg, str(Path(cfg.data_path) / file),
+                                   enc_tok, dec_tok, split=split)
+        ds.load_corpus(corpus, str(Path(cfg.nn_path) / nn_file))
+        return ds
+
+    def python_tok():
+        return JointSmilesTextTokenizer(
+            WordPieceTokenizer(cfg.text_vocab_file, native=False))
+
+    n_examples = 0
+    for file, nn_file, split in ((cfg.train_file, cfg.train_nn_file, "train"),
+                                 (cfg.valid_file, cfg.valid_nn_file, "val"),
+                                 (cfg.test_file, cfg.test_nn_file, "test")):
+        a = dataset(native_tok, file, nn_file, split)
+        b = dataset(python_tok(), file, nn_file, split)
+        for i in range(len(a)):
+            ea, eb = (ds.example(i, example_rng(cfg.seed, 0, i))
+                      for ds in (a, b))
+            if ea.keys() != eb.keys() or any(
+                    np.asarray(ea[k]).tolist() != np.asarray(eb[k]).tolist()
+                    for k in ea):
+                raise AssertionError(f"{split} example {i}: the C++ "
+                                     f"tokenizer's differs from Python's")
+        n_examples += len(a)
+    for text in NON_ASCII:
+        ids = native_tok.text_tokenizer._native.encode(text)
+        if text.isascii() or ids is not None:
+            raise AssertionError(f"{text!r} took the C++ route")
+        if native_tok("CCO", text)["input_ids"] != \
+                python_tok()("CCO", text)["input_ids"]:
+            raise AssertionError(f"{text!r}: the routes' ids differ")
+
+    # the encoder inputs of the training split, as the loader makes them
+    train = dataset(native_tok, cfg.train_file, cfg.train_nn_file, "train")
+    inputs = []
+    for i in range(len(train)):
+        rng = example_rng(cfg.seed, 0, i)
+        row = train.data_df.row(i)
+        inputs.append((row["canonical_rxn"], train.neighbor_text(i, rng)))
+    batches = [inputs[i:i + B] for i in range(0, len(inputs), B)]
+
+    def per_batch_ms(tok) -> float:
+        t0 = time.perf_counter()
+        for batch in batches:
+            for rxn, text in batch:
+                tok(rxn, text_pair=text)
+        return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+    python = python_tok()
+    share = sum(not (r.isascii() and (t or "").isascii())
+                for r, t in inputs) / len(inputs)
+    return dict(examples_checked=n_examples,
+                native_ms=per_batch_ms(native_tok),
+                python_cold_ms=per_batch_ms(python),
+                python_warm_ms=per_batch_ms(python),
+                python_route_share=share,
+                words_per_input=statistics.mean(
+                    len((t or "").split()) + 1 for _, t in inputs))
+
+
+def check_native_chem(data: Path) -> dict:
+    """The C++ chemistry against the Python route on the run's reactions
+    and their molecules (and NON_ASCII): reaction-difference and Morgan
+    fingerprints equal to the bit, canonical SMILES equal; each route's
+    fingerprinting rate over the reactions."""
+    from textreact_tpu_torch.chem import (canonical_smiles,
+                                          fingerprint_matrix)
+    from textreact_tpu_torch.chem.native import native_canonical_batch
+    rxns = [r for name in RUNTIME_SIZES
+            for r in read_csv(str(data / f"{name}.csv"))["canonical_rxn"]]
+    mols = sorted({m for r in rxns for side in r.split(">>")
+                   for m in side.split(".")}) + NON_ASCII
+    seconds = {}
+    fps = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        fps[native] = fingerprint_matrix(rxns, "reaction", native=native)
+        seconds[native] = time.perf_counter() - t0
+    if not np.array_equal(fps[True], fps[False]):
+        raise AssertionError("reaction fingerprints: C++ and Python differ")
+    if not np.array_equal(fingerprint_matrix(mols, native=True),
+                          fingerprint_matrix(mols, native=False)):
+        raise AssertionError("Morgan fingerprints: C++ and Python differ")
+    if native_canonical_batch(mols) != [canonical_smiles(m) for m in mols]:
+        raise AssertionError("canonical SMILES: C++ and Python differ")
+    return dict(reactions=len(rxns), molecules=len(mols),
+                native_fps_per_s=len(rxns) / seconds[True],
+                python_fps_per_s=len(rxns) / seconds[False])
+
+
+def phase_pretrained(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
+                     results: dict) -> None:
+    """python -m textreact_tpu_torch from two local HF checkpoints, in-process
+    on the card: a SciBERT-base encoder (model.safetensors, no prefix) and
+    a 6-layer BERT decoder (pytorch_model.bin with `bert.` and the MaskedLM
+    head), each written here from a seed; the import checked to the bit
+    before the first step, one epoch and a validation pass; then the C++
+    tokenizer and chemistry against their Python routes on the run's
+    inputs, both timed."""
+    data, nn_dir = tmp / "retrieval_data", tmp / "retrieval_out"
+    enc_dir, dec_dir, save = (tmp / "scibert_hf", tmp / "bert_l6_hf",
+                              tmp / "run_pretrained")
+    t0 = time.perf_counter()
+    files = {"encoder": hf_bert_tensors(SCIBERT_HF_CONFIG, seed=1),
+             "decoder": hf_bert_tensors(DECODER_HF_CONFIG, seed=2,
+                                        prefix="bert.", mlm_head=True)}
+    write_hf_checkpoint(enc_dir, SCIBERT_HF_CONFIG, files["encoder"],
+                        "safetensors")
+    write_hf_checkpoint(dec_dir, DECODER_HF_CONFIG, files["decoder"], "bin")
+    size_gb = sum(p.stat().st_size for d in (enc_dir, dec_dir)
+                  for p in d.iterdir()) / 1e9
+    log(f"[pretrained] two HF checkpoints of {size_gb:.2f} GB written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    checked = {}
+
+    def check(trainer) -> None:
+        seeded, _, _ = build_model(trainer.cfg, trainer.enc_tokenizer,
+                                   trainer.dec_tokenizer, device="cpu")
+        params = {k: v.detach().cpu()
+                  for k, v in trainer.module.named_parameters()}
+        imported, kept = check_pretrained_import(
+            params, dict(seeded.named_parameters()), files,
+            trainer.pretrained_keys)
+        checked.update(imported=imported, seeded=kept,
+                       import_ms=trainer.import_seconds * 1e3)
+
+    argv = pretrained_argv(data, nn_dir, vocab, enc_dir, dec_dir, save)
+    reset_counts()
+    t0 = time.perf_counter()
+    with before_fit(check):
+        runtime_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    if not checked:
+        raise AssertionError("the trainer's fit never started")
+    enc_layers = SCIBERT_HF_CONFIG["num_hidden_layers"]
+    dec_layers = DECODER_HF_CONFIG["num_hidden_layers"]
+    mbs = -(-RUNTIME_SIZES["train"] // B)
+    evals = 2 * -(-RUNTIME_SIZES["val"] // B)   # two corpora
+    ln = 2 * enc_layers + 3 * dec_layers
+    want = {"fused_attention_fwd": enc_layers * (mbs + evals),
+            "fused_attention_bwd": enc_layers * mbs,
+            "fused_layernorm_fwd": ln * (mbs + evals),
+            "fused_layernorm_bwd": ln * mbs,
+            "causal_attention_fwd": 0, "causal_attention_bwd": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
+    for name in ("fused_attention_fwd", "fused_attention_bwd",
+                 "fused_layernorm_fwd", "fused_layernorm_bwd"):
+        results[name]["launches_pretrained"] = counts[name]
+    records = read_metrics(save)
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    val = [r for r in records if "val_acc" in r]
+    timing = [r for r in records if "epoch_seconds" in r]
+    if len(losses) != -(-mbs // MICRO_BATCHES) or not all(
+            np.isfinite(v) for v in losses) or len(val) != 1:
+        raise AssertionError(f"records: {records}")
+    step_ms = timing[0]["epoch_seconds"] / timing[0]["epoch_steps"] * 1e3
+    log(f"[pretrained] the import checked before the first step: "
+        f"{checked['imported'] / 1e6:.1f} M elements equal to the files' to "
+        f"the bit, {checked['seeded'] / 1e6:.1f} M (cross-attention, MLM "
+        f"head, the decoder's word rows past 300) equal to the seeded "
+        f"initialisation, nothing unread but the poolers; import "
+        f"{checked['import_ms']:.0f} ms")
+    log(f"[pretrained] the command line with --encoder_pretrained "
+        f"--decoder_pretrained in {seconds:.1f} s: train_loss "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; val_acc "
+        f"{val[0]['val_acc']:.3f}; {step_ms:.1f} ms per optimizer step "
+        f"(epoch 1, its first step and the loader's waits included) beside "
+        f"{bare_step_ms:.1f} ms for the bare step; launches {got}")
+
+    cfg = runtime_cli.parse_config(argv)
+    tok = check_native_tokenization(cfg)
+    log(f"[pretrained] {tok['examples_checked']} examples built through the "
+        f"C++ tokenizer equal the Python route's, and {len(NON_ASCII)} "
+        f"non-ASCII texts take the Python route with the same ids; encoder "
+        f"inputs of ~{tok['words_per_input']:.0f} words, tokenized per "
+        f"micro-batch of {B}: C++ {tok['native_ms']:.1f} ms, Python "
+        f"{tok['python_cold_ms']:.1f} ms (word cache cold) / "
+        f"{tok['python_warm_ms']:.1f} ms (warm); "
+        f"{tok['python_route_share']:.1%} of the inputs take the Python "
+        f"route")
+    chem = check_native_chem(data)
+    log(f"[pretrained] {chem['reactions']} reactions and "
+        f"{chem['molecules']} molecules: C++ fingerprints and canonical "
+        f"SMILES equal the Python route's; reaction fingerprints "
+        f"{chem['native_fps_per_s']:.0f}/s C++, "
+        f"{chem['python_fps_per_s']:.0f}/s Python; on {card}")
+    results["pretrained"] = dict(
+        import_ms=checked["import_ms"], checkpoint_gb=size_gb,
+        step_ms=step_ms, bare_step_ms=bare_step_ms,
+        tokenize_native_ms=tok["native_ms"],
+        tokenize_python_cold_ms=tok["python_cold_ms"],
+        tokenize_python_warm_ms=tok["python_warm_ms"],
+        python_route_share=tok["python_route_share"],
+        fingerprints_native_per_s=chem["native_fps_per_s"],
+        fingerprints_python_per_s=chem["python_fps_per_s"])
+
+
 def write_template_fixture(root: Path, seed: int = 0) -> None:
     """The template tables (TEMPLATE_CLASSES; bond class 1 the ester
     hydrolysis, with its template_infos.csv row), a split each of
@@ -2885,7 +3351,7 @@ def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
                 cli_test_seconds=tests_s)
 
 
-# --- 12. the multi-device slice --------------------------------------------
+# --- 13. the multi-device slice --------------------------------------------
 
 # leg B's loss at p = 0 against leg A's, both bf16 at full width: tp adds
 # the two ranks' bf16 partial products of every row-split layer in f32, one
@@ -3298,12 +3764,17 @@ def main() -> int:
         phase_runtime(card, Path(tmp), vocab, bare_step_ms, results)
         torch.cuda.empty_cache()
         log(f"[time] runtime done at {time.perf_counter() - t_start:.0f} s")
+        phase_pretrained(card, Path(tmp), vocab, bare_step_ms, results)
+        torch.cuda.empty_cache()
+        log(f"[time] pretrained done at "
+            f"{time.perf_counter() - t_start:.0f} s")
         phase_template(card, Path(tmp), vocab, results)
         torch.cuda.empty_cache()
         log(f"[time] template done at {time.perf_counter() - t_start:.0f} s")
         parallel = phase_parallel(card, Path(tmp), vocab, bare_step_ms,
                                   results)
     runtime = results.pop("runtime")
+    pretrained = results.pop("pretrained")
     template = results.pop("template")
     for name in KERNELS:
         if not results[name].get("launches", 0) > 0:
@@ -3312,6 +3783,7 @@ def main() -> int:
                for name, meta in KERNELS.items()]
     log(f"[time] all phases done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"runtime": runtime}))
+    print(json.dumps({"pretrained": pretrained}))
     print(json.dumps({"template": template}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))

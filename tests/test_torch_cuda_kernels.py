@@ -897,3 +897,40 @@ def test_template_model_with_kernels_matches_plain(dev, bond_mask):
     for name, g in grads_p.items():
         diff = float((grads_k[name] - g).abs().max())
         assert diff <= 1e-3 * max(float(g.abs().max()), 1e-4 * top), name
+
+
+def test_pretrained_import_onto_the_card_is_bit_exact(dev, tmp_path):
+    """A SciBERT-shaped HF directory (model.safetensors, f32) and a 6-layer
+    BERT decoder with the MaskedLM head (pytorch_model.bin, `bert.`) copied
+    onto the card's parameters: each imported element equal to the file's
+    to the bit, the rest equal to the seeded initialisation, nothing unread
+    but the poolers."""
+    from chip_smoke import (DECODER_HF_CONFIG, SCIBERT_HF_CONFIG,
+                            check_pretrained_import, hf_bert_tensors,
+                            write_hf_checkpoint)
+    from textreact_tpu_torch.models.config import resolve_config
+    from textreact_tpu_torch.models.import_hf import (load_pretrained_decoder,
+                                                      load_pretrained_encoder)
+    files = {"encoder": hf_bert_tensors(SCIBERT_HF_CONFIG, seed=1),
+             "decoder": hf_bert_tensors(DECODER_HF_CONFIG, seed=2,
+                                        prefix="bert.", mlm_head=True)}
+    write_hf_checkpoint(tmp_path / "enc", SCIBERT_HF_CONFIG, files["encoder"],
+                        "safetensors")
+    write_hf_checkpoint(tmp_path / "dec", DECODER_HF_CONFIG, files["decoder"],
+                        "bin")
+    enc_cfg = resolve_config(str(tmp_path / "enc"))
+    dec_cfg = resolve_config(str(tmp_path / "dec")).replace(
+        vocab_size=314, is_decoder=True, add_cross_attention=True)
+    seeded = EncoderDecoder(enc_cfg, dec_cfg, torch.bfloat16)
+    init_weights(seeded, torch.Generator().manual_seed(0))
+    module = EncoderDecoder(enc_cfg, dec_cfg, torch.bfloat16)
+    module.load_state_dict(seeded.state_dict())
+    module.to(dev)
+    read = {"encoder": load_pretrained_encoder(module.encoder,
+                                               str(tmp_path / "enc"), enc_cfg),
+            "decoder": load_pretrained_decoder(module.decoder,
+                                               str(tmp_path / "dec"), dec_cfg)}
+    params = {k: v.detach().cpu() for k, v in module.named_parameters()}
+    imported, kept = check_pretrained_import(
+        params, dict(seeded.named_parameters()), files, read)
+    assert imported > 100e6 and kept > 0

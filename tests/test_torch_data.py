@@ -219,7 +219,6 @@ def test_chem_kit_has_the_same_public_names():
         assert _public(a) == _public(b), name
     import textreact_tpu.chem.fingerprints as jfp
     import textreact_tpu_torch.chem.fingerprints as pfp
-    # the port has no C++ fast path: nothing else may differ
     assert _public(jfp) - _public(pfp) == set()
     assert _public(pfp) - _public(jfp) == set()
 
@@ -265,8 +264,9 @@ def test_chem_kit_gives_the_same_outputs(source):
 @pytest.mark.parametrize("kind,n_bits", [("morgan", None), ("morgan", 512),
                                          ("reaction", None)])
 def test_fingerprint_matrix_matches_in_process_and_in_workers(kind, n_bits):
-    """The port always takes the Python workers; the JAX package may take
-    its C++ fast path, which it holds identical to them."""
+    """Both packages take their C++ route (chem/native.py), the Python
+    workers only when it is unavailable (JAX) or not asked for (the port's
+    `native=False`); the routes are held identical to each other."""
     import textreact_tpu.chem as jax_chem
     import textreact_tpu_torch.chem as port_chem
     smiles = SMILES if kind == "reaction" else CHEM_SMILES
@@ -276,6 +276,20 @@ def test_fingerprint_matrix_matches_in_process_and_in_workers(kind, n_bits):
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(
         port_chem.fingerprint_matrix(smiles, kind, n_bits, num_workers=2), ref)
+    np.testing.assert_array_equal(
+        port_chem.fingerprint_matrix(smiles, kind, n_bits, native=False), ref)
+
+
+@pytest.mark.parametrize("path", ["tokenizers/_ctok.cpp", "chem/_cchem.cpp"])
+def test_host_accelerator_sources_are_the_same_files(path):
+    """The port builds its own copies of the JAX package's C++ accelerators:
+    byte for byte, so the two cannot drift."""
+    import textreact_tpu
+    import textreact_tpu_torch
+    a = os.path.join(os.path.dirname(textreact_tpu.__file__), path)
+    b = os.path.join(os.path.dirname(textreact_tpu_torch.__file__), path)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
 
 
 def test_retrieval_helpers_and_logging_have_the_same_public_names():

@@ -386,8 +386,8 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
 def test_port_imports_no_jax_or_pandas():
     """The port's modules, chip_smoke, chip_profile and the multi-process
     tests' rank bodies (tests/_torch_parallel_worker.py) load where JAX,
-    pandas and the JAX package are absent: nothing of them is in
-    sys.modules afterwards."""
+    pandas, safetensors, transformers and the JAX package are absent:
+    nothing of them is in sys.modules afterwards."""
     import pkgutil
     import subprocess
     import sys
@@ -409,7 +409,8 @@ def test_port_imports_no_jax_or_pandas():
                  "evaluation.edit_rank", "evaluation.template_decode",
                  "evaluation._own_template_apply", "__main__", "parallel",
                  "parallel.mesh", "parallel.multihost", "parallel.sharding",
-                 "entry"):
+                 "entry", "models.import_hf", "tokenizers.native",
+                 "chem.native"):
         assert "textreact_tpu_torch." + name in names
     # the template decode has one engine, the own one: no RDKit twin
     assert "textreact_tpu_torch.evaluation._rdkit_template_apply" not in names
@@ -421,7 +422,8 @@ def test_port_imports_no_jax_or_pandas():
             "bad = [m for m in sys.modules if m == 'textreact_tpu' "
             "or m.startswith('textreact_tpu.') "
             "or m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', "
-            "'orbax', 'pandas')]\n"
+            "'orbax', 'pandas', 'safetensors', 'transformers', "
+            "'ml_dtypes')]\n"
             "assert not bad, bad\n")
     root = str(__import__("pathlib").Path(__file__).resolve().parent.parent)
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

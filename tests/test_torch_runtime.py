@@ -458,12 +458,18 @@ def test_mesh_options_raise_until_their_slice(workdir, flags, match):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--decoder_pretrained"], "item 9"),
-    (["--encoder_pretrained", "--encoder", "DIR"], "item 9")])
+    (["--decoder_pretrained"], "local HF checkpoint directory"),
+    (["--encoder_pretrained", "--encoder", "DIR"], "config.json")])
 def test_unported_options_raise_naming_their_item(workdir, flags, match):
+    """The pretrained options are ported (tests/test_torch_import_hf.py):
+    --decoder_pretrained refuses a --decoder that is not a directory, and
+    an --encoder directory without an HF checkpoint fails on its
+    config.json, as the JAX package does."""
     flags = [workdir if f == "DIR" else f for f in flags]
     cfg = parse_config(_argv(workdir, "out_unported", *flags))
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if "--decoder_pretrained" in flags else \
+        FileNotFoundError
+    with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
 
 

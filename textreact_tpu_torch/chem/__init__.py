@@ -1,9 +1,10 @@
 """Host-side chemistry kit (own SMILES stack; optional RDKit fast path).
 
-Own copies of textreact_tpu/chem, pure Python: mol, canon, aromatic,
-rdkit_bridge and fingerprints, and the template engine (smarts.py,
-reaction.py) that decodes template-based retro predictions. The C++
-accelerator (native.py) is not part of this package yet."""
+Own copies of textreact_tpu/chem: mol, canon, aromatic, rdkit_bridge and
+fingerprints, the template engine (smarts.py, reaction.py) that decodes
+template-based retro predictions, and the C++ accelerator (native.py +
+_cchem.cpp) through which fingerprint_matrix and the retro metric's
+canonicalization go."""
 
 from .canon import (canonical_ranks, canonical_rxn_smiles, canonical_smiles,
                     canonical_smiles_strict, random_smiles, write_smiles)

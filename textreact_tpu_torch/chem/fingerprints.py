@@ -4,9 +4,9 @@ Fills the role of RDKit's GetMorganFingerprintAsBitVect and
 CreateDifferenceFingerprintForReaction in the reference retriever
 (reference retrieve/retrieve_faiss.py:18-50). The hashing is a deterministic
 32-bit mix (no salted python hash), so fingerprints are stable across
-processes. Own copy of textreact_tpu/chem/fingerprints.py without its
-optional C++ fast path: `fingerprint_matrix` always takes the Python
-workers.
+processes, and the same in this Python implementation and the C++ route
+(chem/native.py) that `fingerprint_matrix` takes unless called with
+`native=False`. Own copy of textreact_tpu/chem/fingerprints.py.
 
 Divergence note: RDKit's reaction difference fingerprint defaults to the
 AtomPair family; here the difference fingerprint is built from Morgan count
@@ -143,18 +143,25 @@ def reaction_difference_fingerprint(rxn_smiles: str, radius: int = 2,
 
 
 def fingerprint_matrix(smiles_list, kind: str = "morgan", n_bits: Optional[int] = None,
-                       num_workers: int = 0) -> np.ndarray:
+                       num_workers: int = 0, native: bool = True) -> np.ndarray:
     """Fingerprint a list of SMILES into a (N, d) matrix.
 
     kind='morgan' (binary uint8, d=1024) for molecules (retro retrieval);
     kind='reaction' (int32 counts, d=2048) for reaction SMILES (RCR
     retrieval). `num_workers>0` uses a process pool like the reference
-    (retrieve_faiss.py:30-33).
+    (retrieve_faiss.py:30-33). `native` takes the C++ route: one call for
+    a Morgan matrix, a call per reaction (in the workers when pooled).
     """
     if kind == "morgan":
-        fn = _MorganWorker(n_bits or 1024)
+        n_bits = n_bits or 1024
+        if native:
+            from .native import native_morgan_batch
+            return native_morgan_batch(list(smiles_list), n_bits=n_bits
+                                       ).astype(np.uint8)
+        fn = _MorganWorker(n_bits)
     elif kind == "reaction":
-        fn = _ReactionWorker(n_bits or 2048)
+        n_bits = n_bits or 2048
+        fn = (_NativeReactionWorker if native else _ReactionWorker)(n_bits)
     else:
         raise ValueError(kind)
     if num_workers and num_workers > 1:
@@ -184,3 +191,14 @@ class _ReactionWorker:
         except Exception:
             return np.zeros((self.n_bits,), dtype=np.int32)
 
+
+class _NativeReactionWorker:
+    def __init__(self, n_bits: int):
+        self.n_bits = n_bits
+
+    def __call__(self, smiles: str) -> np.ndarray:
+        from .native import native_reaction_fingerprint
+        try:
+            return native_reaction_fingerprint(smiles, n_bits=self.n_bits)
+        except ValueError:
+            return np.zeros((self.n_bits,), dtype=np.int32)

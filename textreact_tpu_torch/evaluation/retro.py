@@ -7,11 +7,9 @@ canonicalize gold reactants, canonicalize each beam prediction, rank of the
 first exact string match; top-k accuracy for k in {1,2,3,5,10,20}.
 
 Canonicalization goes through RDKit when it is importable (rdkit_bridge),
-else through the port's own pure-Python canonicalizer (chem/canon.py). The
-JAX package has a third route between the two, its C++ accelerator
-(chem/native.py); the port has no copy of it yet (ROADMAP.md Queue 1 item
-9), so without RDKit the pure-Python canonicalizer is the only route. It
-gives the same strings as the accelerator, more slowly.
+else through the C++ accelerator (chem/native.py; a beam's list in one
+call), or through the pure-Python canonicalizer (chem/canon.py) when the
+caller passes `native=False`. The last two give the same strings.
 """
 
 from __future__ import annotations
@@ -27,16 +25,25 @@ TOP_KS = (1, 2, 3, 5, 10, 20)
 NO_MATCH = 100000
 
 
-def _canon(smiles: str) -> str:
+def _canon(smiles: str, native: bool = True) -> str:
     if HAS_RDKIT:
         return rdkit_canonical_smiles(smiles)
+    if native:
+        from ..chem.native import native_canonical_smiles
+        return native_canonical_smiles(smiles)
     return canonical_smiles(smiles)
 
 
-def compare_pred_and_gold(pred: Sequence[str], gold: str) -> int:
+def compare_pred_and_gold(pred: Sequence[str], gold: str,
+                          native: bool = True) -> int:
     """Rank (0-based) of the first prediction whose canonical form equals
     the canonical gold; NO_MATCH if none (reference evaluate.py:35-40)."""
-    for i, smiles in enumerate(_canon(s) for s in pred):
+    if native and not HAS_RDKIT:
+        from ..chem.native import native_canonical_batch
+        canon = native_canonical_batch(list(pred))
+    else:
+        canon = (_canon(s, native) for s in pred)
+    for i, smiles in enumerate(canon):
         if smiles == gold:
             return i
     return NO_MATCH

@@ -11,11 +11,17 @@ exception.
 
 No PyTorch header is compiled in, so a kernel builds in seconds rather
 than minutes (`torch.utils.cpp_extension.load` is the slow alternative).
+
+`build_host` compiles the C++ host accelerators (the WordPiece tokenizer,
+the chemistry kernel) with g++ into the same directory, under a file lock,
+so that processes that reach it at once build it once. A failed build
+raises with the compiler's output: nothing falls back to Python on its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -155,6 +161,32 @@ def draw_seed(generator: Optional[torch.Generator],
 
 def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+HOST_FLAGS = ["-O2", "-std=c++20", "-shared", "-fPIC"]
+
+
+def build_host(src: Path, name: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Path of `lib<name>.so` compiled from the C++ source `src` with g++,
+    rebuilt when missing or older than `src`. Builds under an exclusive
+    lock on `lib<name>.lock` to a temporary name, then renames, so a
+    process that loaded an older copy keeps it and none reads a partial
+    file. Raises RuntimeError with g++'s output when the build fails."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    out = build_dir / f"lib{name}.so"
+    with open(build_dir / f"lib{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (out.exists() and src.exists()
+                and out.stat().st_mtime >= src.stat().st_mtime):
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(["g++", *HOST_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed for {src}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
 
 
 # dtype codes shared with the C entry points

@@ -1,6 +1,7 @@
 """Tokenizers for SMILES, condition vocab, paragraph text, and joint inputs
-(own copies of textreact_tpu/tokenizers, pure Python: the C accelerator is
-not ported, token ids are the same)."""
+(own copies of textreact_tpu/tokenizers, token ids the same). The WordPiece
+and SMILES tokenizers encode ASCII text through the C++ accelerator
+(native.py + _ctok.cpp) unless built with `native=False`."""
 
 from .base import BaseTokenizer, Encoding
 from .condition import ConditionTokenizer

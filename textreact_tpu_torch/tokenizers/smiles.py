@@ -49,8 +49,13 @@ class SmilesTokenizer(BaseTokenizer):
     cls_token = "[CLS]"
     sep_token = "[SEP]"
 
-    def __init__(self, vocab_file: Optional[str] = None):
+    def __init__(self, vocab_file: Optional[str] = None, native: bool = True):
         self.vocab = Vocab.from_file(vocab_file or SMILES_VOCAB, self.unk_token)
+        self._native = None
+        if native:
+            from .native import NativeWordPiece
+            self._native = NativeWordPiece(self.vocab.token_to_id,
+                                           self.vocab.unk_id)
 
     def __len__(self) -> int:
         return len(self.vocab)
@@ -85,6 +90,11 @@ class SmilesTokenizer(BaseTokenizer):
         return {"input_ids": ids, "attention_mask": [1] * len(ids)}
 
     def _body(self, smiles: str) -> List[int]:
+        if self._native is not None:
+            # C++ scanner (tokenizers/_ctok.cpp), the same ids on ASCII text
+            ids = self._native.encode_smiles(smiles)
+            if ids is not None:
+                return ids
         return self.convert_tokens_to_ids(self.tokenize(smiles))
 
     def decode(self, ids: List[int], skip_special_tokens: bool = True) -> str:

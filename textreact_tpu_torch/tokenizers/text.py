@@ -134,11 +134,16 @@ class WordPieceTokenizer(BaseTokenizer):
     sep_token = "[SEP]"
 
     def __init__(self, vocab_file: str, lower_case: bool = True,
-                 max_chars_per_word: int = 100):
+                 max_chars_per_word: int = 100, native: bool = True):
         self.vocab = Vocab.from_file(vocab_file, self.unk_token)
         self.basic = BasicTextTokenizer(lower_case=lower_case)
         self.max_chars_per_word = max_chars_per_word
         self._piece_cache: dict = {}  # basic token -> wordpiece list
+        self._native = None
+        if native:
+            from .native import NativeWordPiece
+            self._native = NativeWordPiece(self.vocab.token_to_id,
+                                           self.vocab.unk_id)
 
     def __len__(self) -> int:
         return len(self.vocab)
@@ -186,7 +191,14 @@ class WordPieceTokenizer(BaseTokenizer):
         return tokens
 
     def __call__(self, text: str) -> Encoding:
-        body = self.convert_tokens_to_ids(self.tokenize(text))
+        body = None
+        if self._native is not None:
+            # C++ twin (tokenizers/_ctok.cpp), the same ids on ASCII text;
+            # None for non-ASCII text, which takes the Python route
+            body = self._native.encode(text, self.max_chars_per_word,
+                                       self.basic.lower_case)
+        if body is None:
+            body = self.convert_tokens_to_ids(self.tokenize(text))
         ids = [self.cls_token_id] + body + [self.sep_token_id]
         return {"input_ids": ids, "attention_mask": [1] * len(ids)}
 

@@ -18,9 +18,11 @@ dp > 1 the collator pads every batch to one shape (`static_shapes`), so
 that the ranks' accumulation windows stay in step. The trainer runs on the
 CUDA card unless the caller passes `device=`; without a card it raises.
 
-Parameters come from `build_model`, drawn from `cfg.seed`. Loading
-pretrained weights (`models/import_hf.py`) waits for item 9 and raises
-here.
+Parameters come from `build_model`, drawn from `cfg.seed`. With
+`--encoder_pretrained` and an `--encoder` that is a local HF checkpoint
+directory, and with `--decoder_pretrained` (whose `--decoder` must be one),
+`models/import_hf.py` then copies the checkpoint's weights in, before
+`shard_params` cuts them and before any checkpoint is restored.
 
 Template-based retrosynthesis (--template_based) trains the encoder and the
 atom/bond template heads, validates with the greedy template top-1, and
@@ -49,6 +51,7 @@ from ..evaluation import (edits_from_topk, evaluate_reaction_condition,
 from ..inference.predictor import Generator, predictions_from_beams
 from ..models import build_model
 from ..models.factory import resolve_device
+from ..models.import_hf import load_pretrained_decoder, load_pretrained_encoder
 from ..parallel.mesh import make_mesh
 from ..parallel.multihost import (gather_prediction_dict, gather_score_dict,
                                   initialize_distributed, is_primary,
@@ -88,17 +91,22 @@ class Trainer:
         _random.seed(cfg.seed)
         np.random.seed(cfg.seed)
 
-        if cfg.decoder_pretrained or (
-                cfg.encoder_pretrained and cfg.encoder
-                and os.path.isdir(cfg.encoder)):
-            raise NotImplementedError(
-                "loading a pretrained encoder or decoder checkpoint "
-                "(models/import_hf.py) is not ported yet: ROADMAP.md Queue 1 "
-                "item 9")
+        if cfg.decoder_pretrained:
+            # reference model.py:22-24: decoder half loaded from a BERT
+            # checkpoint (cross-attention freshly initialized)
+            if cfg.template_based:
+                raise ValueError("--decoder_pretrained requires a seq2seq "
+                                 "decoder (not --template_based)")
+            if not (cfg.decoder and os.path.isdir(cfg.decoder)):
+                raise ValueError(
+                    "--decoder_pretrained needs --decoder to point at a local "
+                    f"HF checkpoint directory, got {cfg.decoder!r}")
         self.enc_tokenizer, self.dec_tokenizer = get_tokenizers(cfg)
-        # parameters are initialised here, from cfg.seed
+        # parameters are initialised here, from cfg.seed, then the
+        # pretrained ones imported whole, then cut for the mesh
         self.module, self.enc_config, self.dec_config = build_model(
             cfg, self.enc_tokenizer, self.dec_tokenizer, device=self.device)
+        self.pretrained_keys = self._import_pretrained()
         shard_params(self.mesh, self.module)
         self.ckpt = CheckpointManager(cfg.save_path, cfg.val_metric,
                                       mesh=self.mesh)
@@ -116,6 +124,25 @@ class Trainer:
         self.val_dataset = None
         self.test_dataset = None
         self._state: Optional[TrainState] = None
+
+    def _import_pretrained(self) -> Dict[str, set]:
+        """Copy the HF checkpoints' weights into the module; returns, by
+        part, the names of the file's tensors that were read."""
+        cfg = self.cfg
+        read: Dict[str, set] = {}
+        t0 = time.perf_counter()
+        if cfg.encoder_pretrained and cfg.encoder and os.path.isdir(cfg.encoder):
+            read["encoder"] = load_pretrained_encoder(
+                self.module.encoder, cfg.encoder, self.enc_config)
+        if cfg.decoder_pretrained:
+            read["decoder"] = load_pretrained_decoder(
+                self.module.decoder, cfg.decoder, self.dec_config)
+        self.import_seconds = time.perf_counter() - t0
+        if read:
+            log.info("imported %s from HF checkpoints in %.2f s",
+                     {k: len(v) for k, v in read.items()},
+                     self.import_seconds)
+        return read
 
     # ------------------------------------------------------------------
     # data (reference main.py:279-346)
