@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's RCR serving, training, retrieval, causal-decoder
-and command-line paths, and its template-based retrosynthesis path, once on
-one CUDA GPU.
+and command-line paths, its template-based retrosynthesis path and its
+offline curation, once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -105,7 +105,27 @@ Phases, each fatal on failure:
    against plain functions in f32 with and without the bond mask; then
    `python -m textreact_tpu_torch --task retro --template_based
    --unattend_nonbonds` in-process (train, validate, test with the decode);
-13. the multi-device slice (textreact_tpu_torch/parallel), each leg printing
+13. the offline curation, raw rows to training: 1,000 raw condition rows
+   (the schema parse_cml_reactions emits, with canonical_rxn) over 256
+   reactions, skewed condition combos with empty slots and ionic reagents,
+   and 1,200 corpus paragraphs, a fifth of them repeats, all from seed 0,
+   through `python -m textreact_tpu_torch.preprocess.cli condition-split
+   --patent_info ... --remove_threshold 10` and `dedup-corpus`, each in a
+   child process in which `import pandas` fails: no canonical_rxn shared
+   between train and val/test, the vocab the specials then sorted strings,
+   the splits adding up to the curated rows, an id-map entry for every
+   corpus row; the retrieval CLI on the curated splits (three searches, every
+   nn list checked); the RCR recipe at full width (as phase 10) on the
+   curated files, the curated vocab, the deduplicated corpus and those
+   neighbour files: one epoch, validate, test with beam 15, the launch
+   counts exact (the test pass's residual LNs from its decode steps); then
+   640 atom-mapped reactions of six families (ester, amide, SN2,
+   elimination, ether, hydrogenation) with varied substituents through the
+   template processor's two passes on the host, each timed: class ids 1..n,
+   labels inside their tables, permutations, train coverage and the gold
+   labels' decode to the reactants on the test rows at least 0.95; then
+   the RetroSyn_tb command line (as in phase 12) on the extracted labels;
+14. the multi-device slice (textreact_tpu_torch/parallel), each leg printing
    its backend, world size and device count: the attention kernels on 6 of
    12 heads with the head offset against the full layer's keep mask and the
    plain version; leg A, this process as a world of one over NCCL
@@ -122,7 +142,7 @@ Phases, each fatal on failure:
    allclose).
 
 Prints JSON lines of the runtime's, the pretrained start's, the template
-path's and the parallel legs' numbers and of per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
+path's, the curation's and the parallel legs' numbers and of per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
 
@@ -168,15 +188,19 @@ from textreact_tpu_torch.models.layers import (TransformerBlock, dropout,
                                                mask_to_bias)
 from textreact_tpu_torch.ops import (_build, fused_attention, fused_layernorm,
                                      topk)
+from textreact_tpu_torch.preprocess.condition_splits import SPECIALS
+from textreact_tpu_torch.preprocess.retro_tools import canonical_rxn_smiles
 from textreact_tpu_torch.retrieval import FlatIndex
 from textreact_tpu_torch.retrieval import cli as retrieval_cli
+from textreact_tpu_torch.templates import processor as template_processor
+from textreact_tpu_torch.templates.native_extractor import demapped_canonical
 from textreact_tpu_torch.tokenizers import get_tokenizers
 from textreact_tpu_torch.tokenizers import native as native_tokenizer
 from textreact_tpu_torch.train import (TrainState, losses,
                                        make_accum_train_step, make_eval_step,
                                        make_loss_fn, make_optimizer)
 from textreact_tpu_torch.train.step import to_device
-from textreact_tpu_torch.utils.table import read_csv
+from textreact_tpu_torch.utils.table import Table, read_csv
 
 # shapes of the two paths: B=32 requests or examples of L=512 tokens, 12
 # heads of 64; LN rows are B*L in the encoder, B*beams in a decode step and
@@ -3264,6 +3288,7 @@ def phase_template(card: str, tmp: Path, vocab: Path,
 
     # the command line
     cli = phase_template_cli(card, data, vocab, tmp / "template_run", layers)
+    del cli["launches"]
     results["template"] = dict(
         step_ms=med, step_span_ms=step_span, step_busy_ms=step_busy,
         step_kernels=step_kernels, no_mask_step_ms=keyed_ms,
@@ -3295,10 +3320,10 @@ def template_cli_argv(data: Path, vocab: Path, save: Path) -> list:
 
 
 def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
-                       layers: int) -> dict:
+                       layers: int, sizes: dict = TEMPLATE_SIZES) -> dict:
     """python -m textreact_tpu_torch --task retro --template_based
-    --unattend_nonbonds, in-process on the card: one epoch of
-    TEMPLATE_SIZES on the phase's CSVs, validate, test with the decode."""
+    --unattend_nonbonds, in-process on the card: one epoch of `sizes`
+    reactions on the CSVs in `data`, validate, test with the decode."""
     accum = MICRO_BATCHES
     reset_counts()
     t0 = time.perf_counter()
@@ -3306,26 +3331,33 @@ def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    mbs = -(-TEMPLATE_SIZES["train"] // B)
-    evals = 2 * 2 * -(-TEMPLATE_SIZES["val"] // B)  # fit's and --do_valid's
-    tests = 2 * -(-TEMPLATE_SIZES["test"] // B)     # two corpora each
+    records = read_metrics(save)
+    timing = [r for r in records if "epoch_seconds" in r][0]
+    mbs = -(-sizes["train"] // B)
+    evals = 2 * 2 * -(-sizes["val"] // B)  # fit's and --do_valid's
+    tests = 2 * -(-sizes["test"] // B)     # two corpora each
     want = {name: 0 for name in counts}
     want.update(fused_layernorm_fwd=2 * layers * (mbs + evals + tests),
                 fused_layernorm_bwd=2 * layers * mbs)
     if counts != want:
         raise AssertionError(f"the command line launched {counts}, "
                              f"expected {want}")
-    records = read_metrics(save)
+    # the atoms are padded to a batch's largest product, and each shape
+    # group accumulates apart: one that ends the epoch with a partial
+    # window takes one more, unlogged step (its weight-0 fill runs nothing)
+    windows = accum * int(timing["epoch_steps"])
     losses_seen = [r["train_loss"] for r in records if "train_loss" in r]
     val = [r for r in records if "val_acc" in r]
-    if len(losses_seen) != mbs // accum or not all(
+    if not accum * len(losses_seen) <= mbs <= windows or (
+            windows == mbs and accum * len(losses_seen) != mbs) or not all(
             np.isfinite(v) for v in losses_seen):
-        raise AssertionError(f"train_loss records: {losses_seen}")
+        raise AssertionError(f"train_loss records: {losses_seen} for {mbs} "
+                             f"micro-batches in {windows // accum} steps")
     if len(val) != 1 or "val_acc/1" not in val[0]:
         raise AssertionError(f"validation records: {val}")
     for li in (0, 1):
         preds = json.loads((save / f"prediction_test_{li}.json").read_text())
-        if sorted(map(int, preds)) != list(range(TEMPLATE_SIZES["test"])):
+        if sorted(map(int, preds)) != list(range(sizes["test"])):
             raise AssertionError(f"prediction_test_{li}.json: {len(preds)}")
         for p in preds.values():
             scores = p["score"]
@@ -3337,21 +3369,523 @@ def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
             or not all(0.0 <= v <= 1.0 for v in a.values())
             for a in accuracies):
         raise AssertionError(f"retro top-k dicts: {accuracies}")
-    timing = [r for r in records if "epoch_seconds" in r][0]
     tests_s = sum(r["test_seconds"] for r in records if "test_seconds" in r)
-    log(f"[template] command line: train {TEMPLATE_SIZES['train']} "
-        f"reactions ({len(losses_seen)} optimizer steps of {accum} x {B}, "
+    log(f"[template] command line: train {sizes['train']} "
+        f"reactions ({timing['epoch_steps']:.0f} optimizer steps of {accum} x "
+        f"{B}, "
         f"train_loss {losses_seen}), validate, test and decode "
-        f"{TEMPLATE_SIZES['test']} x 2 corpora in {seconds:.1f} s: epoch "
+        f"{sizes['test']} x 2 corpora in {seconds:.1f} s: epoch "
         f"{timing['epoch_seconds']:.1f} s, test passes {tests_s:.1f} s "
         f"(top {TEMPLATE_EDITS} edits on the card), val_acc "
         f"{val[0]['val_acc']:.3f} / {val[0]['val_acc/1']:.3f}, retro top-k "
         f"{accuracies[0]} / {accuracies[1]}; launches {counts}; on {card}")
     return dict(cli_seconds=seconds, cli_epoch_seconds=timing["epoch_seconds"],
-                cli_test_seconds=tests_s)
+                cli_step_ms=timing["epoch_seconds"] / timing["epoch_steps"]
+                * 1e3, cli_test_seconds=tests_s, launches=counts)
 
 
-# --- 13. the multi-device slice --------------------------------------------
+# --- 13. curation: raw rows -> curated files -> neighbours -> training -----
+
+# raw condition rows and corpus paragraphs of the phase, from seed 0: 1,000
+# rows over condition_reactions()' 256 reactions (a skewed draw, so many
+# repeat) and 1,200 paragraphs, a fifth of them repeats of an earlier one
+CURATION_ROWS, CURATION_PARAGRAPHS = 1000, 1200
+# --remove_threshold: the recipe's 100 would leave too few of 1,000 rows
+CURATION_THRESHOLD = 10
+# atom-mapped reactions of the template half, a split each
+MAPPED_SIZES = {"train": 512, "val": 64, "test": 64}
+
+# catalyst / solvent / reagent combos of the raw rows, most frequent first:
+# empty slots, ionic reagents of the asset table (whole, in part, alone),
+# a chemical name, and combos that excess removal drops (two catalysts,
+# three solvents, three known reagents)
+CONDITION_COMBOS = [
+    ("", "ClCCl", "CCN(CC)CC"),
+    ("", "C1CCOC1", "[Na+].[OH-]"),
+    ("", "CN(C)C=O", "O=C([O-])[O-].[K+].[K+]"),
+    ("", "ClCCl.CO", "CCN(CC)CC"),
+    ("", "CCO", ""),
+    ("[Pd]", "C1CCOC1.O", "O=P([O-])([O-])[O-].[K+].[K+].[K+]"),
+    ("", "", "CCN(CC)CC.O"),
+    ("", "CO", "O.[Li+].[OH-]"),
+    ("", "CC#N", "[Cl-].[NH4+]"),
+    ("", "ClCCl", "[Na+]"),
+    ("", "CCO.O.ClCCl", "O"),
+    ("", "C1CCOC1", "[BH4-].[Na+]"),
+    ("[Pd].[Cu]", "C1CCOC1", "CCN(CC)CC"),
+    ("", "ClCCl", "O.CCO.CCN"),
+    ("", "CO", "CCO.sodium methoxide"),
+    ("[Cu]", "CN(C)C=O", "[Cs+].[F-]"),
+    ("", "CC(C)=O", "[I-].[K+]"),
+    ("[Rh]", "CC#N", "CC(C)[N-]C(C)C.[Li+]"),
+    ("", "c1ccccc1", "O=S(=O)(O)O"),
+    ("[Ni]", "CCOCC", "[H-].[Na+]"),
+]
+
+
+def condition_reactions() -> list:
+    """256 distinct unmapped reactions: 12 acid chlorides acylating 14
+    alcohols and amines, 8 bromides alkylating 8 amines, 4 sulfonyl
+    chlorides sulfonylating 6 amines."""
+    acyls = ["C", "CC", "CC(C)", "CCC", "c1ccccc1", "C1CC1", "Fc1ccc(cc1)",
+             "COc1ccc(cc1)", "CC(C)(C)", "C=C", "c1ccoc1", "ClCC"]
+    nucleophiles = ["OC", "OCC", "OCc1ccccc1", "OC(C)C", "OCCCC",
+                    "Oc1ccccc1", "OCC(F)(F)F", "NCC", "NC1CCCCC1",
+                    "Nc1ccccc1", "NCCO", "N(C)C", "NCc1ccccc1", "N1CCOCC1"]
+    alkyls = ["C", "CC", "CCC", "CC(C)", "c1ccccc1C", "C=CC", "CCCC", "N#CC"]
+    amines = ["NCC", "NC1CCCCC1", "Nc1ccccc1", "N(C)C", "N1CCOCC1",
+              "N1CCCC1", "NCc1ccccc1", "NCCO"]
+    sulfonyls = ["C", "Cc1ccc(cc1)", "c1ccccc1", "CC"]
+    out = [f"{a}C(=O)Cl.{n}>>{a}C(=O){n}" for a in acyls for n in nucleophiles]
+    out += [f"{a}Br.{n}>>{a}{n}" for a in alkyls for n in amines]
+    out += [f"{s}S(=O)(=O)Cl.{n}>>{s}S(=O)(=O){n}"
+            for s in sulfonyls for n in amines[:6]]
+    return out
+
+
+def write_raw_conditions(root: Path, rows: int = CURATION_ROWS,
+                         paragraphs: int = CURATION_PARAGRAPHS,
+                         words: int = 220, seed: int = 0,
+                         digit_sources: bool = False) -> None:
+    """`conditions.csv` in the schema `parse_cml_reactions` emits (id,
+    source, year, patent_type, rxn_smiles, solvent, catalyst, reagent) with
+    the columns the mapping stage adds (canonical_rxn, confidence: 1 or a
+    two-place decimal), `rows` of them over `condition_reactions()` drawn
+    with weights 1/rank and combos of CONDITION_COMBOS with weights
+    1/rank^1.3; `patent_info.json` (60 patents of 2005-2016); `corpus.csv`
+    in the corpus schema, a paragraph of `words` words for every row and
+    more for other reactions of the same patents, a fifth of them a
+    repeat of an earlier paragraph. `digit_sources` names the patents by
+    digits alone, which pandas reads as ints."""
+    import random
+    rng = random.Random(seed)
+    words_rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    reactions = condition_reactions()
+    canonical = [canonical_rxn_smiles(r)[0] for r in reactions]
+    patents = [str(7000000 + 13 * i) if digit_sources else f"US{7000000 + 13 * i}"
+               for i in range(60)]
+    years = {p: 2005 + i % 12 for i, p in enumerate(patents)}
+    counter = dict.fromkeys(patents, 0)
+
+    def next_id(patent):
+        counter[patent] += 1
+        return f"{patent}_{counter[patent] - 1}"
+
+    with open(root / "conditions.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "source", "year", "patent_type", "rxn_smiles",
+                    "canonical_rxn", "confidence", "solvent", "catalyst",
+                    "reagent"])
+        ids = []
+        for _ in range(rows):
+            r = rng.choices(range(len(reactions)),
+                            weights=[1 / (k + 1) for k in
+                                     range(len(reactions))])[0]
+            c = rng.choices(range(len(CONDITION_COMBOS)),
+                            weights=[1 / (k + 1) ** 1.3 for k in
+                                     range(len(CONDITION_COMBOS))])[0]
+            catalyst, solvent, reagent = CONDITION_COMBOS[c]
+            patent = rng.choice(patents)
+            ids.append((next_id(patent), patent))
+            confidence = 1 if rng.random() < 0.3 else round(
+                rng.uniform(0.5, 0.99), 2)
+            w.writerow([ids[-1][0], patent, years[patent], "grant",
+                        reactions[r], canonical[r], confidence, solvent,
+                        catalyst, reagent])
+    while len(ids) < paragraphs:
+        patent = rng.choice(patents)
+        ids.append((next_id(patent), patent))
+    texts = []
+    for i in range(paragraphs):
+        if i and rng.random() < 0.2:
+            texts.append(rng.choice(texts))
+        else:
+            texts.append(" ".join(words_rng.choice(WORDS, words)))
+    with open(root / "corpus.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "year", "patent_type", "xml", "heading_text",
+                    "paragraph_text"])
+        for (rid, patent), text in zip(ids, texts):
+            w.writerow([rid, years[patent], "grant", f"{years[patent]}.xml",
+                        f"Example {rid.split('_')[1]}", text])
+    (root / "patent_info.json").write_text(json.dumps(
+        {p: {"year": y, "type": "grant"} for p, y in years.items()}))
+
+
+def _alkyl(n: int, s: int) -> tuple:
+    """A chain of n carbons mapped s (the attachment atom) to s + n - 1:
+    (written towards the attachment atom, written from it)."""
+    if n == 1:
+        return f"[CH3:{s}]", f"[CH3:{s}]"
+    inner = [f"[CH2:{s + i}]" for i in range(n - 1)]
+    end = f"[CH3:{s + n - 1}]"
+    return end + "".join(inner[::-1]), "".join(inner) + end
+
+
+def _substituent(kind: str, s: int) -> tuple:
+    """(written towards the attachment atom, written from it, atoms) of a
+    substituent mapped from s, the attachment atom s: an n-carbon chain
+    `Cn`, isopropyl, phenyl or benzyl (its CH2 the attachment atom)."""
+    if kind.startswith("C"):
+        n = int(kind[1:])
+        return (*_alkyl(n, s), n)
+    if kind == "iPr":
+        return (f"[CH3:{s + 1}][CH:{s}]([CH3:{s + 2}])",
+                f"[CH:{s}]([CH3:{s + 1}])[CH3:{s + 2}]", 3)
+
+    if kind == "Ph":                  # the ring's carbons s (ipso) to s + 5
+        ring = [f"[cH:{s + i}]" for i in range(1, 6)]
+        return (ring[0] + "1" + "".join(ring[1:]) + f"[c:{s}]1",
+                f"[c:{s}]1" + "".join(ring) + "1", 6)
+    ring = [f"[cH:{s + i}]" for i in range(2, 7)]
+    return (ring[0] + "1" + "".join(ring[1:]) + f"[c:{s + 1}]1[CH2:{s}]",
+            f"[CH2:{s}][c:{s + 1}]1" + "".join(ring) + "1", 7)
+
+
+SUBSTITUENTS = ["C1", "C2", "C3", "C4", "iPr", "Ph", "Bn"]
+
+
+def mapped_reaction(family: str, r1: str, r2: str) -> str:
+    """An atom-mapped reaction of `family` with substituents r1 and r2
+    (reaction centre mapped 1-4, substituents after it)."""
+    a_to, a_from, n = _substituent(r1, 5)
+    b_to, b_from, _ = _substituent(r2, 5 + n)
+    if family == "ester":
+        return (f"{a_to}[C:1](=[O:2])[OH:3].[OH:4]{b_from}>>"
+                f"{a_to}[C:1](=[O:2])[O:4]{b_from}")
+    if family == "amide":
+        return (f"{a_to}[C:1](=[O:2])[OH:3].[NH2:4]{b_from}>>"
+                f"{a_to}[C:1](=[O:2])[NH:4]{b_from}")
+    if family == "sn2":
+        return f"[Br:3]{a_from}.[NH2:4]{b_from}>>{a_to}[NH:4]{b_from}"
+    if family == "elimination":
+        return f"{a_to}[CH:1]([OH:2])[CH3:3]>>{a_to}[CH:1]=[CH2:3]"
+    if family == "ether":
+        return (f"{a_to}[OH:1].[Br:2][CH2:3]{b_from}>>"
+                f"{a_to}[O:1][CH2:3]{b_from}")
+    # hydrogenation
+    return (f"{a_to}[CH:1]=[CH:2]{b_from}>>"
+            f"{a_to}[CH2:1][CH2:2]{b_from}")
+
+
+MAPPED_FAMILIES = ["ester", "amide", "sn2", "elimination", "ether",
+                   "hydrogenation"]
+
+
+def write_mapped_reactions(root: Path, sizes: dict = MAPPED_SIZES,
+                           seed: int = 0) -> None:
+    """`{split}.csv` (id, rxn_smiles) of atom-mapped reactions drawn from
+    seed `seed`: a family of MAPPED_FAMILIES (the ester, amide, SN2 and
+    elimination families of the native extraction tests, Williamson ether
+    synthesis and hydrogenation), then two of SUBSTITUENTS (the SN2 family
+    alkylates with sp3 carbons only)."""
+    import random
+    rng = random.Random(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for split, n in sizes.items():
+        with open(root / f"{split}.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["id", "rxn_smiles"])
+            for i in range(n):
+                family = rng.choice(MAPPED_FAMILIES)
+                r1 = rng.choice([s for s in SUBSTITUENTS
+                                 if family != "sn2" or s != "Ph"])
+                w.writerow([f"{split}_{i}",
+                            mapped_reaction(family, r1,
+                                            rng.choice(SUBSTITUENTS))])
+
+def run_without_pandas(main: str, argv: list) -> float:
+    """`main(argv)` of the port module `main` names, in a child process in
+    which `import pandas` fails; seconds, the interpreter's start
+    included."""
+    module, fn = main.rsplit(".", 1)
+    code = ("import sys\nsys.modules['pandas'] = None\n"
+            f"from {module} import {fn}\n{fn}(sys.argv[1:])\n")
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", code, *map(str, argv)],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"{main} {argv} failed:\n{done.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def check_curated(raw: Path, out: Path) -> dict:
+    """The curated files against what they must hold: no canonical_rxn of
+    train in val or test, the vocab the specials and then sorted strings,
+    the three splits the filtered rows, an id map entry for every corpus
+    row; the rows in and out of each stage."""
+    splits = {name: read_csv(str(out / f"{name}.csv"))
+              for name in ("train", "val", "test")}
+    train_rxns = set(splits["train"]["canonical_rxn"])
+    for name in ("val", "test"):
+        shared = train_rxns & set(splits[name]["canonical_rxn"])
+        if shared or not len(splits[name]):
+            raise AssertionError(f"{name}: {len(splits[name])} rows, "
+                                 f"{len(shared)} reactions shared with train")
+    vocab = (out / "vocab_condition.txt").read_text(
+        encoding="utf-8").split("\n")
+    if vocab[:len(SPECIALS)] != SPECIALS or vocab[len(SPECIALS):] != sorted(
+            vocab[len(SPECIALS):]):
+        raise AssertionError(f"vocab_condition.txt: {vocab[:10]}")
+    curated = read_csv(str(out / "USPTO_condition.csv"))
+    if sum(map(len, splits.values())) != len(curated):
+        raise AssertionError(f"splits {[len(s) for s in splits.values()]} "
+                             f"do not add up to {len(curated)} rows")
+    corpus = read_csv(str(raw / "corpus.csv"))
+    id_map = json.loads((out / "id_to_corpus_id.json").read_text())
+    if set(id_map) != set(map(str, corpus["id"])):
+        raise AssertionError("id_to_corpus_id.json misses corpus rows")
+    deduped = read_csv(str(out / "catalyst_freq.csv"))
+    return dict(raw_rows=len(read_csv(str(raw / "conditions.csv"))),
+                deduplicated_rows=sum(deduped["freq_cnt"]),
+                curated_rows=len(curated),
+                split_rows={k: len(v) for k, v in splits.items()},
+                vocab=len(vocab), corpus_rows=len(corpus),
+                corpus_unique=len(read_csv(str(out / "corpus_dedup.csv"))))
+
+
+@contextlib.contextmanager
+def counted_decode_steps(steps: list):
+    """Append the decode steps of every `Generator.generate` call while the
+    block runs: the test pass's residual-LN launches follow from them."""
+    generate = Generator.generate
+
+    def counted(self, *args, **kw):
+        out = generate(self, *args, **kw)
+        steps.append(self.last_steps)
+        return out
+
+    Generator.generate = counted
+    try:
+        yield
+    finally:
+        Generator.generate = generate
+
+
+def check_template_artifacts(out: Path, raw: Path) -> dict:
+    """The processor's files: class ids 1..n in both tables, every label's
+    class inside its table, every ProductAtomIdx2CanonIdx a permutation;
+    the share of each split's reactions with labels, and of the test rows
+    whose gold labels decode back to the reactants (the own template
+    engine, as in the retro metric)."""
+    n_classes = {}
+    for kind in ("atom", "bond"):
+        classes = read_csv(str(out / f"{kind}_templates.csv"))["Class"]
+        if sorted(classes) != list(range(1, len(classes) + 1)):
+            raise AssertionError(f"{kind}_templates.csv classes {classes}")
+        n_classes[kind[0]] = len(classes)
+    coverage, prediction, rows = {}, {}, []
+    for split in ("train", "val", "test"):
+        table = read_csv(str(out / f"preprocessed_{split}.csv"))
+        if len(table) != len(read_csv(str(raw / f"{split}.csv"))):
+            raise AssertionError(f"preprocessed_{split}.csv: {len(table)}")
+        labelled = 0
+        for i in range(len(table)):
+            labels = ast.literal_eval(table["Labels"][i])
+            a2c = ast.literal_eval(table["ProductAtomIdx2CanonIdx"][i])
+            if sorted(a2c) != list(range(len(a2c))):
+                raise AssertionError(f"{split} row {i}: a2c {a2c}")
+            if not all(1 <= c <= n_classes[k] for k, _, c in labels):
+                raise AssertionError(f"{split} row {i}: labels {labels}")
+            labelled += bool(labels)
+            if split == "test":
+                prediction[i] = {"prediction": [
+                    (k, a2c[s] if k == "a" else (a2c[s[0]], a2c[s[1]]), c)
+                    for k, s, c in labels], "score": [1.0] * len(labels)}
+                rows.append((table["ProductCanonSmiles"][i],
+                             demapped_canonical(parse_smiles(
+                                 table["Reactants"][i]))))
+        coverage[split] = labelled / len(table)
+    data = Table({"product_smiles": [p for p, _ in rows]})
+    decoded = decode_template_predictions(prediction, data, str(out), top_k=3)
+    gold = sum(g in d for (_, g), d in zip(rows, decoded)) / len(rows)
+    if coverage["train"] < 0.95 or gold < 0.95:
+        raise AssertionError(f"coverage {coverage}, gold decode {gold}")
+    return dict(classes=n_classes, coverage=coverage, gold_decode=gold)
+
+
+def write_template_training_data(out: Path, seed: int = 0) -> None:
+    """The trainer's files beside the processor's: `{split}.csv` (id, the
+    canonical product, the demapped reactants) row for row with
+    `preprocessed_{split}.csv`, a corpus row a training reaction and
+    neighbour files of five training ids each (drawn from `seed`)."""
+    import random
+    rng = random.Random(seed)
+    tables = {s: read_csv(str(out / f"preprocessed_{s}.csv"))
+              for s in ("train", "val", "test")}
+    train_ids = [f"train_{i}" for i in range(len(tables["train"]))]
+    for split, table in tables.items():
+        Table({"id": [f"{split}_{i}" for i in range(len(table))],
+               "product_smiles": table["ProductCanonSmiles"],
+               "reactant_smiles": [demapped_canonical(parse_smiles(r))
+                                   for r in table["Reactants"]]}
+              ).to_csv(str(out / f"{split}.csv"))
+        (out / f"{split}_nn.json").write_text(json.dumps(
+            [{"id": f"{split}_{i}", "nn": rng.sample(train_ids, 5)}
+             for i in range(len(table))]))
+    write_corpus(out / "corpus.csv", train_ids, seed)
+
+
+def phase_curation(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
+    """The offline curation on the card's host, then the card: raw
+    condition rows through both curation commands (in a process that
+    cannot import pandas), the retrieval CLI over the curated splits, the
+    RCR recipe at full width on the curated files; mapped reactions through
+    the template processor, the RetroSyn_tb recipe on its labels."""
+    raw, out, nn_dir = tmp / "curation_raw", tmp / "curated", tmp / "curated_nn"
+    seconds = {}
+    t0 = time.perf_counter()
+    write_raw_conditions(raw)
+    seconds["write_raw"] = time.perf_counter() - t0
+    seconds["condition_split"] = run_without_pandas(
+        "textreact_tpu_torch.preprocess.cli.main",
+        ["condition-split", "--input", raw / "conditions.csv",
+         "--output_path", out, "--patent_info", raw / "patent_info.json",
+         "--remove_threshold", CURATION_THRESHOLD])
+    seconds["dedup_corpus"] = run_without_pandas(
+        "textreact_tpu_torch.preprocess.cli.main",
+        ["dedup-corpus", "--input", raw / "corpus.csv", "--output_path", out])
+    rows = check_curated(raw, out)
+    log(f"[curation] {rows['raw_rows']} raw condition rows -> "
+        f"{rows['deduplicated_rows']} after the duplicates -> "
+        f"{rows['curated_rows']} curated ({rows['split_rows']}), vocab "
+        f"{rows['vocab']} lines; corpus {rows['corpus_rows']} -> "
+        f"{rows['corpus_unique']} paragraphs; condition-split "
+        f"{seconds['condition_split']:.1f} s, dedup-corpus "
+        f"{seconds['dedup_corpus']:.1f} s, each in a process without pandas")
+
+    # neighbours on the card
+    reset_counts()
+    t0 = time.perf_counter()
+    retrieval_cli.main([
+        "--data_path", str(out), "--train_file", "train.csv",
+        "--valid_file", "val.csv", "--test_file", "test.csv",
+        "--field", "canonical_rxn", "--output_path", str(nn_dir),
+        "--k", str(TOPK_K), "--check_parity"])
+    seconds["neighbours"] = time.perf_counter() - t0
+    counts = read_counts()
+    want = dict.fromkeys(counts, 0)
+    want["exact_topk_corpus_split"] = 3
+    if counts != want:
+        raise AssertionError(f"the retrieval CLI launched {counts}")
+    launches = dict(counts)
+    train_ids = set(read_csv(str(out / "train.csv"))["id"])
+    k = min(TOPK_K, len(train_ids))
+    for name in rows["split_rows"]:
+        records = json.loads((nn_dir / f"{name}.json").read_text())
+        ids = read_csv(str(out / f"{name}.csv"))["id"]
+        if [r["id"] for r in records] != ids or any(
+                len(r["nn"]) != k or not set(r["nn"]) <= train_ids
+                for r in records):
+            raise AssertionError(f"{name}.json: {len(records)} records")
+
+    # RCR at full width on the curated files
+    save = tmp / "curation_run"
+    accum = MICRO_BATCHES
+    argv = [
+        "--task", "condition", "--do_train", "--do_valid", "--do_test",
+        "--data_path", str(out), "--train_file", "train.csv",
+        "--valid_file", "val.csv", "--test_file", "test.csv",
+        "--corpus_file", str(out / "corpus_dedup.csv"),
+        "--nn_path", str(nn_dir), "--train_nn_file", "train.json",
+        "--valid_nn_file", "val.json", "--test_nn_file", "test.json",
+        "--encoder", "scibert_base", "--decoder", "bert_l6",
+        "--encoder_tokenizer", "text", "--text_vocab_file", str(vocab),
+        "--vocab_file", str(out / "vocab_condition.txt"),
+        "--num_neighbors", "3", "--use_gold_neighbor",
+        "--max_length", str(L), "--max_dec_length", str(DEC_LEN),
+        "--batch_size", str(B), "--gradient_accumulation_steps", str(accum),
+        "--test_batch_size", str(B), "--epochs", "1", "--lr", "1e-4",
+        "--warmup", "0.02", "--max_grad_norm", "5", "--num_beams",
+        str(BEAMS), "--mlm", "--mlm_layer", "mlp", "--mlm_lambda", "0.1",
+        "--compute_dtype", "bfloat16", "--save_path", str(save),
+        "--log_every", "1", "--debug"]
+    steps: list = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with counted_decode_steps(steps):
+        accuracies = runtime_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds["rcr_run"] = time.perf_counter() - t0
+    counts = read_counts()
+    enc_layers = PRESETS["scibert_base"].num_hidden_layers
+    dec_layers = PRESETS["bert_l6"].num_hidden_layers
+    ln = 2 * enc_layers + 3 * dec_layers
+    records = read_metrics(save)
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    timing = [r for r in records if "epoch_seconds" in r][0]
+    rcr_step_ms = timing["epoch_seconds"] / timing["epoch_steps"] * 1e3
+    split_rows = rows["split_rows"]
+    mbs = -(-split_rows["train"] // B)
+    evals = 2 * 2 * -(-split_rows["val"] // B)   # fit's and --do_valid's
+    tests = 2 * -(-split_rows["test"] // B)      # two corpora each
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_attention_fwd=enc_layers * (mbs + evals + tests),
+                fused_attention_bwd=enc_layers * mbs,
+                fused_layernorm_fwd=ln * (mbs + evals) + 2 * enc_layers * tests
+                + 3 * dec_layers * sum(steps),
+                fused_layernorm_bwd=ln * mbs)
+    if counts != want or len(steps) != tests:
+        raise AssertionError(f"the RCR run launched {counts}, expected "
+                             f"{want} ({len(steps)} test batches)")
+    for name in counts:
+        launches[name] += counts[name]
+    if not losses or not all(np.isfinite(v) for v in losses) or len(
+            accuracies) != 2:
+        raise AssertionError(f"RCR run: losses {losses}, {accuracies}")
+    log(f"[curation] RCR at full width on the curated files in "
+        f"{seconds['rcr_run']:.1f} s: {mbs} micro-batches of {B} ({accum} a "
+        f"step), train_loss {', '.join(f'{v:.4f}' for v in losses)}, "
+        f"{rcr_step_ms:.1f} ms per optimizer step (epoch 1, its first step "
+        f"included), top-1 {accuracies[0][1]:.3f} / {accuracies[1][1]:.3f}, "
+        f"{sum(steps)} decode steps over {tests} test batches; launches "
+        f"{counts}")
+
+    # mapped reactions through the template processor on the host
+    mapped, tpl = tmp / "mapped_raw", tmp / "template_curated"
+    write_mapped_reactions(mapped)
+    # the steps of `python -m textreact_tpu_torch.templates.processor
+    # --engine native`, each pass timed
+    proc = template_processor.TemplateProcessor(
+        str(mapped / "train.csv"), str(mapped / "val.csv"),
+        str(mapped / "test.csv"), str(tpl), engine="native")
+    proc.check_data_format()
+    passes = {}
+    for name in ("extract_templates", "match_templates"):
+        t0 = time.perf_counter()
+        getattr(proc, name)()
+        passes[name] = time.perf_counter() - t0
+    seconds["template_processor"] = sum(passes.values())
+    artifacts = check_template_artifacts(tpl, mapped)
+    n_mapped = sum(MAPPED_SIZES.values())
+    rates = {"extraction_per_s": MAPPED_SIZES["train"]
+             / passes["extract_templates"],
+             "labelling_per_s": n_mapped / passes["match_templates"]}
+    log(f"[curation] template processor on the host: {n_mapped} mapped "
+        f"reactions ({MAPPED_SIZES}) in {seconds['template_processor']:.1f} "
+        f"s: extraction {rates['extraction_per_s']:.0f} reactions/s, "
+        f"labelling {rates['labelling_per_s']:.0f} reactions/s; classes "
+        f"{artifacts['classes']}, labelled shares {artifacts['coverage']}, "
+        f"gold labels decode to the reactants on "
+        f"{artifacts['gold_decode']:.1%} of the test rows")
+
+    # RetroSyn_tb on the extracted labels
+    write_template_training_data(tpl)
+    cli = phase_template_cli(card, tpl, vocab, tmp / "curation_template_run",
+                             enc_layers, MAPPED_SIZES)
+    for name, n in cli.pop("launches").items():
+        launches[name] += n
+    for name in KERNELS:
+        results[name]["launches_curation"] = launches[name]
+    seconds["template_run"] = cli["cli_seconds"]
+    return dict(rows=rows, mapped=n_mapped, seconds=seconds, **rates,
+                **artifacts, rcr_step_ms=rcr_step_ms,
+                template_step_ms=cli["cli_step_ms"], launches=launches)
+
+
+# --- 14. the multi-device slice --------------------------------------------
 
 # leg B's loss at p = 0 against leg A's, both bf16 at full width: tp adds
 # the two ranks' bf16 partial products of every row-split layer in f32, one
@@ -3771,6 +4305,9 @@ def main() -> int:
         phase_template(card, Path(tmp), vocab, results)
         torch.cuda.empty_cache()
         log(f"[time] template done at {time.perf_counter() - t_start:.0f} s")
+        curation = phase_curation(card, Path(tmp), vocab, results)
+        torch.cuda.empty_cache()
+        log(f"[time] curation done at {time.perf_counter() - t_start:.0f} s")
         parallel = phase_parallel(card, Path(tmp), vocab, bare_step_ms,
                                   results)
     runtime = results.pop("runtime")
@@ -3785,6 +4322,7 @@ def main() -> int:
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"pretrained": pretrained}))
     print(json.dumps({"template": template}))
+    print(json.dumps({"curation": curation}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -515,3 +515,78 @@ def test_template_tables_and_infos_read_what_pandas_reads(tmp_path):
     assert pd_.load_template_infos(root) == jd.load_template_infos(root)
     assert pt.load_preprocessed_labels(
         str(tmp_path / "tpl"), "train")[2][3] == []    # 'set()'
+
+
+# ---- the curation slice's copies: preprocess/, templates/, the ionic table -
+
+CURATION_MODULES = [
+    "preprocess", "preprocess.aides", "preprocess.augment", "preprocess.cli",
+    "preprocess.condition_extraction", "preprocess.condition_splits",
+    "preprocess.corpus_tools", "preprocess.frequency_baseline",
+    "preprocess.ionic", "preprocess.retro_tools", "templates",
+    "templates.smarts_canon", "templates.labeling",
+    "templates.native_labeling", "templates.native_extractor",
+    "templates.extractor", "templates.processor"]
+# names of the JAX modules that the port leaves out: the RDKit engine
+# (extractor.py's and labeling.py's RDKit halves, retro_tools' and the
+# processor's switch to it) and what only those halves import
+CURATION_LEFT_OUT = {
+    "preprocess.retro_tools": {"HAS_RDKIT"},
+    "templates.labeling": {"HAS_RDKIT", "List", "chs_changes",
+                           "label_forward_edit_sites",
+                           "label_retro_edit_sites"},
+    "templates.extractor": {"HAS_RDKIT", "List", "Tuple",
+                            "canonicalize_smarts", "changed_atoms",
+                            "deepcopy", "fragments_for_changed_atoms",
+                            "match_label", "reassign_atom_maps",
+                            "reorder_sides", "split_reagents"},
+    "templates.processor": {"HAS_RDKIT"},
+}
+# pandas on one side, the port's table helpers on the other
+TABLE_NAMES = {"Table", "concat", "fillna", "isna", "read_csv",
+               "shuffled_positions"}
+
+
+@pytest.mark.parametrize("name", CURATION_MODULES)
+def test_curation_modules_have_the_same_public_names(name):
+    """Functions, classes and constants (modules aside: a package holds
+    the submodules this process happened to import)."""
+    import inspect
+    a = __import__(f"textreact_tpu.{name}", fromlist=["x"])
+    b = __import__(f"textreact_tpu_torch.{name}", fromlist=["x"])
+
+    def names(m):
+        return {n for n in _public(m) if not inspect.ismodule(getattr(m, n))}
+    left_out = CURATION_LEFT_OUT.get(name, set())
+    assert left_out <= names(a)
+    assert names(a) - left_out \
+        == names(b) - TABLE_NAMES
+    assert getattr(a, "__all__", None) == getattr(b, "__all__", None)
+
+
+@pytest.mark.parametrize("name", ["preprocess.ionic", "templates.smarts_canon",
+                                  "templates.native_labeling",
+                                  "templates.native_extractor"])
+def test_curation_copies_have_the_same_functions(name):
+    """The modules the port copies whole: every function's source is the
+    JAX module's."""
+    import inspect
+    a = __import__(f"textreact_tpu.{name}", fromlist=["x"])
+    b = __import__(f"textreact_tpu_torch.{name}", fromlist=["x"])
+    names = [n for n, f in vars(a).items()
+             if (inspect.isfunction(f) or inspect.isclass(f))
+             and f.__module__ == a.__name__]
+    assert names
+    for n in names:
+        assert inspect.getsource(getattr(a, n)) \
+            == inspect.getsource(getattr(b, n)), n
+
+
+def test_ionic_asset_is_the_same_file():
+    import textreact_tpu
+    import textreact_tpu_torch
+    path = os.path.join("assets", "reagent_ionic_compounds.txt")
+    a = os.path.join(os.path.dirname(textreact_tpu.__file__), path)
+    b = os.path.join(os.path.dirname(textreact_tpu_torch.__file__), path)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()

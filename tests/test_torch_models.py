@@ -384,10 +384,10 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
 
 
 def test_port_imports_no_jax_or_pandas():
-    """The port's modules, chip_smoke, chip_profile and the multi-process
-    tests' rank bodies (tests/_torch_parallel_worker.py) load where JAX,
-    pandas, safetensors, transformers and the JAX package are absent:
-    nothing of them is in sys.modules afterwards."""
+    """The port's modules (the curation's too), chip_smoke, chip_profile and
+    the multi-process tests' rank bodies (tests/_torch_parallel_worker.py)
+    load where JAX, pandas, safetensors, transformers and the JAX package
+    are absent: nothing of them is in sys.modules afterwards."""
     import pkgutil
     import subprocess
     import sys
@@ -410,10 +410,26 @@ def test_port_imports_no_jax_or_pandas():
                  "evaluation._own_template_apply", "__main__", "parallel",
                  "parallel.mesh", "parallel.multihost", "parallel.sharding",
                  "entry", "models.import_hf", "tokenizers.native",
-                 "chem.native"):
+                 "chem.native", "preprocess", "preprocess.aides",
+                 "preprocess.augment", "preprocess.cli",
+                 "preprocess.condition_extraction",
+                 "preprocess.condition_splits", "preprocess.corpus_tools",
+                 "preprocess.frequency_baseline", "preprocess.ionic",
+                 "preprocess.retro_tools", "templates",
+                 "templates.smarts_canon", "templates.labeling",
+                 "templates.native_labeling", "templates.native_extractor",
+                 "templates.extractor", "templates.processor"):
         assert "textreact_tpu_torch." + name in names
-    # the template decode has one engine, the own one: no RDKit twin
+    # the template decode and the template preprocessing have one engine,
+    # the own one: no RDKit twin, and no RDKit half copied into a module
     assert "textreact_tpu_torch.evaluation._rdkit_template_apply" not in names
+    import inspect
+    from textreact_tpu_torch.preprocess import retro_tools
+    from textreact_tpu_torch.templates import extractor, labeling, processor
+    for module in (extractor, labeling, processor, retro_tools):
+        source = inspect.getsource(module)
+        assert not any(word in source for word in (
+            "from rdkit", "import rdkit", "HAS_RDKIT", "Chem.")), module
     code = ("import sys, importlib\n"
             "sys.path.insert(0, 'tests')\n"
             f"for name in {names!r} + ['chip_smoke', 'chip_profile', "
