@@ -15,7 +15,8 @@ Phases, each fatal on failure:
    version on the card, at the shapes the paths give it, in float32 and
    bfloat16, without dropout and at p = 0.1 with the kernel's own keep mask
    exported and fed to the plain version, each with a stated tolerance; the
-   bfloat16 attention kernels (at both head dims, two lengths, a mask that
+   bfloat16 attention kernels (at head dims 32, 64, 128 and at 96 and 48,
+   which run zero-padded to the next, two lengths, a mask that
    is no prefix, causal and not) also against the plain statement of their
    own rounding points at a tenth of that tolerance, every element (the
    backward against the statement fed the kernel's forward output; at the
@@ -28,11 +29,15 @@ Phases, each fatal on failure:
    F.scaled_dot_product_attention (timed only, used nowhere in the port);
    the causal attention forward and backward the same way (no dropout) at
    L=512 and L=128, beside SDPA under a boolean mask that joins the causal
-   and the key mask; then both layouts of the exact top-k L2 search at small shapes (ragged
-   sizes, k from 1 to 100, fewer rows than k, ties across tiles and slabs,
-   banned ids, negative counts, d from 128 to 2048) against the plain
-   version on the card and the float64 numpy oracle on the host, equal to
-   the bit;
+   and the key mask; the routes of the shapes past the recipes' the same
+   way: attention at 16 heads of 96 and causal attention at 8 (zero-padded
+   to the D=128 kernels), residual LN at rows of 2048 (the wide route; the
+   rows of 1536 that step 8 gives it; 1152, 8192 at a few rows); then both layouts of the exact top-k L2
+   search at small shapes (ragged sizes, k from 1 to 1024, the lists in
+   shared memory up to 128 and in device memory past it, fewer rows than
+   k, ties across tiles and slabs, banned ids, negative counts, d from 128
+   to 2048) against the plain version on the card and the float64 numpy
+   oracle on the host, equal to the bit;
 4. serving path: the RCR recipe's serving configuration at full width
    (SciBERT-base encoder, 12 x 768, L=512, bf16; bert_l6 decoder, beam 15,
    16 decode positions; batch 32) with random weights from a seeded
@@ -61,6 +66,13 @@ Phases, each fatal on failure:
    only); the scan's registers, spills and shared memory from the build;
 8. the retrieval CLI, in-process on the card, on fixture CSVs written at
    run time, with --check_parity; the three neighbour files read back;
+   then the routes of the shapes past the recipes', through the entry
+   points, each with exact launch counts: one training step of a model of
+   2 + 2 layers of 1536 in 16 heads of 96 (padded attention, wide LN),
+   then its loss and gradients in f32 against the plain functions, a
+   training pass of two causal blocks with heads of 96, FlatIndex.search
+   at k = 256 in both layouts on the bench data (equal to the plain
+   version and the numpy oracle, timed);
 9. causal path: a stack of six TransformerBlock(causal=True) with bert_l6's
    geometry and cross-attention over encoder states of L=512, B=32 at L=512
    and L=128, no self bias and a ragged key mask: forward in eval mode and
@@ -118,13 +130,17 @@ Phases, each fatal on failure:
    nn list checked); the RCR recipe at full width (as phase 10) on the
    curated files, the curated vocab, the deduplicated corpus and those
    neighbour files: one epoch, validate, test with beam 15, the launch
-   counts exact (the test pass's residual LNs from its decode steps); then
+   counts exact (the test pass's residual LNs from its decode steps), all
+   of it through scripts/torch_port/parity_run.py in-process (it builds the
+   neighbour files, three searches, then runs the recipe with
+   --shuffle_smiles, which changes no launch count); then
    640 atom-mapped reactions of six families (ester, amide, SN2,
    elimination, ether, hydrogenation) with varied substituents through the
    template processor's two passes on the host, each timed: class ids 1..n,
    labels inside their tables, permutations, train coverage and the gold
    labels' decode to the reactants on the test rows at least 0.95; then
-   the RetroSyn_tb command line (as in phase 12) on the extracted labels;
+   the RetroSyn_tb recipe (as in phase 12) on the extracted labels through
+   the same parity_run.py (its neighbour files built the same way);
 14. the multi-device slice (textreact_tpu_torch/parallel), each leg printing
    its backend, world size and device count: the attention kernels on 6 of
    12 heads with the head offset against the full layer's keep mask and the
@@ -299,6 +315,17 @@ KERNELS = {
         route="cuda", source=_CSRC + "exact_topk.cu",
         replaces="textreact_tpu/ops/topk.py:95"),
 }
+# the kernels of the recipes' shapes; the rest of KERNELS are the routes of
+# the shapes past them (phase_shapes drives those)
+MAIN_KERNELS = tuple(KERNELS)
+KERNELS.update({
+    name + suffix: KERNELS[name] for name, suffix in (
+        ("fused_attention_fwd", "_padded"), ("fused_attention_bwd", "_padded"),
+        ("causal_attention_fwd", "_padded"),
+        ("causal_attention_bwd", "_padded"),
+        ("fused_layernorm_fwd", "_wide"), ("fused_layernorm_bwd", "_wide"),
+        ("exact_topk_corpus_split", "_large_k"),
+        ("exact_topk_query_outer", "_large_k"))})
 # the retrieval kernels by FlatIndex's corpus_resident flag
 TOPK_LAYOUTS = {True: "exact_topk_corpus_split",
                 False: "exact_topk_query_outer"}
@@ -311,6 +338,16 @@ CAUSAL_KERNELS = ("causal_attention_fwd", "causal_attention_bwd")
 CAUSAL_LENGTHS, UNALIGNED_LENGTH = (L, 128), 160
 # retrieval shapes: 8192 queries, k = 20
 TOPK_M, TOPK_K = 8192, 20
+# shapes past the kernels' first routes: heads of 96 run zero-padded to
+# the kernels' 128, LayerNorm rows past 1024 take the wide route, k = 256
+# the scan's lists in device memory. phase_shapes trains SHAPES_BATCH
+# examples on a model of SHAPES_HIDDEN (PAD_HEADS heads of 96: both routes
+# at once) and runs causal blocks of 768 (CAUSAL_PAD_HEADS heads of 96);
+# the kernels phase holds the routes against their plain versions at those
+# heads and rows, and times the wide LN at WIDE_HIDDEN
+PAD_DIM, SHAPES_HIDDEN, SHAPES_BATCH = 96, 1536, 8
+PAD_HEADS, CAUSAL_PAD_HEADS = SHAPES_HIDDEN // PAD_DIM, HIDDEN // PAD_DIM
+WIDE_HIDDEN, LARGE_K = 2048, 256
 
 # the template phase: scripts/parity_run.py's RetroSyn_tb recipe
 # (train_RetroSyn_tb.sh with --unattend_nonbonds, lr 2e-4, no MLM). Synthetic
@@ -520,6 +557,10 @@ def reset_counts() -> None:
     fused_attention.CAUSAL_LAUNCHES = fused_attention.CAUSAL_BWD_LAUNCHES = 0
     fused_layernorm.LAUNCHES = fused_layernorm.BWD_LAUNCHES = 0
     topk.LAUNCHES.update(corpus_split=0, query_outer=0)
+    fused_attention.PADDED_LAUNCHES.update(dict.fromkeys(
+        fused_attention.PADDED_LAUNCHES, 0))
+    fused_layernorm.WIDE_LAUNCHES = fused_layernorm.WIDE_BWD_LAUNCHES = 0
+    topk.LARGE_K_LAUNCHES.update(corpus_split=0, query_outer=0)
 
 
 def read_counts() -> dict:
@@ -531,6 +572,22 @@ def read_counts() -> dict:
             "fused_layernorm_bwd": fused_layernorm.BWD_LAUNCHES,
             "exact_topk_corpus_split": topk.LAUNCHES["corpus_split"],
             "exact_topk_query_outer": topk.LAUNCHES["query_outer"]}
+
+
+def read_route_counts() -> dict:
+    """The launches of the routes past the recipes' shapes (read_counts
+    holds the recipes' kernels)."""
+    padded = fused_attention.PADDED_LAUNCHES
+    return {"fused_attention_fwd_padded": padded["fwd"],
+            "fused_attention_bwd_padded": padded["bwd"],
+            "causal_attention_fwd_padded": padded["causal_fwd"],
+            "causal_attention_bwd_padded": padded["causal_bwd"],
+            "fused_layernorm_fwd_wide": fused_layernorm.WIDE_LAUNCHES,
+            "fused_layernorm_bwd_wide": fused_layernorm.WIDE_BWD_LAUNCHES,
+            "exact_topk_corpus_split_large_k":
+                topk.LARGE_K_LAUNCHES["corpus_split"],
+            "exact_topk_query_outer_large_k":
+                topk.LARGE_K_LAUNCHES["query_outer"]}
 
 
 def drawn_seed(gen: torch.Generator, state: torch.Tensor) -> torch.Tensor:
@@ -669,7 +726,12 @@ def check_rounding(tag, q, k, v, do, mask, scale, keep, p, causal, out,
                                  f"statement of its rounding points")
 
 
-def kernels_attention(results: dict) -> None:
+def kernels_attention(results: dict, heads: int = HEADS,
+                      dim: int = HEAD_DIM, suffix: str = "") -> None:
+    """The attention kernels at B=32 L=512 and `heads` heads of `dim`
+    against the plain version (f32, bf16; p = 0 and 0.1 with the kernel's
+    own keep mask), their rounding points and statistics, then timed;
+    results under fused_attention_{fwd,bwd} + `suffix`."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
@@ -678,15 +740,15 @@ def kernels_attention(results: dict) -> None:
     lengths[-1] = 0  # a collator dummy row: every key masked
     mask = torch.as_tensor(np.arange(L)[None, :] < lengths[:, None],
                            dtype=torch.int32, device=dev)
-    scale = HEAD_DIM ** -0.5
-    log(f"[kernels] attention B={B} L={L} H={HEADS} D={HEAD_DIM}, ragged "
+    scale = dim ** -0.5
+    log(f"[kernels] attention B={B} L={L} H={heads} D={dim}, ragged "
         f"mask, row {B - 1} fully masked")
     errs = {"fwd": 0.0, "bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, do = (torch.randn(B, L, HEADS, HEAD_DIM, generator=gen,
+        q, k, v, do = (torch.randn(B, L, heads, dim, generator=gen,
                                    device=dev).to(dtype) for _ in range(4))
         for p in (0.0, DROPOUT_P):
-            tag = f"attention {str(dtype)[6:]} p={p}"
+            tag = f"attention D={dim} {str(dtype)[6:]} p={p}"
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             state = gen.get_state()
             out = fused_attention.fused_dropout_attention(*leaves, mask, p,
@@ -696,7 +758,7 @@ def kernels_attention(results: dict) -> None:
             keep = None
             if p > 0.0:
                 seed = drawn_seed(gen, state)
-                keep = fused_attention.keep_mask(seed, B, HEADS, L, p)
+                keep = fused_attention.keep_mask(seed, B, heads, L, p)
                 again = [t.clone().requires_grad_() for t in (q, k, v)]
                 gen.set_state(state)
                 out2 = fused_attention.fused_dropout_attention(
@@ -737,7 +799,7 @@ def kernels_attention(results: dict) -> None:
                             torch.logsumexp(s, -1)[:-1], *STATS_TOL)
         if dtype == torch.bfloat16:
             time_attention(results, q, k, v, do, mask, gen, scale, lengths,
-                           errs)
+                           errs, suffix)
 
 
 def ragged_holes_mask(batch: int, n: int, rng) -> np.ndarray:
@@ -754,14 +816,15 @@ def ragged_holes_mask(batch: int, n: int, rng) -> np.ndarray:
 
 
 def kernels_attention_shapes() -> None:
-    """The bf16 tensor-core kernels at both head dims and two lengths under
-    a mask that is no prefix, non-causal (p = 0 and 0.1) and causal, against
-    the plain version with the kernel's own keep mask."""
+    """The bf16 tensor-core kernels at every instantiated head dim and two
+    that run zero-padded (96, 48), two lengths, under a mask that is no
+    prefix, non-causal (p = 0 and 0.1) and causal, against the plain
+    version with the kernel's own keep mask."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     rng = np.random.default_rng(3)
     batch, dtype = 4, torch.bfloat16
-    for dim in fused_attention.SUPPORTED_HEAD_DIM:
+    for dim in (*fused_attention.SUPPORTED_HEAD_DIM, PAD_DIM, 48):
         for n in (128, L):
             mask = torch.as_tensor(ragged_holes_mask(batch, n, rng),
                                    dtype=torch.int32, device=dev)
@@ -860,18 +923,21 @@ def check_dropout_bits() -> None:
                              "keep_mask exports")
 
 
-def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
+def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs,
+                   suffix=""):
     """bf16 times at the training shape (p = 0.1) and the serving shape
-    (p = 0, no statistics written), with bounds from this run's mask."""
+    (p = 0, no statistics written), with bounds from this run's mask and
+    q's own head dim (a padded call's bound is the unpadded work's)."""
     p = DROPOUT_P
     dtype = q.dtype
+    heads, dim = q.shape[2:]
     elems = q.numel()
     # keys a row's data needs: its valid ones (all L in the all-masked row,
     # whose softmax is uniform)
     keys = float(np.where(lengths == 0, L, lengths).sum())
-    fwd_flops = 4.0 * HEADS * HEAD_DIM * L * keys
-    bwd_flops = 10.0 * HEADS * HEAD_DIM * L * keys
-    stats_bytes = B * HEADS * L * 8
+    fwd_flops = 4.0 * heads * dim * L * keys
+    bwd_flops = 10.0 * heads * dim * L * keys
+    stats_bytes = B * heads * L * 8
     fwd_bytes = 4 * elems * q.element_size() + mask.numel() * 4
     bwd_bytes = (8 * elems * q.element_size() + mask.numel() * 4
                  + stats_bytes)
@@ -891,7 +957,7 @@ def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
     bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
                                                  retain_graph=True))
     keep = fused_attention.keep_mask(
-        torch.tensor([1], device=q.device), B, HEADS, L, p)
+        torch.tensor([1], device=q.device), B, heads, L, p)
     plain_fwd = time_ms(lambda: fused_attention.attention_reference(
         *leaves, mask, scale, keep, p))
     ref = fused_attention.attention_reference(*leaves, mask, scale, keep, p)
@@ -905,7 +971,7 @@ def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
     # with dropout, one draw per four elements over the valid keys, once in
     # the forward and once in the backward (its dQ pass draws, its dK/dV
     # pass reads those bits)
-    draw_ops = PHILOX_OPS_PER_DRAW * HEADS * L * keys / 4
+    draw_ops = PHILOX_OPS_PER_DRAW * heads * L * keys / 4
     draw_ms = draw_ops / PEAK_INT32_OPS * 1e3
     fb0, fby0 = bound(fwd_bytes, fwd_flops, dtype)
     fb, fby = bound(fwd_bytes + stats_bytes, fwd_flops, dtype)
@@ -914,19 +980,22 @@ def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
         fb, fby = draw_ms, "operations"
     if draw_ms > bb:
         bb, bby = draw_ms, "operations"
-    log(f"  attention bf16 forward p={p} (writes row statistics): kernel "
+    log(f"  attention D={dim} bf16 forward p={p} (writes row statistics): "
+        f"kernel "
         f"{fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, SDPA {lib_fwd:.4f} ms, "
         f"bound {fb:.4f} ms ({fby}: {fwd_flops / 1e9:.2f} GFLOP over valid "
         f"keys, {(fwd_bytes + stats_bytes) / 1e6:.1f} MB, "
         f"{draw_ops / 1e9:.2f} G integer operations of the generator = "
         f"{draw_ms:.4f} ms)")
-    log(f"  attention bf16 forward p=0 (serving): kernel {ms_p0:.4f} ms, "
+    log(f"  attention D={dim} bf16 forward p=0 (serving): kernel "
+        f"{ms_p0:.4f} ms, "
         f"plain {plain_p0:.4f} ms, SDPA {lib_p0:.4f} ms, bound {fb0:.4f} ms "
         f"({fby0})")
     passes = device_ms_by_kernel(
         lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
         {"dq": ("attention_bwd_dq", 1), "dkv": ("attention_bwd_dkv", 1)})
-    log(f"  attention bf16 backward p={p}: kernel {bwd_ms:.4f} ms (profiler: "
+    log(f"  attention D={dim} bf16 backward p={p}: kernel {bwd_ms:.4f} ms "
+        f"(profiler: "
         f"dQ pass {fmt_ms(passes['dq'], 4)}, dK/dV pass "
         f"{fmt_ms(passes['dkv'], 4)}), plain "
         f"autograd backward {plain_bwd:.4f} ms (forward + backward "
@@ -934,14 +1003,34 @@ def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs):
         f"bound {bb:.4f} ms ({bby}: {bwd_flops / 1e9:.2f} GFLOP, "
         f"{bwd_bytes / 1e6:.1f} MB, the generator once = "
         f"{draw_ms:.4f} ms)")
-    results["fused_attention_fwd"] = dict(
+    padded = {}
+    width = fused_attention.kernel_head_dim(dim)
+    if width != dim:
+        # the same kernels on inputs padded beforehand: what the wrapper's
+        # zero-padding and slicing cost beside them
+        wide = [F.pad(t, (0, width - dim)).requires_grad_()
+                for t in (q, k, v)]
+        padded["fwd"] = time_ms(
+            lambda: fused_attention.fused_dropout_attention(
+                *wide, mask, p, gen, scale))
+        wide_out = fused_attention.fused_dropout_attention(*wide, mask, p,
+                                                           gen, scale)
+        wide_do = F.pad(do, (0, width - dim))
+        padded["bwd"] = time_ms(lambda: torch.autograd.grad(
+            wide_out, wide, wide_do, retain_graph=True))
+        log(f"  attention D={dim} bf16 p={p} on inputs padded to {width} "
+            f"beforehand: forward {padded['fwd']:.4f} ms, backward "
+            f"{padded['bwd']:.4f} ms")
+    results["fused_attention_fwd" + suffix] = dict(
         max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd, bound_ms=fb,
         bound_by=fby, library_ms=lib_fwd, ms_p0=ms_p0, plain_ms_p0=plain_p0,
-        library_ms_p0=lib_p0, bound_ms_p0=fb0, bound_by_p0=fby0)
-    results["fused_attention_bwd"] = dict(
+        library_ms_p0=lib_p0, bound_ms_p0=fb0, bound_by_p0=fby0,
+        **({"ms_on_padded_inputs": padded["fwd"]} if padded else {}))
+    results["fused_attention_bwd" + suffix] = dict(
         max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd, bound_ms=bb,
         bound_by=bby, library_ms=lib_bwd,
         plain_fwd_bwd_ms=plain_fwd + plain_bwd,
+        **({"ms_on_padded_inputs": padded["bwd"]} if padded else {}),
         **{f"{label}_pass_ms": ms for label, ms in passes.items()
            if ms is not None})
 
@@ -962,26 +1051,32 @@ def causal_keys(lengths: np.ndarray, n: int) -> float:
     return float(seen.sum())
 
 
-def kernels_causal_attention(results: dict) -> None:
+def kernels_causal_attention(results: dict, heads: int = HEADS,
+                             dim: int = HEAD_DIM, lengths_run=CAUSAL_LENGTHS,
+                             suffix: str = "") -> None:
+    """The causal kernels at B=32, `heads` heads of `dim`, each length of
+    `lengths_run`, against the plain version, then timed; results under
+    causal_attention_{fwd,bwd} + `suffix`."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(2)
-    scale = HEAD_DIM ** -0.5
-    for name in CAUSAL_KERNELS:
+    scale = dim ** -0.5
+    names = [name + suffix for name in CAUSAL_KERNELS]
+    for name in names:
         results[name] = dict(max_abs_err=0.0)
-    for n in CAUSAL_LENGTHS:
+    for n in lengths_run:
         lengths = rng.integers(n // 8, n + 1, B)
         lengths[0] = n
         lengths[-1] = 0  # a collator dummy row: every key masked
         mask = torch.as_tensor(np.arange(n)[None, :] < lengths[:, None],
                                dtype=torch.int32, device=dev)
-        log(f"[kernels] causal attention B={B} L={n} H={HEADS} D={HEAD_DIM}, "
+        log(f"[kernels] causal attention B={B} L={n} H={heads} D={dim}, "
             f"ragged mask, row {B - 1} fully masked, no dropout")
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, do = (torch.randn(B, n, HEADS, HEAD_DIM, generator=gen,
+            q, k, v, do = (torch.randn(B, n, heads, dim, generator=gen,
                                        device=dev).to(dtype)
                            for _ in range(4))
-            tag = f"causal attention L={n} {str(dtype)[6:]}"
+            tag = f"causal attention D={dim} L={n} {str(dtype)[6:]}"
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             out = fused_attention.causal_attention(*leaves, mask, scale)
             stats = out.grad_fn.saved_tensors[4]
@@ -993,14 +1088,14 @@ def kernels_causal_attention(results: dict) -> None:
             torch.cuda.synchronize()
             e = check_close(f"{tag} out", out, ref, *ATTN_TOL[dtype])
             if dtype == torch.bfloat16:
-                results["causal_attention_fwd"]["max_abs_err"] = max(
-                    results["causal_attention_fwd"]["max_abs_err"], e)
+                results[names[0]]["max_abs_err"] = max(
+                    results[names[0]]["max_abs_err"], e)
             for name, a, b in zip("qkv", leaves, ref_leaves):
                 e = check_close(f"{tag} d{name}", a.grad, b.grad,
                                 *GRAD_TOL[dtype])
                 if dtype == torch.bfloat16:
-                    results["causal_attention_bwd"]["max_abs_err"] = max(
-                        results["causal_attention_bwd"]["max_abs_err"], e)
+                    results[names[1]]["max_abs_err"] = max(
+                        results[names[1]]["max_abs_err"], e)
             del ref, ref_leaves
             if dtype == torch.bfloat16:
                 check_rounding(tag, q, k, v, do, mask, scale, None, 0.0, True,
@@ -1013,20 +1108,23 @@ def kernels_causal_attention(results: dict) -> None:
                 lse = stats[..., 0] + torch.log(stats[..., 1])
                 check_close(f"{tag} lse (rows 0..B-2)", lse[:-1],
                             torch.logsumexp(s, -1)[:-1], *STATS_TOL)
-        time_causal_attention(results, n, q, k, v, do, mask, scale, lengths)
+        time_causal_attention(results, n, q, k, v, do, mask, scale, lengths,
+                              names)
 
 
-def time_causal_attention(results, n, q, k, v, do, mask, scale, lengths):
+def time_causal_attention(results, n, q, k, v, do, mask, scale, lengths,
+                          names=CAUSAL_KERNELS):
     """bf16 times of the causal kernels beside the plain version, SDPA under
     the joined boolean mask (timed only; its all-masked rows are NaN) and the
     bound from this run's mask. L=512 is the kernels' line; L=128 rides
     along under its own keys."""
     dtype = q.dtype
     elems = q.numel()
+    heads, dim = q.shape[2:]
     keys = causal_keys(lengths, n)
-    fwd_flops = 4.0 * HEADS * HEAD_DIM * keys
-    bwd_flops = 10.0 * HEADS * HEAD_DIM * keys
-    stats_bytes = B * HEADS * n * 8
+    fwd_flops = 4.0 * heads * dim * keys
+    bwd_flops = 10.0 * heads * dim * keys
+    stats_bytes = B * heads * n * 8
     fwd_bytes = 4 * elems * q.element_size() + mask.numel() * 4 + stats_bytes
     bwd_bytes = (8 * elems * q.element_size() + mask.numel() * 4
                  + stats_bytes)
@@ -1050,12 +1148,14 @@ def time_causal_attention(results, n, q, k, v, do, mask, scale, lengths):
                                                   retain_graph=True))
     fb, fby = bound(fwd_bytes, fwd_flops, dtype)
     bb, bby = bound(bwd_bytes, bwd_flops, dtype)
-    log(f"  causal attention bf16 L={n} forward (writes row statistics): "
+    log(f"  causal attention D={dim} bf16 L={n} forward (writes row "
+        f"statistics): "
         f"kernel {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, SDPA "
         f"{lib_fwd:.4f} ms, bound {fb:.4f} ms ({fby}: "
         f"{fwd_flops / 1e9:.2f} GFLOP over the keys each row sees, "
         f"{fwd_bytes / 1e6:.1f} MB)")
-    log(f"  causal attention bf16 L={n} backward: kernel {bwd_ms:.4f} ms, "
+    log(f"  causal attention D={dim} bf16 L={n} backward: kernel "
+        f"{bwd_ms:.4f} ms, "
         f"plain autograd backward {plain_bwd:.4f} ms, SDPA backward "
         f"{lib_bwd:.4f} ms, bound {bb:.4f} ms ({bby}: "
         f"{bwd_flops / 1e9:.2f} GFLOP, {bwd_bytes / 1e6:.1f} MB)")
@@ -1066,66 +1166,99 @@ def time_causal_attention(results, n, q, k, v, do, mask, scale, lengths):
     if n != L:
         fwd = {f"{key}_L{n}": val for key, val in fwd.items()}
         bwd = {f"{key}_L{n}": val for key, val in bwd.items()}
-    results["causal_attention_fwd"].update(fwd)
-    results["causal_attention_bwd"].update(bwd)
+    results[names[0]].update(fwd)
+    results[names[1]].update(bwd)
 
 
-def kernels_layernorm(results: dict) -> None:
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
+def check_layernorm(tag, x, y, g, w, b, gen, eps, p):
+    """One forward and backward of the residual-LN kernels against the
+    plain version (with the kernel's own keep mask at p > 0), mean and rstd
+    against their definition; returns the max abs errors of out and of dx,
+    dy."""
+    rows, hidden = x.shape
+    leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    state = gen.get_state()
+    out = fused_layernorm.fused_residual_layernorm(*leaves, eps, p, gen)
+    mean, rstd = out.grad_fn.saved_tensors[3:5]
+    out.backward(g)
+    keep = None
+    if p > 0.0:
+        keep = fused_layernorm.keep_mask(drawn_seed(gen, state), rows,
+                                         hidden, p)
+    ref_leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    ref = fused_layernorm.residual_layernorm_reference(*ref_leaves, eps,
+                                                       keep, p)
+    ref.backward(g)
+    torch.cuda.synchronize()
+    dtype = x.dtype
+    e_out = check_close(f"{tag} out", out, ref, *LN_TOL[dtype])
+    z = x.float() + y.float() * (
+        1.0 if keep is None else keep.float() / (1.0 - p))
+    var = (z * z).mean(-1) - z.mean(-1) ** 2
+    check_close(f"{tag} mean", mean, z.mean(-1), *STATS_TOL)
+    check_close(f"{tag} rstd", rstd, torch.rsqrt(var.clamp(min=0) + eps),
+                *STATS_TOL)
+    e_grad = 0.0
+    for name, a, c in zip(("dx", "dy"), leaves, ref_leaves):
+        e_grad = max(e_grad, check_close(f"{tag} {name}", a.grad, c.grad,
+                                         *GRAD_TOL[dtype]))
+    # dscale, dbias: f32 sums over R rows of terms of size ~1
+    for name, a, c in zip(("dscale", "dbias"), leaves[2:], ref_leaves[2:]):
+        check_close(f"{tag} {name}", a.grad, c.grad, 1e-5 * rows + 1e-4,
+                    1e-4)
+    return e_out, e_grad
+
+
+def layernorm_inputs(gen, rows: int, hidden: int, dtype):
+    """x, y, g of (rows, hidden) in dtype; scale and bias in f32."""
+    x, y, g = (torch.randn(rows, hidden, generator=gen,
+                           device="cuda").to(dtype) for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(hidden, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(hidden, generator=gen, device="cuda")
+    return x, y, g, w, b
+
+
+def kernels_layernorm(results: dict, hidden: int = HIDDEN,
+                      row_counts=(B * L, B * DEC_LEN, B * BEAMS),
+                      suffix: str = "") -> None:
+    """The residual-LN kernels at `hidden` and each row count, f32 and
+    bf16, p = 0 and 0.1, then timed in bf16; results under
+    fused_layernorm_{fwd,bwd} + `suffix`, the first row count the line's."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
     eps = 1e-5
     errs = {"fwd": 0.0, "bwd": 0.0}
-    for rows in (B * L, B * DEC_LEN, B * BEAMS):
-        log(f"[kernels] residual LayerNorm R={rows} H={HIDDEN}")
+    for rows in row_counts:
+        log(f"[kernels] residual LayerNorm R={rows} H={hidden}")
         for dtype in (torch.float32, torch.bfloat16):
-            x, y, g = (torch.randn(rows, HIDDEN, generator=gen,
-                                   device=dev).to(dtype) for _ in range(3))
-            w = 1.0 + 0.1 * torch.randn(HIDDEN, generator=gen, device=dev)
-            b = 0.1 * torch.randn(HIDDEN, generator=gen, device=dev)
+            x, y, g, w, b = layernorm_inputs(gen, rows, hidden, dtype)
             for p in (0.0, DROPOUT_P):
-                tag = f"layernorm R={rows} {str(dtype)[6:]} p={p}"
-                leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
-                state = gen.get_state()
-                out = fused_layernorm.fused_residual_layernorm(
-                    *leaves, eps, p, gen)
-                mean, rstd = out.grad_fn.saved_tensors[3:5]
-                out.backward(g)
-                keep = None
-                if p > 0.0:
-                    keep = fused_layernorm.keep_mask(drawn_seed(gen, state),
-                                                     rows, HIDDEN, p)
-                ref_leaves = [t.clone().requires_grad_()
-                              for t in (x, y, w, b)]
-                ref = fused_layernorm.residual_layernorm_reference(
-                    *ref_leaves, eps, keep, p)
-                ref.backward(g)
-                torch.cuda.synchronize()
-                e = check_close(f"{tag} out", out, ref, *LN_TOL[dtype])
-                main_shape = dtype == torch.bfloat16 and rows == B * L
-                if main_shape:
-                    errs["fwd"] = max(errs["fwd"], e)
-                z = x.float() + y.float() * (
-                    1.0 if keep is None else keep.float() / (1.0 - p))
-                var = (z * z).mean(-1) - z.mean(-1) ** 2
-                check_close(f"{tag} mean", mean, z.mean(-1), *STATS_TOL)
-                check_close(f"{tag} rstd", rstd,
-                            torch.rsqrt(var.clamp(min=0) + eps), *STATS_TOL)
-                for name, a, c in zip(("dx", "dy"), leaves, ref_leaves):
-                    e = check_close(f"{tag} {name}", a.grad, c.grad,
-                                    *GRAD_TOL[dtype])
-                    if main_shape:
-                        errs["bwd"] = max(errs["bwd"], e)
-                # dscale, dbias: f32 sums over R rows of terms of size ~1
-                for name, a, c in zip(("dscale", "dbias"), leaves[2:],
-                                      ref_leaves[2:]):
-                    check_close(f"{tag} {name}", a.grad, c.grad,
-                                1e-5 * rows + 1e-4, 1e-4)
+                e_out, e_grad = check_layernorm(
+                    f"layernorm R={rows} H={hidden} {str(dtype)[6:]} p={p}",
+                    x, y, g, w, b, gen, eps, p)
+                if dtype == torch.bfloat16 and rows == row_counts[0]:
+                    errs["fwd"] = max(errs["fwd"], e_out)
+                    errs["bwd"] = max(errs["bwd"], e_grad)
             if dtype == torch.bfloat16:
-                time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs)
+                time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs,
+                               rows == row_counts[0], suffix)
 
 
-def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs):
+def library_layernorm_backward(x, y, g, w, b, eps):
+    """Yardstick, timed only and used nowhere in the port: the one PyTorch
+    call that computes the LN kernels' backward at p = 0 (dx, dscale,
+    dbias; dres = dx), on the forward's own mean and rstd."""
+    z = x + y
+    wd, bd = w.to(x.dtype), b.to(x.dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(z, (x.shape[1],), wd,
+                                                     bd, eps)
+    return lambda: torch.ops.aten.native_layer_norm_backward(
+        g, z, (x.shape[1],), mean, rstd, wd, bd, [True, True, True])
+
+
+def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs, line,
+                   suffix=""):
     p = DROPOUT_P
+    hidden = x.shape[1]
     leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
     with torch.no_grad():
         ms_p0 = time_ms(lambda: fused_layernorm.fused_residual_layernorm(
@@ -1133,57 +1266,84 @@ def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs):
         plain_p0 = time_ms(
             lambda: fused_layernorm.residual_layernorm_reference(
                 x, y, w, b, eps))
-        two_calls = time_ms(lambda: F.layer_norm(x + y, (HIDDEN,),
+        two_calls = time_ms(lambda: F.layer_norm(x + y, (hidden,),
                                                  w.to(x.dtype),
                                                  b.to(x.dtype), eps))
+        lib_bwd = time_ms(library_layernorm_backward(x, y, g, w, b, eps))
     fwd_ms = time_ms(lambda: fused_layernorm.fused_residual_layernorm(
         *leaves, eps, p, gen))
     out = fused_layernorm.fused_residual_layernorm(*leaves, eps, p, gen)
     bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
                                                  retain_graph=True))
     keep = fused_layernorm.keep_mask(torch.tensor([1], device=x.device),
-                                     rows, HIDDEN, p)
+                                     rows, hidden, p)
     plain_fwd = time_ms(lambda: fused_layernorm.residual_layernorm_reference(
         *leaves, eps, keep, p))
     ref = fused_layernorm.residual_layernorm_reference(*leaves, eps, keep, p)
     plain_bwd = time_ms(lambda: torch.autograd.grad(ref, leaves, g,
                                                     retain_graph=True))
     size = x.numel() * x.element_size()
-    fwd_bytes = 3 * size + 2 * HIDDEN * 4 + 2 * rows * 4
-    bwd_bytes = 5 * size + 3 * HIDDEN * 4 + 2 * rows * 4
+    fwd_bytes = 3 * size + 2 * hidden * 4 + 2 * rows * 4
+    bwd_bytes = 5 * size + 3 * hidden * 4 + 2 * rows * 4
     fb, fby = bound(fwd_bytes, 10.0 * x.numel(), torch.float32)
     bb, bby = bound(bwd_bytes, 20.0 * x.numel(), torch.float32)
-    log(f"  layernorm R={rows} bf16 forward p={p} (writes mean, rstd): "
-        f"kernel {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, bound "
+    log(f"  layernorm R={rows} H={hidden} bf16 forward p={p} (writes mean, "
+        f"rstd): kernel {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, bound "
         f"{fb:.4f} ms ({fby}: {fwd_bytes / 1e6:.2f} MB); p=0: kernel "
         f"{ms_p0:.4f} ms, plain {plain_p0:.4f} ms; for information, "
         f"F.layer_norm(x + y), two calls with a two-pass variance: "
         f"{two_calls:.4f} ms")
-    log(f"  layernorm R={rows} bf16 backward p={p}: kernel {bwd_ms:.4f} ms, "
-        f"plain autograd backward {plain_bwd:.4f} ms (forward + backward "
-        f"{plain_fwd + plain_bwd:.4f} ms), bound {bb:.4f} ms ({bby}: "
-        f"{bwd_bytes / 1e6:.2f} MB)")
-    if rows == B * L:
-        results["fused_layernorm_fwd"] = dict(
+    log(f"  layernorm R={rows} H={hidden} bf16 backward p={p}: kernel "
+        f"{bwd_ms:.4f} ms, plain autograd backward {plain_bwd:.4f} ms "
+        f"(forward + backward {plain_fwd + plain_bwd:.4f} ms), "
+        f"aten.native_layer_norm_backward at p=0 {lib_bwd:.4f} ms, bound "
+        f"{bb:.4f} ms ({bby}: {bwd_bytes / 1e6:.2f} MB)")
+    fwd_name, bwd_name = ("fused_layernorm_fwd" + suffix,
+                          "fused_layernorm_bwd" + suffix)
+    if line:
+        results[fwd_name] = dict(
             max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd,
             bound_ms=fb, bound_by=fby, library_ms=None, ms_p0=ms_p0,
             plain_ms_p0=plain_p0)
-        results["fused_layernorm_bwd"] = dict(
+        results[bwd_name] = dict(
             max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd,
-            bound_ms=bb, bound_by=bby, library_ms=None,
+            bound_ms=bb, bound_by=bby, library_ms=lib_bwd,
             plain_fwd_bwd_ms=plain_fwd + plain_bwd)
     else:
-        for kind, ms in (("fwd", fwd_ms), ("bwd", bwd_ms)):
-            results[f"fused_layernorm_{kind}"][f"ms_rows_{rows}"] = ms
+        for name, ms in ((fwd_name, fwd_ms), (bwd_name, bwd_ms)):
+            results[name][f"ms_rows_{rows}"] = ms
+
+
+def kernels_layernorm_wide(results: dict) -> None:
+    """The wide route (hidden > 1024): the line's shape, the rows that
+    phase_shapes gives it (its encoder's and its decoder's at
+    SHAPES_HIDDEN), then the route's ragged ends (1152: a thread's second
+    group of four columns only partly used; 8192: eight full groups) at a
+    few rows, f32 and bf16, p = 0 and 0.1."""
+    kernels_layernorm(results, WIDE_HIDDEN, (B * L, 7), "_wide")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for rows, hidden in ((SHAPES_BATCH * L, SHAPES_HIDDEN),
+                         (SHAPES_BATCH * DEC_LEN, SHAPES_HIDDEN),
+                         (5, 1152), (5, fused_layernorm.MAX_HIDDEN)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y, g, w, b = layernorm_inputs(gen, rows, hidden, dtype)
+            for p in (0.0, DROPOUT_P):
+                check_layernorm(f"layernorm R={rows} H={hidden} "
+                                f"{str(dtype)[6:]} p={p}", x, y, g, w, b,
+                                gen, 1e-5, p)
 
 
 def phase_kernels(results: dict) -> None:
     check_masks()
     check_dropout_bits()
     kernels_attention(results)
+    kernels_attention(results, PAD_HEADS, PAD_DIM, "_padded")
     kernels_attention_shapes()
     kernels_causal_attention(results)
+    kernels_causal_attention(results, CAUSAL_PAD_HEADS, PAD_DIM, (L,),
+                             "_padded")
     kernels_layernorm(results)
+    kernels_layernorm_wide(results)
     kernels_topk_small()
     torch.cuda.empty_cache()
 
@@ -1518,8 +1678,9 @@ def phase_train_pad_microbatch(cfg, enc_tok, dec_tok, micro, tmp: Path):
 
 def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro,
                                  pad_id: int, tag: str = "train") -> None:
-    """One micro-batch (8 examples, full width and depth) in f32 without
-    dropout: loss and every gradient, kernels against plain functions."""
+    """One micro-batch of 8 examples of `cfg`'s model in f32 without
+    dropout: loss and every gradient, kernels (and the routes past the
+    recipes' shapes) against plain functions."""
     n = 8
     cfg = dataclasses.replace(cfg, compute_dtype="float32")
     module, _, _ = build_model(cfg, enc_tok, dec_tok,
@@ -1534,16 +1695,17 @@ def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro,
     for on in (True, False):
         set_kernels(module, on)
         module.zero_grad(set_to_none=True)
-        before = read_counts()
+        before = read_counts(), read_route_counts()
         loss, _ = loss_fn(batch, gen)
         loss.backward()
         torch.cuda.synchronize()
-        launched = read_counts() != before
+        launched = (read_counts(), read_route_counts()) != before
         if launched != on:
             raise AssertionError(f"kernels on={on} but launched={launched}")
         runs.append((float(loss.detach()), {name: p.grad.clone() for name, p
                                    in module.named_parameters()}))
     (loss_k, grads_k), (loss_p, grads_p) = runs
+    enc = module.encoder.config
     # A tensor's difference is held against its own largest gradient, but
     # not against less than GRAD_FLOOR of the largest gradient of all: the
     # attention key biases have a gradient of exactly zero (a softmax does
@@ -1558,7 +1720,8 @@ def phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro,
         if rel > worst:
             worst, worst_name, worst_abs = rel, name, diff
     log(f"[{tag}] kernels vs plain functions, f32, p=0, {n} examples at "
-        f"L={L}, full width and depth: loss {loss_k:.6f} vs {loss_p:.6f} "
+        f"L={L}, encoder {enc.num_hidden_layers} x {enc.hidden_size} in "
+        f"{enc.num_attention_heads} heads: loss {loss_k:.6f} vs {loss_p:.6f} "
         f"(bound {TRAIN_LOSS_BOUND:g}); worst gradient tensor {worst_name}: "
         f"max abs diff {worst_abs:.3e}, over max(its max abs, {floor:.3e}) "
         f"= {worst:.3e} (bound {TRAIN_GRAD_BOUND:g}) over {len(grads_p)} "
@@ -1615,7 +1778,14 @@ def kernels_topk_small() -> None:
     cases = [(37, 601, 128, "binary", 20, 0), (130, 1000, 1024, "binary", 5, 0),
              (257, 3001, 2048, "counts", 20, 3), (5, 129, 256, "full", 100, 0),
              (128, 128, 2048, "full", 1, 1), (9, 7, 128, "binary", 20, 0),
-             (300, 5000, 1024, "counts", 100, 1), (64, 2000, 2048, "full", 20, 0)]
+             (300, 5000, 1024, "counts", 100, 1),
+             (64, 2000, 2048, "full", 20, 0),
+             # k past the shared-memory lists: the scan's lists in device
+             # memory, fewer rows than k among them
+             (37, 601, 128, "binary", LARGE_K, 0),
+             (130, 3000, 1024, "counts", topk.MAX_K, 2),
+             (5, 200, 256, "full", LARGE_K, 0),
+             (300, 5000, 2048, "binary", LARGE_K, 1)]
     for M, N, d, kind, k, nb in cases:
         if kind == "binary":
             corpus = (rng.random((N, d)) < 0.08).astype(np.int8)
@@ -1676,10 +1846,11 @@ def phase_retrieval(card: str, results: dict) -> None:
     built = ptxas_report("exact_topk")
     for kernel, (regs, spill) in sorted(built.items()):
         log(f"[retrieve] {kernel[:60]}: {regs} registers, {spill}")
+    largest = topk.SHARED_LIST_K   # the largest k with the lists in there
     (stages, nbytes), (stages_max, nbytes_max) = (topk.scan_shared(k),
-                                                  topk.scan_shared(topk.MAX_K))
+                                                  topk.scan_shared(largest))
     log(f"[retrieve] topk_scan: {nbytes} bytes of dynamic shared memory at "
-        f"k={k} ({stages} ring stages), {nbytes_max} at k={topk.MAX_K} "
+        f"k={k} ({stages} ring stages), {nbytes_max} at k={largest} "
         f"({stages_max}); "
         f"{'built in this process' if built else 'cached build: no report'}")
     for shape in ("bench", "rcr"):
@@ -1875,6 +2046,156 @@ def time_retrieval(card, results, shape, index, queries, banned, q_dev, b_dev,
         else:
             results[name].update({f"{key}_bench": v
                                   for key, v in timing.items()})
+
+
+def shapes_model(tmp: Path, vocab: Path):
+    """(cfg, tokenizers, module) of the recipe's training configuration on
+    2 + 2 layers of SHAPES_HIDDEN in PAD_HEADS heads of PAD_DIM: every
+    attention call runs zero-padded, every residual LN on the wide route."""
+    paths = []
+    for name in ("scibert_base", "bert_l6"):
+        path = tmp / f"shapes_{name}.json"
+        path.write_text(json.dumps(dataclasses.asdict(PRESETS[name].replace(
+            hidden_size=SHAPES_HIDDEN, num_hidden_layers=2,
+            num_attention_heads=PAD_HEADS))))
+        paths.append(str(path))
+    cfg = dataclasses.replace(train_config(vocab), encoder=paths[0],
+                              decoder=paths[1])
+    enc_tok, dec_tok = get_tokenizers(cfg)
+    module, _, _ = build_model(cfg, enc_tok, dec_tok,
+                               torch.Generator().manual_seed(0))
+    return cfg, enc_tok, dec_tok, module
+
+
+def phase_shapes(card: str, tmp: Path, vocab: Path, results: dict) -> None:
+    """The routes of the shapes past the recipes', through the entry points
+    a user calls, with exact launch counts: one training step of a model
+    with heads of 96 and rows of 1536 (build_model, make_accum_train_step),
+    a training pass of two causal blocks with heads of 96, FlatIndex.search
+    at k = 256 in both layouts; then the large-k scan against the plain
+    version and the numpy oracle and timed, at the bench shape."""
+    cfg, enc_tok, dec_tok, module = shapes_model(tmp, vocab)
+    micro = as_microbatches(
+        make_train_batch(cfg, enc_tok, dec_tok, SHAPES_BATCH), 1)
+    optimizer = make_optimizer(cfg, 1, module.named_parameters())
+    step = make_accum_train_step(module, cfg, optimizer, dec_tok.pad_token_id)
+    state = TrainState.create(module, optimizer)
+    reset_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, micro, np.ones(1, np.float32), cfg.seed)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    routes, main = read_route_counts(), read_counts()
+    layers = 2
+    want = dict.fromkeys(routes, 0)
+    want.update(fused_attention_fwd_padded=layers,
+                fused_attention_bwd_padded=layers,
+                fused_layernorm_fwd_wide=2 * layers + 3 * layers,
+                fused_layernorm_bwd_wide=2 * layers + 3 * layers)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if routes != want or any(main.values()) or not all(
+            np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"shapes training step: launches {routes} "
+                             f"(expected {want}), {main}; {metrics}")
+    launches = dict(routes)
+    log(f"[shapes] one training step of {SHAPES_BATCH} examples at L={L}, "
+        f"2 + 2 layers of {SHAPES_HIDDEN} in {PAD_HEADS} heads of {PAD_DIM}, "
+        f"bf16, dropout {DROPOUT_P}, MLM: {metrics}, {step_ms:.1f} ms (host "
+        f"clock, first step); launches {routes}")
+    del module, state, optimizer, step
+    torch.cuda.empty_cache()
+    # the same model and batch in f32 without dropout: loss and every
+    # gradient through the routes against the plain functions
+    phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro,
+                                 dec_tok.pad_token_id, "shapes")
+    del micro
+    torch.cuda.empty_cache()
+
+    config = PRESETS["bert_l6"].replace(num_attention_heads=CAUSAL_PAD_HEADS,
+                                        attention_impl="flash",
+                                        layernorm_impl="fused")
+    stack = CausalStack(config, torch.bfloat16, layers=layers).cuda().train()
+    x, enc, cross_bias, self_mask, w = causal_inputs(L, SHAPES_BATCH,
+                                                     torch.bfloat16, 5)
+    xg = x.clone().requires_grad_()
+    reset_counts()
+    out = stack(xg, enc, cross_bias, self_mask,
+                generator=torch.Generator(device="cuda").manual_seed(5))
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    routes = read_route_counts()
+    want = dict.fromkeys(routes, 0)
+    want.update(causal_attention_fwd_padded=layers,
+                causal_attention_bwd_padded=layers)
+    if routes != want or not bool(torch.isfinite(xg.grad).all()):
+        raise AssertionError(f"causal blocks with heads of {PAD_DIM}: "
+                             f"launches {routes}, expected {want}")
+    for name in ("causal_attention_fwd_padded", "causal_attention_bwd_padded"):
+        launches[name] = routes[name]
+    log(f"[shapes] {layers} causal blocks of {HIDDEN} in "
+        f"{config.num_attention_heads} heads of {PAD_DIM}, B={SHAPES_BATCH} "
+        f"L={L}, "
+        f"forward + backward in training mode: launches {routes}")
+    del stack, out, xg
+    torch.cuda.empty_cache()
+
+    corpus, queries, _ = retrieval_data("bench")
+    index = FlatIndex(corpus)
+    N, d = index.corpus.shape
+    M, k = len(queries), LARGE_K
+    reset_counts()
+    found = {}
+    for resident in TOPK_LAYOUTS:
+        index.corpus_resident = resident
+        found[resident] = index.search(queries, k=k)
+    routes = read_route_counts()
+    want = dict.fromkeys(routes, 0)
+    want.update(exact_topk_corpus_split_large_k=1,
+                exact_topk_query_outer_large_k=1)
+    if routes != want or any(read_counts().values()):
+        raise AssertionError(f"FlatIndex.search k={k}: launches {routes}")
+    for name in ("exact_topk_corpus_split_large_k",
+                 "exact_topk_query_outer_large_k"):
+        launches[name] = routes[name]
+    q_dev = torch.from_numpy(queries).cuda()
+    plain_v, plain_i = (t.cpu().numpy() for t in topk.exact_topk_l2_reference(
+        q_dev[:256], index.corpus, index.norms, k=k))
+    oracle_v, oracle_i = index.reference_search(queries[:64], k=k)
+    if not all(np.array_equal(a, b) for a, b in zip(found[True],
+                                                    found[False])):
+        raise AssertionError(f"k={k}: the two layouts disagree")
+    ops = 2.0 * M * N * d
+    bound_ms, bound_by = bound(N * d + M * d + 8 * M * k, ops, torch.int8)
+    plain_ms = time_ms(lambda: topk.exact_topk_l2_reference(
+        q_dev, index.corpus, index.norms, k=k), reps=1)
+    library_ms = time_ms(lambda: library_topk(q_dev, index.corpus,
+                                              index.norms, k), reps=3)
+    for resident, name in TOPK_LAYOUTS.items():
+        vals, idx = found[resident]
+        if not (np.array_equal(idx[:256], plain_i)
+                and np.array_equal(vals[:256], plain_v)
+                and np.array_equal(idx[:64], oracle_i)
+                and np.array_equal(vals[:64], oracle_v)):
+            raise AssertionError(f"k={k} {name} disagrees with the plain "
+                                 f"version or the numpy oracle")
+        ms = time_ms(lambda: topk.exact_topk_l2(
+            q_dev, index.corpus, index.norms, k=k, corpus_resident=resident),
+            reps=5)
+        log(f"[shapes] bench shape k={k} {name}: equal to the plain version "
+            f"(256 queries) and the numpy oracle (64), tolerance 0; device "
+            f"{ms:.3f} ms = {M / ms * 1e3:.0f} queries/s ({bound_ms / ms:.1%} "
+            f"of the {bound_by} bound {bound_ms:.3f} ms), plain "
+            f"{plain_ms:.1f} ms, library (torch._int_mm + torch.topk) "
+            f"{library_ms:.2f} ms; on {card}")
+        results[name + "_large_k"] = dict(
+            max_abs_err=float(np.abs(vals[:256].astype(np.int64)
+                                     - plain_v).max()),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms)
+    for name, n in launches.items():
+        results[name]["launches"] = n
+    del index, q_dev, corpus
+    torch.cuda.empty_cache()
 
 
 def write_reaction_csvs(root: Path, sizes: dict) -> None:
@@ -3319,29 +3640,52 @@ def template_cli_argv(data: Path, vocab: Path, save: Path) -> list:
         "--log_every", "1", "--debug"]
 
 
+def template_cli_launches(layers: int, sizes: dict) -> dict:
+    """The launches of one template-based command-line run on `sizes`
+    reactions with `layers` encoder layers: an epoch of training, fit's and
+    --do_valid's validation, a test pass on each of the two corpora. Only
+    the residual LN runs on the card (no decoder, and attention under the
+    bond mask takes the plain path); every other count is 0."""
+    mbs = -(-sizes["train"] // B)
+    evals = 2 * 2 * -(-sizes["val"] // B)  # fit's and --do_valid's
+    tests = 2 * -(-sizes["test"] // B)     # two corpora each
+    return dict(fused_layernorm_fwd=2 * layers * (mbs + evals + tests),
+                fused_layernorm_bwd=2 * layers * mbs)
+
+
+def check_launches(what: str, counts: dict, launches: dict) -> None:
+    """`counts` (read_counts) are `launches` and 0 for every other kernel."""
+    want = dict.fromkeys(counts, 0)
+    want.update(launches)
+    if counts != want:
+        raise AssertionError(f"{what} launched {counts}, expected {want}")
+
+
 def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
                        layers: int, sizes: dict = TEMPLATE_SIZES) -> dict:
     """python -m textreact_tpu_torch --task retro --template_based
     --unattend_nonbonds, in-process on the card: one epoch of `sizes`
     reactions on the CSVs in `data`, validate, test with the decode."""
-    accum = MICRO_BATCHES
     reset_counts()
     t0 = time.perf_counter()
     accuracies = runtime_cli.main(template_cli_argv(data, vocab, save))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
+    check_launches("the command line", counts,
+                   template_cli_launches(layers, sizes))
+    return check_template_run(card, save, sizes, accuracies, seconds, counts)
+
+
+def check_template_run(card: str, save: Path, sizes: dict, accuracies,
+                       seconds: float, counts: dict) -> dict:
+    """What a template-based run on `sizes` reactions left in `save` (its
+    metrics, its decoded predictions) and returned (`accuracies`), checked
+    and logged; its timings and launch `counts`."""
+    accum = MICRO_BATCHES
     records = read_metrics(save)
     timing = [r for r in records if "epoch_seconds" in r][0]
     mbs = -(-sizes["train"] // B)
-    evals = 2 * 2 * -(-sizes["val"] // B)  # fit's and --do_valid's
-    tests = 2 * -(-sizes["test"] // B)     # two corpora each
-    want = {name: 0 for name in counts}
-    want.update(fused_layernorm_fwd=2 * layers * (mbs + evals + tests),
-                fused_layernorm_bwd=2 * layers * mbs)
-    if counts != want:
-        raise AssertionError(f"the command line launched {counts}, "
-                             f"expected {want}")
     # the atoms are padded to a batch's largest product, and each shape
     # group accumulates apart: one that ends the epoch with a partial
     # window takes one more, unlogged step (its weight-0 fill runs nothing)
@@ -3728,6 +4072,47 @@ def write_template_training_data(out: Path, seed: int = 0) -> None:
     write_corpus(out / "corpus.csv", train_ids, seed)
 
 
+def parity_run_module():
+    """scripts/torch_port/parity_run.py as a module (scripts/ is no
+    package)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "scripts/torch_port/parity_run.py"
+    spec = importlib.util.spec_from_file_location("torch_port_parity_run",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_neighbour_files(data: Path, nn_dir: Path, field: str) -> None:
+    """The neighbour files that the retrieval CLI wrote into `nn_dir` for
+    the splits in `data`: a record for each row in order, each with
+    min(TOPK_K, train rows) train ids, and on the first 256 rows of each
+    split the ids of the numpy oracle in its order (FlatIndex's
+    reference_search over the CLI's own train fingerprints; the check of
+    the CLI's --check_parity)."""
+    train_ids = read_csv(str(data / "train.csv"))["id"]
+    corpus = np.load(nn_dir / "train_fp.npy")
+    oracle = FlatIndex(corpus, device="cpu")
+    fingerprints = retrieval_cli.fingerprint_fn(field, 1)
+    k = min(TOPK_K, len(train_ids))
+    for name in ("train", "val", "test"):
+        table = read_csv(str(data / f"{name}.csv"))
+        records = json.loads((nn_dir / f"{name}.json").read_text())
+        queries = (corpus[:256] if name == "train"
+                   else fingerprints(list(table[field])[:256]))
+        _, rank = oracle.reference_search(queries, k=TOPK_K)
+        want = [[train_ids[n] for n in nn if 0 <= n < len(train_ids)]
+                for nn in rank.tolist()]
+        if [r["id"] for r in records] != table["id"] or any(
+                len(r["nn"]) != k for r in records) or [
+                r["nn"] for r in records[:256]] != want:
+            raise AssertionError(f"{nn_dir / name}.json: {len(records)} "
+                                 f"records, or not the oracle's neighbours")
+    log(f"[curation] {nn_dir.name}: the three neighbour files hold the "
+        f"numpy oracle's {k} neighbours in order (first 256 rows a split)")
+
+
 def phase_curation(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
     """The offline curation on the card's host, then the card: raw
     condition rows through both curation commands (in a process that
@@ -3756,60 +4141,39 @@ def phase_curation(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
         f"{seconds['condition_split']:.1f} s, dedup-corpus "
         f"{seconds['dedup_corpus']:.1f} s, each in a process without pandas")
 
-    # neighbours on the card
-    reset_counts()
-    t0 = time.perf_counter()
-    retrieval_cli.main([
-        "--data_path", str(out), "--train_file", "train.csv",
-        "--valid_file", "val.csv", "--test_file", "test.csv",
-        "--field", "canonical_rxn", "--output_path", str(nn_dir),
-        "--k", str(TOPK_K), "--check_parity"])
-    seconds["neighbours"] = time.perf_counter() - t0
-    counts = read_counts()
-    want = dict.fromkeys(counts, 0)
-    want["exact_topk_corpus_split"] = 3
-    if counts != want:
-        raise AssertionError(f"the retrieval CLI launched {counts}")
-    launches = dict(counts)
-    train_ids = set(read_csv(str(out / "train.csv"))["id"])
-    k = min(TOPK_K, len(train_ids))
-    for name in rows["split_rows"]:
-        records = json.loads((nn_dir / f"{name}.json").read_text())
-        ids = read_csv(str(out / f"{name}.csv"))["id"]
-        if [r["id"] for r in records] != ids or any(
-                len(r["nn"]) != k or not set(r["nn"]) <= train_ids
-                for r in records):
-            raise AssertionError(f"{name}.json: {len(records)} records")
-
-    # RCR at full width on the curated files
+    # the RCR recipe through scripts/torch_port/parity_run.py, in-process (the
+    # launch counters are this process's): no neighbour files in nn_dir, so
+    # parity_run builds them with the retrieval CLI (three searches), then
+    # trains, validates and tests at full width on the curated files
+    parity_run = parity_run_module()
     save = tmp / "curation_run"
     accum = MICRO_BATCHES
-    argv = [
-        "--task", "condition", "--do_train", "--do_valid", "--do_test",
-        "--data_path", str(out), "--train_file", "train.csv",
-        "--valid_file", "val.csv", "--test_file", "test.csv",
-        "--corpus_file", str(out / "corpus_dedup.csv"),
-        "--nn_path", str(nn_dir), "--train_nn_file", "train.json",
-        "--valid_nn_file", "val.json", "--test_nn_file", "test.json",
+    override = [
         "--encoder", "scibert_base", "--decoder", "bert_l6",
         "--encoder_tokenizer", "text", "--text_vocab_file", str(vocab),
         "--vocab_file", str(out / "vocab_condition.txt"),
-        "--num_neighbors", "3", "--use_gold_neighbor",
-        "--max_length", str(L), "--max_dec_length", str(DEC_LEN),
-        "--batch_size", str(B), "--gradient_accumulation_steps", str(accum),
-        "--test_batch_size", str(B), "--epochs", "1", "--lr", "1e-4",
-        "--warmup", "0.02", "--max_grad_norm", "5", "--num_beams",
-        str(BEAMS), "--mlm", "--mlm_layer", "mlp", "--mlm_lambda", "0.1",
-        "--compute_dtype", "bfloat16", "--save_path", str(save),
+        "--max_dec_length", str(DEC_LEN), "--batch_size", str(B),
+        "--gradient_accumulation_steps", str(accum),
+        "--test_batch_size", str(B), "--epochs", "1", "--max_grad_norm", "5",
         "--log_every", "1", "--debug"]
     steps: list = []
     reset_counts()
     t0 = time.perf_counter()
     with counted_decode_steps(steps):
-        accuracies = runtime_cli.main(argv)
+        parity_run.main([
+            "--recipe", "RCR", "--data_path", str(out),
+            "--corpus_file", str(out / "corpus_dedup.csv"),
+            "--nn_path", str(nn_dir), "--save_path", str(save),
+            "--override", " ".join(override)])
     torch.cuda.synchronize()
     seconds["rcr_run"] = time.perf_counter() - t0
     counts = read_counts()
+    result = json.loads((save / "parity_results.json").read_text())
+    accuracies = [{int(k): v for k, v in acc.items()}
+                  for acc in result["accuracy"]]
+    if "--shuffle_smiles" not in result["argv"] or result["recipe"] != "RCR":
+        raise AssertionError(f"parity_results.json: {result}")
+    check_neighbour_files(out, nn_dir, parity_run.RECIPES["RCR"]["field"])
     enc_layers = PRESETS["scibert_base"].num_hidden_layers
     dec_layers = PRESETS["bert_l6"].num_hidden_layers
     ln = 2 * enc_layers + 3 * dec_layers
@@ -3821,27 +4185,32 @@ def phase_curation(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
     mbs = -(-split_rows["train"] // B)
     evals = 2 * 2 * -(-split_rows["val"] // B)   # fit's and --do_valid's
     tests = 2 * -(-split_rows["test"] // B)      # two corpora each
-    want = dict.fromkeys(counts, 0)
-    want.update(fused_attention_fwd=enc_layers * (mbs + evals + tests),
-                fused_attention_bwd=enc_layers * mbs,
-                fused_layernorm_fwd=ln * (mbs + evals) + 2 * enc_layers * tests
-                + 3 * dec_layers * sum(steps),
-                fused_layernorm_bwd=ln * mbs)
-    if counts != want or len(steps) != tests:
-        raise AssertionError(f"the RCR run launched {counts}, expected "
-                             f"{want} ({len(steps)} test batches)")
-    for name in counts:
-        launches[name] += counts[name]
+    # the recipe's --shuffle_smiles reorders the SMILES of a reaction and
+    # changes no shape: the counts are those of the run without it
+    check_launches("the RCR run", counts, dict(
+        exact_topk_corpus_split=3,    # parity_run's retrieval
+        fused_attention_fwd=enc_layers * (mbs + evals + tests),
+        fused_attention_bwd=enc_layers * mbs,
+        fused_layernorm_fwd=ln * (mbs + evals) + 2 * enc_layers * tests
+        + 3 * dec_layers * sum(steps),
+        fused_layernorm_bwd=ln * mbs))
+    if len(steps) != tests:
+        raise AssertionError(f"the RCR run: {len(steps)} test batches, "
+                             f"expected {tests}")
+    launches = dict(counts)
     if not losses or not all(np.isfinite(v) for v in losses) or len(
             accuracies) != 2:
         raise AssertionError(f"RCR run: losses {losses}, {accuracies}")
-    log(f"[curation] RCR at full width on the curated files in "
-        f"{seconds['rcr_run']:.1f} s: {mbs} micro-batches of {B} ({accum} a "
-        f"step), train_loss {', '.join(f'{v:.4f}' for v in losses)}, "
-        f"{rcr_step_ms:.1f} ms per optimizer step (epoch 1, its first step "
-        f"included), top-1 {accuracies[0][1]:.3f} / {accuracies[1][1]:.3f}, "
-        f"{sum(steps)} decode steps over {tests} test batches; launches "
-        f"{counts}")
+    log(f"[curation] RCR through scripts/torch_port/parity_run.py (the "
+        f"retrieval CLI's three searches, then --shuffle_smiles and the "
+        f"recipe's flags with {' '.join(override[-14:])}) at full width on "
+        f"the curated files in {seconds['rcr_run']:.1f} s: {mbs} "
+        f"micro-batches of {B} ({accum} a step), train_loss "
+        f"{', '.join(f'{v:.4f}' for v in losses)}, {rcr_step_ms:.1f} ms per "
+        f"optimizer step (epoch 1, its first step included), top-1 "
+        f"{accuracies[0][1]:.3f} / {accuracies[1][1]:.3f}, {sum(steps)} "
+        f"decode steps over {tests} test batches; launches {counts}, as "
+        f"counted without --shuffle_smiles")
 
     # mapped reactions through the template processor on the host
     mapped, tpl = tmp / "mapped_raw", tmp / "template_curated"
@@ -3871,13 +4240,40 @@ def phase_curation(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
         f"gold labels decode to the reactants on "
         f"{artifacts['gold_decode']:.1%} of the test rows")
 
-    # RetroSyn_tb on the extracted labels
+    # RetroSyn_tb on the extracted labels, through parity_run's recipe: the
+    # templates are there, the neighbour files are not (three searches)
     write_template_training_data(tpl)
-    cli = phase_template_cli(card, tpl, vocab, tmp / "curation_template_run",
-                             enc_layers, MAPPED_SIZES)
+    tb_save = tmp / "curation_template_run"
+    tb_override = [
+        "--encoder", "scibert_base", "--encoder_tokenizer", "smiles_text",
+        "--text_vocab_file", str(vocab), "--batch_size", str(B),
+        "--gradient_accumulation_steps", str(MICRO_BATCHES),
+        "--test_batch_size", str(B), "--epochs", "1", "--max_grad_norm", "5",
+        "--num_beams", "20", "--log_every", "1", "--debug"]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    parity_run.main([
+        "--recipe", "RetroSyn_tb", "--data_path", str(tpl),
+        "--corpus_file", str(tpl / "corpus.csv"),
+        "--template_path", str(tpl), "--nn_path", str(tmp / "tb_nn"),
+        "--save_path", str(tb_save), "--override", " ".join(tb_override)])
+    torch.cuda.synchronize()
+    tb_seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check_launches("the RetroSyn_tb run", counts, dict(
+        template_cli_launches(enc_layers, MAPPED_SIZES),
+        exact_topk_corpus_split=3))  # parity_run's retrieval
+    check_neighbour_files(tpl, tmp / "tb_nn",
+                          parity_run.RECIPES["RetroSyn_tb"]["field"])
+    result = json.loads((tb_save / "parity_results.json").read_text())
+    cli = check_template_run(
+        card, tb_save, MAPPED_SIZES,
+        [{int(k): v for k, v in acc.items()} for acc in result["accuracy"]],
+        tb_seconds, counts)
     for name, n in cli.pop("launches").items():
         launches[name] += n
-    for name in KERNELS:
+    for name in MAIN_KERNELS:
         results[name]["launches_curation"] = launches[name]
     seconds["template_run"] = cli["cli_seconds"]
     return dict(rows=rows, mapped=n_mapped, seconds=seconds, **rates,
@@ -4292,6 +4688,8 @@ def main() -> int:
         phase_retrieval(card, results)
         phase_retrieval_cli(Path(tmp))
         log(f"[time] retrieval done at {time.perf_counter() - t_start:.0f} s")
+        phase_shapes(card, Path(tmp), vocab, results)
+        log(f"[time] shapes done at {time.perf_counter() - t_start:.0f} s")
         phase_causal_path(card, results)
         log(f"[time] causal path done at "
             f"{time.perf_counter() - t_start:.0f} s")

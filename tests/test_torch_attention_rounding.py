@@ -17,6 +17,7 @@ cancels: there the statement equals the Pallas kernels to the bit (dq, dk,
 dv) or far closer than without its rounding (out).
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import jax
 import jax.numpy as jnp
 import numpy as np

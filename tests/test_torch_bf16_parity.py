@@ -13,6 +13,7 @@ L = 128), so the JAX side's Pallas kernels run in interpret mode and the
 port runs the plain versions of its kernels.
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import dataclasses
 
 import jax

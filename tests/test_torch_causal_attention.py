@@ -9,6 +9,7 @@ tensor). The kernels themselves are held against that plain version on the
 card (tests/test_torch_cuda_kernels.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import dataclasses
 
 import jax
@@ -64,7 +65,7 @@ def _jax_plain(q, k, v, mask, D):
     return jnp.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 96, 48])
 @pytest.mark.parametrize("L", [128, 256])
 def test_plain_version_matches_flash_kernel_in_interpret_mode(L, D):
     q, k, v, _, mask, lengths = _inputs(L, D, seed=L + D)
@@ -85,7 +86,7 @@ def test_plain_version_matches_flash_kernel_in_interpret_mode(L, D):
                                rtol=PLAIN_TOL, atol=PLAIN_TOL)
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 96])
 @pytest.mark.parametrize("L", [128, 256])
 def test_gradients_match_flash_kernel_in_interpret_mode(L, D):
     """dq, dk, dv against `jax.grad` through `_flash_attention` itself, in

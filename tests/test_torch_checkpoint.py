@@ -3,6 +3,7 @@ tests/test_checkpoint_policy.py, the copy that an in-place update cannot
 reach, a SIGKILL/resume run in the role of tests/test_crash_resume.py, and
 the gradients of a rematerialised model at p = 0.1."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import json
 import os
 import signal

@@ -7,6 +7,7 @@ the `cuda` marker and skips (from a fixture, never at import) where
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import numpy as np
 import pytest
 import torch
@@ -77,9 +78,10 @@ def test_attention_kernel_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         x = torch.randn(2, 100, 2, 64, device=dev)
         fused_attention.fused_dropout_attention(x, x, x, None)
-    with pytest.raises(ValueError):
-        x = torch.randn(2, 128, 1, 96, device=dev)   # head dims 32, 64, 128
-        fused_attention.fused_dropout_attention(x, x, x, None)
+    for D in (100, 136):   # head dims: multiples of 8 up to 128
+        with pytest.raises(ValueError):
+            x = torch.randn(2, 128, 1, D, device=dev)
+            fused_attention.fused_dropout_attention(x, x, x, None)
     with pytest.raises(ValueError):
         x = torch.randn(2, 2, 128, 64, device=dev).transpose(1, 2)
         fused_attention.fused_dropout_attention(x, x, x, None)
@@ -89,7 +91,7 @@ def test_attention_kernel_raises_on_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H", fused_layernorm.SUPPORTED_HIDDEN)
+@pytest.mark.parametrize("H", fused_layernorm.REGISTER_HIDDEN)
 @pytest.mark.parametrize("R", [1, 7, 480])
 def test_layernorm_kernel_matches_plain(dev, dtype, H, R):
     g = torch.Generator(device=dev).manual_seed(R * H)
@@ -163,6 +165,47 @@ def test_attention_kernel_forward_and_gradients_match_plain(dev, dtype, L, H,
         _close(a.grad, b.grad, *GRAD_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [96, 48, 8, 120])
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (False, 0.1),
+                                      (True, 0.0)])
+def test_padded_head_dims_match_plain(dev, dtype, D, causal, p):
+    """A head dim that is no instantiated width runs the next one's kernels
+    on zero-padded q, k, v (PADDED_LAUNCHES): output and gradients equal the
+    plain version's at the true D, with the scale of the true D and the
+    masks of the unpadded call."""
+    B, L, H = 3, 256, 2
+    g = torch.Generator(device=dev).manual_seed(L + D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    mask = _mask(B, L, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kind = "causal_" if causal else ""
+    before = dict(fused_attention.PADDED_LAUNCHES)
+    state = g.get_state()
+    if causal:
+        got = fused_attention.causal_attention(*leaves, mask)
+    else:
+        got = fused_attention.fused_dropout_attention(*leaves, mask, p, g)
+    got.backward(do)
+    assert got.shape == q.shape and got.is_contiguous()
+    assert fused_attention.PADDED_LAUNCHES[kind + "fwd"] \
+        == before[kind + "fwd"] + 1
+    assert fused_attention.PADDED_LAUNCHES[kind + "bwd"] \
+        == before[kind + "bwd"] + 1
+    keep = None
+    if p > 0.0:
+        keep = fused_attention.keep_mask(drawn_seed(g, state), B, H, L, p)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = fused_attention.attention_reference(*ref_leaves, mask, D ** -0.5,
+                                              keep, p, causal=causal)
+    ref.backward(do)
+    _close(got, ref, *ATTN_TOL[dtype])
+    for a, b in zip(leaves, ref_leaves):
+        assert a.grad.shape == q.shape and torch.isfinite(a.grad).all()
+        _close(a.grad, b.grad, *GRAD_TOL[dtype])
+
+
 def test_attention_dropout_mask_is_a_function_of_the_seed(dev):
     seed = torch.tensor([1234], device=dev)
     a = fused_attention.keep_mask(seed, 2, 3, 128, 0.1)
@@ -216,7 +259,7 @@ def test_attention_with_a_head_offset_matches_plain_on_the_full_mask(
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H", fused_layernorm.SUPPORTED_HIDDEN)
+@pytest.mark.parametrize("H", fused_layernorm.REGISTER_HIDDEN)
 @pytest.mark.parametrize("R", [1, 7, 480, 5000])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_layernorm_kernel_forward_and_gradients_match_plain(dev, dtype, H, R,
@@ -247,6 +290,42 @@ def test_layernorm_kernel_forward_and_gradients_match_plain(dev, dtype, H, R,
     for a, c in zip(leaves[:2], ref_leaves[:2]):
         _close(a.grad, c.grad, *GRAD_TOL[dtype])
     # dscale, dbias: f32 sums over R rows of terms of size ~1
+    for a, c in zip(leaves[2:], ref_leaves[2:]):
+        _close(a.grad, c.grad, 1e-5 * R + 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1152, 1536, 2048, 4096,
+                               fused_layernorm.MAX_HIDDEN])
+@pytest.mark.parametrize("R", [1, 7, 480])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_wide_layernorm_forward_and_gradients_match_plain(dev, dtype, H, R,
+                                                          p):
+    """Rows past 1024 take the wide route (a block of 256 threads a row,
+    WIDE_LAUNCHES), with the register route's dropout bits and column
+    sums."""
+    g = torch.Generator(device=dev).manual_seed(R * H)
+    x, y, go = (torch.randn(R, H, generator=g, device=dev).to(dtype)
+                for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
+    b = 0.1 * torch.randn(H, generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    fwd, bwd = fused_layernorm.WIDE_LAUNCHES, fused_layernorm.WIDE_BWD_LAUNCHES
+    state = g.get_state()
+    got = fused_layernorm.fused_residual_layernorm(*leaves, 1e-5, p, g)
+    got.backward(go)
+    assert fused_layernorm.WIDE_LAUNCHES == fwd + 1
+    assert fused_layernorm.WIDE_BWD_LAUNCHES == bwd + 1
+    keep = None
+    if p > 0.0:
+        keep = fused_layernorm.keep_mask(drawn_seed(g, state), R, H, p)
+    ref_leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    ref = fused_layernorm.residual_layernorm_reference(*ref_leaves, 1e-5,
+                                                       keep, p)
+    ref.backward(go)
+    _close(got, ref, *LN_TOL[dtype])
+    for a, c in zip(leaves[:2], ref_leaves[:2]):
+        _close(a.grad, c.grad, *GRAD_TOL[dtype])
     for a, c in zip(leaves[2:], ref_leaves[2:]):
         _close(a.grad, c.grad, 1e-5 * R + 1e-4, 1e-4)
 
@@ -368,12 +447,14 @@ def _topk_both_layouts(queries, corpus, n_real, banned, k, dev):
     args = [torch.from_numpy(a).to(dev) for a in (queries, corpus, norms)]
     b = None if banned is None else torch.from_numpy(banned).to(dev)
     ref_v, ref_i = topk.exact_topk_l2_reference(*args, b, k=k)
+    counts = (topk.LARGE_K_LAUNCHES if k > topk.SHARED_LIST_K
+              else topk.LAUNCHES)
     for resident, name in ((False, "query_outer"), (True, "corpus_split")):
-        before = topk.LAUNCHES[name]
+        before = counts[name]
         vals, idx = topk.exact_topk_l2(*args, b, k=k,
                                        corpus_resident=resident)
         torch.cuda.synchronize()
-        assert topk.LAUNCHES[name] == before + 1
+        assert counts[name] == before + 1
         assert torch.equal(idx, ref_i), name
         assert torch.equal(vals, ref_v), name
     if n_real >= k + (0 if banned is None else banned.shape[1]):
@@ -384,7 +465,7 @@ def _topk_both_layouts(queries, corpus, n_real, banned, k, dev):
     return ref_v, ref_i
 
 
-@pytest.mark.parametrize("k", [1, 5, 20, 100, 128])
+@pytest.mark.parametrize("k", [1, 5, 20, 100, 128, 129, 256, 1024])
 @pytest.mark.parametrize("M,N,d,kind", [
     (37, 601, 128, "binary"), (130, 1000, 1024, "binary"),
     (257, 3001, 2048, "counts"), (5, 129, 256, "full"),
@@ -401,7 +482,7 @@ def test_topk_kernels_equal_plain_version(dev, M, N, d, kind, k):
 
 
 @pytest.mark.parametrize("nb", [1, 3])
-@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("k", [5, 20, 256])
 def test_topk_kernels_banned_ids_and_padding_rows(dev, nb, k):
     rng = np.random.default_rng(nb + k)
     corpus = topk.pad_matrix(_fps(rng, 900, 256, "binary"), 128, 16)
@@ -482,12 +563,14 @@ def test_topk_scan_walks_several_items_a_block(dev, monkeypatch, case):
 
 def test_ring_fits_beside_the_lists(dev):
     """Every k the kernels take leaves the scan a ring of 2-4 stages and
-    stays inside the 227 KB a block may use; k = 20 keeps all four stages.
-    The numbers are the library's own (tr_topk_scan_shared)."""
+    stays inside the 227 KB a block may use; k = 20 keeps all four stages,
+    and past SHARED_LIST_K the lists leave shared memory and the ring has
+    four again. The numbers are the library's own (tr_topk_scan_shared)."""
     for k in range(1, topk.MAX_K + 1):
         stages, nbytes = topk.scan_shared(k)
         assert 2 <= stages <= 4 and nbytes <= 227 * 1024
     assert topk.scan_shared(20)[0] == 4 and topk.scan_shared(128)[0] == 3
+    assert topk.scan_shared(topk.SHARED_LIST_K + 1)[0] == 4
     with pytest.raises(ValueError, match=f"1..{topk.MAX_K}"):
         topk.scan_shared(topk.MAX_K + 1)
 
@@ -497,7 +580,7 @@ def test_topk_kernel_raises_on_what_it_does_not_take(dev):
     c = torch.zeros((50, 128), dtype=torch.int8, device=dev)
     n = torch.zeros(50, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        topk.exact_topk_l2(q, c, n, k=129)
+        topk.exact_topk_l2(q, c, n, k=topk.MAX_K + 1)
     with pytest.raises(TypeError):
         topk.exact_topk_l2(q.int(), c, n)
     with pytest.raises(ValueError):
@@ -608,9 +691,10 @@ def test_causal_attention_kernel_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError):   # retro's decoder length: not aligned
         x = torch.randn(2, 160, 2, 64, device=dev)
         fused_attention.causal_attention(x, x, x, None)
-    with pytest.raises(ValueError):
-        x = torch.randn(2, 128, 1, 96, device=dev)
-        fused_attention.causal_attention(x, x, x, None)
+    for D in (100, 136):   # head dims: multiples of 8 up to 128
+        with pytest.raises(ValueError):
+            x = torch.randn(2, 128, 1, D, device=dev)
+            fused_attention.causal_attention(x, x, x, None)
     with pytest.raises(TypeError):
         x = torch.randn(2, 128, 2, 64, device=dev).half()
         fused_attention.causal_attention(x, x, x, None)
@@ -813,7 +897,7 @@ def test_tensor_core_attention_raises_on_what_it_does_not_take(dev):
             y = torch.randn(2, 192, 2, 64, device=dev).bfloat16()
             call(y, y, y, None)
         with pytest.raises(ValueError):   # head dim
-            y = torch.randn(2, 128, 2, 16, device=dev).bfloat16()
+            y = torch.randn(2, 128, 2, 20, device=dev).bfloat16()
             call(y, y, y, None)
         with pytest.raises(ValueError):   # one float32 operand
             call(x, x.float(), x, None)

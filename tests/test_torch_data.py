@@ -2,6 +2,7 @@
 package's originals: copies drift, so the same inputs must give the same
 token ids, masked sequences and collated arrays."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import dataclasses
 import json
 import os

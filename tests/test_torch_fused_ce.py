@@ -1,6 +1,7 @@
 """The port's chunked linear + cross-entropy against the JAX package's, on
 the CPU: the same numpy inputs through both, float32."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ side (hidden 128, encoder length 128), with flax params converted into the
 port. Sequences must be identical; scores agree to float32 rounding.
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import jax
 import jax.numpy as jnp
 import numpy as np

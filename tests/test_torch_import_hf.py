@@ -14,6 +14,7 @@ against the JAX package's, on the CPU, from directories the tests write
     optimizer steps against the JAX trainer's from the same directories;
 (e) the two refusals of --decoder_pretrained."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import json
 import os
 

@@ -6,6 +6,7 @@ heads of 32, and encoder length 128 (the fused attention needs L % 128 ==
 0). Flax params go through models/convert.py into the port.
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import dataclasses
 
 import jax
@@ -265,19 +266,23 @@ def test_wide_heads_and_hidden_sizes_match_jax(hidden, heads, monkeypatch):
 
 @pytest.mark.parametrize("hidden,heads,attention,layernorm,refused", [
     (256, 2, "flash", "fused", False), (640, 10, "flash", "fused", False),
-    (384, 4, "flash", "xla", True), (384, 4, "xla", "fused", False),
-    (1536, 12, "xla", "fused", True), (1536, 12, "flash", "xla", False),
-    (1000, 8, "xla", "fused", False)],
+    (384, 4, "flash", "xla", False), (384, 4, "xla", "fused", False),
+    (1536, 12, "xla", "fused", False), (1536, 12, "flash", "xla", False),
+    (1000, 8, "xla", "fused", False), (400, 4, "flash", "xla", True),
+    (1088, 8, "flash", "xla", True), (8320, 65, "xla", "fused", True),
+    (8192, 64, "flash", "fused", False)],
     ids=["d128", "hidden640", "d96", "d96-plain", "hidden1536",
-         "hidden1536-plain", "hidden1000-unaligned"])
+         "hidden1536-plain", "hidden1000-unaligned", "d100", "d136",
+         "hidden8320", "hidden8192"])
 def test_kernel_shape_rule_refuses_before_any_batch(hidden, heads, attention,
                                                     layernorm, refused):
     """On the card `build_model` refuses a model that would reach a kernel
-    with a shape the port's kernels do not take (heads of 96; an aligned
-    hidden size past 1024) rather than run a plain version in its place.
-    The plain functions, the reference's own rule for unaligned hidden
-    sizes, and attention that never reaches the kernels (the decoder's)
-    pass."""
+    with a shape the port's kernels do not take (a head dim that is no
+    multiple of 8 or past 128; an aligned hidden size past 8192) rather than
+    run a plain version in its place; heads of 96 and hidden sizes past 1024
+    have kernels. The plain functions, the reference's own rule for
+    unaligned hidden sizes, and attention that never reaches the kernels
+    (the decoder's) pass."""
     from textreact_tpu_torch.models.factory import check_kernel_shapes
     cfg = TransformerConfig(hidden_size=hidden, num_attention_heads=heads,
                             attention_impl=attention,
@@ -384,8 +389,9 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
 
 
 def test_port_imports_no_jax_or_pandas():
-    """The port's modules (the curation's too), chip_smoke, chip_profile and
+    """The port's modules (the curation's too), chip_smoke, chip_profile,
     the multi-process tests' rank bodies (tests/_torch_parallel_worker.py)
+    and the port's parity_run.py and check_artifacts.py (scripts/torch_port/)
     load where JAX, pandas, safetensors, transformers and the JAX package
     are absent: nothing of them is in sys.modules afterwards."""
     import pkgutil
@@ -430,11 +436,16 @@ def test_port_imports_no_jax_or_pandas():
         source = inspect.getsource(module)
         assert not any(word in source for word in (
             "from rdkit", "import rdkit", "HAS_RDKIT", "Chem.")), module
-    code = ("import sys, importlib\n"
+    code = ("import sys, importlib, importlib.util\n"
             "sys.path.insert(0, 'tests')\n"
             f"for name in {names!r} + ['chip_smoke', 'chip_profile', "
             "'_torch_parallel_worker']:\n"
             "    importlib.import_module(name)\n"
+            "for path in ('scripts/torch_port/parity_run.py', "
+            "'scripts/torch_port/check_artifacts.py'):\n"
+            "    spec = importlib.util.spec_from_file_location('s', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "bad = [m for m in sys.modules if m == 'textreact_tpu' "
             "or m.startswith('textreact_tpu.') "
             "or m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', "

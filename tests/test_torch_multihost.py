@@ -6,6 +6,7 @@ Every world is started by `textreact_tpu_torch.parallel.multihost.spawn`
 through a `file://` store in a temporary directory, never a fixed port.
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import json
 import os
 

@@ -6,6 +6,7 @@ tests/test_native_tokenizer.py and tests/test_native_chem.py, non-ASCII
 text included; a failed build raises; processes that build at once load
 one working library."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import json
 import os
 import random

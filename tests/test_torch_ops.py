@@ -5,6 +5,7 @@ CPU backend); the port's wrappers take their plain PyTorch versions on CPU
 tensors. Same numpy inputs on both sides, float32.
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,7 +39,7 @@ def _ragged_mask(B, L, seed=0):
     return mask
 
 
-@pytest.mark.parametrize("H,D", [(2, 64), (4, 32)])
+@pytest.mark.parametrize("H,D", [(2, 64), (4, 32), (2, 96), (4, 48)])
 @pytest.mark.parametrize("masked", [True, False])
 def test_attention_matches_pallas_kernel(H, D, masked):
     B, L = 3, 128
@@ -86,7 +87,7 @@ def test_attention_dropout_plain_path_rescales_kept_weights():
     torch.testing.assert_close(got, expect, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("H", [128, 768])
+@pytest.mark.parametrize("H", [128, 768, 2048])
 @pytest.mark.parametrize("R", [6, 64])
 def test_residual_layernorm_matches_pallas_kernel(R, H):
     rng = np.random.default_rng(R + H)
@@ -162,7 +163,7 @@ def _jax_layernorm_keep(rng, R, H, p):
     return np.array(jax.random.uniform(key, (R, H)) >= p)
 
 
-@pytest.mark.parametrize("H,D", [(2, 64), (4, 32)])
+@pytest.mark.parametrize("H,D", [(2, 64), (4, 32), (2, 96), (4, 48)])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_attention_forward_and_gradients_match_pallas_kernels(H, D, p):
     import jax
@@ -210,7 +211,7 @@ def test_attention_cpu_dropout_draws_from_the_generator():
     assert not torch.allclose(a, none)
 
 
-@pytest.mark.parametrize("R,H", [(64, 128), (24, 256)])
+@pytest.mark.parametrize("R,H", [(64, 128), (24, 256), (16, 2048)])
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_layernorm_forward_and_gradients_match_pallas_kernels(R, H, p):
     import jax

@@ -16,6 +16,7 @@ against the JAX step the bounds of tests/test_parallel.py:59-66 (loss rtol
 1e-4, grad_norm rtol 1e-3).
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import dataclasses
 import os
 from collections.abc import Mapping

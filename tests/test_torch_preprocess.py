@@ -6,6 +6,7 @@ patent info as dicts), and both command lines on seeded raw rows, every
 file they write equal byte for byte. The port's command lines run in a
 process where `import pandas` fails; the JAX package's run here, with it."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import filecmp
 import json
 import math

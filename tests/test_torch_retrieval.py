@@ -6,6 +6,7 @@ The JAX side runs its Pallas kernels in interpret mode with small tiles; the
 port runs the plain version of its CUDA kernels (`device="cpu"`).
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import io
 import json
 import os
@@ -81,12 +82,17 @@ def _case(name):
                 None, 3)
     if name == "k1":
         return _counts(9, 128, 11), _counts(70, 128, 10), None, 1
+    if name == "k256":  # past the card's shared-memory lists (128)
+        c = _binary(700, 128, 12)
+        banned = np.stack([np.arange(6), np.full(6, -1)],
+                          axis=1).astype(np.int32)
+        return c[:6].copy(), c, banned, 256
     raise KeyError(name)
 
 
 CASES = ["binary_ragged", "ties", "banned_nb1", "banned_nb3", "banned_ties",
          "negative_counts", "corpus_smaller_than_k", "single_row_corpus",
-         "k1"]
+         "k1", "k256"]
 
 
 def _jax_topk(queries, corpus, banned, k, corpus_resident, tile_q=8,
@@ -186,7 +192,7 @@ def test_wrapper_takes_the_kernel_on_cuda_tensors_only():
 @pytest.mark.parametrize("corpus_resident", [None, False, True])
 @pytest.mark.parametrize("case", ["binary_ragged", "banned_nb3",
                                   "negative_counts",
-                                  "corpus_smaller_than_k"])
+                                  "corpus_smaller_than_k", "k256"])
 def test_flat_index_search_equals_jax(case, corpus_resident):
     queries, corpus, banned, k = _case(case)
     ref = jax_retrieval.FlatIndex(

@@ -3,6 +3,7 @@ loader, metrics and the command line end to end at the tiny configuration
 of tests/test_end_to_end.py. Every entry point is given device="cpu" /
 --device cpu; without it they raise here, where there is no card."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import copy
 import json
 import os

@@ -5,6 +5,7 @@ modules use (`concat`, `DataFrame(records)`, `drop_duplicates`, `iloc`,
 `sample(frac=1)`) against pandas' own. The port does not import pandas;
 these tests do, to hold it to the JAX package's reader and writer."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import math
 
 import numpy as np

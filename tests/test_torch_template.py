@@ -18,6 +18,7 @@ port's, with the JAX weights carried over by `from_flax`:
 Hidden size 128 and L = 128, so the JAX side's kernels run in Pallas.
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import ast
 import csv
 import dataclasses

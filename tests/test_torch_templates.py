@@ -8,6 +8,7 @@ the engine gates, and the full cycle on the port alone: its processor's
 labels train its template trainer on the CPU and decode back to the
 reactants."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import ast
 import filecmp
 import inspect

@@ -18,6 +18,7 @@ tests/test_torch_cuda_kernels.py: several items a block in both layouts
 against the plain version, and the ring's stages beside the lists.
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import bisect
 
 import jax.numpy as jnp
@@ -255,20 +256,31 @@ def test_search_chunks_hold_the_budget(n, d, nb, k, monkeypatch):
 
 
 def test_search_refuses_k_beyond_the_kernels():
+    """Any k >= 1 on the CPU, as the JAX package takes; on the card a k
+    past the kernels' MAX_K is refused before any device work."""
     index = FlatIndex(np.zeros((4, 16), np.int8), device="cpu")
-    for k in (0, topk.MAX_K + 1):
-        with pytest.raises(ValueError, match=f"1..{topk.MAX_K}"):
-            index.search(np.zeros((2, 16), np.int8), k=k)
-    assert index.search(np.zeros((2, 16), np.int8), k=topk.MAX_K)[0].shape \
-        == (2, topk.MAX_K)
+    with pytest.raises(ValueError, match=f"1..{topk.MAX_K}"):
+        index.search(np.zeros((2, 16), np.int8), k=0)
+    for k in (topk.MAX_K, topk.MAX_K + 1):
+        vals, idx = index.search(np.zeros((2, 16), np.int8), k=k)
+        assert vals.shape == idx.shape == (2, k)
+        assert (idx[:, 4:] == topk.BIG).all()
+    index.device = torch.device("cuda")
+    with pytest.raises(ValueError, match=f"1..{topk.MAX_K}"):
+        index.search(np.zeros((2, 16), np.int8), k=topk.MAX_K + 1)
 
 
 def test_retrieval_cli_refuses_k_beyond_the_kernels(tmp_path, capsys):
     from textreact_tpu_torch.retrieval import cli
-    with pytest.raises(SystemExit):
-        cli.main(["--data_path", str(tmp_path), "--train_file", "x.csv",
-                  "--valid_file", "x.csv", "--test_file", "x.csv",
-                  "--output_path", str(tmp_path / "out"), "--k", "129",
-                  "--device", "cpu"])
-    assert f"1..{topk.MAX_K}" in capsys.readouterr().err
-    assert not (tmp_path / "out").exists()
+    files = ["--data_path", str(tmp_path), "--train_file", "x.csv",
+             "--valid_file", "x.csv", "--test_file", "x.csv",
+             "--output_path", str(tmp_path / "out")]
+    for extra in (["--k", str(topk.MAX_K + 1)],           # the card
+                  ["--k", "0", "--device", "cpu"]):
+        with pytest.raises(SystemExit):
+            cli.main(files + extra)
+        assert f"1..{topk.MAX_K}" in capsys.readouterr().err
+        assert not (tmp_path / "out").exists()
+    args = cli.get_args(files + ["--k", str(topk.MAX_K + 1), "--device",
+                                 "cpu"])
+    assert args.k == topk.MAX_K + 1

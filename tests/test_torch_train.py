@@ -11,6 +11,7 @@ eval step. The JAX side runs its Pallas kernels in interpret mode
 plain versions under autograd, as it does for any CPU tensor.
 """
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import dataclasses
 
 import jax

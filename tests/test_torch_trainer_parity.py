@@ -5,6 +5,7 @@ scores within 1e-4, and a one-epoch fit logs the same train_loss, MLM loss
 and gradient norm within 1e-4 (f32 on both sides: summation order, and from
 the second step on the two optimizers' rounding)."""
 
+import _torch_threads  # noqa: F401  (before torch runs)
 import json
 import os
 

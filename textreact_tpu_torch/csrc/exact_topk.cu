@@ -60,6 +60,18 @@
 // slab-major, so the blocks that run together read the same slab, which then
 // comes from L2. `tr_topk_query_outer` is the same scan over one slab, its
 // lists written as the result.
+//
+// Large k (128 < k <= 1024). 128 sorted lists of k keys take 8 k bytes a
+// query, 128 KB at k = 128, beside a ring of 3 stages: the block's shared
+// memory ends there. Past 128 the lists move to a workspace in device memory
+// that the caller allocates, one slice of 128 lists a block (the grid is at
+// most one block an SM), and the ring keeps all four stages. Nothing else
+// changes: the same quad of the same warp owns a row's list, the same
+// insertion and the same __syncwarp order its reads after its writes, so
+// order, ties and banned ids are those of the shared-memory lists. Only the
+// rare path touches a list; its reads and writes go through L1 and L2
+// instead of shared memory. topk_merge keeps a warp's one list in shared
+// memory, 8 KB at k = 1024.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -80,7 +92,8 @@ constexpr int kStageBytes = 2 * kOperandBytes;      // queries, then corpus
 constexpr int kMaxStages = 4;
 constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may use
 constexpr int kAlign = 1024;         // the 128-byte swizzle's atom
-constexpr int kMaxK = 128;
+constexpr int kMaxSharedK = 128;     // up to here the lists are in shared memory
+constexpr int kMaxK = 1024;          // above, in the caller's workspace
 constexpr int kBig = 1 << 30;
 constexpr int kMergeWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
@@ -320,20 +333,22 @@ __device__ __forceinline__ void rare_row(const int (&acc)[64], const int (&cn)[3
 // head of the file. `partial` null: one slab, and its lists are the result
 // (vals, idx with |q|^2); else partial[slab][query][0..k) = the slab's keys.
 // smem: the ring (stages x 32 KB, 1024-aligned), full and empty barriers,
-// then 128 sorted lists of k keys.
+// then 128 sorted lists of k keys, or, where `glists` is not null, the
+// block's 128 lists at glists + blockIdx * 128 * k in device memory.
 __global__ void __launch_bounds__(kThreads, 1)
 topk_scan(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap cmap, const int8_t* __restrict__ queries,
           const int32_t* __restrict__ norms, const int32_t* __restrict__ banned,
           key64* __restrict__ partial, int32_t* __restrict__ vals,
-          int32_t* __restrict__ idx, int M, int N, int d, int nb, int k, int slabs,
-          int slab_rows, int stages) {
+          int32_t* __restrict__ idx, key64* glists, int M, int N, int d, int nb, int k,
+          int slabs, int slab_rows, int stages) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~(uintptr_t)(kAlign - 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * kStageBytes);
   uint64_t* empty = full + kMaxStages;
-  key64* lists = reinterpret_cast<key64*>(empty + kMaxStages);
+  key64* lists = glists != nullptr ? glists + (size_t)blockIdx.x * kTileQ * k
+                                    : reinterpret_cast<key64*>(empty + kMaxStages);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -572,7 +587,8 @@ cudaError_t check_args(int M, int N, int d, int nb, int k) {
   return cudaSuccess;
 }
 
-int list_bytes(int k) { return kTileQ * k * (int)sizeof(key64); }
+// shared memory of the lists: none when they live in device memory
+int list_bytes(int k) { return k > kMaxSharedK ? 0 : kTileQ * k * (int)sizeof(key64); }
 
 // the deepest ring that fits beside the lists (2..4 stages)
 int ring_stages(int k) {
@@ -590,8 +606,9 @@ int scan_shared_bytes(int k) {
 // an SM, never more blocks than work items.
 cudaError_t launch_scan(const void* queries, const void* corpus, const void* norms,
                         const void* banned, void* partial, void* vals, void* idx,
-                        int M, int N, int d, int nb, int k, int slabs, int slab_rows,
-                        cudaStream_t stream) {
+                        void* lists, int M, int N, int d, int nb, int k, int slabs,
+                        int slab_rows, cudaStream_t stream) {
+  if ((k > kMaxSharedK) != (lists != nullptr)) return cudaErrorInvalidValue;
   CUtensorMap qmap, cmap;
   cudaError_t err = make_map(&qmap, queries, M, d);
   if (err != cudaSuccess) return err;
@@ -614,7 +631,8 @@ cudaError_t launch_scan(const void* queries, const void* corpus, const void* nor
       qmap, cmap, static_cast<const int8_t*>(queries),
       static_cast<const int32_t*>(norms), static_cast<const int32_t*>(banned),
       static_cast<key64*>(partial), static_cast<int32_t*>(vals),
-      static_cast<int32_t*>(idx), M, N, d, nb, k, slabs, slab_rows, stages);
+      static_cast<int32_t*>(idx), static_cast<key64*>(lists), M, N, d, nb, k, slabs,
+      slab_rows, stages);
   return cudaGetLastError();
 }
 
@@ -625,25 +643,27 @@ extern "C" {
 // Conventions of both entry points. queries (M, d) and corpus (N, d): int8,
 // contiguous, 16-byte aligned, d a multiple of 16; norms (N,) int32, >= 2^30
 // on padding rows; banned (M, nb) int32 corpus indices, -1 for none; vals and
-// idx (M, k) int32; 1 <= k <= 128. Returns cudaGetLastError() after the
-// launch.
+// idx (M, k) int32; 1 <= k <= 1024; lists: null for k <= 128, else an int64
+// workspace of (multiprocessors, 128, k) keys. Returns cudaGetLastError()
+// after the launch.
 
 int tr_topk_query_outer(const void* queries, const void* corpus, const void* norms,
-                        const void* banned, void* vals, void* idx, int M, int N, int d,
-                        int nb, int k, void* stream) {
+                        const void* banned, void* vals, void* idx, void* lists, int M,
+                        int N, int d, int nb, int k, void* stream) {
   cudaError_t err = check_args(M, N, d, nb, k);
   if (err != cudaSuccess) return err;
   if (M == 0) return 0;
   const int slab_rows = ((N + kTileC - 1) / kTileC) * kTileC;
-  return launch_scan(queries, corpus, norms, banned, nullptr, vals, idx, M, N, d, nb,
-                     k, 1, slab_rows, static_cast<cudaStream_t>(stream));
+  return launch_scan(queries, corpus, norms, banned, nullptr, vals, idx, lists, M, N, d,
+                     nb, k, 1, slab_rows, static_cast<cudaStream_t>(stream));
 }
 
 // partial: (slabs, M, k) int64 workspace. The corpus is cut into `slabs`
 // runs of whole tiles; a slab past the corpus's end yields an empty list.
 int tr_topk_corpus_split(const void* queries, const void* corpus, const void* norms,
                          const void* banned, void* partial, int slabs, void* vals,
-                         void* idx, int M, int N, int d, int nb, int k, void* stream) {
+                         void* idx, void* lists, int M, int N, int d, int nb, int k,
+                         void* stream) {
   cudaError_t err = check_args(M, N, d, nb, k);
   if (err != cudaSuccess) return err;
   if (slabs < 1 || slabs > 65535) return cudaErrorInvalidValue;
@@ -651,8 +671,8 @@ int tr_topk_corpus_split(const void* queries, const void* corpus, const void* no
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (N + kTileC - 1) / kTileC;
   const int slab_rows = ((tiles + slabs - 1) / slabs) * kTileC;
-  err = launch_scan(queries, corpus, norms, banned, partial, nullptr, nullptr, M, N, d,
-                    nb, k, slabs, slab_rows, st);
+  err = launch_scan(queries, corpus, norms, banned, partial, nullptr, nullptr, lists, M,
+                    N, d, nb, k, slabs, slab_rows, st);
   if (err != cudaSuccess) return err;
   topk_merge<<<(M + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32,
                kMergeWarps * k * (int)sizeof(key64), st>>>(
@@ -661,7 +681,7 @@ int tr_topk_corpus_split(const void* queries, const void* corpus, const void* no
   return cudaGetLastError();
 }
 
-// The scan's plan for k (1..128): returns the bytes of dynamic shared
+// The scan's plan for k (1..1024): returns the bytes of dynamic shared
 // memory a block takes and writes the stages of its ring to *stages; -1 for
 // a k the kernels do not take.
 int tr_topk_scan_shared(int k, int* stages) {

@@ -30,10 +30,20 @@
 // kernel sums the workspace's columns, again in a fixed order. The TPU
 // kernel's small-row fallback (a Mosaic tiling rule) has no counterpart: any
 // row count works. Hidden sizes: every multiple of 128 up to 1024
-// (TR_HIDDEN_CASES). A lane's backward holds 24 values a group of four
-// columns, 192 registers at 1024, which is where the register file ends; the
-// TPU kernel takes larger rows, and a model with one is refused on the card
-// before its first batch (models/factory.py).
+// (TR_HIDDEN_CASES) on this route. A lane's backward holds 24 values a group
+// of four columns, 192 registers at 1024, which is where the register file
+// ends.
+//
+// The wide route (`*_wide`, every multiple of 128 above 1024 up to 8192)
+// spreads a row over a block of 256 threads instead of a warp: thread t
+// holds the groups of four columns 4 * (t + 256 * i), i < N = ceil(H /
+// 1024) <= 8, so a thread's registers are those of a lane at 1024 and each
+// access is still one contiguous segment a warp. The row's sums go through
+// the warps' shuffles and then eight partials in shared memory, in a fixed
+// order. In the backward each block walks rows blockIdx, + grid, ..., keeps
+// its threads' column sums in registers (a column belongs to one thread) and
+// writes its (2, H) workspace row from them; the column sums and the dropout
+// bits are those of the register route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +92,26 @@ __device__ __forceinline__ float warp_sum(float v) {
 using tr::Dropout;
 using tr::make_dropout;
 
+// z = x + dropout(y) for the four columns c .. c + 3 of one row;
+// dm[e] = keep / (1 - p) per element (1 without dropout).
+template <typename T, bool kDrop>
+__device__ __forceinline__ void residual4(const T* __restrict__ xr,
+                                          const T* __restrict__ yr, int64_t row, int c,
+                                          Dropout drop, uint64_t seed, float z[4],
+                                          float dm[4]) {
+  float xv[4], yv[4];
+  load4(xr + c, xv);
+  load4(yr + c, yv);
+  uint32_t bits[4];
+  if (kDrop) tr::row_bits(seed, (uint64_t)row, (uint32_t)(c >> 2), bits);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    dm[e] = 1.f;
+    if (kDrop) dm[e] = bits[e] >= drop.threshold ? drop.inv_keep : 0.f;
+    z[e] = xv[e] + yv[e] * dm[e];
+  }
+}
+
 // z = x + dropout(y) for one row, this lane's N groups of four columns;
 // dmask[i] = keep / (1 - p) per element (1 without dropout).
 template <typename T, int H, bool kDrop>
@@ -93,18 +123,11 @@ __device__ __forceinline__ void dropped_residual(const T* __restrict__ xr,
   constexpr int N = H / 128;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const int c = 4 * lane + 128 * i;
-    float xv[4], yv[4];
-    load4(xr + c, xv);
-    load4(yr + c, yv);
-    uint32_t bits[4];
-    if (kDrop) tr::row_bits(seed, (uint64_t)row, (uint32_t)(c >> 2), bits);
+    float dm[4];
+    residual4<T, kDrop>(xr, yr, row, 4 * lane + 128 * i, drop, seed, z + 4 * i, dm);
+    if (dmask != nullptr) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float dm = 1.f;
-      if (kDrop) dm = bits[e] >= drop.threshold ? drop.inv_keep : 0.f;
-      z[4 * i + e] = xv[e] + yv[e] * dm;
-      if (dmask != nullptr) dmask[4 * i + e] = dm;
+      for (int e = 0; e < 4; ++e) dmask[4 * i + e] = dm[e];
     }
   }
 }
@@ -236,6 +259,177 @@ residual_layernorm_bwd(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
+constexpr int kWideThreads = 256;              // a row's block on the wide route
+constexpr int kWideCols = 4 * kWideThreads;     // columns a pass of the block covers
+constexpr int kWideMaxGroups = 8;               // groups a thread: H <= 8192
+
+// a and b summed over the block (every thread gets the sums), in a fixed
+// order: each warp's shuffle, then the warps' partials in warp order.
+__device__ __forceinline__ void block_sum2(float& a, float& b,
+                                           float (&red)[2][kWideThreads / 32]) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[0][warp] = a;
+    red[1][warp] = b;
+  }
+  __syncthreads();
+  a = 0.f;
+  b = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWideThreads / 32; ++w) {
+    a += red[0][w];
+    b += red[1][w];
+  }
+  __syncthreads();  // red is written again by the next call
+}
+
+// z = x + dropout(y) for this thread's N groups of one row (zeros past H).
+template <typename T, int N, bool kDrop>
+__device__ __forceinline__ void wide_residual(const T* __restrict__ xr,
+                                              const T* __restrict__ yr, int64_t row,
+                                              int H, Dropout drop, uint64_t seed,
+                                              float* z, float* dmask) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = 4 * (threadIdx.x + kWideThreads * i);
+    if (c < H) {
+      residual4<T, kDrop>(xr, yr, row, c, drop, seed, z + 4 * i, dmask + 4 * i);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[4 * i + e] = dmask[4 * i + e] = 0.f;
+    }
+  }
+}
+
+template <typename T, int N, bool kDrop>
+__global__ void __launch_bounds__(kWideThreads)
+residual_layernorm_fwd_wide(const T* __restrict__ x, const T* __restrict__ y,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ bias, T* __restrict__ out,
+                            float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                            Dropout drop, int H, float eps) {
+  __shared__ float red[2][kWideThreads / 32];
+  const int64_t row = blockIdx.x;
+  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
+
+  float z[4 * N], dm[4 * N];
+  wide_residual<T, N, kDrop>(x + row * H, y + row * H, row, H, drop, seed, z, dm);
+  float sum = 0.f, sumsq = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4 * N; ++i) {
+    sum += z[i];
+    sumsq += z[i] * z[i];
+  }
+  block_sum2(sum, sumsq, red);
+  const float mean = sum / H;
+  const float var = fmaxf(sumsq / H - mean * mean, 0.f);
+  const float rstd = 1.f / sqrtf(var + eps);
+
+  T* orow = out + row * H;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = 4 * (threadIdx.x + kWideThreads * i);
+    if (c >= H) continue;
+    float sv[4], bv[4], ov[4];
+    load4(scale + c, sv);
+    load4(bias + c, bv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ov[e] = (z[4 * i + e] - mean) * rstd * sv[e] + bv[e];
+    store4(orow + c, ov);
+  }
+  if (mean_out != nullptr && threadIdx.x == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+}
+
+// partial: (gridDim.x, 2, H) f32, as residual_layernorm_bwd's.
+template <typename T, int N, bool kDrop>
+__global__ void __launch_bounds__(kWideThreads)
+residual_layernorm_bwd_wide(const T* __restrict__ x, const T* __restrict__ y,
+                            const T* __restrict__ g, const float* __restrict__ scale,
+                            const float* __restrict__ mean_in,
+                            const float* __restrict__ rstd_in, T* __restrict__ dx,
+                            T* __restrict__ dy, float* __restrict__ partial,
+                            Dropout drop, int64_t rows, int H) {
+  __shared__ float red[2][kWideThreads / 32];
+  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
+
+  // past H: scale 0, so g * scale and every sum below get 0 there
+  float sv[4 * N], dsc[4 * N], dbi[4 * N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = 4 * (threadIdx.x + kWideThreads * i);
+    if (c < H) {
+      load4(scale + c, sv + 4 * i);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sv[4 * i + e] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * N; ++i) {
+    dsc[i] = 0.f;
+    dbi[i] = 0.f;
+  }
+
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    float z[4 * N], dmask[4 * N], gv[4 * N];
+    wide_residual<T, N, kDrop>(x + row * H, y + row * H, row, H, drop, seed, z, dmask);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int c = 4 * (threadIdx.x + kWideThreads * i);
+      if (c < H) {
+        load4(g + row * H + c, gv + 4 * i);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gv[4 * i + e] = 0.f;
+      }
+    }
+    const float mean = mean_in[row];
+    const float rstd = rstd_in[row];
+    float hsum = 0.f, hxsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4 * N; ++i) {
+      z[i] = (z[i] - mean) * rstd;  // xhat
+      const float gi = gv[i] * sv[i];
+      hsum += gi;
+      hxsum += gi * z[i];
+      dsc[i] += gv[i] * z[i];
+      dbi[i] += gv[i];
+    }
+    block_sum2(hsum, hxsum, red);
+    const float hm = hsum / H;
+    const float hx = hxsum / H;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int c = 4 * (threadIdx.x + kWideThreads * i);
+      if (c >= H) continue;
+      float dxv[4], dyv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 4 * i + e;
+        const float dz = rstd * (gv[n] * sv[n] - hm - z[n] * hx);
+        dxv[e] = dz;
+        dyv[e] = dz * dmask[n];
+      }
+      store4(dx + row * H + c, dxv);
+      store4(dy + row * H + c, dyv);
+    }
+  }
+
+  float* prow = partial + (int64_t)blockIdx.x * 2 * H;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = 4 * (threadIdx.x + kWideThreads * i);
+    if (c >= H) continue;
+    store4(prow + c, dsc + 4 * i);
+    store4(prow + H + c, dbi + 4 * i);
+  }
+}
+
 // out[c] = sum over b of partial[b][c], c < width; a block sums 32 columns
 // with 32 row slices, each slice and the final sum in a fixed order.
 __global__ void __launch_bounds__(1024)
@@ -286,6 +480,23 @@ __global__ void row_keep_mask(const int64_t* __restrict__ seed, uint32_t thresho
     default: return cudaErrorInvalidValue;                                     \
   }
 
+// the wide route's groups a thread, N = ceil(hidden / 1024), for a multiple
+// of 128 in (1024, 8192]
+#define TR_WIDE_CASES(CALL)                                                    \
+  if (hidden % 128 != 0 || hidden > kWideMaxGroups * kWideCols) {              \
+    return cudaErrorInvalidValue;                                              \
+  }                                                                            \
+  switch ((hidden + kWideCols - 1) / kWideCols) {                              \
+    case 2: CALL(2) break;                                                     \
+    case 3: CALL(3) break;                                                     \
+    case 4: CALL(4) break;                                                     \
+    case 5: CALL(5) break;                                                     \
+    case 6: CALL(6) break;                                                     \
+    case 7: CALL(7) break;                                                     \
+    case 8: CALL(8) break;                                                     \
+    default: return cudaErrorInvalidValue;                                     \
+  }
+
 template <typename T>
 cudaError_t fwd(int hidden, const void* x, const void* y, const float* scale,
                 const float* bias, void* out, float* mean, float* rstd,
@@ -295,6 +506,21 @@ cudaError_t fwd(int hidden, const void* x, const void* y, const float* scale,
   const T* xt = static_cast<const T*>(x);
   const T* yt = static_cast<const T*>(y);
   T* ot = static_cast<T*>(out);
+  if (hidden > 1024) {
+#define TR_FWD_WIDE(NV)                                                        \
+  if (drop.seed != nullptr) {                                                  \
+    residual_layernorm_fwd_wide<T, NV, true><<<(unsigned)rows, kWideThreads, 0, \
+                                               stream>>>(                      \
+        xt, yt, scale, bias, ot, mean, rstd, drop, hidden, eps);               \
+  } else {                                                                     \
+    residual_layernorm_fwd_wide<T, NV, false><<<(unsigned)rows, kWideThreads,  \
+                                                0, stream>>>(                  \
+        xt, yt, scale, bias, ot, mean, rstd, drop, hidden, eps);               \
+  }
+    TR_WIDE_CASES(TR_FWD_WIDE)
+#undef TR_FWD_WIDE
+    return cudaGetLastError();
+  }
 #define TR_FWD(HV)                                                             \
   if (drop.seed != nullptr) {                                                  \
     residual_layernorm_fwd<T, HV, true><<<grid, block, 0, stream>>>(           \
@@ -319,6 +545,20 @@ cudaError_t bwd(int hidden, const void* x, const void* y, const void* g,
   const T* gt = static_cast<const T*>(g);
   T* dxt = static_cast<T*>(dx);
   T* dyt = static_cast<T*>(dy);
+  if (hidden > 1024) {
+#define TR_BWD_WIDE(NV)                                                        \
+  if (drop.seed != nullptr) {                                                  \
+    residual_layernorm_bwd_wide<T, NV, true><<<nblocks, kWideThreads, 0,       \
+                                               stream>>>(                      \
+        xt, yt, gt, scale, mean, rstd, dxt, dyt, partial, drop, rows, hidden); \
+  } else {                                                                     \
+    residual_layernorm_bwd_wide<T, NV, false><<<nblocks, kWideThreads, 0,      \
+                                                stream>>>(                     \
+        xt, yt, gt, scale, mean, rstd, dxt, dyt, partial, drop, rows, hidden); \
+  }
+    TR_WIDE_CASES(TR_BWD_WIDE)
+#undef TR_BWD_WIDE
+  } else {
 #define TR_BWD(HV)                                                             \
   if (drop.seed != nullptr) {                                                  \
     residual_layernorm_bwd<T, HV, true><<<nblocks, block, 0, stream>>>(        \
@@ -327,8 +567,9 @@ cudaError_t bwd(int hidden, const void* x, const void* y, const void* g,
     residual_layernorm_bwd<T, HV, false><<<nblocks, block, 0, stream>>>(       \
         xt, yt, gt, scale, mean, rstd, dxt, dyt, partial, drop, rows);         \
   }
-  TR_HIDDEN_CASES(TR_BWD)
+    TR_HIDDEN_CASES(TR_BWD)
 #undef TR_BWD
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int width = 2 * hidden;
@@ -370,6 +611,7 @@ int tr_residual_layernorm_fwd(int dtype, const void* x, const void* y,
 // partial: (nblocks, 2, hidden) float32 workspace; dparams: (2, hidden)
 // float32, row 0 = dscale, row 1 = dbias. nblocks >= 1 is the backward
 // kernel's grid; each of its warps walks rows warp, warp + 4 * nblocks, ...
+// (hidden > 1024: each block walks rows block, block + nblocks, ...)
 int tr_residual_layernorm_bwd(int dtype, const void* x, const void* y,
                               const void* g, const void* scale, const void* mean,
                               const void* rstd, void* dx, void* dy, void* partial,

@@ -10,8 +10,8 @@ import torch
 from torch import nn
 
 from ..config import ExperimentConfig
-from ..ops.fused_attention import SUPPORTED_HEAD_DIM
-from ..ops.fused_layernorm import SUPPORTED_HIDDEN
+from ..ops.fused_attention import HEAD_DIM_MULTIPLE, kernel_head_dim
+from ..ops.fused_layernorm import MAX_HIDDEN, takes_hidden
 from .config import TransformerConfig, resolve_config
 from .decoder import Decoder
 from .encdec import EncoderDecoder, TemplateBasedModel
@@ -36,26 +36,27 @@ def resolve_device(device=None) -> torch.device:
 def check_kernel_shapes(config: TransformerConfig,
                         attention: bool = True) -> None:
     """Refuse, before any batch, a model that would reach a kernel with a
-    shape the port's kernels do not take: heads outside SUPPORTED_HEAD_DIM
-    under attention_impl='flash', or a hidden size that is a multiple of 128
-    (the reference's rule for its LN kernel, layers.py:374) outside
-    SUPPORTED_HIDDEN under layernorm_impl='fused'. The JAX package's Pallas
+    shape the port's kernels do not take: a head dim that is no multiple of
+    8 or above 128 under attention_impl='flash', or a hidden size that is a
+    multiple of 128 (the reference's rule for its LN kernel, layers.py:374)
+    above MAX_HIDDEN under layernorm_impl='fused'. The JAX package's Pallas
     kernels take those shapes; on the card the port has no kernel for them
     and runs no plain version in a kernel's place. The plain functions
     (impl 'xla') take any shape. `attention=False` for a stack whose
     attention always carries a bias and so never reaches the kernels (the
     decoder's, layers.py:201-203)."""
     if (attention and config.attention_impl == "flash"
-            and config.head_dim not in SUPPORTED_HEAD_DIM):
+            and not kernel_head_dim(config.head_dim)):
         raise ValueError(
             f"head dim {config.head_dim} (hidden {config.hidden_size} / "
             f"{config.num_attention_heads} heads): the attention kernels take "
-            f"{SUPPORTED_HEAD_DIM}; use attention_impl='xla' for others")
+            f"multiples of {HEAD_DIM_MULTIPLE} up to 128; use "
+            f"attention_impl='xla' for others")
     if (config.layernorm_impl == "fused" and config.hidden_size % 128 == 0
-            and config.hidden_size not in SUPPORTED_HIDDEN):
+            and not takes_hidden(config.hidden_size)):
         raise ValueError(
             f"hidden size {config.hidden_size}: the LayerNorm kernel takes "
-            f"multiples of 128 up to {max(SUPPORTED_HIDDEN)}; use "
+            f"multiples of 128 up to {MAX_HIDDEN}; use "
             f"layernorm_impl='xla' for others")
 
 

@@ -40,16 +40,20 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 NEG_INF = -1e9
 SUPPORTED_HEAD_DIM = (32, 64, 128)  # TR_DISPATCH in csrc/attention_common.cuh
+HEAD_DIM_MULTIPLE = 8  # other head dims run zero-padded to the next width
 SEQ_MULTIPLE = 128  # the kernels' row tile
 LAUNCHES = 0      # forward kernel launches since the last reset
 BWD_LAUNCHES = 0  # backward launches (one per dQ + dK/dV pair)
 CAUSAL_LAUNCHES = 0      # the same two counts for the causal kernels
 CAUSAL_BWD_LAUNCHES = 0
+# the same four counts for calls whose head dim was zero-padded
+PADDED_LAUNCHES = {"fwd": 0, "bwd": 0, "causal_fwd": 0, "causal_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +82,16 @@ _CAUSAL_BWD_SIGNATURES = {
     "tr_causal_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
+
+
+def kernel_head_dim(D: int) -> int:
+    """The instantiated width that head dim D runs at: the least of
+    SUPPORTED_HEAD_DIM that holds it, for a multiple of HEAD_DIM_MULTIPLE;
+    0 for a head dim the kernels do not take. Past 128 the dK/dV pass
+    already spills its registers at 128 (csrc/attention_bwd.cuh)."""
+    if D <= 0 or D % HEAD_DIM_MULTIPLE:
+        return 0
+    return next((w for w in SUPPORTED_HEAD_DIM if D <= w), 0)
 
 
 def load_kernel():
@@ -282,10 +296,11 @@ def _check(q, k, v, mask_kv) -> Optional[torch.Tensor]:
             raise ValueError(f"fused_dropout_attention: {name} must be a "
                              f"contiguous, 16-byte aligned tensor on "
                              f"{q.device}")
-    if D not in SUPPORTED_HEAD_DIM or L % SEQ_MULTIPLE != 0:
-        raise ValueError(f"fused_dropout_attention: head dim {D} not in "
-                         f"{SUPPORTED_HEAD_DIM} or length {L} not a multiple "
-                         f"of {SEQ_MULTIPLE}")
+    if not kernel_head_dim(D) or L % SEQ_MULTIPLE != 0:
+        raise ValueError(f"fused_dropout_attention: head dim {D} not a "
+                         f"multiple of {HEAD_DIM_MULTIPLE} up to "
+                         f"{SUPPORTED_HEAD_DIM[-1]} or length {L} not a "
+                         f"multiple of {SEQ_MULTIPLE}")
     if mask_kv is None:
         return None
     if mask_kv.shape != (B, L) or mask_kv.device != q.device:
@@ -296,15 +311,40 @@ def _check(q, k, v, mask_kv) -> Optional[torch.Tensor]:
     return mask if mask.data_ptr() % 16 == 0 else mask.clone()
 
 
+def _count(padded: bool, causal: bool, bwd: bool) -> None:
+    """One launch of the kernel that (padded, causal, bwd) names."""
+    global LAUNCHES, BWD_LAUNCHES, CAUSAL_LAUNCHES, CAUSAL_BWD_LAUNCHES
+    if padded:
+        PADDED_LAUNCHES[("causal_" if causal else "")
+                        + ("bwd" if bwd else "fwd")] += 1
+    elif causal and bwd:
+        CAUSAL_BWD_LAUNCHES += 1
+    elif causal:
+        CAUSAL_LAUNCHES += 1
+    elif bwd:
+        BWD_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+
+
+def _pad_heads(width: int, *tensors):
+    """The tensors' last axis zero-padded to `width` (as they are when it
+    is already that wide)."""
+    return [t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+            for t in tensors]
+
+
 class _FusedAttention(torch.autograd.Function):
-    """Forward saves q, k, v, out, the row statistics (max, normaliser),
-    the mask and the seed; backward launches the dQ and dK/dV passes.
-    `causal` picks the causal libraries (no seed) and their counters."""
+    """Forward saves q, k, v, out (padded to the kernel's head dim), the
+    row statistics (max, normaliser), the mask and the seed; backward
+    launches the dQ and dK/dV passes. `causal` picks the causal libraries
+    (no seed) and their counters."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, dropout_p, sm_scale, needs_grad,
                 causal, heads):
-        global LAUNCHES, CAUSAL_LAUNCHES
+        head_dim = q.shape[-1]
+        q, k, v = _pad_heads(kernel_head_dim(head_dim), q, k, v)
         B, L, H, D = q.shape
         out = torch.empty_like(q)
         stats = (torch.empty((B, H, L, 2), dtype=torch.float32,
@@ -317,25 +357,23 @@ class _FusedAttention(torch.autograd.Function):
             err = lib.tr_causal_attention_fwd(*tensors, B, L, H, D, sm_scale,
                                               _build.stream())
             _build.check(lib, err, "causal_attention")
-            CAUSAL_LAUNCHES += 1
         else:
             lib = load_kernel()
             err = lib.tr_attention_fwd(
                 *tensors, *_build.dropout_args(seed, dropout_p), *heads,
                 B, L, H, D, sm_scale, _build.stream())
             _build.check(lib, err, "fused_dropout_attention")
-            LAUNCHES += 1
+        _count(D != head_dim, causal, bwd=False)
         ctx.save_for_backward(q, k, v, out, stats, mask, seed)
         ctx.dropout_p, ctx.sm_scale, ctx.causal = dropout_p, sm_scale, causal
-        ctx.heads = heads
-        return out
+        ctx.heads, ctx.head_dim = heads, head_dim
+        return out if D == head_dim else out[..., :head_dim].contiguous()
 
     @staticmethod
     def backward(ctx, dout):
-        global BWD_LAUNCHES, CAUSAL_BWD_LAUNCHES
         q, k, v, out, stats, mask, seed = ctx.saved_tensors
         B, L, H, D = q.shape
-        dout = dout.contiguous()
+        dout, = _pad_heads(D, dout.contiguous())
         if dout.data_ptr() % 16 != 0:
             dout = dout.clone()
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -350,7 +388,6 @@ class _FusedAttention(torch.autograd.Function):
             lib = load_causal_bwd_kernel()
             err = lib.tr_causal_attention_bwd(*inputs, *outputs, *shape)
             _build.check(lib, err, "causal_attention backward")
-            CAUSAL_BWD_LAUNCHES += 1
         else:
             # the tensor-core dQ pass leaves its dropout bits here for the
             # dK/dV pass: two words of 32 keys per (key tile of 64, query)
@@ -363,5 +400,7 @@ class _FusedAttention(torch.autograd.Function):
                 *inputs, *_build.dropout_args(seed, ctx.dropout_p),
                 *ctx.heads, *outputs, _build.ptr(keep_words), *shape)
             _build.check(lib, err, "fused_dropout_attention backward")
-            BWD_LAUNCHES += 1
+        _count(D != ctx.head_dim, ctx.causal, bwd=True)
+        if D != ctx.head_dim:
+            dq, dk, dv = (t[..., :ctx.head_dim] for t in (dq, dk, dv))
         return dq, dk, dv, None, None, None, None, None, None, None

@@ -14,6 +14,10 @@ counter-based generator in csrc/philox.cuh, keyed by one seed per call that
 is drawn from the caller's `torch.Generator`; the backward regenerates the
 mask and recomputes z, so neither is stored. `keep_mask` exports the mask
 for tests.
+
+Widths: every multiple of 128 up to 8192 (`MAX_HIDDEN`). Up to 1024
+(`REGISTER_HIDDEN`) a warp holds a row in its registers; above, a block of
+256 threads does (the wide route, `WIDE_LAUNCHES` and `WIDE_BWD_LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -25,13 +29,17 @@ import torch
 
 from . import _build
 
-# every multiple of 128 up to 1024, where a lane's backward fills the
-# register file (TR_HIDDEN_CASES in the .cu)
-SUPPORTED_HIDDEN = tuple(range(128, 1025, 128))
+# every multiple of 128 up to 1024 holds a row in a warp's registers, where
+# a lane's backward fills the register file (TR_HIDDEN_CASES in the .cu);
+# above, up to MAX_HIDDEN, in a block's (TR_WIDE_CASES)
+REGISTER_HIDDEN = tuple(range(128, 1025, 128))
+MAX_HIDDEN = 8192
 BWD_MAX_BLOCKS = 512  # backward grid cap: rows of the dscale/dbias workspace
 BWD_WARPS = 4         # rows in flight per backward block (kWarps in the .cu)
 LAUNCHES = 0      # forward kernel launches since the last reset
 BWD_LAUNCHES = 0  # backward launches (row kernel + column sums)
+WIDE_LAUNCHES = 0      # the same two counts for the wide route
+WIDE_BWD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +53,11 @@ _SIGNATURES = {
                                   _P, _P, _U, _F, _L, _I, _P],
     "tr_row_keep_mask": [_P, _U, _P, _L, _I, _P],
 }
+
+
+def takes_hidden(H: int) -> bool:
+    """Whether the kernels take rows of H elements."""
+    return H % 128 == 0 and 0 < H <= MAX_HIDDEN
 
 
 def load_kernel():
@@ -125,9 +138,9 @@ def _check(x, y, scale, bias) -> None:
     if y.dtype != x.dtype or y.shape != x.shape:
         raise ValueError(f"x {x.dtype}{tuple(x.shape)} vs y "
                          f"{y.dtype}{tuple(y.shape)}")
-    if H not in SUPPORTED_HIDDEN:
-        raise ValueError(f"fused_residual_layernorm: hidden {H} not in "
-                         f"{SUPPORTED_HIDDEN}")
+    if not takes_hidden(H):
+        raise ValueError(f"fused_residual_layernorm: hidden {H} is not a "
+                         f"multiple of 128 up to {MAX_HIDDEN}")
     for name, t in (("x", x), ("y", y), ("scale", scale), ("bias", bias)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"fused_residual_layernorm: {name} on {t.device}")
@@ -146,7 +159,7 @@ class _FusedResidualLayerNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y, scale, bias, seed, eps, dropout_p, needs_grad):
-        global LAUNCHES
+        global LAUNCHES, WIDE_LAUNCHES
         H = x.shape[-1]
         rows = x.numel() // H
         out = torch.empty_like(x)
@@ -161,20 +174,25 @@ class _FusedResidualLayerNorm(torch.autograd.Function):
             _build.ptr(mean), _build.ptr(rstd),
             *_build.dropout_args(seed, dropout_p), rows, H, eps, _build.stream())
         _build.check(lib, err, "fused_residual_layernorm")
-        LAUNCHES += 1
+        if H in REGISTER_HIDDEN:
+            LAUNCHES += 1
+        else:
+            WIDE_LAUNCHES += 1
         ctx.save_for_backward(x, y, scale, mean, rstd, seed)
         ctx.dropout_p = dropout_p
         return out
 
     @staticmethod
     def backward(ctx, g):
-        global BWD_LAUNCHES
+        global BWD_LAUNCHES, WIDE_BWD_LAUNCHES
         x, y, scale, mean, rstd, seed = ctx.saved_tensors
         H = x.shape[-1]
         rows = x.numel() // H
         g = g.contiguous()
         dx, dy = torch.empty_like(x), torch.empty_like(x)
-        nblocks = max(1, min(-(-rows // BWD_WARPS), BWD_MAX_BLOCKS))
+        # a backward block walks BWD_WARPS rows at a time, a wide one one
+        per_block = BWD_WARPS if H in REGISTER_HIDDEN else 1
+        nblocks = max(1, min(-(-rows // per_block), BWD_MAX_BLOCKS))
         partial = torch.empty((nblocks, 2, H), dtype=torch.float32,
                               device=x.device)
         dparams = torch.empty((2, H), dtype=torch.float32, device=x.device)
@@ -186,5 +204,8 @@ class _FusedResidualLayerNorm(torch.autograd.Function):
             _build.ptr(partial), nblocks, _build.ptr(dparams),
             *_build.dropout_args(seed, ctx.dropout_p), rows, H, _build.stream())
         _build.check(lib, err, "fused_residual_layernorm backward")
-        BWD_LAUNCHES += 1
+        if H in REGISTER_HIDDEN:
+            BWD_LAUNCHES += 1
+        else:
+            WIDE_BWD_LAUNCHES += 1
         return dx, dy, dparams[0], dparams[1], None, None, None, None

@@ -20,6 +20,11 @@ stands for the TPU kernel's corpus-resident grid: the corpus is cut into
 slabs, each item keeps a partial list, and a second kernel merges the slabs'
 lists per query. `LAUNCHES` counts the launches of each.
 
+k: any k >= 1 on the CPU. On the card 1 <= k <= `MAX_K`: up to
+`SHARED_LIST_K` the scan keeps its 128 sorted lists in shared memory; above,
+in a device-memory workspace the wrapper allocates (the large-k route,
+counted in `LARGE_K_LAUNCHES`), with the same order, ties and banned ids.
+
 `numpy_reference_topk` is the host oracle (a float64 BLAS scan, exact for
 these integers).
 """
@@ -37,7 +42,8 @@ import torch.nn.functional as F
 from . import _build
 
 BIG = 2**30  # distance and index of a slot that no corpus row filled
-MAX_K = 128  # kMaxK in the .cu: the sorted lists live in shared memory
+MAX_K = 1024  # kMaxK in the .cu: the card's largest k
+SHARED_LIST_K = 128  # kMaxSharedK: up to here the lists are in shared memory
 TILE_Q = 128  # queries a work item: two warpgroups of 64 (kTileQ in the .cu)
 TILE_C = 128  # corpus rows a tile, the wgmma's N (kTileC): slabs are whole tiles
 # corpus-split: work items to aim for, per multiprocessor (one persistent
@@ -49,13 +55,15 @@ TILE_C = 128  # corpus rows a tile, the wgmma's N (kTileC): slabs are whole tile
 # x 1024 and 23.56, 25.53 and 26.84 ms at N = 700,000 x 2048
 ITEMS_PER_SM = 1
 LAUNCHES = {"query_outer": 0, "corpus_split": 0}
+LARGE_K_LAUNCHES = {"query_outer": 0, "corpus_split": 0}  # k > SHARED_LIST_K
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "tr_topk_query_outer": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tr_topk_corpus_split": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                             _I, _P],
+    "tr_topk_query_outer": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P],
+    "tr_topk_corpus_split": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _P],
     "tr_topk_scan_shared": [_I, ctypes.POINTER(_I)],
 }
 
@@ -87,7 +95,8 @@ def scan_shared(k: int) -> Tuple[int, int]:
     """(stages of the scan's ring, bytes of dynamic shared memory a block
     takes) for k, as the library computes them for its launches: a ring of
     2-4 stages of 128 queries and 128 corpus rows x 128 bytes beside 128
-    sorted lists of k keys."""
+    sorted lists of k keys (above SHARED_LIST_K the lists are in device
+    memory and the ring has 4 stages)."""
     stages = _I(0)
     lib = load_kernel()
     nbytes = lib.tr_topk_scan_shared(k, ctypes.byref(stages))
@@ -99,6 +108,15 @@ def scan_shared(k: int) -> Tuple[int, int]:
 def workspace_bytes(m: int, k: int, slabs: int) -> int:
     """Device memory the corpus-split layout needs for its partial lists."""
     return slabs * m * k * 8
+
+
+def list_workspace_bytes(k: int, device: torch.device) -> int:
+    """Device memory of the scan's lists on `device`: 128 lists of k keys
+    for each multiprocessor (a block an SM) above SHARED_LIST_K, on a card."""
+    if k <= SHARED_LIST_K or device.type != "cuda":
+        return 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * TILE_Q * k * 8
 
 
 @contextlib.contextmanager
@@ -180,6 +198,8 @@ def exact_topk_l2(queries: torch.Tensor, corpus: torch.Tensor,
     current stream, whichever device is current (an index sharded over
     several cards calls it for each)."""
     if not queries.is_cuda:
+        if k < 1:
+            raise ValueError(f"exact_topk_l2: k={k} < 1")
         return exact_topk_l2_reference(queries, corpus, corpus_norms, banned,
                                        k=k)
     with torch.cuda.device(queries.device):
@@ -206,22 +226,29 @@ def _exact_topk_l2_cuda(queries, corpus, corpus_norms, banned, k: int,
     if M == 0:
         return vals, idx
     lib = load_kernel()
+    large = k > SHARED_LIST_K
+    lists = None
+    if large:
+        lists = torch.empty(list_workspace_bytes(k, queries.device) // 8,
+                            dtype=torch.int64, device=queries.device)
+    counts = LARGE_K_LAUNCHES if large else LAUNCHES
     head = (_build.ptr(queries), _build.ptr(corpus), _build.ptr(corpus_norms),
             _build.ptr(banned))
-    tail = (_build.ptr(vals), _build.ptr(idx), M, N, d, banned.shape[1], k,
-            _build.stream())
+    tail = (_build.ptr(lists), M, N, d, banned.shape[1], k, _build.stream())
     if corpus_resident:
         slabs = split_slabs(M, N, queries.device)
         partial = torch.empty((slabs, M, k), dtype=torch.int64,
                               device=queries.device)
         err = lib.tr_topk_corpus_split(*head, _build.ptr(partial), slabs,
+                                       _build.ptr(vals), _build.ptr(idx),
                                        *tail)
         _build.check(lib, err, "exact_topk_l2 (corpus split)")
-        LAUNCHES["corpus_split"] += 1
+        counts["corpus_split"] += 1
     else:
-        err = lib.tr_topk_query_outer(*head, *tail)
+        err = lib.tr_topk_query_outer(*head, _build.ptr(vals), _build.ptr(idx),
+                                      *tail)
         _build.check(lib, err, "exact_topk_l2 (query outer)")
-        LAUNCHES["query_outer"] += 1
+        counts["query_outer"] += 1
     return vals, idx
 
 

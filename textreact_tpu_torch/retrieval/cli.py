@@ -48,8 +48,8 @@ def get_args(argv: Optional[List[str]] = None):
     p.add_argument("--before", type=int, default=-1)
     p.add_argument("--output_path", type=str, required=True)
     p.add_argument("--k", type=int, default=20,
-                   help=f"neighbours per query, 1..{MAX_K} (the top-k kernels "
-                        f"keep each query's list in shared memory)")
+                   help=f"neighbours per query, >= 1; at most {MAX_K} on the "
+                        f"card (the top-k kernels' largest k)")
     p.add_argument("--num_workers", type=int, default=0)
     p.add_argument("--check_parity", action="store_true",
                    help="verify kernel results against the numpy oracle")
@@ -59,9 +59,10 @@ def get_args(argv: Optional[List[str]] = None):
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
     args = p.parse_args(argv)
-    if not 1 <= args.k <= MAX_K:
-        p.error(f"--k {args.k} outside 1..{MAX_K}: the top-k kernels keep "
-                f"each query's list in shared memory")
+    on_card = args.device is None or torch.device(args.device).type == "cuda"
+    if args.k < 1 or (on_card and args.k > MAX_K):
+        p.error(f"--k {args.k} outside 1..{MAX_K} (the card's top-k "
+                f"kernels), or < 1")
     return args
 
 

@@ -31,8 +31,8 @@ import torch
 
 from ..models.factory import resolve_device
 from ..ops.topk import (BIG, MAX_K, corpus_norms_padded, exact_topk_l2,
-                        numpy_reference_topk, pad_matrix, split_slabs,
-                        workspace_bytes)
+                        list_workspace_bytes, numpy_reference_topk,
+                        pad_matrix, split_slabs, workspace_bytes)
 
 # Layout rule, measured on an H100 80GB HBM3 at 700 W by chip_smoke.py's
 # retrieval phase at M = 8192, k = 20 (PERF.md, section 6): the
@@ -99,11 +99,12 @@ class FlatIndex:
         """Most queries one kernel call takes inside SEARCH_BUDGET_BYTES
         (of an unsharded index, or of one shard)."""
         n = self.corpus.shape[0]
+        lists = list_workspace_bytes(k, self.device)
         m = 1 << 16
         while m > 128:
             slabs = (split_slabs(m, n, self.device)
                      if self.device.type == "cuda" else 1)
-            need = (m * (self.dim + 4 * nb + 8 * k)
+            need = (m * (self.dim + 4 * nb + 8 * k) + lists
                     + workspace_bytes(m, k, slabs))
             if need <= SEARCH_BUDGET_BYTES:
                 break
@@ -115,8 +116,8 @@ class FlatIndex:
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k (distances, indices), faiss-flat semantics. `banned` is
         (M, NB) int32 global corpus ids to exclude per query (-1 = none).
-        1 <= k <= MAX_K on every device: the kernels keep each query's list
-        in shared memory, so a larger k is refused before any device work.
+        Any k >= 1 on the CPU; on the card 1 <= k <= MAX_K, and a larger k
+        is refused before any device work.
 
         On the card each chunk's queries and banned ids go up through pinned
         staging buffers and the results come back through pinned buffers,
@@ -124,10 +125,11 @@ class FlatIndex:
         queues a chunk on every shard before it waits for any of them, then
         merges the shards' lists (banned ids made local to each shard, its
         results offset to global ids) in (distance, index) order."""
-        if not 1 <= k <= MAX_K:
-            raise ValueError(f"FlatIndex.search: k={k} outside 1..{MAX_K}: "
-                             f"the top-k kernels keep each query's list in "
-                             f"shared memory")
+        on_card = any(index.device.type == "cuda"
+                      for _, index in self.shards or [(0, self)])
+        if k < 1 or (on_card and k > MAX_K):
+            raise ValueError(f"FlatIndex.search: k={k} outside 1..{MAX_K} "
+                             f"(the card's top-k kernels), or < 1")
         assert queries.dtype == np.int8, queries.dtype
         M = queries.shape[0]
         q = pad_matrix(queries, 1, 16)
