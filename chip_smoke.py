@@ -16,9 +16,10 @@ Phases, each fatal on failure:
    bfloat16, without dropout and at p = 0.1 with the kernel's own keep mask
    exported and fed to the plain version, each with a stated tolerance; the
    bfloat16 attention kernels (at head dims 32, 64, 128 and at 96 and 48,
-   which run zero-padded to the next, two lengths, a mask that
-   is no prefix, causal and not) also against the plain statement of their
-   own rounding points at a tenth of that tolerance, every element (the
+   which run the next width's kernels at their own head dim, two lengths, a
+   mask that is no prefix, causal and not) also against the plain
+   statement of their own rounding points at a tenth of that tolerance,
+   every element (the
    backward against the statement fed the kernel's forward output; at the
    main shape the dk element furthest from the statement fed its own output
    taken apart: its dS terms before and after rounding in the kernel's
@@ -30,11 +31,14 @@ Phases, each fatal on failure:
    the causal attention forward and backward the same way (no dropout) at
    L=512 and L=128, beside SDPA under a boolean mask that joins the causal
    and the key mask; the routes of the shapes past the recipes' the same
-   way: attention at 16 heads of 96 and causal attention at 8 (zero-padded
-   to the D=128 kernels), residual LN at rows of 2048 (the wide route; the
-   rows of 1536 that step 8 gives it; 1152, 8192 at a few rows); then both layouts of the exact top-k L2
-   search at small shapes (ragged sizes, k from 1 to 1024, the lists in
-   shared memory up to 128 and in device memory past it, fewer rows than
+   way: attention at 16 heads of 96 and causal attention at 8 (the D=128
+   kernels reading and writing 96 columns, no copies; each also equal to
+   the bit to the same kernels on inputs zero-padded to 128 beforehand,
+   both timed), residual LN at rows of 2048 (the wide route; the rows of
+   1536 that step 8 gives it; 1152, 8192 at a few rows); then both layouts
+   of the exact top-k L2 search at small shapes (ragged sizes, k from 1 to
+   1024: past 128 work items of 64 queries that merge runs, the lists in
+   shared memory up to 339 and in device memory past it; fewer rows than
    k, ties across tiles and slabs, banned ids, negative counts, d from 128
    to 2048) against the plain version on the card and the float64 numpy
    oracle on the host, equal to the bit;
@@ -68,11 +72,12 @@ Phases, each fatal on failure:
    run time, with --check_parity; the three neighbour files read back;
    then the routes of the shapes past the recipes', through the entry
    points, each with exact launch counts: one training step of a model of
-   2 + 2 layers of 1536 in 16 heads of 96 (padded attention, wide LN),
-   then its loss and gradients in f32 against the plain functions, a
-   training pass of two causal blocks with heads of 96, FlatIndex.search
-   at k = 256 in both layouts on the bench data (equal to the plain
-   version and the numpy oracle, timed);
+   2 + 2 layers of 1536 in 16 heads of 96 (attention below the kernels'
+   width, wide LN), then its loss and gradients in f32 against the plain
+   functions, a training pass of two causal blocks with heads of 96,
+   FlatIndex.search at k = 256 in both layouts on the bench data (equal to
+   the plain version and the numpy oracle, timed; the scan's plan, and
+   k = 1024 checked and timed beside the library);
 9. causal path: a stack of six TransformerBlock(causal=True) with bert_l6's
    geometry and cross-attention over encoder states of L=512, B=32 at L=512
    and L=128, no self bias and a ragged key mask: forward in eval mode and
@@ -338,11 +343,13 @@ CAUSAL_KERNELS = ("causal_attention_fwd", "causal_attention_bwd")
 CAUSAL_LENGTHS, UNALIGNED_LENGTH = (L, 128), 160
 # retrieval shapes: 8192 queries, k = 20
 TOPK_M, TOPK_K = 8192, 20
-# shapes past the kernels' first routes: heads of 96 run zero-padded to
-# the kernels' 128, LayerNorm rows past 1024 take the wide route, k = 256
-# the scan's lists in device memory. phase_shapes trains SHAPES_BATCH
-# examples on a model of SHAPES_HIDDEN (PAD_HEADS heads of 96: both routes
-# at once) and runs causal blocks of 768 (CAUSAL_PAD_HEADS heads of 96);
+# shapes past the kernels' first routes: heads of 96 run the kernels of
+# width 128 at their own head dim, LayerNorm rows past 1024 take the wide
+# route, k = 256 the large-k scan (items of 64 queries, runs merged into
+# lists in shared memory; past 339 in device memory). phase_shapes trains
+# SHAPES_BATCH examples on a model of SHAPES_HIDDEN (PAD_HEADS heads of 96:
+# both routes at once) and runs causal blocks of 768 (CAUSAL_PAD_HEADS heads
+# of 96);
 # the kernels phase holds the routes against their plain versions at those
 # heads and rows, and times the wide LN at WIDE_HIDDEN
 PAD_DIM, SHAPES_HIDDEN, SHAPES_BATCH = 96, 1536, 8
@@ -817,7 +824,7 @@ def ragged_holes_mask(batch: int, n: int, rng) -> np.ndarray:
 
 def kernels_attention_shapes() -> None:
     """The bf16 tensor-core kernels at every instantiated head dim and two
-    that run zero-padded (96, 48), two lengths, under a mask that is no
+    below the next width (96, 48), two lengths, under a mask that is no
     prefix, non-causal (p = 0 and 0.1) and causal, against the plain
     version with the kernel's own keep mask."""
     dev = torch.device("cuda")
@@ -1004,23 +1011,11 @@ def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs,
         f"{bwd_bytes / 1e6:.1f} MB, the generator once = "
         f"{draw_ms:.4f} ms)")
     padded = {}
-    width = fused_attention.kernel_head_dim(dim)
-    if width != dim:
-        # the same kernels on inputs padded beforehand: what the wrapper's
-        # zero-padding and slicing cost beside them
-        wide = [F.pad(t, (0, width - dim)).requires_grad_()
-                for t in (q, k, v)]
-        padded["fwd"] = time_ms(
-            lambda: fused_attention.fused_dropout_attention(
-                *wide, mask, p, gen, scale))
-        wide_out = fused_attention.fused_dropout_attention(*wide, mask, p,
-                                                           gen, scale)
-        wide_do = F.pad(do, (0, width - dim))
-        padded["bwd"] = time_ms(lambda: torch.autograd.grad(
-            wide_out, wide, wide_do, retain_graph=True))
-        log(f"  attention D={dim} bf16 p={p} on inputs padded to {width} "
-            f"beforehand: forward {padded['fwd']:.4f} ms, backward "
-            f"{padded['bwd']:.4f} ms")
+    if fused_attention.kernel_head_dim(dim) != dim:
+        padded = true_dim_against_padded(
+            f"attention D={dim} bf16 p={p}", q, k, v, do, mask, scale, p,
+            False, dict(fwd=fwd_ms, bwd=bwd_ms, lib_fwd=lib_fwd,
+                        lib_bwd=lib_bwd))
     results["fused_attention_fwd" + suffix] = dict(
         max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd, bound_ms=fb,
         bound_by=fby, library_ms=lib_fwd, ms_p0=ms_p0, plain_ms_p0=plain_p0,
@@ -1033,6 +1028,49 @@ def time_attention(results, q, k, v, do, mask, gen, scale, lengths, errs,
         **({"ms_on_padded_inputs": padded["bwd"]} if padded else {}),
         **{f"{label}_pass_ms": ms for label, ms in passes.items()
            if ms is not None})
+
+
+def true_dim_against_padded(tag, q, k, v, do, mask, scale, p, causal,
+                            times) -> dict:
+    """A head dim below the kernels' width W: the call at the true head
+    dim (no copies) against the same kernels on q, k, v, dO zero-padded to
+    W beforehand, with the same scale and seed. Output and gradients must
+    be equal to the bit; the padded call's forward and backward are timed
+    and printed beside `times` (the true-D call's and SDPA's, ms)."""
+    dim = q.shape[-1]
+    width = fused_attention.kernel_head_dim(dim)
+
+    def forward(leaves, gen):
+        if causal:
+            return fused_attention.causal_attention(*leaves, mask, scale)
+        return fused_attention.fused_dropout_attention(*leaves, mask, p, gen,
+                                                       scale)
+
+    narrow = [t.clone().requires_grad_() for t in (q, k, v)]
+    wide = [F.pad(t, (0, width - dim)).requires_grad_() for t in (q, k, v)]
+    wide_do = F.pad(do, (0, width - dim))
+    gens = [torch.Generator(device=q.device).manual_seed(7) for _ in "ab"]
+    out = forward(narrow, gens[0])
+    out.backward(do, retain_graph=True)
+    wide_out = forward(wide, gens[1])
+    wide_out.backward(wide_do, retain_graph=True)
+    torch.cuda.synchronize()
+    bits = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+    for name, a, b in zip(("out", "dq", "dk", "dv"),
+                          [out] + [t.grad for t in narrow],
+                          [wide_out] + [t.grad for t in wide]):
+        if not torch.equal(a.view(bits), b[..., :dim].contiguous().view(bits)):
+            raise AssertionError(f"{tag}: {name} at head dim {dim} differs "
+                                 f"from the call padded to {width}")
+    fwd = time_ms(lambda: forward(wide, gens[1]))
+    bwd = time_ms(lambda: torch.autograd.grad(wide_out, wide, wide_do,
+                                              retain_graph=True))
+    log(f"  {tag}: output and gradients equal to the bit to the {width}-wide "
+        f"kernels on inputs zero-padded beforehand; forward {times['fwd']:.4f}"
+        f" ms at D={dim}, {fwd:.4f} ms padded beforehand, SDPA "
+        f"{times['lib_fwd']:.4f} ms; backward {times['bwd']:.4f} ms, "
+        f"{bwd:.4f} ms padded, SDPA {times['lib_bwd']:.4f} ms")
+    return {"fwd": fwd, "bwd": bwd}
 
 
 def causal_allowed(mask: torch.Tensor) -> torch.Tensor:
@@ -1148,6 +1186,12 @@ def time_causal_attention(results, n, q, k, v, do, mask, scale, lengths,
                                                   retain_graph=True))
     fb, fby = bound(fwd_bytes, fwd_flops, dtype)
     bb, bby = bound(bwd_bytes, bwd_flops, dtype)
+    padded = {}
+    if fused_attention.kernel_head_dim(dim) != dim:
+        padded = true_dim_against_padded(
+            f"causal attention D={dim} bf16 L={n}", q, k, v, do, mask, scale,
+            0.0, True, dict(fwd=fwd_ms, bwd=bwd_ms, lib_fwd=lib_fwd,
+                            lib_bwd=lib_bwd))
     log(f"  causal attention D={dim} bf16 L={n} forward (writes row "
         f"statistics): "
         f"kernel {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, SDPA "
@@ -1160,9 +1204,11 @@ def time_causal_attention(results, n, q, k, v, do, mask, scale, lengths,
         f"{lib_bwd:.4f} ms, bound {bb:.4f} ms ({bby}: "
         f"{bwd_flops / 1e9:.2f} GFLOP, {bwd_bytes / 1e6:.1f} MB)")
     fwd = dict(ms=fwd_ms, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby,
-               library_ms=lib_fwd)
+               library_ms=lib_fwd,
+               **({"ms_on_padded_inputs": padded["fwd"]} if padded else {}))
     bwd = dict(ms=bwd_ms, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby,
-               library_ms=lib_bwd)
+               library_ms=lib_bwd,
+               **({"ms_on_padded_inputs": padded["bwd"]} if padded else {}))
     if n != L:
         fwd = {f"{key}_L{n}": val for key, val in fwd.items()}
         bwd = {f"{key}_L{n}": val for key, val in bwd.items()}
@@ -1780,12 +1826,15 @@ def kernels_topk_small() -> None:
              (128, 128, 2048, "full", 1, 1), (9, 7, 128, "binary", 20, 0),
              (300, 5000, 1024, "counts", 100, 1),
              (64, 2000, 2048, "full", 20, 0),
-             # k past the shared-memory lists: the scan's lists in device
-             # memory, fewer rows than k among them
+             # k past INSERT_K: items of 64 queries merging runs, the lists
+             # in shared memory up to 339 and in device memory past it,
+             # fewer rows than k among them
              (37, 601, 128, "binary", LARGE_K, 0),
              (130, 3000, 1024, "counts", topk.MAX_K, 2),
              (5, 200, 256, "full", LARGE_K, 0),
-             (300, 5000, 2048, "binary", LARGE_K, 1)]
+             (300, 5000, 2048, "binary", LARGE_K, 1),
+             (70, 1500, 256, "counts", 339, 1),
+             (70, 1500, 128, "binary", 340, 0)]
     for M, N, d, kind, k, nb in cases:
         if kind == "binary":
             corpus = (rng.random((N, d)) < 0.08).astype(np.int8)
@@ -1846,12 +1895,12 @@ def phase_retrieval(card: str, results: dict) -> None:
     built = ptxas_report("exact_topk")
     for kernel, (regs, spill) in sorted(built.items()):
         log(f"[retrieve] {kernel[:60]}: {regs} registers, {spill}")
-    largest = topk.SHARED_LIST_K   # the largest k with the lists in there
-    (stages, nbytes), (stages_max, nbytes_max) = (topk.scan_shared(k),
-                                                  topk.scan_shared(largest))
-    log(f"[retrieve] topk_scan: {nbytes} bytes of dynamic shared memory at "
-        f"k={k} ({stages} ring stages), {nbytes_max} at k={largest} "
-        f"({stages_max}); "
+    largest = topk.INSERT_K   # the largest k of this route
+    plan, plan_max = topk.scan_shared(k), topk.scan_shared(largest)
+    log(f"[retrieve] topk_scan: {plan.shared_bytes} bytes of dynamic shared "
+        f"memory at k={k} ({plan.stages} ring stages, {plan.queries} queries "
+        f"a work item), {plan_max.shared_bytes} at k={largest} "
+        f"({plan_max.stages}); "
         f"{'built in this process' if built else 'cached build: no report'}")
     for shape in ("bench", "rcr"):
         t0 = time.perf_counter()
@@ -2051,7 +2100,8 @@ def time_retrieval(card, results, shape, index, queries, banned, q_dev, b_dev,
 def shapes_model(tmp: Path, vocab: Path):
     """(cfg, tokenizers, module) of the recipe's training configuration on
     2 + 2 layers of SHAPES_HIDDEN in PAD_HEADS heads of PAD_DIM: every
-    attention call runs zero-padded, every residual LN on the wide route."""
+    attention call runs below the kernels' width, every residual LN on the
+    wide route."""
     paths = []
     for name in ("scibert_base", "bert_l6"):
         path = tmp / f"shapes_{name}.json"
@@ -2073,7 +2123,8 @@ def phase_shapes(card: str, tmp: Path, vocab: Path, results: dict) -> None:
     with heads of 96 and rows of 1536 (build_model, make_accum_train_step),
     a training pass of two causal blocks with heads of 96, FlatIndex.search
     at k = 256 in both layouts; then the large-k scan against the plain
-    version and the numpy oracle and timed, at the bench shape."""
+    version and the numpy oracle and timed, at the bench shape, at k = 256
+    and 1024 (time_largest_k), with the scan's plan for each."""
     cfg, enc_tok, dec_tok, module = shapes_model(tmp, vocab)
     micro = as_microbatches(
         make_train_batch(cfg, enc_tok, dec_tok, SHAPES_BATCH), 1)
@@ -2164,6 +2215,12 @@ def phase_shapes(card: str, tmp: Path, vocab: Path, results: dict) -> None:
     if not all(np.array_equal(a, b) for a, b in zip(found[True],
                                                     found[False])):
         raise AssertionError(f"k={k}: the two layouts disagree")
+    for kk in (k, topk.MAX_K):
+        plan = topk.scan_shared(kk)
+        log(f"[shapes] the scan's plan at k={kk}: {plan.queries} queries a "
+            f"work item, {plan.stages} ring stages, {plan.shared_bytes} bytes "
+            f"of shared memory, the lists in "
+            f"{'device' if plan.device_lists else 'shared'} memory")
     ops = 2.0 * M * N * d
     bound_ms, bound_by = bound(N * d + M * d + 8 * M * k, ops, torch.int8)
     plain_ms = time_ms(lambda: topk.exact_topk_l2_reference(
@@ -2192,10 +2249,58 @@ def phase_shapes(card: str, tmp: Path, vocab: Path, results: dict) -> None:
                                      - plain_v).max()),
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms)
+    time_largest_k(card, results, index, queries, q_dev)
     for name, n in launches.items():
         results[name]["launches"] = n
     del index, q_dev, corpus
     torch.cuda.empty_cache()
+
+
+def time_largest_k(card, results, index, queries, q_dev) -> None:
+    """Both layouts at the largest k (the lists in device memory) on the
+    bench data: equal to the plain version (256 queries) and the numpy
+    oracle (64), tolerance 0, and timed beside the library's call."""
+    k = topk.MAX_K
+    N, d = index.corpus.shape
+    M = len(queries)
+    plain_v, plain_i = (t.cpu().numpy() for t in topk.exact_topk_l2_reference(
+        q_dev[:256], index.corpus, index.norms, k=k))
+    oracle_v, oracle_i = index.reference_search(queries[:64], k=k)
+    bound_ms, bound_by = bound(N * d + M * d + 8 * M * k, 2.0 * M * N * d,
+                               torch.int8)
+    library_ms = time_ms(lambda: library_topk(q_dev, index.corpus,
+                                              index.norms, k), reps=3)
+    for resident, name in TOPK_LAYOUTS.items():
+        vals, idx = (t.cpu().numpy() for t in topk.exact_topk_l2(
+            q_dev, index.corpus, index.norms, k=k, corpus_resident=resident))
+        if not (np.array_equal(idx[:256], plain_i)
+                and np.array_equal(vals[:256], plain_v)
+                and np.array_equal(idx[:64], oracle_i)
+                and np.array_equal(vals[:64], oracle_v)):
+            raise AssertionError(f"k={k} {name} disagrees with the plain "
+                                 f"version or the numpy oracle")
+        ms = time_ms(lambda: topk.exact_topk_l2(
+            q_dev, index.corpus, index.norms, k=k, corpus_resident=resident),
+            reps=3)
+        log(f"[shapes] bench shape k={k} {name}: equal to the plain version "
+            f"(256 queries) and the numpy oracle (64), tolerance 0; device "
+            f"{ms:.3f} ms ({bound_ms / ms:.1%} of the {bound_by} bound "
+            f"{bound_ms:.3f} ms), library (torch._int_mm + torch.topk) "
+            f"{library_ms:.2f} ms; on {card}")
+        results[name + "_large_k"].update(
+            ms_k1024=ms, bound_ms_k1024=bound_ms, library_ms_k1024=library_ms)
+    # the corpus-split scan on both sides of the plan's two boundaries: the
+    # insertion's last k and the merge's first, the last k with the lists
+    # in shared memory and the first with them in device memory
+    shared = max(kk for kk in range(topk.INSERT_K + 1, k + 1)
+                 if not topk.scan_layout(kk).device_lists)
+    by_k = {kk: time_ms(lambda: topk.exact_topk_l2(
+        q_dev, index.corpus, index.norms, k=kk, corpus_resident=True),
+        reps=3) for kk in (topk.INSERT_K, topk.INSERT_K + 1, shared,
+                           shared + 1, 512)}
+    log(f"[shapes] bench shape corpus-split by k: "
+        f"{ {kk: round(ms, 3) for kk, ms in by_k.items()} } ms; on {card}")
+    results["exact_topk_corpus_split_large_k"]["ms_by_k"] = by_k
 
 
 def write_reaction_csvs(root: Path, sizes: dict) -> None:

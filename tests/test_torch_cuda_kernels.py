@@ -206,6 +206,52 @@ def test_padded_head_dims_match_plain(dev, dtype, D, causal, p):
         _close(a.grad, b.grad, *GRAD_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 40, 48, 96, 120])
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (False, 0.1),
+                                      (True, 0.0)])
+def test_true_head_dim_equals_the_padded_call_to_the_bit(dev, dtype, D,
+                                                         causal, p):
+    """A head dim below the kernel's width W runs the W kernels on q, k,
+    v at their own head dim, with no copy: output and gradients equal, to
+    the bit, what the same kernels give on inputs zero-padded to W
+    beforehand (sliced back to D), with the scale of the true D passed to
+    both, the same seed, and a row whose keys are all masked."""
+    B, L, H = 3, 256, 2
+    width = fused_attention.kernel_head_dim(D)
+    g = torch.Generator(device=dev).manual_seed(L + D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    mask = _mask(B, L, dev)
+    kind = "causal_" if causal else ""
+
+    def run(tensors, grad):
+        leaves = [t.clone().requires_grad_() for t in tensors]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        if causal:
+            out = fused_attention.causal_attention(*leaves, mask, D ** -0.5)
+        else:
+            out = fused_attention.fused_dropout_attention(
+                *leaves, mask, p, gen, D ** -0.5)
+        out.backward(grad)
+        return [out] + [t.grad for t in leaves]
+
+    before = dict(fused_attention.PADDED_LAUNCHES)
+    got = run((q, k, v), do)
+    assert fused_attention.PADDED_LAUNCHES[kind + "fwd"] \
+        == before[kind + "fwd"] + 1
+    assert fused_attention.PADDED_LAUNCHES[kind + "bwd"] \
+        == before[kind + "bwd"] + 1
+    pad = [torch.nn.functional.pad(t, (0, width - D)) for t in (q, k, v, do)]
+    wide = run(pad[:3], pad[3])
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, wide):
+        assert a.shape == q.shape and a.is_contiguous(), name
+        assert torch.equal(a.view(bits), b[..., :D].contiguous().view(bits)), \
+            name
+
+
 def test_attention_dropout_mask_is_a_function_of_the_seed(dev):
     seed = torch.tensor([1234], device=dev)
     a = fused_attention.keep_mask(seed, 2, 3, 128, 0.1)
@@ -447,7 +493,7 @@ def _topk_both_layouts(queries, corpus, n_real, banned, k, dev):
     args = [torch.from_numpy(a).to(dev) for a in (queries, corpus, norms)]
     b = None if banned is None else torch.from_numpy(banned).to(dev)
     ref_v, ref_i = topk.exact_topk_l2_reference(*args, b, k=k)
-    counts = (topk.LARGE_K_LAUNCHES if k > topk.SHARED_LIST_K
+    counts = (topk.LARGE_K_LAUNCHES if k > topk.INSERT_K
               else topk.LAUNCHES)
     for resident, name in ((False, "query_outer"), (True, "corpus_split")):
         before = counts[name]
@@ -465,7 +511,8 @@ def _topk_both_layouts(queries, corpus, n_real, banned, k, dev):
     return ref_v, ref_i
 
 
-@pytest.mark.parametrize("k", [1, 5, 20, 100, 128, 129, 256, 1024])
+@pytest.mark.parametrize("k", [1, 5, 20, 100, 128, 129, 192, 256, 257, 512,
+                               1024])
 @pytest.mark.parametrize("M,N,d,kind", [
     (37, 601, 128, "binary"), (130, 1000, 1024, "binary"),
     (257, 3001, 2048, "counts"), (5, 129, 256, "full"),
@@ -482,11 +529,18 @@ def test_topk_kernels_equal_plain_version(dev, M, N, d, kind, k):
 
 
 @pytest.mark.parametrize("nb", [1, 3])
-@pytest.mark.parametrize("k", [5, 20, 256])
+@pytest.mark.parametrize("k", [5, 20, 129, 256, 512])
 def test_topk_kernels_banned_ids_and_padding_rows(dev, nb, k):
+    """Banned ids, padding rows and ties: four groups of 60 equal rows
+    spread over the corpus, and queries equal to them, so that a tie runs
+    through the k-th place and across the large-k route's runs, on both
+    sides of its plan's boundary between lists in shared memory (k = 129,
+    256) and in device memory (k = 512)."""
     rng = np.random.default_rng(nb + k)
     corpus = topk.pad_matrix(_fps(rng, 900, 256, "binary"), 128, 16)
     corpus[rng.integers(0, 900, 300)] = corpus[rng.integers(0, 900, 300)]
+    for j in range(4):
+        corpus[rng.choice(900, 60, replace=False)] = corpus[j]
     queries = corpus[:200].copy()
     banned = rng.integers(-1, 900, (200, nb)).astype(np.int32)
     banned[:, 0] = np.arange(200)  # masked self-retrieval
@@ -564,15 +618,28 @@ def test_topk_scan_walks_several_items_a_block(dev, monkeypatch, case):
 def test_ring_fits_beside_the_lists(dev):
     """Every k the kernels take leaves the scan a ring of 2-4 stages and
     stays inside the 227 KB a block may use; k = 20 keeps all four stages,
-    and past SHARED_LIST_K the lists leave shared memory and the ring has
-    four again. The numbers are the library's own (tr_topk_scan_shared)."""
+    k = 128 three beside its lists; past INSERT_K a work item is 64
+    queries, whose lists stay in shared memory at k = 256 (three stages)
+    and leave it by k = 512 (four again). The numbers are the library's own
+    (tr_topk_scan_plan)."""
     for k in range(1, topk.MAX_K + 1):
-        stages, nbytes = topk.scan_shared(k)
-        assert 2 <= stages <= 4 and nbytes <= 227 * 1024
-    assert topk.scan_shared(20)[0] == 4 and topk.scan_shared(128)[0] == 3
-    assert topk.scan_shared(topk.SHARED_LIST_K + 1)[0] == 4
+        plan = topk.scan_shared(k)
+        assert 2 <= plan.stages <= 4 and plan.shared_bytes <= 227 * 1024
+    assert topk.scan_shared(20).stages == 4
+    assert topk.scan_shared(128).stages == 3
+    assert topk.scan_shared(256) == (64, 3, 214080, False)
+    assert topk.scan_shared(512).device_lists
+    assert topk.scan_shared(512).stages == 4
     with pytest.raises(ValueError, match=f"1..{topk.MAX_K}"):
         topk.scan_shared(topk.MAX_K + 1)
+
+
+def test_library_plan_equals_python_plan(dev):
+    """The library's plan (tr_topk_scan_plan: queries a work item, stages,
+    shared bytes, where the lists are) is topk.scan_layout's, which the
+    wrapper sizes the lists' workspace by, for every k in 1..MAX_K."""
+    for k in range(1, topk.MAX_K + 1):
+        assert topk.scan_shared(k) == topk.scan_layout(k), k
 
 
 def test_topk_kernel_raises_on_what_it_does_not_take(dev):

@@ -197,6 +197,38 @@ def test_attention_forward_and_gradients_match_pallas_kernels(H, D, p):
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 40, 48, 96, 120])
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (False, 0.1),
+                                      (True, 0.0)])
+def test_zero_columns_past_the_head_dim_change_no_bit(dtype, D, causal, p):
+    """The premise of the kernels' route for a head dim below their width W
+    (kernel_head_dim): columns D .. W - 1 held at zero add exactly nothing.
+    The tensor-core kernels' statement (`attention_rounding_reference`) on
+    q, k, v, dO zero-padded to W, its results sliced back to D, equals the
+    same statement at D to the bit: output and the three gradients, with
+    the scale and the keep mask of the unpadded call and a row whose keys
+    are all masked."""
+    B, L, H = 2, 64, 2
+    width = fused_attention.kernel_head_dim(D)
+    rng = np.random.default_rng(D)
+    q, k, v, do = (torch.from_numpy(t).to(dtype)
+                   for t in (*_qkv(B, L, H, D, seed=D),
+                             rng.standard_normal((B, L, H, D),
+                                                 dtype=np.float32)))
+    mask = torch.from_numpy(_ragged_mask(B, L))
+    keep = torch.from_numpy(rng.random((B, H, L, L)) >= p) if p else None
+    got = fused_attention.attention_rounding_reference(
+        q, k, v, do, mask, D ** -0.5, keep, p, causal)
+    wide = fused_attention.attention_rounding_reference(
+        *(torch.nn.functional.pad(t, (0, width - D)) for t in (q, k, v, do)),
+        mask, D ** -0.5, keep, p, causal)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, wide):
+        assert torch.equal(a.view(bits), b[..., :D].contiguous().view(bits)), \
+            name
+
+
 def test_attention_cpu_dropout_draws_from_the_generator():
     q, k, v = (torch.from_numpy(t) for t in _qkv(2, 128, 2, 32))
     g = torch.Generator().manual_seed(3)

@@ -4,15 +4,19 @@ its planner, on the CPU.
 The CUDA scan cannot run here. What can be held here is how it walks and
 selects: `scan_plan` below (the work items each persistent block takes, as
 topk_scan and tr_topk_corpus_split cut them), the slab count against the
-search budget, and a statement of the selection written the way the kernel
-does it: tiles of 128 corpus rows in ascending order inside each slab, a hot test
-of each row's least 32-bit score against the row's k-th score (strict `<`),
-and only on the rare path the padding rows, the columns past the slab's end,
-the banned ids and the 64-bit keys, inserted smallest first. That statement
+search budget, the plan of the scan's shared memory for every k
+(`topk.scan_layout`), and a statement of the selection written the way the
+kernel does it: tiles of 128 corpus rows in ascending order inside each
+slab, a hot test of each row's least 32-bit score against the row's k-th
+score (strict `<`), and only on the rare path the padding rows, the columns
+past the slab's end, the banned ids and the 64-bit keys, inserted smallest
+first up to k = 128 and past it gathered into runs of 32 that merge into
+the list (work items of 64 queries there). That statement
 lives here, not on the main path, and is held to the numpy oracle and to
 the JAX package's Pallas kernel in interpret mode, with tolerance 0, on
 inputs made to break it: equal rows across tile and slab boundaries and at
-the k-th place, rows whose candidates are all banned, fewer rows than k.
+the k-th place, rows whose candidates are all banned, fewer rows than k,
+tiles of more candidates than a run holds.
 The kernel's own walk and its ring are held on the card, in
 tests/test_torch_cuda_kernels.py: several items a block in both layouts
 against the plain version, and the ring's stages beside the lists.
@@ -20,6 +24,7 @@ against the plain version, and the ring's stages beside the lists.
 
 import _torch_threads  # noqa: F401  (before torch runs)
 import bisect
+import heapq
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,12 +55,14 @@ def slab_rows(n: int, slabs: int) -> int:
     return _cdiv(_cdiv(n, topk.TILE_C), slabs) * topk.TILE_C
 
 
-def scan_plan(m: int, n: int, slabs: int, blocks: int):
+def scan_plan(m: int, n: int, slabs: int, blocks: int,
+              tile_q: int = topk.TILE_Q):
     """The scan kernel's work as topk_scan walks it: for each launched block
     (min(items, blocks) of them), its items blockIdx, blockIdx + grid, ...
-    in order, each (query tile, slab, first corpus row, end row). Items are
-    numbered slab-major, so the blocks that run together read one slab."""
-    q_tiles, rows = _cdiv(m, topk.TILE_Q), slab_rows(n, slabs)
+    in order, each (query tile of `tile_q`, slab, first corpus row, end
+    row). Items are numbered slab-major, so the blocks that run together
+    read one slab."""
+    q_tiles, rows = _cdiv(m, tile_q), slab_rows(n, slabs)
     items = q_tiles * slabs
     grid = min(items, blocks)
     return [[(it % q_tiles, it // q_tiles, min(it // q_tiles * rows, n),
@@ -63,19 +70,43 @@ def scan_plan(m: int, n: int, slabs: int, blocks: int):
              for it in range(b, items, grid)] for b in range(grid)]
 
 
+def merge_runs(lst, keys, k, banned_row):
+    """The large-k rare path of one row and tile (rare_row_merge): its
+    candidates `keys`, ascending, gathered into runs of at most topk.RUN; a
+    candidate j of a run enters only below the list's (k - 1 - j)-th key
+    (the first that does not ends the row), a banned one is skipped; each
+    run merges into `lst` (merge_run), the next run is held to the merged
+    list."""
+    i = 0
+    while i < len(keys):
+        run, stop = [], False
+        while i < len(keys) and len(run) < topk.RUN:
+            if not keys[i] < lst[k - 1 - len(run)]:
+                stop = True
+                break
+            if (keys[i] & 0xffffffff) not in banned_row:
+                run.append(keys[i])
+            i += 1
+        lst[:] = list(heapq.merge(lst, run))[:k]
+        if stop:
+            break
+
+
 def scan_statement(queries, corpus, norms, banned, k, slabs, blocks=3):
     """The scan kernel's selection and the merge, in plain PyTorch: returns
     (vals, idx) as the kernels do, and how many (row, tile) pairs took the
-    rare path."""
+    rare path. Work items of the plan's queries (topk.scan_layout); up to
+    topk.INSERT_K a candidate enters by one insertion, past it by runs."""
     M, N = len(queries), len(corpus)
+    tile_q = topk.scan_layout(k).queries
     q = torch.from_numpy(queries).long()
     c = torch.from_numpy(corpus).long()
     cn_all = torch.from_numpy(norms).long()
     partial = [[[EMPTY] * k for _ in range(M)] for _ in range(slabs)]
     rare = 0
-    for items in scan_plan(M, N, slabs, blocks):
+    for items in scan_plan(M, N, slabs, blocks, tile_q):
         for qt, slab, c_begin, c_end in items:
-            rows = range(qt * topk.TILE_Q, min((qt + 1) * topk.TILE_Q, M))
+            rows = range(qt * tile_q, min((qt + 1) * tile_q, M))
             lists = {r: [EMPTY] * k for r in rows}
             for c0 in range(c_begin, c_end, topk.TILE_C):
                 cols = torch.arange(c0, c0 + topk.TILE_C)
@@ -94,6 +125,10 @@ def scan_statement(queries, corpus, norms, banned, k, slabs, blocks=3):
                     ok = (score[i] < kth[i]) & (cn < BIG)  # padding, slab end
                     keys = sorted((int(score[i, j]) << 32) | (c0 + j)
                                   for j in torch.nonzero(ok).flatten().tolist())
+                    if k > topk.INSERT_K:
+                        merge_runs(lst, keys, k, () if banned is None
+                                   else set(banned[r].tolist()))
+                        continue
                     for key in keys:                       # smallest first
                         if not key < lst[k - 1]:
                             break
@@ -165,11 +200,29 @@ def _case(name):
         queries = corpus[rng.integers(0, 333, 37)].copy()
         banned = rng.integers(-1, 333, (37, 3)).astype(np.int32)
         return queries, corpus, banned, 9
+    if name.startswith("runs_ties_banned_k"):
+        # k past INSERT_K: the first tiles send all 128 columns of a row
+        # down the rare path (four runs), groups of equal rows straddle the
+        # tile and slab boundaries and the k-th place, and banned ids fall
+        # inside the groups
+        k = int(name.rsplit("k", 1)[1])
+        n = 2 * k + 200
+        corpus = (rng.random((n, 64)) < 0.15).astype(np.int8)
+        base = (rng.random((4, 64)) < 0.15).astype(np.int8)
+        for j, start in enumerate((100, k - 40, n // 2, n - 90)):
+            corpus[start:start + 70] = base[j]
+        queries = np.concatenate([base, corpus[rng.integers(0, n, 3)]])
+        queries[5, :2] ^= 1
+        banned = rng.integers(-1, n, (len(queries), 2)).astype(np.int32)
+        banned[:4, 0] = (130, k - 10, n // 2 + 5, n - 60)
+        return queries, corpus, banned, k
     raise KeyError(name)
 
 
 CASES = ["ties_across_tiles_and_slabs", "ties_at_the_kth_place",
-         "everything_banned", "fewer_rows_than_k", "banned_ties_ragged"]
+         "everything_banned", "fewer_rows_than_k", "banned_ties_ragged",
+         "runs_ties_banned_k129", "runs_ties_banned_k256",
+         "runs_ties_banned_k512"]
 
 
 @pytest.mark.parametrize("slabs", [1, 3])
@@ -211,17 +264,19 @@ def test_scan_statement_skips_padding_rows_and_walks_few_rare_paths():
                                  (300, 50_000), (8192, 200_000),
                                  (8192, 700_000)])
 @pytest.mark.parametrize("sms", [1, 7, 132])
-def test_plan_covers_every_tile_pair_once(m, n, sms):
+@pytest.mark.parametrize("tile_q", [topk.TILE_Q, topk.TILE_Q_LARGE_K])
+def test_plan_covers_every_tile_pair_once(m, n, sms, tile_q):
     """The work items of the persistent blocks cover every (query tile,
-    corpus tile) once; a block's items differ in number from another's by
-    at most one; no slab starts past the corpus unless it is empty."""
-    slabs = topk.slab_count(m, n, sms)
+    corpus tile) once, for items of 128 queries (k <= INSERT_K) and of 64
+    (past it); a block's items differ in number from another's by at most
+    one; no slab starts past the corpus unless it is empty."""
+    slabs = topk.slab_count(m, n, sms, tile_q)
     assert 1 <= slabs <= -(-n // topk.TILE_C)
-    plan = scan_plan(m, n, slabs, sms)
-    assert len(plan) == min(sms, -(-m // topk.TILE_Q) * slabs)
+    plan = scan_plan(m, n, slabs, sms, tile_q)
+    assert len(plan) == min(sms, -(-m // tile_q) * slabs)
     counts = [len(items) for items in plan]
     assert max(counts) - min(counts) <= 1
-    seen = np.zeros((-(-m // topk.TILE_Q), -(-n // topk.TILE_C)), np.int64)
+    seen = np.zeros((-(-m // tile_q), -(-n // topk.TILE_C)), np.int64)
     for items in plan:
         for qt, slab, begin, end in items:
             assert begin <= end <= n
@@ -229,6 +284,45 @@ def test_plan_covers_every_tile_pair_once(m, n, sms):
             for c0 in range(begin, end, topk.TILE_C):
                 seen[qt, c0 // topk.TILE_C] += 1
     assert (seen == 1).all()
+
+
+def test_scan_layout_fits_every_k():
+    """The scan's plan (topk.scan_layout, the Python statement of
+    csrc/exact_topk.cu::scan_plan, which the card tests hold to the
+    library's) for every k the kernels take: the block's shared memory
+    within the 232,448 bytes a block may use, a ring of 2-4 stages, as deep
+    as fits; up to INSERT_K items of 128 queries with their lists in shared
+    memory, as before the large-k route was redesigned (four stages at
+    k = 20, three at 128); past it items of 64, their lists in shared
+    memory up to the largest k whose 64 lists fit beside two stages, and in
+    device memory from there on beside four."""
+    run_bytes = 4 * 8 * topk.RUN * 8
+    shared = []
+    for k in range(1, topk.MAX_K + 1):
+        plan = topk.scan_layout(k)
+        large = k > topk.INSERT_K
+        stage = (plan.queries + topk.TILE_C) * topk.CHUNK
+        lists = plan.queries * k * 8
+        fixed = topk.ALIGN + 2 * topk.MAX_STAGES * 8 + (run_bytes if large
+                                                        else 0)
+        assert plan.queries == (topk.TILE_Q_LARGE_K if large else topk.TILE_Q)
+        assert 2 <= plan.stages <= topk.MAX_STAGES
+        assert plan.shared_bytes == (fixed + plan.stages * stage
+                                     + (0 if plan.device_lists else lists))
+        assert plan.shared_bytes <= topk.SMEM_LIMIT == 232448
+        assert (plan.stages == topk.MAX_STAGES
+                or plan.shared_bytes + stage > topk.SMEM_LIMIT)
+        assert plan.device_lists == (fixed + 2 * stage + lists
+                                     > topk.SMEM_LIMIT)
+        if not plan.device_lists:
+            shared.append(k)
+    assert shared == list(range(1, 340))
+    assert topk.scan_layout(20).stages == 4
+    assert topk.scan_layout(128).stages == 3
+    assert topk.scan_layout(256) == (64, 3, 214080, False)
+    assert topk.scan_layout(340) == (64, 4, 107584, True)
+    with pytest.raises(ValueError, match=f"1..{topk.MAX_K}"):
+        topk.scan_layout(topk.MAX_K + 1)
 
 
 @pytest.mark.parametrize("n,d,nb", [(200_000, 1024, 1), (700_000, 2048, 1),

@@ -10,6 +10,10 @@
 // - `attention_bwd_dq_tc`, `attention_bwd_dkv_tc` (bfloat16): all five
 //   products on the tensor cores.
 //
+// Both are compiled for a width W (32, 64, 128) and take the head dim D (a
+// multiple of 8, at most W) at run time, as the forward kernels do
+// (attention_fwd.cuh): only D columns of a head are read or written.
+//
 // kCausal: query row i sees keys 0 .. i only, so p = 0 above the diagonal.
 // The dQ pass of a block of rows streams the key tiles below its last row;
 // the dK/dV pass of a block of keys streams the query tiles from its first
@@ -29,15 +33,17 @@ constexpr int kRows = kThreads / 2;    // rows per block, two threads a row
 constexpr int kTile = 32;              // rows of the streamed tile
 
 // Stage `kTile` rows of this head (D elements each, row stride HD) in
-// shared memory as f32.
-template <typename T, int D>
+// shared memory as f32, in rows of W.
+template <typename T, int W>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ src, int64_t HD,
-                                           float (*dst)[D], int t) {
-  constexpr int C = D / 4;  // groups of four per row
+                                           float (*dst)[W], int D, int t) {
+  constexpr int C = W / 4;  // groups of four per row
   for (int idx = t; idx < kTile * C; idx += kThreads) {
     const int j = idx / C;
     const int c = idx % C;
-    *reinterpret_cast<float4*>(&dst[j][4 * c]) = load4(src + (int64_t)j * HD + 4 * c);
+    if (4 * c < D) {
+      *reinterpret_cast<float4*>(&dst[j][4 * c]) = load4(src + (int64_t)j * HD + 4 * c);
+    }
   }
 }
 
@@ -60,17 +66,19 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float* y) {
 }
 
 // dQ pass, exact path; also writes delta = rowsum(dO * O) for the dK/dV pass.
-template <typename T, int D, bool kDrop, bool kCausal>
+// A thread's groups of four lie below D for the first D / 8 of its N (D is a
+// multiple of 8); every loop over them stops there.
+template <typename T, int W, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ o,
                  const T* __restrict__ dout, const int32_t* __restrict__ mask,
                  const float2* __restrict__ stats, Dropout drop,
                  T* __restrict__ dq, float* __restrict__ delta, int L, int H,
-                 float scale) {
-  constexpr int N = D / 8;  // groups of four this thread holds
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+                 int D, float scale) {
+  constexpr int N = W / 8;  // groups of four this thread holds
+  __shared__ __align__(16) float ks[kTile][W];
+  __shared__ __align__(16) float vs[kTile][W];
   __shared__ float kbias[kTile];
 
   const int b = blockIdx.z;
@@ -90,6 +98,12 @@ attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
   float dl = 0.f;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.f;
+    if (8 * i >= D) {
+      qr[4 * i] = qr[4 * i + 1] = qr[4 * i + 2] = qr[4 * i + 3] = 0.f;
+      gr[4 * i] = gr[4 * i + 1] = gr[4 * i + 2] = gr[4 * i + 3] = 0.f;
+      continue;
+    }
     const int c = 4 * (2 * i + half);
     const float4 qv = load4(q + own + c);
     const float4 gv = load4(dout + own + c);
@@ -97,7 +111,6 @@ attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
     qr[4 * i] = qv.x, qr[4 * i + 1] = qv.y, qr[4 * i + 2] = qv.z, qr[4 * i + 3] = qv.w;
     gr[4 * i] = gv.x, gr[4 * i + 1] = gv.y, gr[4 * i + 2] = gv.z, gr[4 * i + 3] = gv.w;
     dl = dot4(ov, gr + 4 * i, dl);
-    acc[4 * i] = acc[4 * i + 1] = acc[4 * i + 2] = acc[4 * i + 3] = 0.f;
   }
   dl = pair_sum(dl);
   if (half == 0) delta[(int64_t)bh * L + row] = dl;
@@ -110,8 +123,8 @@ attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 1
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
-    stage_tile<T, D>(k + head + (int64_t)k0 * HD, HD, ks, t);
-    stage_tile<T, D>(v + head + (int64_t)k0 * HD, HD, vs, t);
+    stage_tile<T, W>(k + head + (int64_t)k0 * HD, HD, ks, D, t);
+    stage_tile<T, W>(v + head + (int64_t)k0 * HD, HD, vs, D, t);
     if (t < kTile) {
       const bool valid = mask == nullptr || mask[(int64_t)b * L + k0 + t] > 0;
       kbias[t] = valid ? 0.f : kMaskBias;
@@ -135,6 +148,7 @@ attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
         float s = 0.f, dd = 0.f;
 #pragma unroll
         for (int i = 0; i < N; ++i) {
+          if (8 * i >= D) break;
           const int c = 4 * (2 * i + half);
           s = dot4(*reinterpret_cast<const float4*>(&ks[j][c]), qr + 4 * i, s);
           dd = dot4(*reinterpret_cast<const float4*>(&vs[j][c]), gr + 4 * i, dd);
@@ -153,6 +167,7 @@ attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
         const float ds = p * (g - dl) * scale;
 #pragma unroll
         for (int i = 0; i < N; ++i) {
+          if (8 * i >= D) break;
           const int c = 4 * (2 * i + half);
           axpy4(ds, *reinterpret_cast<const float4*>(&ks[j][c]), acc + 4 * i);
         }
@@ -162,25 +177,27 @@ attention_bwd_dq_exact(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    if (8 * i >= D) break;
     const int c = 4 * (2 * i + half);
     store4(dq + own + c,
            make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]));
   }
 }
 
-// dK/dV pass, exact path; reads the delta that the dQ pass wrote.
-template <typename T, int D, bool kDrop, bool kCausal>
+// dK/dV pass, exact path; reads the delta that the dQ pass wrote. Its loops
+// over the head stop at D as the dQ pass's do.
+template <typename T, int W, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const int32_t* __restrict__ mask,
                   const float2* __restrict__ stats,
                   const float* __restrict__ delta, Dropout drop,
-                  T* __restrict__ dk, T* __restrict__ dv, int L, int H,
+                  T* __restrict__ dk, T* __restrict__ dv, int L, int H, int D,
                   float scale) {
-  constexpr int N = D / 8;  // groups of four this thread holds
-  __shared__ __align__(16) float qs[kTile][D];
-  __shared__ __align__(16) float dos[kTile][D];
+  constexpr int N = W / 8;  // groups of four this thread holds
+  __shared__ __align__(16) float qs[kTile][W];
+  __shared__ __align__(16) float dos[kTile][W];
   __shared__ float ms[kTile];      // row max
   __shared__ float linvs[kTile];   // 1 / l
   __shared__ float deltas[kTile];
@@ -203,13 +220,18 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
   float kr[4 * N], vr[4 * N], dka[4 * N], dva[4 * N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    dka[4 * i] = dka[4 * i + 1] = dka[4 * i + 2] = dka[4 * i + 3] = 0.f;
+    dva[4 * i] = dva[4 * i + 1] = dva[4 * i + 2] = dva[4 * i + 3] = 0.f;
+    if (8 * i >= D) {
+      kr[4 * i] = kr[4 * i + 1] = kr[4 * i + 2] = kr[4 * i + 3] = 0.f;
+      vr[4 * i] = vr[4 * i + 1] = vr[4 * i + 2] = vr[4 * i + 3] = 0.f;
+      continue;
+    }
     const int c = 4 * (2 * i + half);
     const float4 kv = load4(k + own + c);
     const float4 vv = load4(v + own + c);
     kr[4 * i] = kv.x, kr[4 * i + 1] = kv.y, kr[4 * i + 2] = kv.z, kr[4 * i + 3] = kv.w;
     vr[4 * i] = vv.x, vr[4 * i + 1] = vv.y, vr[4 * i + 2] = vv.z, vr[4 * i + 3] = vv.w;
-    dka[4 * i] = dka[4 * i + 1] = dka[4 * i + 2] = dka[4 * i + 3] = 0.f;
-    dva[4 * i] = dva[4 * i + 1] = dva[4 * i + 2] = dva[4 * i + 3] = 0.f;
   }
 
   // the first query row that sees this block's keys (a multiple of kTile)
@@ -217,8 +239,8 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 1
   for (int q0 = q_begin; q0 < L; q0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
-    stage_tile<T, D>(q + head + (int64_t)q0 * HD, HD, qs, t);
-    stage_tile<T, D>(dout + head + (int64_t)q0 * HD, HD, dos, t);
+    stage_tile<T, W>(q + head + (int64_t)q0 * HD, HD, qs, D, t);
+    stage_tile<T, W>(dout + head + (int64_t)q0 * HD, HD, dos, D, t);
     if (t < kTile) {
       const float2 st = stats[(int64_t)bh * L + q0 + t];
       ms[t] = st.x;
@@ -249,6 +271,7 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
         float s = 0.f, dd = 0.f;
 #pragma unroll
         for (int n = 0; n < N; ++n) {
+          if (8 * n >= D) break;
           const int c = 4 * (2 * n + half);
           s = dot4(*reinterpret_cast<const float4*>(&qs[i][c]), kr + 4 * n, s);
           dd = dot4(*reinterpret_cast<const float4*>(&dos[i][c]), vr + 4 * n, dd);
@@ -271,6 +294,7 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
         const float ds = p * (g - deltas[i]) * scale;
 #pragma unroll
         for (int n = 0; n < N; ++n) {
+          if (8 * n >= D) break;
           const int c = 4 * (2 * n + half);
           axpy4(ds, *reinterpret_cast<const float4*>(&qs[i][c]), dka + 4 * n);
           axpy4(pd, *reinterpret_cast<const float4*>(&dos[i][c]), dva + 4 * n);
@@ -281,6 +305,7 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    if (8 * i >= D) break;
     const int c = 4 * (2 * i + half);
     store4(dk + own + c,
            make_float4(dka[4 * i], dka[4 * i + 1], dka[4 * i + 2], dka[4 * i + 3]));
@@ -295,23 +320,29 @@ attention_bwd_dkv_exact(const T* __restrict__ q, const T* __restrict__ k,
 // dK/dV pass holds two gradient accumulators and two operand fragments, so
 // it takes pieces of 16 and asks for three blocks an SM (168 registers;
 // timed against pieces of 32 at 230 registers and two blocks: 8% faster).
-// At D = 128 those accumulators alone are 128 registers a thread and its
+// At W = 128 those accumulators alone are 128 registers a thread and its
 // shared memory (89.6 KB) holds two blocks an SM at most: it asks for one,
 // which leaves ptxas all 255 registers.
 constexpr int kChunkDq = 32;
 constexpr int kChunkDkv = 16;
 constexpr int kDkvBlocksPerSm = 3;
 
-constexpr int dkv_blocks_per_sm(int D) { return D <= 64 ? kDkvBlocksPerSm : 1; }
+constexpr int dkv_blocks_per_sm(int W) { return W <= 64 ? kDkvBlocksPerSm : 1; }
+// The dQ pass asks for the blocks its registers allowed before it took the
+// head dim at run time: at W = 64 the causal pass grew from three blocks an
+// SM (168 registers) to 176-178 registers and two, and ran slower on an
+// H100; the bound holds it at three. At W = 32 four (it needs fewer than
+// the 128 registers that leaves), at W = 128 one (255 registers).
+constexpr int dq_blocks_per_sm(int W) { return W == 32 ? 4 : W == 64 ? 3 : 1; }
 
-template <int D>
+template <int W>
 constexpr int dq_tc_shared_bytes() {
-  return 4 * tile_bytes<D>() + 2 * kTcTile * (int)sizeof(int32_t);
+  return 4 * tile_bytes<W>() + 2 * kTcTile * (int)sizeof(int32_t);
 }
 
-template <int D, bool kDrop>
+template <int W, bool kDrop>
 constexpr int dkv_tc_shared_bytes() {
-  return 5 * tile_bytes<D>() + 2 * kTcTile * (int)(sizeof(float2) + sizeof(float)) +
+  return 5 * tile_bytes<W>() + 2 * kTcTile * (int)(sizeof(float2) + sizeof(float)) +
          (kDrop ? 2 * kTcTile * 2 * (int)sizeof(uint32_t) : 0);
 }
 
@@ -320,17 +351,17 @@ constexpr int dkv_tc_shared_bytes() {
 // registers) and streams the key tiles as the forward does. Per piece of
 // kChunkDq keys: S = q k^T and dP = dO v^T, P = exp(S - m) / l, dS = P (keep
 // inv_keep dP - delta) scale rounded to bf16 in registers, dQ += dS k.
-template <int D, bool kDrop, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
+template <int W, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(kTcThreads, dq_blocks_per_sm(W))
 attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
                     const bf16* __restrict__ dout,
                     const int32_t* __restrict__ mask,
                     const float2* __restrict__ stats, Dropout drop,
                     bf16* __restrict__ dq, float* __restrict__ delta,
-                    uint32_t* __restrict__ keep_words, int L, int H,
+                    uint32_t* __restrict__ keep_words, int L, int H, int D,
                     float scale) {
-  constexpr int LD = D + kPad;
+  constexpr int LD = W + kPad;
   constexpr int kChunk = kChunkDq;
   static_assert(kChunkDq == 32, "a piece of keys fills one word of keep bits");
   constexpr int NT = kChunk / 8;
@@ -361,28 +392,32 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto fetch = [&](int tile, int stage) {
     const int64_t off = head + (int64_t)tile * kTcTile * HD;
-    copy_tile_async<D>(ks[stage], k + off, HD, t);
-    copy_tile_async<D>(vs[stage], v + off, HD, t);
+    copy_tile_async<W>(ks[stage], k + off, HD, D, t);
+    copy_tile_async<W>(vs[stage], v + off, HD, D, t);
     if (mrow != nullptr && t < kTcTile / 4) {
       cp_async16(&ms[stage][4 * t], mrow + tile * kTcTile + 4 * t);
     }
   };
 
   // q and dO go through stage 1 into A fragments, once
-  copy_tile_async<D>(ks[1], q + head + (int64_t)q0 * HD, HD, t);
-  copy_tile_async<D>(vs[1], dout + head + (int64_t)q0 * HD, HD, t);
+  copy_tile_async<W>(ks[1], q + head + (int64_t)q0 * HD, HD, D, t);
+  copy_tile_async<W>(vs[1], dout + head + (int64_t)q0 * HD, HD, D, t);
   cp_async_commit();
   int tile = next_tile(kt, 0, n_tiles);
   fetch(tile, 0);
   cp_async_commit();
 
-  // delta of the warp's 16 rows, two lanes a row, while the copies fly
+  // delta of the warp's 16 rows, two lanes a row, while the copies fly: a
+  // lane sums its half of the W columns, those below D, so the sum is the
+  // one over inputs zero-padded to W, term for term
   float dl;
   {
-    const int64_t own = head + (int64_t)(row0 + (lane >> 1)) * HD + (lane & 1) * (D / 2);
+    const int col0 = (lane & 1) * (W / 2);
+    const int64_t own = head + (int64_t)(row0 + (lane >> 1)) * HD + col0;
     dl = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
+    for (int c = 0; c < W / 16; ++c) {
+      if (col0 + 8 * c >= D) break;
       const uint4 ov = *reinterpret_cast<const uint4*>(o + own + 8 * c);
       const uint4 gv = *reinterpret_cast<const uint4*>(dout + own + 8 * c);
       const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -406,14 +441,14 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  load_a<D>(qf, ks[1], 16 * warp, lane);
-  load_a<D>(gf, vs[1], 16 * warp, lane);
+  uint32_t qf[W / 16][4], gf[W / 16][4];
+  load_a<W>(qf, ks[1], 16 * warp, lane);
+  load_a<W>(gf, vs[1], 16 * warp, lane);
   __syncthreads();  // stage 1 is free again
 
-  float acc[D / 8][4];
+  float acc[W / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < W / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   int stage = 0;
 #pragma unroll 1
@@ -433,8 +468,8 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
         dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
       }
-      mma_nt<NT, D>(s, qf, ks[stage], c0, lane);
-      mma_nt<NT, D>(dp, gf, vs[stage], c0, lane);
+      mma_nt<NT, W>(s, qf, ks[stage], c0, lane);
+      mma_nt<NT, W>(dp, gf, vs[stage], c0, lane);
 
       uint32_t dsf[NT / 2][4];  // dS as A fragments of dS k
       uint32_t w0 = 0u, w1 = 0u;  // keep bits of rows g, g + 8: bit = key % 32
@@ -487,7 +522,7 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           keep_words[2 * row + c0 / 32] = tq == 0 ? w0 : w1;
         }
       }
-      mma_tn<NT / 2, D>(acc, dsf, ks[stage], c0, lane);
+      mma_tn<NT / 2, W>(acc, dsf, ks[stage], c0, lane);
     }
 
     __syncthreads();  // every warp is done with this stage
@@ -495,7 +530,7 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     stage ^= 1;
   }
 
-  store_acc<D>(dq + head + (int64_t)row0 * HD, HD, acc, 1.f, 1.f, g, tq);
+  store_acc<W>(dq + head + (int64_t)row0 * HD, HD, acc, 1.f, 1.f, D, g, tq);
 }
 
 // dK/dV pass, tensor-core path; reads the delta that the dQ pass wrote. A
@@ -514,8 +549,8 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // block whose keys are all masked writes zeros where that is exact
 // (scan_key_tiles); the dQ pass leaves out the same tiles, so no word is read
 // that was not written.
-template <int D, bool kDrop, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads, dkv_blocks_per_sm(D))
+template <int W, bool kDrop, bool kCausal>
+__global__ void __launch_bounds__(kTcThreads, dkv_blocks_per_sm(W))
 attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const int32_t* __restrict__ mask,
@@ -523,8 +558,8 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ delta,
                      const uint32_t* __restrict__ keep_words, Dropout drop,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H,
-                     float scale) {
-  constexpr int LD = D + kPad;
+                     int D, float scale) {
+  constexpr int LD = W + kPad;
   constexpr int kChunk = kChunkDkv;
   constexpr int NT = kChunk / 8;
   // dkv_tc_shared_bytes: two stages of q and of dO, dO inv_keep / l rounded
@@ -556,9 +591,10 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const KeyTiles kt = scan_key_tiles<kCausal>(mrow, L / kTcTile, lane);
   if (kt.skip && !((kt.valid >> kb) & 1ull)) {
     // no query gives these keys any weight
-    constexpr int C = D / 8;
+    constexpr int C = W / 8;
     const int64_t base = head + (int64_t)kb * kTcRows * HD;
     for (int i = t; i < kTcRows * C; i += kTcThreads) {
+      if (8 * (i % C) >= D) continue;
       const int64_t off = base + (int64_t)(i / C) * HD + 8 * (i % C);
       *reinterpret_cast<uint4*>(dk + off) = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(dv + off) = make_uint4(0u, 0u, 0u, 0u);
@@ -569,8 +605,8 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto fetch = [&](int tile, int stage) {
     const int64_t off = head + (int64_t)tile * kTcTile * HD;
     const int64_t row = (int64_t)bh * L + tile * kTcTile;
-    copy_tile_async<D>(qs[stage], q + off, HD, t);
-    copy_tile_async<D>(dos[stage], dout + off, HD, t);
+    copy_tile_async<W>(qs[stage], q + off, HD, D, t);
+    copy_tile_async<W>(dos[stage], dout + off, HD, D, t);
     if (t < kTcTile / 2) {
       cp_async16(&sts[stage][2 * t], stats + row + 2 * t);
     } else if (t < kTcTile / 2 + kTcTile / 4) {
@@ -588,8 +624,8 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // k and v go through stage 1 into A fragments, once
-  copy_tile_async<D>(qs[1], k + head + (int64_t)kb * kTcRows * HD, HD, t);
-  copy_tile_async<D>(dos[1], v + head + (int64_t)kb * kTcRows * HD, HD, t);
+  copy_tile_async<W>(qs[1], k + head + (int64_t)kb * kTcRows * HD, HD, D, t);
+  copy_tile_async<W>(dos[1], v + head + (int64_t)kb * kTcRows * HD, HD, D, t);
   cp_async_commit();
   const int n_tiles = L / kTcTile;
   int tile = kCausal ? kb : 0;  // the first query tile that sees these keys
@@ -597,9 +633,9 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, qs[1], 16 * warp, lane);
-  load_a<D>(vf, dos[1], 16 * warp, lane);
+  uint32_t kf[W / 16][4], vf[W / 16][4];
+  load_a<W>(kf, qs[1], 16 * warp, lane);
+  load_a<W>(vf, dos[1], 16 * warp, lane);
   __syncthreads();  // stage 1 is free again
 
   float kb0 = 0.f, kb1 = 0.f;  // the bias of keys g, g + 8
@@ -608,9 +644,9 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     kb1 = mrow[key0 + g + 8] > 0 ? 0.f : kMaskBias;
   }
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[W / 8][4], dva[W / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < W / 8; ++j) {
     dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
     dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
   }
@@ -622,9 +658,10 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    // the B operand of dV: every warp has left the last tile's (above)
-    for (int i = t; i < kTcTile * (D / 8); i += kTcThreads) {
-      const int r = i / (D / 8), c = 8 * (i % (D / 8));
+    // the B operand of dV: every warp has left the last tile's (above);
+    // its columns past D are dO's zeros, scaled
+    for (int i = t; i < kTcTile * (W / 8); i += kTcThreads) {
+      const int r = i / (W / 8), c = 8 * (i % (W / 8));
       const float f = inv_keep / sts[stage][r].y;
       const uint4 raw = *reinterpret_cast<const uint4*>(&dos[stage][r * LD + c]);
       const bf16* x = reinterpret_cast<const bf16*>(&raw);
@@ -647,8 +684,8 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
         dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
       }
-      mma_nt<NT, D>(s, kf, qs[stage], c0, lane);
-      mma_nt<NT, D>(dp, vf, dos[stage], c0, lane);
+      mma_nt<NT, W>(s, kf, qs[stage], c0, lane);
+      mma_nt<NT, W>(dp, vf, dos[stage], c0, lane);
 
       uint32_t pf[NT / 2][4], dsf[NT / 2][4];  // (E keep)^T, dS^T
 #pragma unroll
@@ -691,28 +728,29 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dsf[j >> 1][2 * (j & 1) + 1] =
             pack_bf16(p2 * (g2 - dl.x) * scale, p3 * (g3 - dl.y) * scale);
       }
-      mma_tn<NT / 2, D>(dva, pf, dsc, c0, lane);
-      mma_tn<NT / 2, D>(dka, dsf, qs[stage], c0, lane);
+      mma_tn<NT / 2, W>(dva, pf, dsc, c0, lane);
+      mma_tn<NT / 2, W>(dka, dsf, qs[stage], c0, lane);
     }
 
     __syncthreads();  // every warp is done with this stage
     stage ^= 1;
   }
 
-  store_acc<D>(dk + head + (int64_t)key0 * HD, HD, dka, 1.f, 1.f, g, tq);
-  store_acc<D>(dv + head + (int64_t)key0 * HD, HD, dva, 1.f, 1.f, g, tq);
+  store_acc<W>(dk + head + (int64_t)key0 * HD, HD, dka, 1.f, 1.f, D, g, tq);
+  store_acc<W>(dv + head + (int64_t)key0 * HD, HD, dva, 1.f, 1.f, D, g, tq);
 }
 
-// float32 takes the exact kernels, bfloat16 the tensor-core kernels. The dQ
-// pass writes the delta, and with dropout the keep bits (`keep_words`, L^2 / 8
-// bytes a head; unused by the exact kernels), that the dK/dV pass reads: the
-// stream orders them.
-template <typename T, int D, bool kDrop, bool kCausal>
+// float32 takes the exact kernels, bfloat16 the tensor-core kernels, both
+// at width W for head dim D. The dQ pass writes the delta, and with dropout
+// the keep bits (`keep_words`, L^2 / 8 bytes a head; unused by the exact
+// kernels), that the dK/dV pass reads: the stream orders them.
+template <typename T, int W, bool kDrop, bool kCausal>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const int32_t* mask,
                        const void* stats, Dropout drop, void* dq, void* dk,
                        void* dv, void* delta, void* keep_words, int B, int L,
-                       int H, float scale, cudaStream_t stream) {
+                       int H, int D, float scale, cudaStream_t stream) {
+  if (kernel_width(D) != W) return cudaErrorInvalidValue;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -722,36 +760,36 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, float>::value) {
     if (L % kRows != 0) return cudaErrorInvalidValue;
     const dim3 grid(L / kRows, H, B);
-    attention_bwd_dq_exact<T, D, kDrop, kCausal><<<grid, kThreads, 0, stream>>>(
+    attention_bwd_dq_exact<T, W, kDrop, kCausal><<<grid, kThreads, 0, stream>>>(
         qt, kt, vt, static_cast<const T*>(o), gt, mask, st, drop,
-        static_cast<T*>(dq), dl, L, H, scale);
+        static_cast<T*>(dq), dl, L, H, D, scale);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    attention_bwd_dkv_exact<T, D, kDrop, kCausal><<<grid, kThreads, 0, stream>>>(
+    attention_bwd_dkv_exact<T, W, kDrop, kCausal><<<grid, kThreads, 0, stream>>>(
         qt, kt, vt, gt, mask, st, dl, drop, static_cast<T*>(dk),
-        static_cast<T*>(dv), L, H, scale);
+        static_cast<T*>(dv), L, H, D, scale);
   } else {
     if (L % kTcTile != 0 || (kDrop && keep_words == nullptr)) {
       return cudaErrorInvalidValue;
     }
     uint32_t* kw = static_cast<uint32_t*>(keep_words);
     const dim3 grid(L / kTcRows, H, B);
-    constexpr int dq_bytes = dq_tc_shared_bytes<D>();
-    constexpr int dkv_bytes = dkv_tc_shared_bytes<D, kDrop>();
-    auto dq_kernel = &attention_bwd_dq_tc<D, kDrop, kCausal>;
-    auto dkv_kernel = &attention_bwd_dkv_tc<D, kDrop, kCausal>;
+    constexpr int dq_bytes = dq_tc_shared_bytes<W>();
+    constexpr int dkv_bytes = dkv_tc_shared_bytes<W, kDrop>();
+    auto dq_kernel = &attention_bwd_dq_tc<W, kDrop, kCausal>;
+    auto dkv_kernel = &attention_bwd_dkv_tc<W, kDrop, kCausal>;
     cudaError_t err = allow_shared(dq_kernel, dq_bytes);
     if (err != cudaSuccess) return err;
     err = allow_shared(dkv_kernel, dkv_bytes);
     if (err != cudaSuccess) return err;
     dq_kernel<<<grid, kTcThreads, dq_bytes, stream>>>(
         qt, kt, vt, static_cast<const T*>(o), gt, mask, st, drop,
-        static_cast<T*>(dq), dl, kw, L, H, scale);
+        static_cast<T*>(dq), dl, kw, L, H, D, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     dkv_kernel<<<grid, kTcThreads, dkv_bytes, stream>>>(
         qt, kt, vt, gt, mask, st, dl, kw, drop, static_cast<T*>(dk),
-        static_cast<T*>(dv), L, H, scale);
+        static_cast<T*>(dv), L, H, D, scale);
   }
   return cudaGetLastError();
 }

@@ -9,6 +9,10 @@
 // - `attention_fwd_exact` (float32): f32 FMA arithmetic throughout, the path
 //   that shows the algorithm exact to summation order;
 // - `attention_fwd_tc` (bfloat16): both products on the tensor cores.
+//
+// Both are compiled for a width W (32, 64, 128) and take the head dim D
+// (a multiple of 8, at most W) at run time: q, k, v and out are (B, L, H * D),
+// and only D columns of a head are read or written (attention_common.cuh).
 
 #pragma once
 
@@ -23,15 +27,16 @@ namespace {
 // others; inside the tiles that cross the diagonal a key above the row gets
 // the score -inf, so its weight is exactly 0 (every row sees key 0, so the
 // running max is finite from the first tile on). The key mask stays the
-// additive -1e9 of the non-causal kernel.
-template <typename T, int D, bool kDrop, bool kCausal>
+// additive -1e9 of the non-causal kernel. Every loop over the head stops at
+// D: the terms past it, zeros over zeros, would add exactly nothing.
+template <typename T, int W, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kBQ)
 attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int32_t* __restrict__ mask,
               T* __restrict__ out, float2* __restrict__ stats, Dropout drop,
-              int L, int H, float scale) {
-  __shared__ __align__(16) float ks[kBK][D];
-  __shared__ __align__(16) float vs[kBK][D];
+              int L, int H, int D, float scale) {
+  __shared__ __align__(16) float ks[kBK][W];
+  __shared__ __align__(16) float vs[kBK][W];
   __shared__ float kbias[kBK];
 
   const int b = blockIdx.z;
@@ -46,12 +51,12 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
   // one past the last key this block of rows can see
   const int k_end = kCausal ? (int)(blockIdx.x + 1) * kBQ : L;
 
-  float qr[D];
-  float acc[D];
+  float qr[W];
+  float acc[W];
   const T* qp = q + head + row * HD;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = to_f32(qp[d]);
+  for (int d = 0; d < W; ++d) {
+    qr[d] = d < D ? to_f32(qp[d]) : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY;  // running row max
@@ -60,9 +65,10 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 1
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < kBK * D; i += kBQ) {
-      const int j = i / D;
-      const int d = i % D;
+    for (int i = threadIdx.x; i < kBK * W; i += kBQ) {
+      const int j = i / W;
+      const int d = i % W;
+      if (d >= D) continue;
       const int64_t off = head + (int64_t)(k0 + j) * HD + d;
       ks[j][d] = to_f32(k[off]);
       vs[j][d] = to_f32(v[off]);
@@ -77,7 +83,8 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kBK; ++j) s[j] = 0.f;
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < W; d += 4) {
+      if (d >= D) break;
 #pragma unroll
       for (int j = 0; j < kBK; ++j) {
         const float4 kv = *reinterpret_cast<const float4*>(&ks[j][d]);
@@ -97,7 +104,7 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
     const float corr = expf(m - mt);  // 0 on the first tile (m = -inf)
     l *= corr;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= corr;
+    for (int d = 0; d < W; ++d) acc[d] *= corr;
     uint32_t bits[4];
 #pragma unroll
     for (int j = 0; j < kBK; ++j) {
@@ -110,7 +117,8 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
         if (bits[j & 3] < drop.threshold) p = 0.f;
       }
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
+      for (int d = 0; d < W; d += 4) {
+        if (d >= D) break;
         const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
         acc[d] = fmaf(p, vv.x, acc[d]);
         acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
@@ -124,7 +132,9 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
   const float r = (kDrop ? drop.inv_keep : 1.f) / l;
   T* op = out + head + row * HD;
 #pragma unroll
-  for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * r);
+  for (int d = 0; d < W; ++d) {
+    if (d < D) op[d] = from_f32<T>(acc[d] * r);
+  }
   if (stats != nullptr) stats[((int64_t)bh) * L + row] = make_float2(m, l);
 }
 
@@ -138,14 +148,15 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
 // fragments of P v. Key tiles that hold no valid key are left out where that
 // changes no bit (scan_key_tiles); with kCausal the tiles above the diagonal
 // are never visited, the diagonal tile gets -inf above the diagonal, and the
-// blocks with the most tiles start first.
-template <int D, bool kDrop, bool kCausal>
+// blocks with the most tiles start first. The tiles are W wide, their
+// columns D .. W - 1 zero (copy_tile_async).
+template <int W, bool kDrop, bool kCausal>
 __global__ void __launch_bounds__(kTcThreads)
 attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int32_t* __restrict__ mask,
                  bf16* __restrict__ out, float2* __restrict__ stats, Dropout drop,
-                 int L, int H, float scale) {
-  constexpr int LD = D + kPad;
+                 int L, int H, int D, float scale) {
+  constexpr int LD = W + kPad;
   constexpr int NT = kTcTile / 8;  // score tiles of 8 keys
   // two stages of k and v, then of the key mask (fwd_tc_shared_bytes)
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -175,28 +186,28 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto fetch = [&](int tile, int stage) {
     const int64_t off = head + (int64_t)tile * kTcTile * HD;
-    copy_tile_async<D>(ks[stage], k + off, HD, t);
-    copy_tile_async<D>(vs[stage], v + off, HD, t);
+    copy_tile_async<W>(ks[stage], k + off, HD, D, t);
+    copy_tile_async<W>(vs[stage], v + off, HD, D, t);
     if (mrow != nullptr && t < kTcTile / 4) {
       cp_async16(&ms[stage][4 * t], mrow + tile * kTcTile + 4 * t);
     }
   };
 
   // q goes through stage 1 of the k buffer into A fragments, once
-  copy_tile_async<D>(ks[1], q + head + (int64_t)q0 * HD, HD, t);
+  copy_tile_async<W>(ks[1], q + head + (int64_t)q0 * HD, HD, D, t);
   cp_async_commit();
   int tile = next_tile(kt, 0, n_tiles);
   fetch(tile, 0);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[D / 16][4];
-  load_a<D>(qf, ks[1], 16 * warp, lane);
+  uint32_t qf[W / 16][4];
+  load_a<W>(qf, ks[1], 16 * warp, lane);
   __syncthreads();  // stage 1 is free again
 
-  float o[D / 8][4];
+  float o[W / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < W / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
   float l0 = 0.f, l1 = 0.f;  // this lane's share of the rows' normalisers
 
@@ -212,7 +223,7 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_nt<NT, D>(s, qf, ks[stage], 0, lane);
+    mma_nt<NT, W>(s, qf, ks[stage], 0, lane);
 
     const int k0 = tile * kTcTile;
     float mx0 = m0, mx1 = m1;
@@ -252,7 +263,7 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l0 *= corr0;
     l1 *= corr1;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       o[j][0] *= corr0;
       o[j][1] *= corr0;
       o[j][2] *= corr1;
@@ -277,7 +288,7 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pf[j >> 1][2 * (j & 1)] = pack_bf16(p0, p1);
       pf[j >> 1][2 * (j & 1) + 1] = pack_bf16(p2, p3);
     }
-    mma_tn<NT / 2, D>(o, pf, vs[stage], 0, lane);
+    mma_tn<NT / 2, W>(o, pf, vs[stage], 0, lane);
 
     __syncthreads();  // every warp is done with this stage
     tile = next;
@@ -289,8 +300,8 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(kFullWarp, l1, 1);
   l1 += __shfl_xor_sync(kFullWarp, l1, 2);
   const float inv_keep = kDrop ? drop.inv_keep : 1.f;
-  store_acc<D>(out + head + (int64_t)row0 * HD, HD, o, inv_keep / l0,
-               inv_keep / l1, g, tq);
+  store_acc<W>(out + head + (int64_t)row0 * HD, HD, o, inv_keep / l0,
+               inv_keep / l1, D, g, tq);
   if (stats != nullptr && tq == 0) {
     float2* st = stats + (int64_t)bh * L + row0 + g;
     st[0] = make_float2(m0, l0);
@@ -298,34 +309,36 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int W>
 constexpr int fwd_tc_shared_bytes() {
-  return 4 * tile_bytes<D>() + 2 * kTcTile * (int)sizeof(int32_t);
+  return 4 * tile_bytes<W>() + 2 * kTcTile * (int)sizeof(int32_t);
 }
 
-// float32 takes the exact kernel, bfloat16 the tensor-core kernel.
-template <typename T, int D, bool kDrop, bool kCausal>
+// float32 takes the exact kernel, bfloat16 the tensor-core kernel, both at
+// width W for head dim D.
+template <typename T, int W, bool kDrop, bool kCausal>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int32_t* mask, void* out, void* stats,
-                       Dropout drop, int B, int L, int H, float scale,
+                       Dropout drop, int B, int L, int H, int D, float scale,
                        cudaStream_t stream) {
+  if (kernel_width(D) != W) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
     if (L % kBQ != 0) return cudaErrorInvalidValue;
-    attention_fwd_exact<float, D, kDrop, kCausal>
+    attention_fwd_exact<float, W, kDrop, kCausal>
         <<<dim3(L / kBQ, H, B), kBQ, 0, stream>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),
             static_cast<const float*>(v), mask, static_cast<float*>(out),
-            static_cast<float2*>(stats), drop, L, H, scale);
+            static_cast<float2*>(stats), drop, L, H, D, scale);
   } else {
     if (L % kTcTile != 0) return cudaErrorInvalidValue;
-    constexpr int bytes = fwd_tc_shared_bytes<D>();
-    auto kernel = &attention_fwd_tc<D, kDrop, kCausal>;
+    constexpr int bytes = fwd_tc_shared_bytes<W>();
+    auto kernel = &attention_fwd_tc<W, kDrop, kCausal>;
     const cudaError_t err = allow_shared(kernel, bytes);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(L / kTcRows, H, B), kTcThreads, bytes, stream>>>(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), mask, static_cast<bf16*>(out),
-            static_cast<float2*>(stats), drop, L, H, scale);
+            static_cast<float2*>(stats), drop, L, H, D, scale);
   }
   return cudaGetLastError();
 }

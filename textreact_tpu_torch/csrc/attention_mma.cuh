@@ -1,6 +1,7 @@
 // Building blocks of the bf16 tensor-core attention kernels
-// (attention_fwd.cuh, attention_bwd.cuh): asynchronous 16-byte copies into
-// padded shared-memory tiles, `ldmatrix` fragment loads, the
+// (attention_fwd.cuh, attention_bwd.cuh): asynchronous 16-byte copies of a
+// head's D columns into padded shared-memory tiles of the instantiated width
+// W, `ldmatrix` fragment loads, the
 // `mma.sync.aligned.m16n8k16` bf16 product with f32 accumulation, the scan
 // that finds the key tiles worth visiting, and the dropout bits in the
 // product's accumulator layout with every word of a Philox draw used.
@@ -27,7 +28,7 @@ namespace {
 constexpr int kTcThreads = 128;  // four warps
 constexpr int kTcRows = 64;      // rows of the block's own tile, 16 a warp
 constexpr int kTcTile = 64;      // rows of a streamed tile
-// A head's row is D bf16 = 256, 128 or 64 bytes. Stored at that stride, the eight
+// A tile's row is W bf16 = 256, 128 or 64 bytes. Stored at that stride, the eight
 // rows an `ldmatrix` reads would share their banks; eight more elements (16
 // bytes) a row shift each row by four banks, so the eight 16-byte reads of
 // one 8 x 8 matrix cover all 32 banks once.
@@ -36,10 +37,10 @@ constexpr uint32_t kFullWarp = 0xffffffffu;
 
 using bf16 = __nv_bfloat16;
 
-// Bytes of one padded tile [kTcTile][D + kPad] of bf16.
-template <int D>
+// Bytes of one padded tile [kTcTile][W + kPad] of bf16.
+template <int W>
 constexpr int tile_bytes() {
-  return kTcTile * (D + kPad) * (int)sizeof(bf16);
+  return kTcTile * (W + kPad) * (int)sizeof(bf16);
 }
 
 // The tensor-core kernels take their shared memory dynamically (carved from
@@ -98,46 +99,72 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// cp_async16, or, with `zero`, 16 bytes of zeros and no read (the
+// `ignore-src` predicate of cp.async; src must still be a valid address).
+__device__ __forceinline__ void cp_async16_or_zero(void* dst, const void* src,
+                                                   bool zero) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "cp.async.cg.shared.global [%0], [%1], 16, p;\n}\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"((int)zero)
+      : "memory");
+}
+
 // Start the copy of 64 rows of one head (D bf16 each, row stride HD in
-// global memory) into a padded shared-memory tile [64][D + kPad]: 16 bytes a
-// thread a turn, D / 8 neighbouring threads on one row, so global memory is
-// read in whole runs of 2 D bytes.
-template <int D>
+// global memory) into a padded shared-memory tile [64][W + kPad]: 16 bytes a
+// thread a turn, W / 8 neighbouring threads on one row, so global memory is
+// read in whole runs of 2 D bytes. Columns D .. W - 1 get zeros: a thread
+// copies the same chunk of every row it takes, and a chunk past D is a copy
+// that ignores its source (the row's last chunk below D, a valid address)
+// and writes zeros, so every stage holds zeros there and the products at
+// width W equal, to the bit, those over inputs zero-padded to W in device
+// memory (the Philox coordinates hold no D, so the dropout bits are those
+// too). Zeroing the columns once a block instead, with the copies skipping
+// them, needs a test in this loop, and on an H100 a test a chunk (the
+// address arithmetic no longer hoisted) and a test a call (the loop no
+// longer straight-line code) each left the W = 128 forward slower than
+// before at D = W; a copy of source size 0 kept its time but held one more
+// register in every kernel. The predicate costs an issue slot a chunk, no
+// memory traffic and no register.
+template <int W>
 __device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src,
-                                                int64_t HD, int t) {
-  constexpr int C = D / 8;  // 16-byte chunks per row
+                                                int64_t HD, int D, int t) {
+  constexpr int C = W / 8;  // 16-byte chunks per row of the tile
+  static_assert(kTcThreads % C == 0, "a thread's chunk is the same in every row");
+  const bool outside = 8 * (t % C) >= D;
+  const int col = outside ? D - 8 : 8 * (t % C);
 #pragma unroll
   for (int n = 0; n < kTcTile * C / kTcThreads; ++n) {
     const int i = t + n * kTcThreads;
     const int r = i / C;
     const int c = i % C;
-    cp_async16(dst + r * (D + kPad) + 8 * c, src + (int64_t)r * HD + 8 * c);
+    cp_async16_or_zero(dst + r * (W + kPad) + 8 * c, src + (int64_t)r * HD + col, outside);
   }
 }
 
-// A fragments of rows row0 .. row0 + 15 of a tile [row][D + kPad].
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const bf16* tile,
+// A fragments of rows row0 .. row0 + 15 of a tile [row][W + kPad].
+template <int W>
+__device__ __forceinline__ void load_a(uint32_t (&a)[W / 16][4], const bf16* tile,
                                        int row0, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(a[kk], tile + (row0 + (lane & 15)) * (D + kPad) + 16 * kk +
+  for (int kk = 0; kk < W / 16; ++kk) {
+    ldmatrix_x4(a[kk], tile + (row0 + (lane & 15)) * (W + kPad) + 16 * kk +
                            8 * (lane >> 4));
   }
 }
 
-// acc (16 x 8 NT) += A (16 x D) B^T, B the rows row0 .. row0 + 8 NT - 1 of a
-// tile [row][D + kPad]: the products q k^T, dO v^T and their transposes.
-template <int NT, int D>
+// acc (16 x 8 NT) += A (16 x W) B^T, B the rows row0 .. row0 + 8 NT - 1 of a
+// tile [row][W + kPad]: the products q k^T, dO v^T and their transposes.
+template <int NT, int W>
 __device__ __forceinline__ void mma_nt(float (&acc)[NT][4],
-                                       const uint32_t (&a)[D / 16][4],
+                                       const uint32_t (&a)[W / 16][4],
                                        const bf16* tile, int row0, int lane) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int k2 = 0; k2 < D / 32; ++k2) {
+    for (int k2 = 0; k2 < W / 32; ++k2) {
       uint32_t b[4];  // B fragments of two k-steps of 16
-      ldmatrix_x4(b, tile + (row0 + 8 * j + (lane & 7)) * (D + kPad) + 32 * k2 +
+      ldmatrix_x4(b, tile + (row0 + 8 * j + (lane & 7)) * (W + kPad) + 32 * k2 +
                          8 * (lane >> 3));
       mma_bf16(acc[j], a[2 * k2], b[0], b[1]);
       mma_bf16(acc[j], a[2 * k2 + 1], b[2], b[3]);
@@ -145,19 +172,19 @@ __device__ __forceinline__ void mma_nt(float (&acc)[NT][4],
   }
 }
 
-// acc (16 x D) += A (16 x 16 KS, from registers) B, B the rows row0 .. row0 +
-// 16 KS - 1 of a tile [row][D + kPad], read transposed: the products p v,
+// acc (16 x W) += A (16 x 16 KS, from registers) B, B the rows row0 .. row0 +
+// 16 KS - 1 of a tile [row][W + kPad], read transposed: the products p v,
 // dS k, p^T dO and dS^T q.
-template <int KS, int D>
-__device__ __forceinline__ void mma_tn(float (&acc)[D / 8][4],
+template <int KS, int W>
+__device__ __forceinline__ void mma_tn(float (&acc)[W / 8][4],
                                        const uint32_t (&a)[KS][4],
                                        const bf16* tile, int row0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2) {
+    for (int n2 = 0; n2 < W / 16; ++n2) {
       uint32_t b[4];  // B fragments of two n-tiles of 8
-      ldmatrix_x4_trans(b, tile + (row0 + 16 * kk + (lane & 15)) * (D + kPad) +
+      ldmatrix_x4_trans(b, tile + (row0 + 16 * kk + (lane & 15)) * (W + kPad) +
                                16 * n2 + 8 * (lane >> 4));
       mma_bf16(acc[2 * n2], a[kk], b[0], b[1]);
       mma_bf16(acc[2 * n2 + 1], a[kk], b[2], b[3]);
@@ -165,18 +192,21 @@ __device__ __forceinline__ void mma_tn(float (&acc)[D / 8][4],
   }
 }
 
-// Write a warp's 16 x D accumulator, row g scaled by r0 and row g + 8 by r1,
-// as bf16 to `dst` (the address of the warp's row 0, row stride HD).
-template <int D>
+// Write columns 0 .. D - 1 of a warp's 16 x W accumulator, row g scaled by r0
+// and row g + 8 by r1, as bf16 to `dst` (the address of the warp's row 0, row
+// stride HD).
+template <int W>
 __device__ __forceinline__ void store_acc(bf16* dst, int64_t HD,
-                                          const float (&acc)[D / 8][4], float r0,
-                                          float r1, int g, int tq) {
+                                          const float (&acc)[W / 8][4], float r0,
+                                          float r1, int D, int g, int tq) {
   bf16* p0 = dst + (int64_t)g * HD + 2 * tq;
   bf16* p1 = p0 + 8 * HD;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(p0 + 8 * j) = pack_bf16(acc[j][0] * r0, acc[j][1] * r0);
-    *reinterpret_cast<uint32_t*>(p1 + 8 * j) = pack_bf16(acc[j][2] * r1, acc[j][3] * r1);
+  for (int j = 0; j < W / 8; ++j) {
+    if (8 * j < D) {
+      *reinterpret_cast<uint32_t*>(p0 + 8 * j) = pack_bf16(acc[j][0] * r0, acc[j][1] * r0);
+      *reinterpret_cast<uint32_t*>(p1 + 8 * j) = pack_bf16(acc[j][2] * r1, acc[j][3] * r1);
+    }
   }
 }
 

@@ -44,17 +44,18 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int32_t* mask
                 void* out, void* stats, int B, int L, int H, int D, float scale,
                 cudaStream_t stream) {
   const Dropout drop = make_dropout(nullptr, 0u, 1.f);
-  if (D == 64) {
-    return launch_fwd<T, 64, false, true>(q, k, v, mask, out, stats, drop, B, L, H,
+  const int W = kernel_width(D);  // D runs at this width (attention_common.cuh)
+  if (W == 64) {
+    return launch_fwd<T, 64, false, true>(q, k, v, mask, out, stats, drop, B, L, H, D,
                                           scale, stream);
   }
-  if (D == 32) {
-    return launch_fwd<T, 32, false, true>(q, k, v, mask, out, stats, drop, B, L, H,
+  if (W == 32) {
+    return launch_fwd<T, 32, false, true>(q, k, v, mask, out, stats, drop, B, L, H, D,
                                           scale, stream);
   }
-  if (D == 128) {
-    return launch_fwd<T, 128, false, true>(q, k, v, mask, out, stats, drop, B, L, H,
-                                          scale, stream);
+  if (W == 128) {
+    return launch_fwd<T, 128, false, true>(q, k, v, mask, out, stats, drop, B, L, H, D,
+                                           scale, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -63,7 +64,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int32_t* mask
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, out: (B, L, H * D) contiguous;
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, out: (B, L, H * D) contiguous,
+// D a multiple of 8 up to 128;
 // mask: (B, L) int32 {0, 1} or null; stats: (B, H, L, 2) float32 (row max,
 // normaliser) or null. Returns cudaGetLastError() after the launch.
 

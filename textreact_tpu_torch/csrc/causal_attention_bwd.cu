@@ -27,20 +27,21 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                 void* dq, void* dk, void* dv, void* delta, int B, int L, int H,
                 int D, float scale, cudaStream_t stream) {
   const Dropout drop = make_dropout(nullptr, 0u, 1.f);
-  if (D == 64) {
+  const int W = kernel_width(D);  // D runs at this width (attention_common.cuh)
+  if (W == 64) {
     return launch_bwd<T, 64, false, true>(q, k, v, o, dout, mask, stats, drop, dq,
-                                          dk, dv, delta, nullptr, B, L, H, scale,
+                                          dk, dv, delta, nullptr, B, L, H, D, scale,
                                           stream);
   }
-  if (D == 32) {
+  if (W == 32) {
     return launch_bwd<T, 32, false, true>(q, k, v, o, dout, mask, stats, drop, dq,
-                                          dk, dv, delta, nullptr, B, L, H, scale,
+                                          dk, dv, delta, nullptr, B, L, H, D, scale,
                                           stream);
   }
-  if (D == 128) {
+  if (W == 128) {
     return launch_bwd<T, 128, false, true>(q, k, v, o, dout, mask, stats, drop, dq,
-                                          dk, dv, delta, nullptr, B, L, H, scale,
-                                          stream);
+                                           dk, dv, delta, nullptr, B, L, H, D, scale,
+                                           stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -50,10 +51,10 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o, dout, dq, dk, dv: (B, L,
-// H * D) contiguous, 16-byte aligned; mask: (B, L) int32 {0, 1} or null;
-// stats: (B, H, L, 2) float32 (row max, normaliser) as the causal forward
-// wrote them; delta: (B, H, L) float32 workspace. Returns cudaGetLastError()
-// after the launches.
+// H * D) contiguous, 16-byte aligned, D a multiple of 8 up to 128; mask:
+// (B, L) int32 {0, 1} or null; stats: (B, H, L, 2) float32 (row max,
+// normaliser) as the causal forward wrote them; delta: (B, H, L) float32
+// workspace. Returns cudaGetLastError() after the launches.
 
 int tr_causal_attention_bwd(int dtype, const void* q, const void* k,
                             const void* v, const void* o, const void* dout,

@@ -21,13 +21,14 @@
 // that is thousands of operations a byte, far above the card's balance
 // point.
 //
-// Design. `topk_scan` is a persistent kernel: one block of 288 threads an
-// SM walks work items (query tile of 128, corpus slab). Warp 8 is the
-// producer: its first lane streams both operands through a ring of 2-4
-// stages with the Tensor Memory Accelerator (cp.async.bulk.tensor, 128 rows
-// x 128 bytes of d of the queries and of the corpus a stage, in the
-// 128-byte swizzle that wgmma reads; rows past the matrix and bytes past d
-// arrive as zeros) and signals each stage on an mbarrier. Warps 0-7 are two
+// Design (k <= 128; past it see "Large k" below). `topk_scan` is a
+// persistent kernel: one block of 288 threads an SM walks work items (query
+// tile of 128, corpus slab). Warp 8 is the producer: its first lane streams
+// both operands through a ring of 2-4 stages with the Tensor Memory
+// Accelerator (cp.async.bulk.tensor, 128 rows x 128 bytes of d of the
+// queries and of the corpus a stage, in the 128-byte swizzle that wgmma
+// reads; rows past the matrix and bytes past d arrive as zeros) and signals
+// each stage on an mbarrier. Warps 0-7 are two
 // consumer warpgroups of 64 queries each. A warpgroup takes a corpus tile of
 // 128 rows as four wgmma.m64n128k32 s8 x s8 -> s32 a stage, both operands
 // read from shared memory (queries and corpus are row-major with d
@@ -61,17 +62,33 @@
 // comes from L2. `tr_topk_query_outer` is the same scan over one slab, its
 // lists written as the result.
 //
-// Large k (128 < k <= 1024). 128 sorted lists of k keys take 8 k bytes a
-// query, 128 KB at k = 128, beside a ring of 3 stages: the block's shared
-// memory ends there. Past 128 the lists move to a workspace in device memory
-// that the caller allocates, one slice of 128 lists a block (the grid is at
-// most one block an SM), and the ring keeps all four stages. Nothing else
-// changes: the same quad of the same warp owns a row's list, the same
-// insertion and the same __syncwarp order its reads after its writes, so
-// order, ties and banned ids are those of the shared-memory lists. Only the
-// rare path touches a list; its reads and writes go through L1 and L2
-// instead of shared memory. topk_merge keeps a warp's one list in shared
-// memory, 8 KB at k = 1024.
+// Large k (128 < k <= 1024): `topk_scan<true>`. 128 sorted lists of k keys
+// take 8 k bytes a query, 128 KB at k = 128, beside a ring of 3 stages: the
+// block's shared memory ends there. And a list that has seen n columns still
+// takes a new one with a probability of about k / n, so at k = 256 a query
+// meets thousands of insertions, each a shift of ~k / 2 keys if one lane
+// makes it. So past 128 a work item is 64 queries, ONE consumer warpgroup
+// (its stage 24 KB: 64 query rows and 128 corpus rows), and the lists stay
+// in shared memory up to the largest k whose 64 lists fit beside a ring of
+// two stages (339; three stages at k = 256); past it they move to a
+// workspace in device memory that the caller allocates, one slice of 64
+// lists a block (the grid is at most one block an SM), beside four stages.
+// The rare path then merges instead of inserting: each quad gathers its
+// row's passing candidates of the tile, smallest first, into a run of up to
+// 32 keys (a candidate j of the run must beat the list's (k - 1 - j)-th key,
+// exactly the test a one-at-a-time insertion makes against its moving k-th
+// key, so the same candidates enter), and the warp merges each row's run
+// into its list in one pass (merge_run): each run key's slot is found by a
+// binary search of the list, and each lane moves one slot a chunk of 32, top
+// chunk first, so a tile's c candidates cost O(log k + (k - first slot) / 32)
+// steps, not c shifts of up to k keys by one lane. Keys are unique (the index
+// is in the low bits), so order, ties and banned ids are those of the
+// insertion. topk_merge merges the slabs' lists by the same runs, a warp's
+// one list in shared memory (8 KB at k = 1024).
+//
+// The plan for each k (queries a work item, stages, shared bytes, where the
+// lists are) is scan_plan below; tr_topk_scan_plan reports it and
+// ops/topk.py::scan_layout states it again in Python.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -81,25 +98,32 @@ namespace {
 
 typedef long long key64;
 
-constexpr int kTileQ = 128;          // queries a work item (two warpgroups)
 constexpr int kWgRows = 64;          // queries a consumer warpgroup
 constexpr int kTileC = 128;          // corpus rows a tile (wgmma N)
 constexpr int kChunk = 128;          // bytes of d a stage (the swizzle width)
-constexpr int kConsumerWarps = 8;
-constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
-constexpr int kOperandBytes = kTileQ * kChunk;      // = kTileC * kChunk
-constexpr int kStageBytes = 2 * kOperandBytes;      // queries, then corpus
 constexpr int kMaxStages = 4;
 constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may use
 constexpr int kAlign = 1024;         // the 128-byte swizzle's atom
-constexpr int kMaxSharedK = 128;     // up to here the lists are in shared memory
-constexpr int kMaxK = 1024;          // above, in the caller's workspace
+constexpr int kMaxInsertK = 128;     // up to here two warpgroups insert one key at a time
+constexpr int kMaxK = 1024;          // above, one warpgroup merges runs
+constexpr int kRun = 32;             // keys of a run merged at once, one a lane
 constexpr int kBig = 1 << 30;
 constexpr int kMergeWarps = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(kTileQ == 2 * kWgRows && kOperandBytes == kTileC * kChunk,
-              "one tensor-map box serves both operands");
+// The two scans: kLarge (k > kMaxInsertK) takes one consumer warpgroup of 64
+// queries and merges runs; else two warpgroups of 64 and the insertion.
+template <bool kLarge>
+struct Scan {
+  static constexpr int kWarpgroups = kLarge ? 1 : 2;
+  static constexpr int kTileQ = kWgRows * kWarpgroups;  // queries a work item
+  static constexpr int kConsumerWarps = 4 * kWarpgroups;
+  static constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
+  static constexpr int kQueryBytes = kTileQ * kChunk;       // a stage: queries,
+  static constexpr int kStageBytes = kQueryBytes + kTileC * kChunk;  // then corpus
+  // a run of kRun keys for each of a warp's 8 quads
+  static constexpr int kRunBytes = kLarge ? kConsumerWarps * 8 * kRun * 8 : 0;
+};
 
 __device__ __forceinline__ key64 make_key(int score, int index) {
   return (key64)(((unsigned long long)(unsigned)score << 32) | (unsigned)index);
@@ -213,24 +237,43 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// The whole warp inserts x (the same in every lane, smaller than lst[k - 1])
-// into the ascending list lst[0..k): the last entry drops out.
-__device__ __forceinline__ void warp_insert(key64* lst, int k, key64 x, int lane) {
-  int pos = 0;
-  for (int t0 = 0; t0 < k; t0 += 32) {
-    const int t = t0 + lane;
-    const bool smaller = t < k && lst[t] < x;
-    pos += __popc(__ballot_sync(kFull, smaller));
+// The whole warp merges the ascending run r[0..c) (c <= 32) into the
+// ascending list lst[0..k) of distinct keys, keeping the k smallest: the
+// caller has checked that r[j] < lst[k - 1 - j] for each j, so every run key
+// lands inside the list. Lane j finds r[j]'s slot p_j = j + (keys of lst
+// below r[j]) by a binary search; then, one chunk of 32 slots at a time from
+// the top chunk down to the one that holds p_0, lane l fills slot o = o0 + l
+// from the run (o is some p_j) or from lst[o - (run keys before o)], all of
+// a chunk's reads before any of its writes. A chunk reads no slot above its
+// own, and the chunks below it are still as they were.
+__device__ __forceinline__ void merge_run(key64* lst, int k, const key64* r, int c,
+                                          int lane) {
+  int p = k;  // lanes past the run: past the list
+  if (lane < c) {
+    const key64 x = r[lane];
+    int lo = 0, hi = k - 1 - lane;  // lst[hi] > x
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (lst[mid] < x) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    p = lane + lo;
   }
-  // shift lst[pos..k-2] up by one, from the top chunk of 32 slots downward:
-  // a chunk reads its left neighbours before any lane of it writes
-  for (int t0 = ((k - 1) / 32) * 32; t0 >= 0 && t0 + 31 >= pos; t0 -= 32) {
-    const int t = t0 + lane;
-    const bool moves = t < k && t >= pos;
-    key64 v = x;
-    if (moves && t > pos) v = lst[t - 1];
+  const int first = __shfl_sync(kFull, p, 0);
+  for (int o0 = ((k - 1) / 32) * 32; o0 >= 0 && o0 + 31 >= first; o0 -= 32) {
+    const int o = o0 + lane;
+    const uint32_t mine = (lane < c && p >= o0 && p < o0 + 32) ? 1u << (p - o0) : 0u;
+    const uint32_t slots = __reduce_or_sync(kFull, mine);  // run keys in the chunk
+    const int before = __popc(__ballot_sync(kFull, p < o0)) +
+                       __popc(slots & ((1u << lane) - 1u));  // run keys before o
+    const bool moves = o < k && o >= first;
+    key64 v = 0;
+    if (moves) v = ((slots >> lane) & 1u) ? r[before] : lst[o - before];
     __syncwarp();
-    if (moves) lst[t] = v;
+    if (moves) lst[o] = v;
     __syncwarp();
   }
 }
@@ -329,26 +372,124 @@ __device__ __forceinline__ void rare_row(const int (&acc)[64], const int (&cn)[3
   }
 }
 
-// One block an SM walks the work items (query tile of 128, slab); see the
-// head of the file. `partial` null: one slab, and its lists are the result
-// (vals, idx with |q|^2); else partial[slab][query][0..k) = the slab's keys.
-// smem: the ring (stages x 32 KB, 1024-aligned), full and empty barriers,
-// then 128 sorted lists of k keys, or, where `glists` is not null, the
-// block's 128 lists at glists + blockIdx * 128 * k in device memory.
-__global__ void __launch_bounds__(kThreads, 1)
+// The rare path of the large-k scan for one of the thread's two rows (kHalf
+// as in rare_row), by the whole warp. `warp_lists`: the warp's 16 lists of
+// k keys; `runs`: the warp's 8 runs of kRun keys, one a quad. A round: each
+// quad gathers its row's candidates smallest first into its run, a
+// candidate j taken only if it beats lst[k - 1 - j] (the first that does not
+// ends the row: nothing later in it enters), a banned one skipped, until the
+// run holds kRun keys; then the warp merges each quad's run into its list
+// (merge_run). Rows with more than kRun candidates take more rounds, each
+// against the merged list.
+template <int kHalf>
+__device__ __forceinline__ void rare_row_merge(const int (&acc)[64], const int (&cn)[32],
+                                               key64& kth, key64* warp_lists,
+                                               key64* runs, int k, int c0,
+                                               bool row_valid,
+                                               const int32_t* __restrict__ brow, int nb,
+                                               int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+  key64* lst = warp_lists + (g + 8 * kHalf) * k;
+  key64* run = runs + g * kRun;
+  const int kth_score = (int)(kth >> 32);
+  uint32_t pend = 0;
+  if (row_valid) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int s = score_of(cn[2 * j + e], acc[4 * j + 2 * kHalf + e]);
+        if (s < kth_score && cn[2 * j + e] < kBig) pend |= 1u << (2 * j + e);
+      }
+    }
+  }
+  while (__any_sync(kFull, pend != 0u)) {
+    // the quad gathers while one of its lanes holds a candidate
+    bool gathering = ((__ballot_sync(kFull, pend != 0u) >> (lane & ~3)) & 0xfu) != 0u;
+    int n = 0;  // keys in the run, the same in the quad's four lanes
+    while (__any_sync(kFull, gathering)) {
+      key64 mine = kNever;
+      int me = 0;
+      if (gathering) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if ((pend >> (2 * j + e)) & 1u) {
+              const key64 key = make_key(score_of(cn[2 * j + e], acc[4 * j + 2 * kHalf + e]),
+                                         c0 + 8 * j + 2 * tig + e);
+              if (key < mine) {
+                mine = key;
+                me = 2 * j + e;
+              }
+            }
+          }
+        }
+      }
+      key64 qmin = mine;
+      key64 o = __shfl_xor_sync(kFull, qmin, 1);
+      qmin = o < qmin ? o : qmin;
+      o = __shfl_xor_sync(kFull, qmin, 2);
+      qmin = o < qmin ? o : qmin;
+      if (gathering) {
+        if (qmin == kNever || !(qmin < lst[k - 1 - n])) {
+          pend = 0u;  // sorted: nothing later in this row enters
+          gathering = false;
+        } else {
+          if (mine == qmin) pend &= ~(1u << me);
+          const int col = (int)(qmin & 0xffffffffLL);
+          bool banned = false;
+          for (int b = 0; b < nb; ++b) banned |= brow[b] == col;
+          if (!banned) {
+            if (tig == 0) run[n] = qmin;
+            if (++n == kRun) gathering = false;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    // the warp merges the runs one row at a time
+    uint32_t todo = __ballot_sync(kFull, tig == 0 && n > 0);
+    while (todo != 0u) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int q = src >> 2;
+      merge_run(warp_lists + (q + 8 * kHalf) * k, k, runs + q * kRun,
+                __shfl_sync(kFull, n, src), lane);
+    }
+    __syncwarp();
+    kth = lst[k - 1];
+  }
+}
+
+// One block an SM walks the work items (query tile of Scan<kLarge>::kTileQ,
+// slab); see the head of the file. `partial` null: one slab, and its lists
+// are the result (vals, idx with |q|^2); else partial[slab][query][0..k) =
+// the slab's keys. smem: the ring (stages x kStageBytes, 1024-aligned), full
+// and empty barriers, with kLarge the warps' runs, then kTileQ sorted lists
+// of k keys, or, where `glists` is not null, the block's kTileQ lists at
+// glists + blockIdx * kTileQ * k in device memory.
+template <bool kLarge>
+__global__ void __launch_bounds__(Scan<kLarge>::kThreads, 1)
 topk_scan(const __grid_constant__ CUtensorMap qmap,
           const __grid_constant__ CUtensorMap cmap, const int8_t* __restrict__ queries,
           const int32_t* __restrict__ norms, const int32_t* __restrict__ banned,
           key64* __restrict__ partial, int32_t* __restrict__ vals,
           int32_t* __restrict__ idx, key64* glists, int M, int N, int d, int nb, int k,
           int slabs, int slab_rows, int stages) {
+  using S = Scan<kLarge>;
+  constexpr int kTileQ = S::kTileQ;
+  constexpr int kConsumerWarps = S::kConsumerWarps;
+  constexpr int kStageBytes = S::kStageBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~(uintptr_t)(kAlign - 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * kStageBytes);
   uint64_t* empty = full + kMaxStages;
+  unsigned char* after = reinterpret_cast<unsigned char*>(empty + kMaxStages);
+  key64* all_runs = reinterpret_cast<key64*>(after);  // kLarge only
   key64* lists = glists != nullptr ? glists + (size_t)blockIdx.x * kTileQ * k
-                                    : reinterpret_cast<key64*>(empty + kMaxStages);
+                                    : reinterpret_cast<key64*>(after + S::kRunBytes);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -381,7 +522,7 @@ topk_scan(const __grid_constant__ CUtensorMap qmap,
           bar_expect(&full[s], kStageBytes);
           unsigned char* stage = ring + s * kStageBytes;
           tma_load(stage, &qmap, &full[s], kc * kChunk, q0);
-          tma_load(stage + kOperandBytes, &cmap, &full[s], kc * kChunk, c0);
+          tma_load(stage + S::kQueryBytes, &cmap, &full[s], kc * kChunk, c0);
           if (++s == stages) {
             s = 0;
             phase ^= 1u;
@@ -392,7 +533,7 @@ topk_scan(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // ---- consumers: two warpgroups of 64 queries ---------------------------
+  // ---- consumers: one warpgroup of 64 queries, or two ----------------------
   const int wg = warp >> 2;
   const int g = lane >> 2;    // the fragment's row group
   const int tig = lane & 3;   // thread in the group
@@ -400,6 +541,7 @@ topk_scan(const __grid_constant__ CUtensorMap qmap,
   key64* lst0 = lists + r0 * k;
   key64* lst1 = lists + (r0 + 8) * k;
   key64* warp_lists = lists + (wg * kWgRows + 16 * (warp & 3)) * k;
+  key64* runs = all_runs + warp * 8 * kRun;  // kLarge: the warp's 8 runs
 
   for (int t = lane; t < 16 * k; t += 32) warp_lists[t] = kEmptyKey;
   __syncwarp();
@@ -444,7 +586,7 @@ topk_scan(const __grid_constant__ CUtensorMap qmap,
         bar_wait(&full[s], phase);
         const unsigned char* stage = ring + s * kStageBytes;
         const uint64_t da = sw128_desc(stage + wg * kWgRows * kChunk);
-        const uint64_t db = sw128_desc(stage + kOperandBytes);
+        const uint64_t db = sw128_desc(stage + S::kQueryBytes);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kChunk / 32; ++kk) {
@@ -476,11 +618,22 @@ topk_scan(const __grid_constant__ CUtensorMap qmap,
         }
       }
       const bool hit0 = m0 < (int)(kth0 >> 32), hit1 = m1 < (int)(kth1 >> 32);
-      if (__any_sync(kFull, hit0)) {
-        rare_row<0>(acc, cn, kth0, lst0, k, c0, valid0, brow0, nb, tig);
-      }
-      if (__any_sync(kFull, hit1)) {
-        rare_row<1>(acc, cn, kth1, lst1, k, c0, valid1, brow1, nb, tig);
+      if constexpr (kLarge) {
+        if (__any_sync(kFull, hit0)) {
+          rare_row_merge<0>(acc, cn, kth0, warp_lists, runs, k, c0, valid0, brow0, nb,
+                            lane);
+        }
+        if (__any_sync(kFull, hit1)) {
+          rare_row_merge<1>(acc, cn, kth1, warp_lists, runs, k, c0, valid1, brow1, nb,
+                            lane);
+        }
+      } else {
+        if (__any_sync(kFull, hit0)) {
+          rare_row<0>(acc, cn, kth0, lst0, k, c0, valid0, brow0, nb, tig);
+        }
+        if (__any_sync(kFull, hit1)) {
+          rare_row<1>(acc, cn, kth1, lst1, k, c0, valid1, brow1, nb, tig);
+        }
       }
     }
 
@@ -509,7 +662,9 @@ topk_scan(const __grid_constant__ CUtensorMap qmap,
 // One warp a query: the slabs' sorted lists merged in key order. A key from
 // a later slab with an equal distance has a higher index and a larger key,
 // one from an earlier slab a smaller: the order is lexicographic whatever
-// the order of arrival.
+// the order of arrival. A slab's list goes in by runs of 32 (merge_run): the
+// run is the longest prefix of its next 32 keys whose key j beats the
+// list's (k - 1 - j)-th, and a run shorter than 32 ends the slab.
 __global__ void __launch_bounds__(kMergeWarps * 32)
 topk_merge(const key64* __restrict__ partial, const int8_t* __restrict__ queries,
            int32_t* __restrict__ vals, int32_t* __restrict__ idx, int M, int d, int k,
@@ -524,10 +679,12 @@ topk_merge(const key64* __restrict__ partial, const int8_t* __restrict__ queries
   __syncwarp();
   for (int s = 1; s < slabs; ++s) {
     const key64* part = partial + ((size_t)s * M + row) * k;
-    for (int t = 0; t < k; ++t) {
-      const key64 x = part[t];
-      if (!(x < lst[k - 1])) break;  // the list is sorted: nothing later enters
-      warp_insert(lst, k, x, lane);
+    for (int t0 = 0; t0 < k; t0 += kRun) {
+      const bool pass = t0 + lane < k && part[t0 + lane] < lst[k - 1 - lane];
+      const uint32_t ok = __ballot_sync(kFull, pass);  // a prefix of the lanes
+      const int c = ok == kFull ? kRun : __ffs(~ok) - 1;
+      if (c > 0) merge_run(lst, k, part + t0, c, lane);
+      if (c < kRun) break;  // both lists are sorted: nothing later enters
     }
   }
   const int qnorm = warp_sq_norm(queries + (size_t)row * d, d, lane);
@@ -565,12 +722,13 @@ EncodeTiled encode_tiled() {
 
 // (rows, d) int8 row-major as boxes of 128 rows x 128 bytes, 128-byte
 // swizzle; reads past either edge give zeros
-cudaError_t make_map(CUtensorMap* map, const void* base, int rows, int d) {
+cudaError_t make_map(CUtensorMap* map, const void* base, int rows, int d,
+                     int box_rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)d};
-  const cuuint32_t box[2] = {(cuuint32_t)kChunk, (cuuint32_t)kTileQ};
+  const cuuint32_t box[2] = {(cuuint32_t)kChunk, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                             const_cast<void*>(base), dims, strides, box, step,
@@ -587,53 +745,79 @@ cudaError_t check_args(int M, int N, int d, int nb, int k) {
   return cudaSuccess;
 }
 
-// shared memory of the lists: none when they live in device memory
-int list_bytes(int k) { return k > kMaxSharedK ? 0 : kTileQ * k * (int)sizeof(key64); }
+// The scan's plan for k: queries a work item, stages of the ring, whether
+// the lists are in the caller's device memory, and the dynamic shared memory
+// a block takes (the ring, its barriers, the runs, the lists where they fit
+// beside two stages). ops/topk.py::scan_layout states it again.
+struct ScanPlan {
+  int tile_q, stages, device_lists, bytes;
+};
 
-// the deepest ring that fits beside the lists (2..4 stages)
-int ring_stages(int k) {
-  const int room = kSmemLimit - kAlign - 2 * kMaxStages * 8 - list_bytes(k);
-  const int s = room / kStageBytes;
-  return s < kMaxStages ? s : kMaxStages;
+template <bool kLarge>
+ScanPlan plan_for(int k) {
+  using S = Scan<kLarge>;
+  const int fixed = kAlign + 2 * kMaxStages * 8 + S::kRunBytes;
+  const int lists = S::kTileQ * k * (int)sizeof(key64);
+  ScanPlan p;
+  p.tile_q = S::kTileQ;
+  p.device_lists = fixed + 2 * S::kStageBytes + lists > kSmemLimit;
+  const int held = fixed + (p.device_lists ? 0 : lists);
+  const int s = (kSmemLimit - held) / S::kStageBytes;
+  p.stages = s < kMaxStages ? s : kMaxStages;
+  p.bytes = held + p.stages * S::kStageBytes;
+  return p;
 }
 
-// dynamic shared memory of one scan block: the ring, its barriers, the lists
-int scan_shared_bytes(int k) {
-  return kAlign + ring_stages(k) * kStageBytes + 2 * kMaxStages * 8 + list_bytes(k);
+ScanPlan scan_plan(int k) {
+  return k > kMaxInsertK ? plan_for<true>(k) : plan_for<false>(k);
 }
 
 // One launch of topk_scan over `slabs` slabs of `slab_rows` rows: a block
 // an SM, never more blocks than work items.
+template <bool kLarge>
 cudaError_t launch_scan(const void* queries, const void* corpus, const void* norms,
                         const void* banned, void* partial, void* vals, void* idx,
                         void* lists, int M, int N, int d, int nb, int k, int slabs,
                         int slab_rows, cudaStream_t stream) {
-  if ((k > kMaxSharedK) != (lists != nullptr)) return cudaErrorInvalidValue;
+  using S = Scan<kLarge>;
+  const ScanPlan plan = plan_for<kLarge>(k);
+  if ((plan.device_lists != 0) != (lists != nullptr) || plan.stages < 2) {
+    return cudaErrorInvalidValue;
+  }
   CUtensorMap qmap, cmap;
-  cudaError_t err = make_map(&qmap, queries, M, d);
+  cudaError_t err = make_map(&qmap, queries, M, d, S::kTileQ);
   if (err != cudaSuccess) return err;
-  err = make_map(&cmap, corpus, N, d);
+  err = make_map(&cmap, corpus, N, d, kTileC);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int stages = ring_stages(k);
-  if (stages < 2) return cudaErrorInvalidValue;
-  const int bytes = scan_shared_bytes(k);
-  err = cudaFuncSetAttribute(topk_scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
+  err = cudaFuncSetAttribute(topk_scan<kLarge>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, plan.bytes);
   if (err != cudaSuccess) return err;
-  const int items = ((M + kTileQ - 1) / kTileQ) * slabs;
+  const int items = ((M + S::kTileQ - 1) / S::kTileQ) * slabs;
   const int grid = items < sms ? items : sms;
-  topk_scan<<<grid, kThreads, bytes, stream>>>(
+  topk_scan<kLarge><<<grid, S::kThreads, plan.bytes, stream>>>(
       qmap, cmap, static_cast<const int8_t*>(queries),
       static_cast<const int32_t*>(norms), static_cast<const int32_t*>(banned),
       static_cast<key64*>(partial), static_cast<int32_t*>(vals),
       static_cast<int32_t*>(idx), static_cast<key64*>(lists), M, N, d, nb, k, slabs,
-      slab_rows, stages);
+      slab_rows, plan.stages);
   return cudaGetLastError();
+}
+
+cudaError_t launch_scan_for(const void* queries, const void* corpus, const void* norms,
+                            const void* banned, void* partial, void* vals, void* idx,
+                            void* lists, int M, int N, int d, int nb, int k, int slabs,
+                            int slab_rows, cudaStream_t stream) {
+  if (k > kMaxInsertK) {
+    return launch_scan<true>(queries, corpus, norms, banned, partial, vals, idx, lists,
+                             M, N, d, nb, k, slabs, slab_rows, stream);
+  }
+  return launch_scan<false>(queries, corpus, norms, banned, partial, vals, idx, lists, M,
+                            N, d, nb, k, slabs, slab_rows, stream);
 }
 
 }  // namespace
@@ -643,9 +827,9 @@ extern "C" {
 // Conventions of both entry points. queries (M, d) and corpus (N, d): int8,
 // contiguous, 16-byte aligned, d a multiple of 16; norms (N,) int32, >= 2^30
 // on padding rows; banned (M, nb) int32 corpus indices, -1 for none; vals and
-// idx (M, k) int32; 1 <= k <= 1024; lists: null for k <= 128, else an int64
-// workspace of (multiprocessors, 128, k) keys. Returns cudaGetLastError()
-// after the launch.
+// idx (M, k) int32; 1 <= k <= 1024; lists: null where the plan keeps them in
+// shared memory, else an int64 workspace of (multiprocessors, queries a work
+// item, k) keys (scan_plan). Returns cudaGetLastError() after the launch.
 
 int tr_topk_query_outer(const void* queries, const void* corpus, const void* norms,
                         const void* banned, void* vals, void* idx, void* lists, int M,
@@ -654,8 +838,8 @@ int tr_topk_query_outer(const void* queries, const void* corpus, const void* nor
   if (err != cudaSuccess) return err;
   if (M == 0) return 0;
   const int slab_rows = ((N + kTileC - 1) / kTileC) * kTileC;
-  return launch_scan(queries, corpus, norms, banned, nullptr, vals, idx, lists, M, N, d,
-                     nb, k, 1, slab_rows, static_cast<cudaStream_t>(stream));
+  return launch_scan_for(queries, corpus, norms, banned, nullptr, vals, idx, lists, M,
+                         N, d, nb, k, 1, slab_rows, static_cast<cudaStream_t>(stream));
 }
 
 // partial: (slabs, M, k) int64 workspace. The corpus is cut into `slabs`
@@ -671,8 +855,8 @@ int tr_topk_corpus_split(const void* queries, const void* corpus, const void* no
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (N + kTileC - 1) / kTileC;
   const int slab_rows = ((tiles + slabs - 1) / slabs) * kTileC;
-  err = launch_scan(queries, corpus, norms, banned, partial, nullptr, nullptr, lists, M,
-                    N, d, nb, k, slabs, slab_rows, st);
+  err = launch_scan_for(queries, corpus, norms, banned, partial, nullptr, nullptr, lists,
+                        M, N, d, nb, k, slabs, slab_rows, st);
   if (err != cudaSuccess) return err;
   topk_merge<<<(M + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32,
                kMergeWarps * k * (int)sizeof(key64), st>>>(
@@ -682,12 +866,16 @@ int tr_topk_corpus_split(const void* queries, const void* corpus, const void* no
 }
 
 // The scan's plan for k (1..1024): returns the bytes of dynamic shared
-// memory a block takes and writes the stages of its ring to *stages; -1 for
-// a k the kernels do not take.
-int tr_topk_scan_shared(int k, int* stages) {
+// memory a block takes and writes the queries of a work item, the stages of
+// its ring and 1 where the lists are in device memory (else 0) to plan[0..3);
+// -1 for a k the kernels do not take.
+int tr_topk_scan_plan(int k, int* plan) {
   if (k < 1 || k > kMaxK) return -1;
-  *stages = ring_stages(k);
-  return scan_shared_bytes(k);
+  const ScanPlan p = scan_plan(k);
+  plan[0] = p.tile_q;
+  plan[1] = p.stages;
+  plan[2] = p.device_lists;
+  return p.bytes;
 }
 
 const char* tr_error_string(int err) {

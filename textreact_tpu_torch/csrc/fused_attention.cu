@@ -65,9 +65,14 @@
 //   model runs. One thread per query row, keys in tiles of 32; they are
 //   bound by the card's f32 FMA rate and are not the path that is timed.
 // Either way outputs are in the input dtype and there are no atomics, so a
-// call is deterministic. Both take head dims 32, 64 and 128 (TR_DISPATCH);
-// the TPU kernel takes any, and a model whose heads are of another width is
-// refused on the card before its first batch (models/factory.py).
+// call is deterministic. Both take any head dim D that is a multiple of 8 up
+// to 128, at the instantiated width W = 32, 64 or 128 that holds it
+// (TR_DISPATCH): the kernels read and write the D columns of a head in rows
+// of H * D and hold columns D .. W - 1 of their tiles at zero, so no padded
+// copy of any tensor is made and the result is, to the bit, that of the W
+// kernel on inputs zero-padded to W. The TPU kernel takes any head dim, and a
+// model whose heads are of another is refused on the card before its first
+// batch (models/factory.py).
 //
 // - forward: the keep mask is applied to the unnormalised weight AFTER it is
 //   added to l, and inv_keep / l scales the output once.
@@ -113,9 +118,9 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int32_t* mask
                 void* out, void* stats, Dropout drop, int B, int L, int H, int D,
                 float scale, cudaStream_t stream) {
   const bool dropout = drop.seed != nullptr;
-#define TR_FWD(DV, DR)                                                         \
-  return launch_fwd<T, DV, DR, false>(q, k, v, mask, out, stats, drop, B, L, H, \
-                                      scale, stream);
+#define TR_FWD(WV, DR)                                                         \
+  return launch_fwd<T, WV, DR, false>(q, k, v, mask, out, stats, drop, B, L, H, \
+                                      D, scale, stream);
   TR_DISPATCH(TR_FWD);
 #undef TR_FWD
   return cudaErrorInvalidValue;
@@ -126,12 +131,13 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const int32_t* mask
 extern "C" {
 
 // Conventions of every entry point. dtype: 0 = float32, 1 = bfloat16.
-// q, k, v, out, o, dout, dq, dk, dv: (B, L, H * D) contiguous; mask: (B, L)
-// int32 {0, 1} or null; stats: (B, H, L, 2) float32 (row max, normaliser);
-// delta: (B, H, L) float32 workspace; seed: one int64 in device memory, or
-// null for no dropout; threshold and inv_keep as in philox.cuh; the H heads
-// are heads head_offset .. + H of a layer of total_heads (0: H) and draw
-// that layer's masks. Returns cudaGetLastError() after the launch.
+// q, k, v, out, o, dout, dq, dk, dv: (B, L, H * D) contiguous, D a multiple
+// of 8 up to 128; mask: (B, L) int32 {0, 1} or null; stats: (B, H, L, 2)
+// float32 (row max, normaliser); delta: (B, H, L) float32 workspace; seed:
+// one int64 in device memory, or null for no dropout; threshold and inv_keep
+// as in philox.cuh; the H heads are heads head_offset .. + H of a layer of
+// total_heads (0: H) and draw that layer's masks. Returns cudaGetLastError()
+// after the launch.
 
 int tr_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                      const void* mask, void* out, void* stats, const void* seed,

@@ -63,9 +63,9 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                 void* keep_words, int B, int L, int H, int D, float scale,
                 cudaStream_t stream) {
   const bool dropout = drop.seed != nullptr;
-#define TR_BWD(DV, DR)                                                         \
-  return launch_bwd<T, DV, DR, false>(q, k, v, o, dout, mask, stats, drop, dq, dk, \
-                                      dv, delta, keep_words, B, L, H, scale,      \
+#define TR_BWD(WV, DR)                                                         \
+  return launch_bwd<T, WV, DR, false>(q, k, v, o, dout, mask, stats, drop, dq, dk, \
+                                      dv, delta, keep_words, B, L, H, D, scale,   \
                                       stream);
   TR_DISPATCH(TR_BWD);
 #undef TR_BWD
@@ -77,13 +77,14 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // Conventions of the entry point. dtype: 0 = float32, 1 = bfloat16.
-// q, k, v, o, dout, dq, dk, dv: (B, L, H * D) contiguous, 16-byte aligned;
-// mask: (B, L) int32 {0, 1} or null; stats: (B, H, L, 2) float32 (row max,
-// normaliser) as the forward wrote them; delta: (B, H, L) float32 workspace;
-// keep_words: (B, H, L / 64, L, 2) int32 workspace, needed with bfloat16 and
-// dropout, else null; seed: one int64 in device memory, or null for no dropout; threshold and
-// inv_keep as in philox.cuh; head_offset and total_heads as the forward took
-// them. Returns cudaGetLastError() after the launches.
+// q, k, v, o, dout, dq, dk, dv: (B, L, H * D) contiguous, 16-byte aligned, D
+// a multiple of 8 up to 128; mask: (B, L) int32 {0, 1} or null; stats: (B,
+// H, L, 2) float32 (row max, normaliser) as the forward wrote them; delta:
+// (B, H, L) float32 workspace; keep_words: (B, H, L / 64, L, 2) int32
+// workspace, needed with bfloat16 and dropout, else null; seed: one int64 in
+// device memory, or null for no dropout; threshold and inv_keep as in
+// philox.cuh; head_offset and total_heads as the forward took them. Returns
+// cudaGetLastError() after the launches.
 
 int tr_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const void* mask,

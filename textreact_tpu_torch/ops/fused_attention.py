@@ -40,19 +40,21 @@ import ctypes
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
 
 NEG_INF = -1e9
 SUPPORTED_HEAD_DIM = (32, 64, 128)  # TR_DISPATCH in csrc/attention_common.cuh
-HEAD_DIM_MULTIPLE = 8  # other head dims run zero-padded to the next width
+# other head dims, multiples of this, run the next width's kernels, which
+# read and write only the true head dim
+HEAD_DIM_MULTIPLE = 8
 SEQ_MULTIPLE = 128  # the kernels' row tile
 LAUNCHES = 0      # forward kernel launches since the last reset
 BWD_LAUNCHES = 0  # backward launches (one per dQ + dK/dV pair)
 CAUSAL_LAUNCHES = 0      # the same two counts for the causal kernels
 CAUSAL_BWD_LAUNCHES = 0
-# the same four counts for calls whose head dim was zero-padded
+# the same four counts for calls whose head dim is below the kernel's width
+# (kernel_head_dim), which run with no copies
 PADDED_LAUNCHES = {"fwd": 0, "bwd": 0, "causal_fwd": 0, "causal_bwd": 0}
 
 _P = ctypes.c_void_p
@@ -88,7 +90,11 @@ def kernel_head_dim(D: int) -> int:
     """The instantiated width that head dim D runs at: the least of
     SUPPORTED_HEAD_DIM that holds it, for a multiple of HEAD_DIM_MULTIPLE;
     0 for a head dim the kernels do not take. Past 128 the dK/dV pass
-    already spills its registers at 128 (csrc/attention_bwd.cuh)."""
+    already spills its registers at 128 (csrc/attention_bwd.cuh). The
+    kernels take D itself and hold the columns past it at zero in their
+    tiles, so a call gives, to the bit, what the width's kernels give on
+    inputs zero-padded to it, with no padded copy made
+    (csrc/attention_common.cuh::kernel_width)."""
     if D <= 0 or D % HEAD_DIM_MULTIPLE:
         return 0
     return next((w for w in SUPPORTED_HEAD_DIM if D <= w), 0)
@@ -185,7 +191,11 @@ def attention_rounding_reference(q: torch.Tensor, k: torch.Tensor,
     read = own if out is None else out
 
     prob = e / l
-    delta = (gf * read.float()).sum(-1).transpose(1, 2)[..., None]  # b h q 1
+    # a contraction, not a vectorised .sum(-1): torch's CPU sum groups 48
+    # columns otherwise than the same 48 followed by 16 zeros, where a
+    # contraction adds the zero columns last, as the kernels do, so columns
+    # past the true head dim change no bit
+    delta = torch.einsum("bqhd,bqhd->bhq", gf, read.float())[..., None]
     dprob = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     if keep is not None:
         dprob = torch.where(keep, dprob * inv, 0.0)
@@ -312,7 +322,8 @@ def _check(q, k, v, mask_kv) -> Optional[torch.Tensor]:
 
 
 def _count(padded: bool, causal: bool, bwd: bool) -> None:
-    """One launch of the kernel that (padded, causal, bwd) names."""
+    """One launch of the kernel that (padded, causal, bwd) names; `padded`:
+    the head dim is below the kernel's width."""
     global LAUNCHES, BWD_LAUNCHES, CAUSAL_LAUNCHES, CAUSAL_BWD_LAUNCHES
     if padded:
         PADDED_LAUNCHES[("causal_" if causal else "")
@@ -327,24 +338,16 @@ def _count(padded: bool, causal: bool, bwd: bool) -> None:
         LAUNCHES += 1
 
 
-def _pad_heads(width: int, *tensors):
-    """The tensors' last axis zero-padded to `width` (as they are when it
-    is already that wide)."""
-    return [t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
-            for t in tensors]
-
-
 class _FusedAttention(torch.autograd.Function):
-    """Forward saves q, k, v, out (padded to the kernel's head dim), the
-    row statistics (max, normaliser), the mask and the seed; backward
-    launches the dQ and dK/dV passes. `causal` picks the causal libraries
-    (no seed) and their counters."""
+    """Forward saves q, k, v, out (at their own head dim: the kernels take
+    any that kernel_head_dim gives a width), the row statistics (max,
+    normaliser), the mask and the seed; backward launches the dQ and dK/dV
+    passes. `causal` picks the causal libraries (no seed) and their
+    counters."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, dropout_p, sm_scale, needs_grad,
                 causal, heads):
-        head_dim = q.shape[-1]
-        q, k, v = _pad_heads(kernel_head_dim(head_dim), q, k, v)
         B, L, H, D = q.shape
         out = torch.empty_like(q)
         stats = (torch.empty((B, H, L, 2), dtype=torch.float32,
@@ -363,17 +366,17 @@ class _FusedAttention(torch.autograd.Function):
                 *tensors, *_build.dropout_args(seed, dropout_p), *heads,
                 B, L, H, D, sm_scale, _build.stream())
             _build.check(lib, err, "fused_dropout_attention")
-        _count(D != head_dim, causal, bwd=False)
+        _count(kernel_head_dim(D) != D, causal, bwd=False)
         ctx.save_for_backward(q, k, v, out, stats, mask, seed)
         ctx.dropout_p, ctx.sm_scale, ctx.causal = dropout_p, sm_scale, causal
-        ctx.heads, ctx.head_dim = heads, head_dim
-        return out if D == head_dim else out[..., :head_dim].contiguous()
+        ctx.heads = heads
+        return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, stats, mask, seed = ctx.saved_tensors
         B, L, H, D = q.shape
-        dout, = _pad_heads(D, dout.contiguous())
+        dout = dout.contiguous()
         if dout.data_ptr() % 16 != 0:
             dout = dout.clone()
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -400,7 +403,5 @@ class _FusedAttention(torch.autograd.Function):
                 *inputs, *_build.dropout_args(seed, ctx.dropout_p),
                 *ctx.heads, *outputs, _build.ptr(keep_words), *shape)
             _build.check(lib, err, "fused_dropout_attention backward")
-        _count(D != ctx.head_dim, ctx.causal, bwd=True)
-        if D != ctx.head_dim:
-            dq, dk, dv = (t[..., :ctx.head_dim] for t in (dq, dk, dv))
+        _count(kernel_head_dim(D) != D, ctx.causal, bwd=True)
         return dq, dk, dv, None, None, None, None, None, None, None

@@ -20,10 +20,14 @@ stands for the TPU kernel's corpus-resident grid: the corpus is cut into
 slabs, each item keeps a partial list, and a second kernel merges the slabs'
 lists per query. `LAUNCHES` counts the launches of each.
 
-k: any k >= 1 on the CPU. On the card 1 <= k <= `MAX_K`: up to
-`SHARED_LIST_K` the scan keeps its 128 sorted lists in shared memory; above,
-in a device-memory workspace the wrapper allocates (the large-k route,
-counted in `LARGE_K_LAUNCHES`), with the same order, ties and banned ids.
+k: any k >= 1 on the CPU. On the card 1 <= k <= `MAX_K`. Up to `INSERT_K`
+a work item is 128 queries whose sorted lists are in shared memory, and a
+key enters its list by one insertion. Above it (the large-k route, counted
+in `LARGE_K_LAUNCHES`) a work item is 64 queries and a tile's candidates
+merge into a row's list by runs; the lists stay in shared memory while 64 of
+them fit, else in a device-memory workspace the wrapper allocates. Order,
+ties and banned ids are the same everywhere. `scan_layout` states the plan
+for each k, `scan_shared` reads the library's own.
 
 `numpy_reference_topk` is the host oracle (a float64 BLAS scan, exact for
 these integers).
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,9 +47,15 @@ from . import _build
 
 BIG = 2**30  # distance and index of a slot that no corpus row filled
 MAX_K = 1024  # kMaxK in the .cu: the card's largest k
-SHARED_LIST_K = 128  # kMaxSharedK: up to here the lists are in shared memory
-TILE_Q = 128  # queries a work item: two warpgroups of 64 (kTileQ in the .cu)
+INSERT_K = 128  # kMaxInsertK: up to here two warpgroups and the insertion
+TILE_Q = 128  # queries a work item up to INSERT_K: two warpgroups of 64
+TILE_Q_LARGE_K = 64  # above it: one warpgroup
 TILE_C = 128  # corpus rows a tile, the wgmma's N (kTileC): slabs are whole tiles
+# the scan's shared memory (scan_plan in the .cu): a block may take
+# SMEM_LIMIT bytes; a ring of 2..MAX_STAGES stages of (queries + TILE_C) rows
+# of CHUNK bytes, ALIGN bytes to align it, two barriers a stage; above
+# INSERT_K a run of RUN keys for each quad of the four warps; the lists
+SMEM_LIMIT, ALIGN, MAX_STAGES, CHUNK, RUN = 232448, 1024, 4, 128, 32
 # corpus-split: work items to aim for, per multiprocessor (one persistent
 # block an SM walks them). One: every slab restarts its lists from empty,
 # and a list that has seen n columns still takes a new one with a
@@ -55,7 +65,7 @@ TILE_C = 128  # corpus rows a tile, the wgmma's N (kTileC): slabs are whole tile
 # x 1024 and 23.56, 25.53 and 26.84 ms at N = 700,000 x 2048
 ITEMS_PER_SM = 1
 LAUNCHES = {"query_outer": 0, "corpus_split": 0}
-LARGE_K_LAUNCHES = {"query_outer": 0, "corpus_split": 0}  # k > SHARED_LIST_K
+LARGE_K_LAUNCHES = {"query_outer": 0, "corpus_split": 0}  # k > INSERT_K
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,8 +74,16 @@ _SIGNATURES = {
                             _P],
     "tr_topk_corpus_split": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                              _I, _I, _P],
-    "tr_topk_scan_shared": [_I, ctypes.POINTER(_I)],
+    "tr_topk_scan_plan": [_I, ctypes.POINTER(_I)],
 }
+
+
+class ScanPlan(NamedTuple):
+    """How the scan runs for one k."""
+    queries: int        # queries a work item
+    stages: int         # stages of the ring
+    shared_bytes: int   # dynamic shared memory a block takes
+    device_lists: bool  # the lists are in a device-memory workspace
 
 
 def load_kernel():
@@ -77,32 +95,49 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_slabs(m: int, n: int, device: torch.device) -> int:
+def split_slabs(m: int, n: int, device: torch.device,
+                tile_q: int = TILE_Q) -> int:
     """How many slabs the corpus-split layout cuts `n` corpus rows into for
-    `m` queries: about ITEMS_PER_SM work items (query tiles x slabs) for
-    each multiprocessor, never more slabs than the corpus has tiles."""
+    `m` queries in work items of `tile_q`: about ITEMS_PER_SM work items
+    (query tiles x slabs) for each multiprocessor, never more slabs than the
+    corpus has tiles."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return slab_count(m, n, sms)
+    return slab_count(m, n, sms, tile_q)
 
 
-def slab_count(m: int, n: int, sms: int) -> int:
+def slab_count(m: int, n: int, sms: int, tile_q: int = TILE_Q) -> int:
     """`split_slabs` for a card of `sms` multiprocessors."""
-    q_tiles = _cdiv(max(m, 1), TILE_Q)
+    q_tiles = _cdiv(max(m, 1), tile_q)
     return max(1, min(ITEMS_PER_SM * sms // q_tiles, _cdiv(n, TILE_C)))
 
 
-def scan_shared(k: int) -> Tuple[int, int]:
-    """(stages of the scan's ring, bytes of dynamic shared memory a block
-    takes) for k, as the library computes them for its launches: a ring of
-    2-4 stages of 128 queries and 128 corpus rows x 128 bytes beside 128
-    sorted lists of k keys (above SHARED_LIST_K the lists are in device
-    memory and the ring has 4 stages)."""
-    stages = _I(0)
-    lib = load_kernel()
-    nbytes = lib.tr_topk_scan_shared(k, ctypes.byref(stages))
+def scan_layout(k: int) -> ScanPlan:
+    """The scan's plan for k, as csrc/exact_topk.cu::scan_plan makes it:
+    the queries of a work item (TILE_Q up to INSERT_K, else TILE_Q_LARGE_K);
+    the lists in shared memory where they fit beside a ring of two stages,
+    else in device memory; the deepest ring (up to MAX_STAGES) that fits
+    beside what shared memory holds."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"exact_topk_l2: k={k} outside 1..{MAX_K}")
+    large = k > INSERT_K
+    queries = TILE_Q_LARGE_K if large else TILE_Q
+    stage = (queries + TILE_C) * CHUNK
+    fixed = ALIGN + 2 * MAX_STAGES * 8 + (4 * 8 * RUN * 8 if large else 0)
+    lists = queries * k * 8
+    device_lists = fixed + 2 * stage + lists > SMEM_LIMIT
+    held = fixed + (0 if device_lists else lists)
+    stages = min((SMEM_LIMIT - held) // stage, MAX_STAGES)
+    return ScanPlan(queries, stages, held + stages * stage, device_lists)
+
+
+def scan_shared(k: int) -> ScanPlan:
+    """The scan's plan for k as the library makes it for its launches
+    (tr_topk_scan_plan; card only)."""
+    plan = (_I * 3)()
+    nbytes = load_kernel().tr_topk_scan_plan(k, plan)
     if nbytes < 0:
         raise ValueError(f"exact_topk_l2: k={k} outside 1..{MAX_K}")
-    return stages.value, nbytes
+    return ScanPlan(plan[0], plan[1], nbytes, bool(plan[2]))
 
 
 def workspace_bytes(m: int, k: int, slabs: int) -> int:
@@ -111,12 +146,16 @@ def workspace_bytes(m: int, k: int, slabs: int) -> int:
 
 
 def list_workspace_bytes(k: int, device: torch.device) -> int:
-    """Device memory of the scan's lists on `device`: 128 lists of k keys
-    for each multiprocessor (a block an SM) above SHARED_LIST_K, on a card."""
-    if k <= SHARED_LIST_K or device.type != "cuda":
+    """Device memory of the scan's lists on `device`: on a card where the
+    plan puts them in device memory, a work item's lists of k keys for each
+    multiprocessor (a block an SM); else none."""
+    if device.type != "cuda":
+        return 0
+    plan = scan_layout(k)
+    if not plan.device_lists:
         return 0
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * TILE_Q * k * 8
+    return sms * plan.queries * k * 8
 
 
 @contextlib.contextmanager
@@ -226,17 +265,17 @@ def _exact_topk_l2_cuda(queries, corpus, corpus_norms, banned, k: int,
     if M == 0:
         return vals, idx
     lib = load_kernel()
-    large = k > SHARED_LIST_K
+    plan = scan_layout(k)
     lists = None
-    if large:
+    if plan.device_lists:
         lists = torch.empty(list_workspace_bytes(k, queries.device) // 8,
                             dtype=torch.int64, device=queries.device)
-    counts = LARGE_K_LAUNCHES if large else LAUNCHES
+    counts = LARGE_K_LAUNCHES if k > INSERT_K else LAUNCHES
     head = (_build.ptr(queries), _build.ptr(corpus), _build.ptr(corpus_norms),
             _build.ptr(banned))
     tail = (_build.ptr(lists), M, N, d, banned.shape[1], k, _build.stream())
     if corpus_resident:
-        slabs = split_slabs(M, N, queries.device)
+        slabs = split_slabs(M, N, queries.device, plan.queries)
         partial = torch.empty((slabs, M, k), dtype=torch.int64,
                               device=queries.device)
         err = lib.tr_topk_corpus_split(*head, _build.ptr(partial), slabs,
