@@ -160,21 +160,44 @@ Phases, each fatal on failure:
    to the unsharded index and the numpy oracle to the bit, timed; leg D,
    tp=2 beam-15 generation in f32 at B=32 L=512, the unsharded model's
    sequences and its scores within 1e-5 + 1e-5 * |score| (the JAX gate's
-   allclose).
+   allclose);
+15. the measurement tools, through their entry points (run before phase
+   14): textreact_tpu_torch.bench at its card shape (200,000 x 1024, 8192
+   queries, k = 20; exact parity with the numpy oracle before any timing;
+   one launch of the layout's top-k kernel per search, for each layout),
+   textreact_tpu_torch.bench_train at B = 32 with the kernels (12 attention
+   and 42 residual-LN launches a step, forward and backward, no top-k),
+   with the plain LayerNorm (no LN launch) and with the plain MLM loss,
+   then a one-minute soak with the eval and checkpoint cadences cut to 20
+   and 40 s (both fire, no kernel is built, every window launches the
+   kernels alike; the step-time drift is printed beside the tool's 2%
+   bound, and does not fail the phase: the step is host-bound, and on the
+   card's shared host the same step's host time moves by up to 1.7x
+   between windows, its launching thread's CPU time with it); each tool's
+   JSON line printed.
+
+    python3 chip_smoke.py --captures
+
+runs only the tools' long captures, each as a user runs it in a child
+process: bench on the USPTO-condition-scale corpus (BENCH_N=700000) and
+bench_train --soak 6 (an eval every 120 s, a checkpoint at 300 s).
 
 Prints JSON lines of the runtime's, the pretrained start's, the template
-path's, the curation's and the parallel legs' numbers and of per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
+path's, the curation's, the tools' and the parallel legs' numbers and of
+per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
 import ast
 import contextlib
 import csv
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -189,6 +212,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from textreact_tpu_torch import bench, bench_train
 from textreact_tpu_torch.chem import canonical_smiles, parse_smiles
 from textreact_tpu_torch.chem import native as native_chem
 from textreact_tpu_torch.chem.smarts import find_matches, parse_smarts
@@ -4767,11 +4791,165 @@ def phase_parallel(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
     report["D"] = leg_d(tmp, vocab, backend, devices)
     return report
 
+# the measurement tools (phase 15): bench_train's configurations
+# (layernorm_impl, mlm_impl) at B = 32, and a soak of SOAK_MINUTES with the
+# eval and checkpoint cadences cut to SOAK_CADENCES seconds, so both fire
+BENCH_TRAIN_CONFIGS = (("fused", "fused"), ("xla", "fused"), ("fused", "xla"))
+SOAK_MINUTES, SOAK_CADENCES = 1.0, (20.0, 40.0)
+# the captures (`--captures`): the full soak and the RCR-scale corpus
+CAPTURE_SOAK_MINUTES, CAPTURE_BENCH_N = 6, 700_000
 
-def main() -> int:
+
+def bench_train_launches(enc_layers: int, dec_layers: int,
+                         layernorm_impl: str) -> dict:
+    """bench_train's kernel launches per step (bench_train.launches' keys):
+    the encoder's attention, forward and backward, a residual LN after each
+    encoder attention and FFN and each decoder self-attention,
+    cross-attention and FFN unless LN takes the plain path; nothing else
+    (the decoder's 16 positions take the plain causal attention)."""
+    ln = 2 * enc_layers + 3 * dec_layers if layernorm_impl == "fused" else 0
+    return {"attention_fwd": enc_layers, "attention_bwd": enc_layers,
+            "causal_attention_fwd": 0, "causal_attention_bwd": 0,
+            "layernorm_fwd": ln, "layernorm_bwd": ln, "topk": 0}
+
+
+def phase_bench(card: str) -> dict:
+    """The port's measurement tools through their entry points:
+    `bench.run` at its card shape (parity before timing; exactly one
+    launch of a layout's kernel per search), `bench_train.Bench` at B = 32
+    in BENCH_TRAIN_CONFIGS (exact launches per step), and a soak of
+    SOAK_MINUTES with the cadences cut to SOAK_CADENCES (an eval and a
+    checkpoint fire, no kernel is built, every window launches alike; the
+    drift is reported against the tool's bound, see the module's
+    docstring). Each tool's JSON line is printed. Returns the lines and
+    the counts."""
+    t0 = time.perf_counter()
+    reset_counts()
+    out = bench.run("cuda")
+    bench.report(out, log=lambda msg: log(f"[bench] {msg}"))
+    for name, layout in out["layouts"].items():
+        expect = {other: float(other == name) for other in out["layouts"]}
+        if layout["launches_per_search"] != expect:
+            raise AssertionError(f"bench {name}: launches per search "
+                                 f"{layout['launches_per_search']}, "
+                                 f"expected {expect}")
+    record = out["record"]
+    if (set(record) != {"metric", "value", "unit", "vs_baseline"}
+            or record["metric"] != bench.METRIC
+            or not record["value"] > 0 or "device-only" not in record["unit"]
+            or f"cuda {out['default']}" not in record["unit"]):
+        raise AssertionError(f"bench's line: {record}")
+    log(f"[bench] {json.dumps(record)}")
+    report = {"bench": record, "bench_layouts": out["layouts"]}
+    log(f"[time] bench done in {time.perf_counter() - t0:.0f} s")
+
+    enc_cfg, dec_cfg = bench_train.model_configs("fused")
+    for ln, mlm in BENCH_TRAIN_CONFIGS:
+        tool = bench_train.Bench(B, ln, mlm, "cuda")
+        res = tool.throughput()
+        expect = bench_train_launches(enc_cfg.num_hidden_layers,
+                                      dec_cfg.num_hidden_layers, ln)
+        if res["launches_per_step"] != expect:
+            raise AssertionError(f"bench_train ln={ln} mlm={mlm}: launches "
+                                 f"per step {res['launches_per_step']}, "
+                                 f"expected {expect}")
+        if not (math.isfinite(res["loss"]) and res["record"]["value"] > 0):
+            raise AssertionError(f"bench_train ln={ln} mlm={mlm}: {res}")
+        log(f"[bench_train] ln={ln} mlm={mlm}: {res['step_ms']:.2f} ms a "
+            f"step (host clock), device span {res['device_ms']:.2f} ms a "
+            f"step (CUDA events, 10 steps), loss {res['loss']:.4f}, "
+            f"launches per step as expected: {res['launches_per_step']}")
+        log(f"[bench_train] {json.dumps(res['record'])}")
+        report[f"bench_train_ln_{ln}_mlm_{mlm}"] = dict(
+            res["record"], step_ms=res["step_ms"],
+            device_ms=res["device_ms"])
+        del tool
+        torch.cuda.empty_cache()
+    log(f"[time] bench_train done in {time.perf_counter() - t0:.0f} s")
+
+    cadences = bench_train.EVAL_EVERY_S, bench_train.CKPT_EVERY_S
+    bench_train.EVAL_EVERY_S, bench_train.CKPT_EVERY_S = SOAK_CADENCES
+    try:
+        tool = bench_train.Bench(B, "fused", "fused", "cuda")
+        soak, problems = tool.soak(SOAK_MINUTES,
+                                   log=lambda m: log(f"[soak] {m}"))
+    finally:
+        bench_train.EVAL_EVERY_S, bench_train.CKPT_EVERY_S = cadences
+    del tool
+    torch.cuda.empty_cache()
+    log(f"[soak] {json.dumps(soak)}")
+    fired = {key: int(re.search(key + r"=(\d+)", soak["unit"]).group(1))
+             for key in ("evals", "ckpts")}
+    drift = problems.pop("drift", None)
+    if problems or not min(fired.values()) >= 1:
+        raise AssertionError(f"soak: {problems}, fired {fired}")
+    log(f"[soak] evals and checkpoints fired {fired}, no kernel built, the "
+        f"same launches in every window; the step-time drift "
+        + (f"is over the tool's bound: {drift}" if drift else
+           f"is within the tool's {bench_train.DRIFT_LIMIT:.0%} bound"))
+    report["soak"] = dict(soak, drift_within_bound=drift is None)
+    counts = read_counts()
+    log(f"[bench] launches of the phase: {counts}")
+    for name in (*TOPK_LAYOUTS.values(), "fused_attention_fwd",
+                 "fused_attention_bwd", "fused_layernorm_fwd",
+                 "fused_layernorm_bwd"):
+        if not counts[name] > 0:
+            raise AssertionError(f"{name} was not launched by the tools")
+    report["launches"] = counts
+    log(f"[time] soak done in {time.perf_counter() - t0:.0f} s")
+    return report
+
+
+def run_tool(argv: list, env: Optional[dict] = None) -> dict:
+    """A measurement tool as a user runs it, in a child process: its output
+    logged, its last line parsed, with its exit code and, where it failed,
+    its error's last line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
+                          text=True, env=dict(os.environ, **(env or {})))
+    for line in proc.stdout.splitlines():
+        log(f"[capture] {line}")
+    log(f"[capture] {' '.join(argv)} {env or ''}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.0f} s")
+    lines = proc.stdout.strip().splitlines()
+    if not lines:
+        raise AssertionError(f"{argv}: no output\n{proc.stderr[-4000:]}")
+    error = proc.stderr.strip().splitlines()[-1:] if proc.returncode else []
+    return dict(json.loads(lines[-1]), exit=proc.returncode,
+                error=error[0] if error else None)
+
+
+def captures() -> dict:
+    """The captures the tools' short runs cannot give: `bench` on the
+    USPTO-condition-scale corpus (BENCH_N=700000), which must pass, and
+    bench_train's soak at its real cadences (--soak 6: an eval every
+    120 s, a checkpoint at 300 s), which may fail on its step-time drift
+    alone (reported; see phase_bench)."""
+    out = {"bench_700k": run_tool(["textreact_tpu_torch.bench"],
+                                  {"BENCH_N": str(CAPTURE_BENCH_N)}),
+           "soak_6min": run_tool(["textreact_tpu_torch.bench_train",
+                                  "--soak", str(CAPTURE_SOAK_MINUTES)])}
+    bench_ok = out["bench_700k"]["exit"] == 0
+    soak = out["soak_6min"]
+    soak_ok = soak["exit"] == 0 or re.fullmatch(
+        r"SOAK FAILED: drift=-?[\d.]+% \(\|limit\| 2%\)", soak["error"] or "")
+    if not (bench_ok and soak_ok):
+        raise AssertionError(f"captures: {out}")
+    return out
+
+
+def main(argv: Optional[list] = None) -> int:
+    ap = argparse.ArgumentParser(description="Drive the port once on one GPU")
+    ap.add_argument("--captures", action="store_true",
+                    help="run only the measurement tools' long captures: "
+                         "bench at BENCH_N=700000 and bench_train --soak 6")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
+    if args.captures:
+        print(json.dumps({"captures": captures()}))
+        return finish(t_start)
     results: dict = {}
     phase_kernels(results)
     log(f"[time] kernels phase done at {time.perf_counter() - t_start:.0f} s")
@@ -4811,6 +4989,9 @@ def main() -> int:
         curation = phase_curation(card, Path(tmp), vocab, results)
         torch.cuda.empty_cache()
         log(f"[time] curation done at {time.perf_counter() - t_start:.0f} s")
+        tools = phase_bench(card)
+        log(f"[time] measurement tools done at "
+            f"{time.perf_counter() - t_start:.0f} s")
         parallel = phase_parallel(card, Path(tmp), vocab, bare_step_ms,
                                   results)
     runtime = results.pop("runtime")
@@ -4821,13 +5002,19 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on the main path")
     kernels = [dict(name=name, **meta, **results[name])
                for name, meta in KERNELS.items()]
-    log(f"[time] all phases done in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"pretrained": pretrained}))
     print(json.dumps({"template": template}))
     print(json.dumps({"curation": curation}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
+    return finish(t_start)
+
+
+def finish(t_start: float) -> int:
+    """The card's name and power limit, then the contract's last line."""
+    log(f"[time] done in {time.perf_counter() - t_start:.0f} s")
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())

@@ -389,7 +389,8 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
 
 
 def test_port_imports_no_jax_or_pandas():
-    """The port's modules (the curation's too), chip_smoke, chip_profile,
+    """The port's modules (the curation's and the measurement tools' too),
+    chip_smoke, chip_profile,
     the multi-process tests' rank bodies (tests/_torch_parallel_worker.py)
     and the port's parity_run.py and check_artifacts.py (scripts/torch_port/)
     load where JAX, pandas, safetensors, transformers and the JAX package
@@ -424,7 +425,8 @@ def test_port_imports_no_jax_or_pandas():
                  "preprocess.retro_tools", "templates",
                  "templates.smarts_canon", "templates.labeling",
                  "templates.native_labeling", "templates.native_extractor",
-                 "templates.extractor", "templates.processor"):
+                 "templates.extractor", "templates.processor", "bench",
+                 "bench_train"):
         assert "textreact_tpu_torch." + name in names
     # the template decode and the template preprocessing have one engine,
     # the own one: no RDKit twin, and no RDKit half copied into a module
