@@ -64,7 +64,6 @@ KINDS = (
     ("attention_bwd_dkv", "own: attention backward, dK/dV pass"),
     ("residual_layernorm_fwd", "own: residual LayerNorm forward"),
     ("residual_layernorm_bwd", "own: residual LayerNorm backward"),
-    ("column_sums", "own: residual LayerNorm backward"),
     ("multi_tensor_apply", "multi-tensor (AdamW, clip, gradient averaging)"),
     ("gemm", "matrix products"), ("nvjet", "matrix products"),
     ("cutlass", "matrix products"), ("xmma", "matrix products"),

@@ -1327,6 +1327,12 @@ def library_layernorm_backward(x, y, g, w, b, eps):
 
 def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs, line,
                    suffix=""):
+    """The LN kernels at one row count, bf16: the forward at p = 0 without
+    statistics (serving's call), the forward at p = 0.1 writing mean and
+    rstd as the call (it draws its seed: one more small kernel) and as the
+    kernel alone on a seed drawn beforehand, the backward (its seed is the
+    forward's: the kernel alone), each beside its byte bound and the share
+    of the bound reached."""
     p = DROPOUT_P
     hidden = x.shape[1]
     leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
@@ -1340,6 +1346,10 @@ def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs, line,
                                                  w.to(x.dtype),
                                                  b.to(x.dtype), eps))
         lib_bwd = time_ms(library_layernorm_backward(x, y, g, w, b, eps))
+        seed = _build.draw_seed(gen, x.device)
+        kernel_ms = time_ms(
+            lambda: fused_layernorm._FusedResidualLayerNorm.apply(
+                x, y, w, b, seed, eps, p, True))
     fwd_ms = time_ms(lambda: fused_layernorm.fused_residual_layernorm(
         *leaves, eps, p, gen))
     out = fused_layernorm.fused_residual_layernorm(*leaves, eps, p, gen)
@@ -1353,35 +1363,47 @@ def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs, line,
     plain_bwd = time_ms(lambda: torch.autograd.grad(ref, leaves, g,
                                                     retain_graph=True))
     size = x.numel() * x.element_size()
-    fwd_bytes = 3 * size + 2 * hidden * 4 + 2 * rows * 4
+    p0_bytes = 3 * size + 2 * hidden * 4
+    fwd_bytes = p0_bytes + 2 * rows * 4
     bwd_bytes = 5 * size + 3 * hidden * 4 + 2 * rows * 4
+    p0b, _ = bound(p0_bytes, 10.0 * x.numel(), torch.float32)
     fb, fby = bound(fwd_bytes, 10.0 * x.numel(), torch.float32)
     bb, bby = bound(bwd_bytes, 20.0 * x.numel(), torch.float32)
     log(f"  layernorm R={rows} H={hidden} bf16 forward p={p} (writes mean, "
-        f"rstd): kernel {fwd_ms:.4f} ms, plain {plain_fwd:.4f} ms, bound "
-        f"{fb:.4f} ms ({fby}: {fwd_bytes / 1e6:.2f} MB); p=0: kernel "
-        f"{ms_p0:.4f} ms, plain {plain_p0:.4f} ms; for information, "
-        f"F.layer_norm(x + y), two calls with a two-pass variance: "
-        f"{two_calls:.4f} ms")
+        f"rstd): call {fwd_ms:.4f} ms (draws its seed), kernel alone "
+        f"{kernel_ms:.4f} ms ({fb / kernel_ms:.1%} of the bound), plain "
+        f"{plain_fwd:.4f} ms, bound {fb:.4f} ms ({fby}: "
+        f"{fwd_bytes / 1e6:.2f} MB); p=0 without statistics: kernel "
+        f"{ms_p0:.4f} ms ({p0b / ms_p0:.1%} of its bound {p0b:.4f} ms), "
+        f"plain {plain_p0:.4f} ms; for information, F.layer_norm(x + y), "
+        f"two calls with a two-pass variance: {two_calls:.4f} ms")
     log(f"  layernorm R={rows} H={hidden} bf16 backward p={p}: kernel "
-        f"{bwd_ms:.4f} ms, plain autograd backward {plain_bwd:.4f} ms "
-        f"(forward + backward {plain_fwd + plain_bwd:.4f} ms), "
-        f"aten.native_layer_norm_backward at p=0 {lib_bwd:.4f} ms, bound "
-        f"{bb:.4f} ms ({bby}: {bwd_bytes / 1e6:.2f} MB)")
+        f"{bwd_ms:.4f} ms ({bb / bwd_ms:.1%} of the bound), plain autograd "
+        f"backward {plain_bwd:.4f} ms (forward + backward "
+        f"{plain_fwd + plain_bwd:.4f} ms), aten.native_layer_norm_backward "
+        f"at p=0 {lib_bwd:.4f} ms, bound {bb:.4f} ms ({bby}: "
+        f"{bwd_bytes / 1e6:.2f} MB)")
     fwd_name, bwd_name = ("fused_layernorm_fwd" + suffix,
                           "fused_layernorm_bwd" + suffix)
     if line:
         results[fwd_name] = dict(
             max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd,
-            bound_ms=fb, bound_by=fby, library_ms=None, ms_p0=ms_p0,
-            plain_ms_p0=plain_p0)
+            bound_ms=fb, bound_by=fby, library_ms=None, kernel_ms=kernel_ms,
+            share_of_bound=fb / kernel_ms, ms_p0=ms_p0, plain_ms_p0=plain_p0,
+            bound_ms_p0=p0b)
         results[bwd_name] = dict(
             max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd,
             bound_ms=bb, bound_by=bby, library_ms=lib_bwd,
+            share_of_bound=bb / bwd_ms,
             plain_fwd_bwd_ms=plain_fwd + plain_bwd)
     else:
-        for name, ms in ((fwd_name, fwd_ms), (bwd_name, bwd_ms)):
-            results[name][f"ms_rows_{rows}"] = ms
+        results[fwd_name].update({
+            f"ms_rows_{rows}": fwd_ms, f"kernel_ms_rows_{rows}": kernel_ms,
+            f"bound_ms_rows_{rows}": fb, f"ms_p0_rows_{rows}": ms_p0,
+            f"bound_ms_p0_rows_{rows}": p0b})
+        results[bwd_name].update({
+            f"ms_rows_{rows}": bwd_ms, f"bound_ms_rows_{rows}": bb,
+            f"library_ms_rows_{rows}": lib_bwd})
 
 
 def kernels_layernorm_wide(results: dict) -> None:

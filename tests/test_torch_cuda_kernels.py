@@ -376,11 +376,13 @@ def test_wide_layernorm_forward_and_gradients_match_plain(dev, dtype, H, R,
         _close(a.grad, c.grad, 1e-5 * R + 1e-4, 1e-4)
 
 
-def test_kernel_backward_is_reproducible(dev):
-    """No float atomics: the same inputs and seed give the same bits."""
+@pytest.mark.parametrize("H", [768, 2048])
+def test_kernel_backward_is_reproducible(dev, H):
+    """No float atomics: the same inputs and seed give the same bits, on
+    the register route and the wide one."""
     g = torch.Generator(device=dev)
-    x, y, go = (torch.randn(5000, 768, device=dev) for _ in range(3))
-    w, b = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    x, y, go = (torch.randn(5000, H, device=dev) for _ in range(3))
+    w, b = torch.ones(H, device=dev), torch.zeros(H, device=dev)
     grads = []
     for _ in range(2):
         leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
@@ -390,6 +392,94 @@ def test_kernel_backward_is_reproducible(dev):
         grads.append([t.grad for t in leaves])
     for a, c in zip(*grads):
         assert torch.equal(a, c)
+
+
+def _layernorm_against_plain(dev, R, H, dtype, p, seed):
+    """One forward and backward of the kernels against autograd through
+    the plain version under the kernels' own keep mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, y, go = (torch.randn(R, H, generator=g, device=dev).to(dtype)
+                for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
+    b = 0.1 * torch.randn(H, generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    state = g.get_state()
+    got = fused_layernorm.fused_residual_layernorm(*leaves, 1e-5, p, g)
+    got.backward(go)
+    keep = None
+    if p > 0.0:
+        keep = fused_layernorm.keep_mask(drawn_seed(g, state), R, H, p)
+    ref_leaves = [t.clone().requires_grad_() for t in (x, y, w, b)]
+    ref = fused_layernorm.residual_layernorm_reference(*ref_leaves, 1e-5,
+                                                       keep, p)
+    ref.backward(go)
+    _close(got, ref, *LN_TOL[dtype])
+    for a, c in zip(leaves[:2], ref_leaves[:2]):
+        _close(a.grad, c.grad, *GRAD_TOL[dtype])
+    for a, c in zip(leaves[2:], ref_leaves[2:]):
+        _close(a.grad, c.grad, 1e-5 * R + 1e-4, 1e-4)
+
+
+def _rows_near_the_grid(dev, H, dtype, p, which):
+    """Row counts where the backward's grid changes shape: one row, a row a
+    block on either side of the SM count, and either side of the rows the
+    card holds at once (the grid's cap: past it a group walks a second
+    row)."""
+    x = torch.empty(1, H, dtype=dtype, device=dev)
+    plan = fused_layernorm._plan(x, p > 0.0)
+    full = plan.rows_per_block * plan.blocks_per_sm * plan.sms
+    sms = plan.rows_per_block * plan.sms
+    return {"one": 1, "sms-1": sms - 1, "sms": sms, "sms+1": sms + 1,
+            "full-1": full - 1, "full": full, "full+1": full + 1}[which]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [768, 1024, 2048])
+@pytest.mark.parametrize("which", ["one", "sms-1", "sms", "sms+1", "full-1",
+                                   "full", "full+1"])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_layernorm_row_counts_around_the_grid(dev, dtype, H, which, p):
+    R = _rows_near_the_grid(dev, H, dtype, p, which)
+    _layernorm_against_plain(dev, R, H, dtype, p, seed=R + H)
+
+
+def test_layernorm_backwards_back_to_back_leave_the_counters_zeroed(dev):
+    """Backward calls one after another on one stream, the register and the
+    wide route in turn at other row counts (so other grids and splits): a
+    counter left unreset by one would make blocks of the next sum the
+    workspace before every block had written its row, and dscale / dbias
+    would be wrong."""
+    for i, (R, H) in enumerate([(5000, 768), (700, 2048), (3, 256),
+                                (1, 4096), (20000, 1024), (9, 8192),
+                                (4096, 768), (6000, 1536), (2, 128)]):
+        dtype = torch.bfloat16 if i % 2 else torch.float32
+        _layernorm_against_plain(dev, R, H, dtype, 0.1 if i % 3 else 0.0,
+                                 seed=i)
+    counters = fused_layernorm._counters(torch.device(dev))
+    torch.cuda.synchronize()
+    assert int(counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", range(128, fused_layernorm.MAX_HIDDEN + 1, 128))
+def test_layernorm_dropout_output_matches_plain_at_every_width(dev, dtype, H):
+    """p = 0.1 at every width the kernels take: the output equals the plain
+    version under `keep_mask`'s mask (the 16-byte chunks of the bf16
+    kernels draw two Philox words a chunk, the bits of the mask)."""
+    R = 37
+    g = torch.Generator(device=dev).manual_seed(H)
+    x, y = (torch.randn(R, H, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    w = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
+    b = 0.1 * torch.randn(H, generator=g, device=dev)
+    state = g.get_state()
+    with torch.no_grad():
+        got = fused_layernorm.fused_residual_layernorm(x, y, w, b, 1e-5, 0.1,
+                                                       g)
+    keep = fused_layernorm.keep_mask(drawn_seed(g, state), R, H, 0.1)
+    ref = fused_layernorm.residual_layernorm_reference(x, y, w, b, 1e-5, keep,
+                                                       0.1)
+    _close(got, ref, *LN_TOL[dtype])
 
 
 def _small_model(seed=0):

@@ -14,73 +14,141 @@
 // Bound: device memory. The forward reads x and y and writes out (3 * H
 // elements a row), the backward reads x, y and g and writes dx and dy
 // (5 * H), against a few flops per element, far below the card's balance
-// point, so the floor is the time to move those bytes.
+// point, so the floor is the time to move those bytes. PyTorch's own
+// elementwise kernels over the same bytes reach 77% of it on an H100
+// (`torch.add(x, y)` at 16384 x 768 bf16: 29.3 us against 22.6;
+// scripts/torch_port/layernorm_sweep.py prints both), which is what these
+// kernels can expect; with dropout, the Philox words (10 rounds of two
+// 32-bit multiplies each, a word an element) add instruction issue on top.
 //
-// Design: one warp per row, the whole row in registers. A lane holds groups
-// of four neighbouring columns (4 * lane + 128 * i), so each access is one
-// 8- or 16-byte vector, a warp's access is one contiguous segment, and one
-// Philox call (philox.cuh, counter = (row, column / 4)) covers a lane's
-// group. Sums are reduced with warp shuffles; every byte crosses device
-// memory once. The TPU kernel seeds a per-core stream per row block and
-// accumulates dscale / dbias across its SEQUENTIAL grid; blocks run in no
-// order here and float atomics would make a step irreproducible. So in the
-// backward each warp walks a fixed set of rows and keeps its partial column
-// sums in registers, a block adds its warps' partials in shared memory in a
-// fixed order and writes one (2, H) row of a workspace, and a second small
-// kernel sums the workspace's columns, again in a fixed order. The TPU
-// kernel's small-row fallback (a Mosaic tiling rule) has no counterpart: any
-// row count works. Hidden sizes: every multiple of 128 up to 1024
-// (TR_HIDDEN_CASES) on this route. A lane's backward holds 24 values a group
-// of four columns, 192 registers at 1024, which is where the register file
-// ends.
+// Design. A row belongs to a group of threads: a warp up to 1024 columns
+// (the register route, the width a constant of the kernel), a block of
+// kWideThreads above, up to 8192 (the wide route, the width a run-time
+// value). Thread t of a group holds chunks of V = 16 / sizeof(T)
+// neighbouring columns, V * (t + TPR * i) for i < N, so every access is 16
+// bytes a thread and a warp's is one contiguous 512-byte segment; a thread
+// holds at most 32 columns at every width. A bf16 chunk of eight columns
+// takes two Philox calls (philox.cuh, counters column / 4 and column / 4 +
+// 1), an f32 chunk one: the bits do not depend on the layout, and
+// `keep_mask` exports them. A row's loads, scale and bias (and in the
+// backward mean and rstd) are issued before any of them is used, so no
+// load waits on the row's reduction.
 //
-// The wide route (`*_wide`, every multiple of 128 above 1024 up to 8192)
-// spreads a row over a block of 256 threads instead of a warp: thread t
-// holds the groups of four columns 4 * (t + 256 * i), i < N = ceil(H /
-// 1024) <= 8, so a thread's registers are those of a lane at 1024 and each
-// access is still one contiguous segment a warp. The row's sums go through
-// the warps' shuffles and then eight partials in shared memory, in a fixed
-// order. In the backward each block walks rows blockIdx, + grid, ..., keeps
-// its threads' column sums in registers (a column belongs to one thread) and
-// writes its (2, H) workspace row from them; the column sums and the dropout
-// bits are those of the register route.
+// The forward gives each group one row and launches a block for every
+// kFwdWarps rows: the block scheduler keeps the rows in flight. Kernels
+// that walked rows in a grid of resident blocks, keeping the next row in
+// flight in registers or in a shared-memory ring filled by the TMA's bulk
+// copy (cp.async.bulk, an mbarrier a stage), were slower at every shape
+// timed (PERF.md's kernel table): they hold fewer warps an SM, and the
+// dropout's Philox work then shows.
+//
+// The backward runs as many blocks as the card holds at once (the wrapper
+// sizes the grid from cudaOccupancyMaxActiveBlocksPerMultiprocessor x the
+// SMs; tr_residual_layernorm_bwd_plan), each group walking rows group,
+// group + groups in the grid, ..., and keeping the column sums of g * xhat
+// and g of its columns in registers; a block adds its warps' in shared
+// memory in warp order and writes one row of a (nblocks, 2, H) f32
+// workspace. The same launch then sums the workspace, with no float
+// atomics: the last `split` blocks to finish (an integer counter) wait
+// until every block has written its row and each sums a slice of the
+// columns over all rows in row order (split_column_sums). The order of
+// every sum is fixed by the grid, never by which block finishes first, so
+// a backward gives the same bits on every run; the counters are left at
+// 0, so the wrapper's zeroed pair (one per device and stream) serves every
+// later call, a CUDA graph's too.
+//
+// The TPU kernel's small-row fallback (a Mosaic tiling rule) has no
+// counterpart: any row count from 1 works.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // warps (rows in flight) per block
+constexpr int kFwdWarps = 4;        // rows a forward block of the register route holds
+constexpr int kBwdThreads = 256;    // a backward block, on either route
+constexpr int kBwdWarps = kBwdThreads / 32;  // its rows at once on the register route
+constexpr int kWideThreads = 256;   // a row's threads on the wide route
+constexpr int kMaxHidden = 8192;
 
-__device__ __forceinline__ void load4(const float* p, float out[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
+using tr::Dropout;
+using tr::make_dropout;
+
+// columns a 16-byte access holds
+template <typename T>
+struct Cols {
+  static constexpr int V = 16 / (int)sizeof(T);
+};
+
+__device__ __forceinline__ void unpack(uint4 r, float (&o)[4]) {
+  o[0] = __uint_as_float(r.x);
+  o[1] = __uint_as_float(r.y);
+  o[2] = __uint_as_float(r.z);
+  o[3] = __uint_as_float(r.w);
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  out[0] = __low2float(a);
-  out[1] = __high2float(a);
-  out[2] = __low2float(b);
-  out[3] = __high2float(b);
+// eight bf16, the first in the low half of r.x
+__device__ __forceinline__ void unpack(uint4 r, float (&o)[8]) {
+  o[0] = __uint_as_float(r.x << 16);
+  o[1] = __uint_as_float(r.x & 0xffff0000u);
+  o[2] = __uint_as_float(r.y << 16);
+  o[3] = __uint_as_float(r.y & 0xffff0000u);
+  o[4] = __uint_as_float(r.z << 16);
+  o[5] = __uint_as_float(r.z & 0xffff0000u);
+  o[6] = __uint_as_float(r.w << 16);
+  o[7] = __uint_as_float(r.w & 0xffff0000u);
 }
-__device__ __forceinline__ void store4(float* p, const float in[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float in[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(in[0], in[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(in[2], in[3]);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&a);
-  raw.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+  return make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]), bf16x2(v[4], v[5]),
+                    bf16x2(v[6], v[7]));
+}
+
+// V f32 values from p (16-byte aligned)
+template <int V>
+__device__ __forceinline__ void load_f32(const float* __restrict__ p, float* o) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(p)[q];
+    o[4 * q] = v.x;
+    o[4 * q + 1] = v.y;
+    o[4 * q + 2] = v.z;
+    o[4 * q + 3] = v.w;
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_f32(float* p, const float* v) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    reinterpret_cast<float4*>(p)[q] =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  }
+}
+
+// bit e: column c + e of `row` kept, for the V columns from c (c % 4 == 0)
+template <int V>
+__device__ __forceinline__ uint32_t keep_bits(uint64_t seed, int64_t row, int c,
+                                              uint32_t threshold) {
+  uint32_t keep = 0;
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    uint32_t bits[4];
+    tr::row_bits(seed, (uint64_t)row, (uint32_t)((c >> 2) + q), bits);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) keep |= (uint32_t)(bits[e] >= threshold) << (4 * q + e);
+  }
+  return keep;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -89,73 +157,118 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-using tr::Dropout;
-using tr::make_dropout;
-
-// z = x + dropout(y) for the four columns c .. c + 3 of one row;
-// dm[e] = keep / (1 - p) per element (1 without dropout).
-template <typename T, bool kDrop>
-__device__ __forceinline__ void residual4(const T* __restrict__ xr,
-                                          const T* __restrict__ yr, int64_t row, int c,
-                                          Dropout drop, uint64_t seed, float z[4],
-                                          float dm[4]) {
-  float xv[4], yv[4];
-  load4(xr + c, xv);
-  load4(yr + c, yv);
-  uint32_t bits[4];
-  if (kDrop) tr::row_bits(seed, (uint64_t)row, (uint32_t)(c >> 2), bits);
+// a and b summed over the row's group (every thread gets the sums), in a
+// fixed order: each warp's shuffle, then on the wide route the warps'
+// partials in warp order. `red` alternates between calls, so one barrier a
+// call suffices: a warp writes red again only after the next call's
+// barrier, which every thread reaches after reading this one.
+template <int TPR>
+__device__ __forceinline__ void group_sum2(float& a, float& b, float (&red)[2][TPR / 32]) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if constexpr (TPR > 32) {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      red[0][warp] = a;
+      red[1][warp] = b;
+    }
+    __syncthreads();
+    a = 0.f;
+    b = 0.f;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    dm[e] = 1.f;
-    if (kDrop) dm[e] = bits[e] >= drop.threshold ? drop.inv_keep : 0.f;
-    z[e] = xv[e] + yv[e] * dm[e];
-  }
-}
-
-// z = x + dropout(y) for one row, this lane's N groups of four columns;
-// dmask[i] = keep / (1 - p) per element (1 without dropout).
-template <typename T, int H, bool kDrop>
-__device__ __forceinline__ void dropped_residual(const T* __restrict__ xr,
-                                                 const T* __restrict__ yr,
-                                                 int64_t row, int lane, Dropout drop,
-                                                 uint64_t seed, float* z,
-                                                 float* dmask) {
-  constexpr int N = H / 128;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float dm[4];
-    residual4<T, kDrop>(xr, yr, row, 4 * lane + 128 * i, drop, seed, z + 4 * i, dm);
-    if (dmask != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dmask[4 * i + e] = dm[e];
+    for (int w = 0; w < TPR / 32; ++w) {
+      a += red[0][w];
+      b += red[1][w];
     }
   }
 }
 
-template <typename T, int H, bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32)
+// ---- kernels ---------------------------------------------------------------
+
+// this thread's chunks of one row: raw 16-byte words of x, y (and g), the
+// chunks past H left 0
+template <typename T, int TPR, int N>
+__device__ __forceinline__ void load_row(const T* __restrict__ src, int64_t row, int H, int t,
+                                         uint4 (&raw)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = Cols<T>::V * (t + TPR * i);
+    raw[i] = c < H ? *reinterpret_cast<const uint4*>(src + row * H + c)
+                   : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// this thread's chunks of an f32 parameter row (0 past H)
+template <typename T, int TPR, int N>
+__device__ __forceinline__ void load_params(const float* __restrict__ p, int H, int t,
+                                            float (&o)[N * Cols<T>::V]) {
+  constexpr int V = Cols<T>::V;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = V * (t + TPR * i);
+    if (c < H) {
+      load_f32<V>(p + c, o + V * i);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[V * i + e] = 0.f;
+    }
+  }
+}
+
+// z = x + dropout(y) of this thread's chunks of `row` (0 past H)
+template <typename T, int TPR, int N, bool kDrop>
+__device__ __forceinline__ void residual(const uint4 (&xr)[N], const uint4 (&yr)[N],
+                                         int64_t row, int H, int t, uint64_t seed,
+                                         const Dropout& drop, float (&z)[N * Cols<T>::V]) {
+  constexpr int V = Cols<T>::V;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = V * (t + TPR * i);
+    float xv[V], yv[V];
+    unpack(xr[i], xv);
+    unpack(yr[i], yv);
+    const uint32_t kb = kDrop && c < H ? keep_bits<V>(seed, row, c, drop.threshold) : 0u;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      z[V * i + e] = kDrop ? __fmaf_rn(yv[e], (kb >> e) & 1u ? drop.inv_keep : 0.f, xv[e])
+                           : xv[e] + yv[e];
+    }
+  }
+}
+
+// The forward: a group a row, W rows a block, as many blocks as rows need;
+// the block scheduler keeps the rows in flight. The row's loads, scale and
+// bias are all issued before the first use of any of them.
+template <typename T, int TPR, int W, int N, int HC, bool kDrop>
+__global__ void __launch_bounds__(TPR * W)
 residual_layernorm_fwd(const T* __restrict__ x, const T* __restrict__ y,
                        const float* __restrict__ scale,
                        const float* __restrict__ bias, T* __restrict__ out,
                        float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                       Dropout drop, int64_t rows, float eps) {
-  constexpr int N = H / 128;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
+                       Dropout drop, int64_t rows, int width, float eps) {
+  constexpr int V = Cols<T>::V;
+  const int H = HC > 0 ? HC : width;
+  __shared__ float red[2][TPR / 32];
+  const int t = threadIdx.x % TPR;
+  const int64_t row = (int64_t)blockIdx.x * W + threadIdx.x / TPR;
+  if (row >= rows) return;  // a whole group: a block on the wide route
+  uint4 xr[N], yr[N];
+  load_row<T, TPR, N>(x, row, H, t, xr);
+  load_row<T, TPR, N>(y, row, H, t, yr);
+  float sv[N * V], bv[N * V];
+  load_params<T, TPR, N>(scale, H, t, sv);
+  load_params<T, TPR, N>(bias, H, t, bv);
   const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
 
-  float z[4 * N];
-  dropped_residual<T, H, kDrop>(x + row * H, y + row * H, row, lane, drop, seed, z,
-                                nullptr);
+  float z[N * V];
+  residual<T, TPR, N, kDrop>(xr, yr, row, H, t, seed, drop, z);
   float sum = 0.f, sumsq = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4 * N; ++i) {
-    sum += z[i];
-    sumsq += z[i] * z[i];
+  for (int j = 0; j < N * V; ++j) {
+    sum += z[j];
+    sumsq += z[j] * z[j];
   }
-  sum = warp_sum(sum);
-  sumsq = warp_sum(sumsq);
+  group_sum2<TPR>(sum, sumsq, red);
   const float mean = sum / H;
   const float var = fmaxf(sumsq / H - mean * mean, 0.f);
   const float rstd = 1.f / sqrtf(var + eps);
@@ -163,292 +276,227 @@ residual_layernorm_fwd(const T* __restrict__ x, const T* __restrict__ y,
   T* orow = out + row * H;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const int c = 4 * lane + 128 * i;
-    float sv[4], bv[4], ov[4];
-    load4(scale + c, sv);
-    load4(bias + c, bv);
+    const int c = V * (t + TPR * i);
+    if (c >= H) continue;
+    float ov[V];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ov[e] = (z[4 * i + e] - mean) * rstd * sv[e] + bv[e];
-    store4(orow + c, ov);
+    for (int e = 0; e < V; ++e) {
+      const int n = V * i + e;
+      ov[e] = (z[n] - mean) * rstd * sv[n] + bv[n];
+    }
+    *reinterpret_cast<uint4*>(orow + c) = pack(ov);
   }
-  if (mean_out != nullptr && lane == 0) {
+  if (mean_out != nullptr && t == 0) {
     mean_out[row] = mean;
     rstd_out[row] = rstd;
   }
 }
 
-// partial: (gridDim.x, 2, H) f32; row b holds block b's column sums of
-// g * xhat (dscale) and of g (dbias).
-template <typename T, int H, bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr int kSumRows = 8;  // rows a thread of the split loads at once
+
+// Every block calls this after writing its row (blockIdx.x) of ws, gridDim.x
+// rows of `width` f32. The last `split` blocks to finish (counted on
+// counters[0]) wait until every block has, then each sums one slice of the
+// columns over all rows, in row order, into out. counters[1] counts the
+// slices done; the last resets both to 0. split <= max(1, gridDim.x / 2):
+// when a block starts to wait, at least as many blocks have left as can be
+// waiting to start, so a waiting block never holds a place one of them
+// needs.
+__device__ __forceinline__ void split_column_sums(const float* ws, int* counters, int split,
+                                                  float* out, int width) {
+  __shared__ int rank;
+  __shared__ float4 runs[kBwdThreads];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) rank = atomicAdd(&counters[0], 1);
+  __syncthreads();
+  const int nblocks = gridDim.x;
+  const int slice = rank - (nblocks - split);
+  if (slice < 0) return;
+  if (threadIdx.x == 0) {
+    while (*reinterpret_cast<volatile int*>(counters) < nblocks) __nanosleep(32);
+  }
+  __syncthreads();
+  __threadfence();
+  // the slice's float4 columns; each column's rows in `parts` runs of
+  // `run` consecutive rows, a (column, run) pair a thread, the runs then
+  // added in order (one run a column when the slice is as wide as the block)
+  const int cols4 = width / 4;
+  const int per = (cols4 + split - 1) / split;
+  const int c0 = slice * per;
+  const int ncol = cols4 - c0 < per ? cols4 - c0 : per;
+  if (ncol > 0) {
+    int parts = (int)blockDim.x / ncol < nblocks ? (int)blockDim.x / ncol : nblocks;
+    if (parts < 1) parts = 1;
+    const int run = (nblocks + parts - 1) / parts;
+    for (int k = threadIdx.x; k < ncol * parts; k += blockDim.x) {
+      const int col = k % ncol;
+      const int p = k / ncol;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int r1 = (p + 1) * run < nblocks ? (p + 1) * run : nblocks;
+      for (int r = p * run; r < r1; r += kSumRows) {
+        float4 v[kSumRows];
+#pragma unroll
+        for (int u = 0; u < kSumRows; ++u) {
+          if (r + u < r1) {
+            v[u] = __ldcg(reinterpret_cast<const float4*>(ws + (size_t)(r + u) * width) + c0 +
+                          col);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSumRows; ++u) {
+          if (r + u < r1) {
+            acc.x += v[u].x;
+            acc.y += v[u].y;
+            acc.z += v[u].z;
+            acc.w += v[u].w;
+          }
+        }
+      }
+      if (parts == 1) {
+        reinterpret_cast<float4*>(out)[c0 + col] = acc;
+      } else {
+        runs[k] = acc;  // k < blockDim.x: ncol * parts <= blockDim.x
+      }
+    }
+    if (parts > 1) {
+      __syncthreads();
+      if ((int)threadIdx.x < ncol) {
+        float4 s = runs[threadIdx.x];
+        for (int q = 1; q < parts; ++q) {
+          const float4 v = runs[q * ncol + threadIdx.x];
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+        reinterpret_cast<float4*>(out)[c0 + threadIdx.x] = s;
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(&counters[1], 1) == split - 1) {
+    counters[0] = 0;
+    counters[1] = 0;
+  }
+}
+
+// The backward: as many blocks as the card holds at once, each group walking
+// rows group, group + groups in the grid, ...; ws: (gridDim.x, 2, H) f32,
+// out: (2, H), dscale then dbias
+template <typename T, int TPR, int W, int N, int HC, bool kDrop>
+__global__ void __launch_bounds__(TPR * W)
 residual_layernorm_bwd(const T* __restrict__ x, const T* __restrict__ y,
                        const T* __restrict__ g, const float* __restrict__ scale,
                        const float* __restrict__ mean_in,
                        const float* __restrict__ rstd_in, T* __restrict__ dx,
-                       T* __restrict__ dy, float* __restrict__ partial,
-                       Dropout drop, int64_t rows) {
-  constexpr int N = H / 128;
-  __shared__ float part[kWarps][2][H];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+                       T* __restrict__ dy, float* __restrict__ ws, int* __restrict__ counters,
+                       int split, float* __restrict__ dparams, Dropout drop, int64_t rows,
+                       int hidden) {
+  static_assert(TPR * W == kBwdThreads, "split_column_sums sizes its runs by the block");
+  constexpr int V = Cols<T>::V;
+  const int H = HC > 0 ? HC : hidden;
+  extern __shared__ __align__(16) float part[];  // W > 1: W x 2H, the warps' sums
+  __shared__ float red[2][2][TPR / 32];
+  const int grp = threadIdx.x / TPR;
+  const int t = threadIdx.x % TPR;
+  const int64_t stride = (int64_t)gridDim.x * W;
+  float sv[N * V], dsc[N * V], dbi[N * V];  // past H: scale 0, so every sum gets 0
+  load_params<T, TPR, N>(scale, H, t, sv);
+#pragma unroll
+  for (int j = 0; j < N * V; ++j) dsc[j] = dbi[j] = 0.f;
   const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
 
-  float sv[4 * N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) load4(scale + 4 * lane + 128 * i, sv + 4 * i);
-  float dsc[4 * N], dbi[4 * N];
-#pragma unroll
-  for (int i = 0; i < 4 * N; ++i) {
-    dsc[i] = 0.f;
-    dbi[i] = 0.f;
-  }
-
-  const int64_t stride = (int64_t)gridDim.x * kWarps;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + warp; row < rows; row += stride) {
-    float z[4 * N], dmask[4 * N], gv[4 * N];
-    dropped_residual<T, H, kDrop>(x + row * H, y + row * H, row, lane, drop, seed, z,
-                                  dmask);
-#pragma unroll
-    for (int i = 0; i < N; ++i) load4(g + row * H + 4 * lane + 128 * i, gv + 4 * i);
+  int par = 0;
+  for (int64_t row = (int64_t)blockIdx.x * W + grp; row < rows; row += stride, par ^= 1) {
+    uint4 xr[N], yr[N], gr[N];
+    load_row<T, TPR, N>(x, row, H, t, xr);
+    load_row<T, TPR, N>(y, row, H, t, yr);
+    load_row<T, TPR, N>(g, row, H, t, gr);
     const float mean = mean_in[row];
     const float rstd = rstd_in[row];
+    // each element's terms right after its Philox word
+    float xh[N * V], gv[N * V];
+    uint32_t keep = 0;  // bit V * i + e: column V * (t + TPR * i) + e kept
     float hsum = 0.f, hxsum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4 * N; ++i) {
-      z[i] = (z[i] - mean) * rstd;  // xhat
-      const float gi = gv[i] * sv[i];
-      hsum += gi;
-      hxsum += gi * z[i];
-      dsc[i] += gv[i] * z[i];
-      dbi[i] += gv[i];
-    }
-    const float hm = warp_sum(hsum) / H;
-    const float hx = warp_sum(hxsum) / H;
-#pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int c = 4 * lane + 128 * i;
-      float dxv[4], dyv[4];
+      const int c = V * (t + TPR * i);
+      float xv[V], yv[V], gg[V];
+      unpack(xr[i], xv);
+      unpack(yr[i], yv);
+      unpack(gr[i], gg);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = 4 * i + e;
-        const float dz = rstd * (gv[n] * sv[n] - hm - z[n] * hx);
-        dxv[e] = dz;
-        dyv[e] = dz * dmask[n];
-      }
-      store4(dx + row * H + c, dxv);
-      store4(dy + row * H + c, dyv);
-    }
-  }
-
+      for (int q = 0; q < V / 4; ++q) {
+        uint32_t bits[4] = {0u, 0u, 0u, 0u};
+        if (kDrop && c < H) tr::row_bits(seed, (uint64_t)row, (uint32_t)((c >> 2) + q), bits);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 4 * lane + 128 * i + e;
-      part[warp][0][c] = dsc[4 * i + e];
-      part[warp][1][c] = dbi[4 * i + e];
-    }
-  }
-  __syncthreads();
-  float* prow = partial + (int64_t)blockIdx.x * 2 * H;
-  for (int c = threadIdx.x; c < 2 * H; c += kWarps * 32) {
-    float acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) acc += (&part[w][0][0])[c];
-    prow[c] = acc;
-  }
-}
-
-constexpr int kWideThreads = 256;              // a row's block on the wide route
-constexpr int kWideCols = 4 * kWideThreads;     // columns a pass of the block covers
-constexpr int kWideMaxGroups = 8;               // groups a thread: H <= 8192
-
-// a and b summed over the block (every thread gets the sums), in a fixed
-// order: each warp's shuffle, then the warps' partials in warp order.
-__device__ __forceinline__ void block_sum2(float& a, float& b,
-                                           float (&red)[2][kWideThreads / 32]) {
-  a = warp_sum(a);
-  b = warp_sum(b);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[0][warp] = a;
-    red[1][warp] = b;
-  }
-  __syncthreads();
-  a = 0.f;
-  b = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWideThreads / 32; ++w) {
-    a += red[0][w];
-    b += red[1][w];
-  }
-  __syncthreads();  // red is written again by the next call
-}
-
-// z = x + dropout(y) for this thread's N groups of one row (zeros past H).
-template <typename T, int N, bool kDrop>
-__device__ __forceinline__ void wide_residual(const T* __restrict__ xr,
-                                              const T* __restrict__ yr, int64_t row,
-                                              int H, Dropout drop, uint64_t seed,
-                                              float* z, float* dmask) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int c = 4 * (threadIdx.x + kWideThreads * i);
-    if (c < H) {
-      residual4<T, kDrop>(xr, yr, row, c, drop, seed, z + 4 * i, dmask + 4 * i);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) z[4 * i + e] = dmask[4 * i + e] = 0.f;
-    }
-  }
-}
-
-template <typename T, int N, bool kDrop>
-__global__ void __launch_bounds__(kWideThreads)
-residual_layernorm_fwd_wide(const T* __restrict__ x, const T* __restrict__ y,
-                            const float* __restrict__ scale,
-                            const float* __restrict__ bias, T* __restrict__ out,
-                            float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                            Dropout drop, int H, float eps) {
-  __shared__ float red[2][kWideThreads / 32];
-  const int64_t row = blockIdx.x;
-  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
-
-  float z[4 * N], dm[4 * N];
-  wide_residual<T, N, kDrop>(x + row * H, y + row * H, row, H, drop, seed, z, dm);
-  float sum = 0.f, sumsq = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4 * N; ++i) {
-    sum += z[i];
-    sumsq += z[i] * z[i];
-  }
-  block_sum2(sum, sumsq, red);
-  const float mean = sum / H;
-  const float var = fmaxf(sumsq / H - mean * mean, 0.f);
-  const float rstd = 1.f / sqrtf(var + eps);
-
-  T* orow = out + row * H;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int c = 4 * (threadIdx.x + kWideThreads * i);
-    if (c >= H) continue;
-    float sv[4], bv[4], ov[4];
-    load4(scale + c, sv);
-    load4(bias + c, bv);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ov[e] = (z[4 * i + e] - mean) * rstd * sv[e] + bv[e];
-    store4(orow + c, ov);
-  }
-  if (mean_out != nullptr && threadIdx.x == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rstd;
-  }
-}
-
-// partial: (gridDim.x, 2, H) f32, as residual_layernorm_bwd's.
-template <typename T, int N, bool kDrop>
-__global__ void __launch_bounds__(kWideThreads)
-residual_layernorm_bwd_wide(const T* __restrict__ x, const T* __restrict__ y,
-                            const T* __restrict__ g, const float* __restrict__ scale,
-                            const float* __restrict__ mean_in,
-                            const float* __restrict__ rstd_in, T* __restrict__ dx,
-                            T* __restrict__ dy, float* __restrict__ partial,
-                            Dropout drop, int64_t rows, int H) {
-  __shared__ float red[2][kWideThreads / 32];
-  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
-
-  // past H: scale 0, so g * scale and every sum below get 0 there
-  float sv[4 * N], dsc[4 * N], dbi[4 * N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int c = 4 * (threadIdx.x + kWideThreads * i);
-    if (c < H) {
-      load4(scale + c, sv + 4 * i);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sv[4 * i + e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4 * N; ++i) {
-    dsc[i] = 0.f;
-    dbi[i] = 0.f;
-  }
-
-  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
-    float z[4 * N], dmask[4 * N], gv[4 * N];
-    wide_residual<T, N, kDrop>(x + row * H, y + row * H, row, H, drop, seed, z, dmask);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int c = 4 * (threadIdx.x + kWideThreads * i);
-      if (c < H) {
-        load4(g + row * H + c, gv + 4 * i);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) gv[4 * i + e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int m = 4 * q + e;
+          const int n = V * i + m;
+          const bool kept = bits[e] >= drop.threshold;
+          keep |= (uint32_t)kept << n;
+          const float z = kDrop ? __fmaf_rn(yv[m], kept ? drop.inv_keep : 0.f, xv[m])
+                                : xv[m] + yv[m];
+          xh[n] = (z - mean) * rstd;
+          gv[n] = gg[m];
+          const float gi = gg[m] * sv[n];
+          hsum += gi;
+          hxsum += gi * xh[n];
+          dsc[n] += gg[m] * xh[n];
+          dbi[n] += gg[m];
+        }
       }
     }
-    const float mean = mean_in[row];
-    const float rstd = rstd_in[row];
-    float hsum = 0.f, hxsum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4 * N; ++i) {
-      z[i] = (z[i] - mean) * rstd;  // xhat
-      const float gi = gv[i] * sv[i];
-      hsum += gi;
-      hxsum += gi * z[i];
-      dsc[i] += gv[i] * z[i];
-      dbi[i] += gv[i];
-    }
-    block_sum2(hsum, hxsum, red);
+    group_sum2<TPR>(hsum, hxsum, red[par]);
     const float hm = hsum / H;
     const float hx = hxsum / H;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int c = 4 * (threadIdx.x + kWideThreads * i);
+      const int c = V * (t + TPR * i);
       if (c >= H) continue;
-      float dxv[4], dyv[4];
+      float dxv[V], dyv[V];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = 4 * i + e;
-        const float dz = rstd * (gv[n] * sv[n] - hm - z[n] * hx);
+      for (int e = 0; e < V; ++e) {
+        const int n = V * i + e;
+        const float dz = rstd * (gv[n] * sv[n] - hm - xh[n] * hx);
         dxv[e] = dz;
-        dyv[e] = dz * dmask[n];
+        dyv[e] = kDrop ? dz * ((keep >> n) & 1u ? drop.inv_keep : 0.f) : dz;
       }
-      store4(dx + row * H + c, dxv);
-      store4(dy + row * H + c, dyv);
+      *reinterpret_cast<uint4*>(dx + row * H + c) = pack(dxv);
+      *reinterpret_cast<uint4*>(dy + row * H + c) = pack(dyv);
     }
   }
 
-  float* prow = partial + (int64_t)blockIdx.x * 2 * H;
+  // the block's column sums, row blockIdx.x of ws
+  const int width = 2 * H;  // of a workspace row
+  float* wrow = ws + (size_t)blockIdx.x * width;
+  if constexpr (W == 1) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int c = 4 * (threadIdx.x + kWideThreads * i);
-    if (c >= H) continue;
-    store4(prow + c, dsc + 4 * i);
-    store4(prow + H + c, dbi + 4 * i);
-  }
-}
-
-// out[c] = sum over b of partial[b][c], c < width; a block sums 32 columns
-// with 32 row slices, each slice and the final sum in a fixed order.
-__global__ void __launch_bounds__(1024)
-column_sums(const float* __restrict__ partial, float* __restrict__ out, int nrows,
-            int width) {
-  __shared__ float tile[32][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (c < width) {
-    for (int b = threadIdx.y; b < nrows; b += 32) acc += partial[(int64_t)b * width + c];
-  }
-  tile[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < width) {
-    float total = 0.f;
+    for (int i = 0; i < N; ++i) {
+      const int c = V * (t + TPR * i);
+      if (c >= H) continue;
+      store_f32<V>(wrow + c, dsc + V * i);
+      store_f32<V>(wrow + H + c, dbi + V * i);
+    }
+  } else {
+    // the warps' sums through shared memory, added in warp order
 #pragma unroll
-    for (int r = 0; r < 32; ++r) total += tile[r][threadIdx.x];
-    out[c] = total;
+    for (int i = 0; i < N; ++i) {
+      const int c = V * (t + TPR * i);
+      if (c >= H) continue;
+      store_f32<V>(part + grp * width + c, dsc + V * i);
+      store_f32<V>(part + grp * width + H + c, dbi + V * i);
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < width; c += TPR * W) {
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc += part[w * width + c];
+      wrow[c] = acc;
+    }
   }
+  split_column_sums(ws, counters, split, dparams, width);
 }
 
 // Test-only: the keep mask of (seed, rows, H), one byte per element.
@@ -467,115 +515,143 @@ __global__ void row_keep_mask(const int64_t* __restrict__ seed, uint32_t thresho
   reinterpret_cast<uchar4*>(out)[i] = keep;
 }
 
-#define TR_HIDDEN_CASES(CALL)                                                  \
-  switch (hidden) {                                                            \
-    case 128: CALL(128) break;                                                 \
-    case 256: CALL(256) break;                                                 \
-    case 384: CALL(384) break;                                                 \
-    case 512: CALL(512) break;                                                 \
-    case 640: CALL(640) break;                                                 \
-    case 768: CALL(768) break;                                                 \
-    case 896: CALL(896) break;                                                 \
-    case 1024: CALL(1024) break;                                               \
-    default: return cudaErrorInvalidValue;                                     \
-  }
+// ---- host side -------------------------------------------------------------
 
-// the wide route's groups a thread, N = ceil(hidden / 1024), for a multiple
-// of 128 in (1024, 8192]
-#define TR_WIDE_CASES(CALL)                                                    \
-  if (hidden % 128 != 0 || hidden > kWideMaxGroups * kWideCols) {              \
-    return cudaErrorInvalidValue;                                              \
-  }                                                                            \
-  switch ((hidden + kWideCols - 1) / kWideCols) {                              \
-    case 2: CALL(2) break;                                                     \
-    case 3: CALL(3) break;                                                     \
-    case 4: CALL(4) break;                                                     \
-    case 5: CALL(5) break;                                                     \
-    case 6: CALL(6) break;                                                     \
-    case 7: CALL(7) break;                                                     \
-    case 8: CALL(8) break;                                                     \
-    default: return cudaErrorInvalidValue;                                     \
-  }
+struct FwdArgs {
+  const void *x, *y;
+  const float *scale, *bias;
+  void* out;
+  float *mean, *rstd;
+  Dropout drop;
+  int64_t rows;
+  int H;
+  float eps;
+  cudaStream_t stream;
+};
 
-template <typename T>
-cudaError_t fwd(int hidden, const void* x, const void* y, const float* scale,
-                const float* bias, void* out, float* mean, float* rstd,
-                Dropout drop, int64_t rows, float eps, cudaStream_t stream) {
-  const dim3 grid((unsigned)((rows + kWarps - 1) / kWarps));
-  const dim3 block(kWarps * 32);
-  const T* xt = static_cast<const T*>(x);
-  const T* yt = static_cast<const T*>(y);
-  T* ot = static_cast<T*>(out);
-  if (hidden > 1024) {
-#define TR_FWD_WIDE(NV)                                                        \
-  if (drop.seed != nullptr) {                                                  \
-    residual_layernorm_fwd_wide<T, NV, true><<<(unsigned)rows, kWideThreads, 0, \
-                                               stream>>>(                      \
-        xt, yt, scale, bias, ot, mean, rstd, drop, hidden, eps);               \
-  } else {                                                                     \
-    residual_layernorm_fwd_wide<T, NV, false><<<(unsigned)rows, kWideThreads,  \
-                                                0, stream>>>(                  \
-        xt, yt, scale, bias, ot, mean, rstd, drop, hidden, eps);               \
-  }
-    TR_WIDE_CASES(TR_FWD_WIDE)
-#undef TR_FWD_WIDE
-    return cudaGetLastError();
-  }
-#define TR_FWD(HV)                                                             \
-  if (drop.seed != nullptr) {                                                  \
-    residual_layernorm_fwd<T, HV, true><<<grid, block, 0, stream>>>(           \
-        xt, yt, scale, bias, ot, mean, rstd, drop, rows, eps);                 \
-  } else {                                                                     \
-    residual_layernorm_fwd<T, HV, false><<<grid, block, 0, stream>>>(          \
-        xt, yt, scale, bias, ot, mean, rstd, drop, rows, eps);                 \
-  }
-  TR_HIDDEN_CASES(TR_FWD)
-#undef TR_FWD
+struct BwdArgs {
+  const void *x, *y, *g;
+  const float *scale, *mean, *rstd;
+  void *dx, *dy;
+  float* ws;
+  int* counters;
+  int split;
+  float* dparams;
+  Dropout drop;
+  int64_t rows;
+  int H;
+  int nblocks;
+  cudaStream_t stream;
+};
+
+template <typename T, int TPR, int W, int N, int HC, bool kDrop>
+cudaError_t fwd_one(const FwdArgs& a, int*) {
+  const int64_t grid = (a.rows + W - 1) / W;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+  residual_layernorm_fwd<T, TPR, W, N, HC, kDrop><<<(unsigned)grid, TPR * W, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.y), a.scale, a.bias,
+      static_cast<T*>(a.out), a.mean, a.rstd, a.drop, a.rows, a.H, a.eps);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t bwd(int hidden, const void* x, const void* y, const void* g,
-                const float* scale, const float* mean, const float* rstd, void* dx,
-                void* dy, float* partial, int nblocks, float* dparams, Dropout drop,
-                int64_t rows, cudaStream_t stream) {
-  const dim3 block(kWarps * 32);
-  const T* xt = static_cast<const T*>(x);
-  const T* yt = static_cast<const T*>(y);
-  const T* gt = static_cast<const T*>(g);
-  T* dxt = static_cast<T*>(dx);
-  T* dyt = static_cast<T*>(dy);
-  if (hidden > 1024) {
-#define TR_BWD_WIDE(NV)                                                        \
-  if (drop.seed != nullptr) {                                                  \
-    residual_layernorm_bwd_wide<T, NV, true><<<nblocks, kWideThreads, 0,       \
-                                               stream>>>(                      \
-        xt, yt, gt, scale, mean, rstd, dxt, dyt, partial, drop, rows, hidden); \
-  } else {                                                                     \
-    residual_layernorm_bwd_wide<T, NV, false><<<nblocks, kWideThreads, 0,      \
-                                                stream>>>(                     \
-        xt, yt, gt, scale, mean, rstd, dxt, dyt, partial, drop, rows, hidden); \
+// The backward's plan on the current device: plan[0] rows a block holds at
+// once, plan[1] blocks an SM holds at once. Rows of every width of an
+// instantiation share its shared-memory limit, so the limit set is that of
+// its widest rows.
+template <typename T, int TPR, int W, int N, int HC, bool kDrop>
+cudaError_t bwd_one(const BwdArgs& a, int* plan) {
+  auto kernel = residual_layernorm_bwd<T, TPR, W, N, HC, kDrop>;
+  const int smem = W > 1 ? W * 2 * a.H * (int)sizeof(float) : 0;
+  if (plan != nullptr) {
+    const int smem_max = W > 1 ? W * 2 * N * TPR * Cols<T>::V * (int)sizeof(float) : 0;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, TPR * W, smem);
+    if (err != cudaSuccess) return err;
+    if (blocks < 1) return cudaErrorInvalidConfiguration;
+    plan[0] = W;
+    plan[1] = blocks;
+    return cudaSuccess;
   }
-    TR_WIDE_CASES(TR_BWD_WIDE)
-#undef TR_BWD_WIDE
-  } else {
-#define TR_BWD(HV)                                                             \
-  if (drop.seed != nullptr) {                                                  \
-    residual_layernorm_bwd<T, HV, true><<<nblocks, block, 0, stream>>>(        \
-        xt, yt, gt, scale, mean, rstd, dxt, dyt, partial, drop, rows);         \
-  } else {                                                                     \
-    residual_layernorm_bwd<T, HV, false><<<nblocks, block, 0, stream>>>(       \
-        xt, yt, gt, scale, mean, rstd, dxt, dyt, partial, drop, rows);         \
+  if (a.nblocks < 1 || a.split < 1 || a.split > (a.nblocks > 1 ? a.nblocks / 2 : 1)) {
+    return cudaErrorInvalidValue;
   }
-    TR_HIDDEN_CASES(TR_BWD)
-#undef TR_BWD
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int width = 2 * hidden;
-  column_sums<<<(width + 31) / 32, dim3(32, 32), 0, stream>>>(partial, dparams,
-                                                              nblocks, width);
+  kernel<<<a.nblocks, TPR * W, smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.y), static_cast<const T*>(a.g),
+      a.scale, a.mean, a.rstd, static_cast<T*>(a.dx), static_cast<T*>(a.dy), a.ws,
+      a.counters, a.split, a.dparams, a.drop, a.rows, a.H);
   return cudaGetLastError();
+}
+
+template <typename T, int TPR, int W, int N, int HC>
+cudaError_t run_n(const FwdArgs& a, bool drop, int* plan) {
+  return drop ? fwd_one<T, TPR, W, N, HC, true>(a, plan)
+              : fwd_one<T, TPR, W, N, HC, false>(a, plan);
+}
+
+template <typename T, int TPR, int W, int N, int HC>
+cudaError_t run_n(const BwdArgs& a, bool drop, int* plan) {
+  return drop ? bwd_one<T, TPR, W, N, HC, true>(a, plan)
+              : bwd_one<T, TPR, W, N, HC, false>(a, plan);
+}
+
+// the register route: a warp a row, the width a constant of the kernel
+template <typename T, int W, int HC, typename Args>
+cudaError_t run_width(const Args& a, bool drop, int* plan) {
+  constexpr int N = (HC + 32 * Cols<T>::V - 1) / (32 * Cols<T>::V);
+  return run_n<T, 32, W, N, HC>(a, drop, plan);
+}
+
+// the wide route: a block a row, the width a run-time value of at most N
+// chunks a thread, N = ceil(H / (kWideThreads * V)) <= 32 / V
+template <typename T, typename Args>
+cudaError_t run_wide(const Args& a, bool drop, int* plan) {
+  constexpr int V = Cols<T>::V;
+  constexpr int kCols = kWideThreads * V;
+  switch ((a.H + kCols - 1) / kCols) {
+    case 1: return run_n<T, kWideThreads, 1, 1, 0>(a, drop, plan);
+    case 2: return run_n<T, kWideThreads, 1, 2, 0>(a, drop, plan);
+    case 3: return run_n<T, kWideThreads, 1, 3, 0>(a, drop, plan);
+    case 4: return run_n<T, kWideThreads, 1, 4, 0>(a, drop, plan);
+    default: break;
+  }
+  if constexpr (V == 4) {
+    switch ((a.H + kCols - 1) / kCols) {
+      case 5: return run_n<T, kWideThreads, 1, 5, 0>(a, drop, plan);
+      case 6: return run_n<T, kWideThreads, 1, 6, 0>(a, drop, plan);
+      case 7: return run_n<T, kWideThreads, 1, 7, 0>(a, drop, plan);
+      case 8: return run_n<T, kWideThreads, 1, 8, 0>(a, drop, plan);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the route of H: a warp a row up to 1024, a block above
+template <typename T, typename Args>
+cudaError_t run(const Args& a, bool drop, int* plan) {
+  constexpr int W = std::is_same<Args, BwdArgs>::value ? kBwdWarps : kFwdWarps;
+  if (a.H <= 0 || a.H % 128 != 0 || a.H > kMaxHidden) return cudaErrorInvalidValue;
+  switch (a.H) {
+    case 128: return run_width<T, W, 128>(a, drop, plan);
+    case 256: return run_width<T, W, 256>(a, drop, plan);
+    case 384: return run_width<T, W, 384>(a, drop, plan);
+    case 512: return run_width<T, W, 512>(a, drop, plan);
+    case 640: return run_width<T, W, 640>(a, drop, plan);
+    case 768: return run_width<T, W, 768>(a, drop, plan);
+    case 896: return run_width<T, W, 896>(a, drop, plan);
+    case 1024: return run_width<T, W, 1024>(a, drop, plan);
+    default: return run_wide<T>(a, drop, plan);
+  }
+}
+
+template <typename Args>
+cudaError_t run_dtype(int dtype, const Args& a, bool drop, int* plan) {
+  if (dtype == 0) return run<float>(a, drop, plan);
+  if (dtype == 1) return run<__nv_bfloat16>(a, drop, plan);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -589,51 +665,68 @@ extern "C" {
 // no dropout; threshold and inv_keep as in philox.cuh. Returns
 // cudaGetLastError() after the launch.
 
+// The backward kernel's plan on the current device: plan[0] rows a block
+// holds at once, plan[1] blocks an SM holds at once (occupancy). Sets the
+// kernel's shared-memory limit, so call it before the kernel's first launch
+// on a device.
+int tr_residual_layernorm_bwd_plan(int dtype, int hidden, int drop, int* plan) {
+  BwdArgs a{};
+  a.H = hidden;
+  return run_dtype(dtype, a, drop != 0, plan);
+}
+
 int tr_residual_layernorm_fwd(int dtype, const void* x, const void* y,
                               const void* scale, const void* bias, void* out,
                               void* mean, void* rstd, const void* seed,
                               uint32_t threshold, float inv_keep, int64_t rows,
                               int hidden, float eps, void* stream) {
-  const float* s = static_cast<const float*>(scale);
-  const float* b = static_cast<const float*>(bias);
-  float* mp = static_cast<float*>(mean);
-  float* rp = static_cast<float*>(rstd);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(seed, threshold, inv_keep);
   if (rows == 0) return 0;
-  if (dtype == 0) return fwd<float>(hidden, x, y, s, b, out, mp, rp, drop, rows, eps, st);
-  if (dtype == 1) {
-    return fwd<__nv_bfloat16>(hidden, x, y, s, b, out, mp, rp, drop, rows, eps, st);
-  }
-  return cudaErrorInvalidValue;
+  FwdArgs a;
+  a.x = x;
+  a.y = y;
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.mean = static_cast<float*>(mean);
+  a.rstd = static_cast<float*>(rstd);
+  a.drop = make_dropout(seed, threshold, inv_keep);
+  a.rows = rows;
+  a.H = hidden;
+  a.eps = eps;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return run_dtype(dtype, a, seed != nullptr, nullptr);
 }
 
-// partial: (nblocks, 2, hidden) float32 workspace; dparams: (2, hidden)
-// float32, row 0 = dscale, row 1 = dbias. nblocks >= 1 is the backward
-// kernel's grid; each of its warps walks rows warp, warp + 4 * nblocks, ...
-// (hidden > 1024: each block walks rows block, block + nblocks, ...)
+// nblocks: the grid, at most the plan's blocks an SM times the SMs; ws:
+// (nblocks, 2, hidden) float32 workspace; counters: two int32, both 0 (and
+// left 0); split: the blocks that sum the workspace's columns, 1 <= split
+// <= max(1, nblocks / 2); dparams: (2, hidden) float32, row 0 = dscale, row
+// 1 = dbias.
 int tr_residual_layernorm_bwd(int dtype, const void* x, const void* y,
                               const void* g, const void* scale, const void* mean,
-                              const void* rstd, void* dx, void* dy, void* partial,
-                              int nblocks, void* dparams, const void* seed,
-                              uint32_t threshold, float inv_keep, int64_t rows,
-                              int hidden, void* stream) {
-  const float* s = static_cast<const float*>(scale);
-  const float* mp = static_cast<const float*>(mean);
-  const float* rp = static_cast<const float*>(rstd);
-  float* pp = static_cast<float*>(partial);
-  float* dp = static_cast<float*>(dparams);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(seed, threshold, inv_keep);
-  if (nblocks < 1) return cudaErrorInvalidValue;
-  if (dtype == 0) {
-    return bwd<float>(hidden, x, y, g, s, mp, rp, dx, dy, pp, nblocks, dp, drop, rows, st);
-  }
-  if (dtype == 1) {
-    return bwd<__nv_bfloat16>(hidden, x, y, g, s, mp, rp, dx, dy, pp, nblocks, dp, drop,
-                              rows, st);
-  }
-  return cudaErrorInvalidValue;
+                              const void* rstd, void* dx, void* dy, void* ws,
+                              void* counters, int nblocks, int split, void* dparams,
+                              const void* seed, uint32_t threshold, float inv_keep,
+                              int64_t rows, int hidden, void* stream) {
+  BwdArgs a;
+  a.x = x;
+  a.y = y;
+  a.g = g;
+  a.scale = static_cast<const float*>(scale);
+  a.mean = static_cast<const float*>(mean);
+  a.rstd = static_cast<const float*>(rstd);
+  a.dx = dx;
+  a.dy = dy;
+  a.ws = static_cast<float*>(ws);
+  a.counters = static_cast<int*>(counters);
+  a.split = split;
+  a.dparams = static_cast<float*>(dparams);
+  a.drop = make_dropout(seed, threshold, inv_keep);
+  a.rows = rows;
+  a.H = hidden;
+  a.nblocks = nblocks;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return run_dtype(dtype, a, seed != nullptr, nullptr);
 }
 
 // Test-only: out (rows, hidden) uint8, 1 where the element is kept.

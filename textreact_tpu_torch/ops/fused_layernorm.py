@@ -16,28 +16,34 @@ mask and recomputes z, so neither is stored. `keep_mask` exports the mask
 for tests.
 
 Widths: every multiple of 128 up to 8192 (`MAX_HIDDEN`). Up to 1024
-(`REGISTER_HIDDEN`) a warp holds a row in its registers; above, a block of
-256 threads does (the wide route, `WIDE_LAUNCHES` and `WIDE_BWD_LAUNCHES`).
+(`REGISTER_HIDDEN`) a warp holds a row; above, a block of 256 threads does
+(the wide route, `WIDE_LAUNCHES` and `WIDE_BWD_LAUNCHES`).
+
+Launches: one kernel a forward and one a backward. The backward's grid is
+the blocks the card holds at once (`grid_blocks`, from the library's
+occupancy plan); its blocks' dscale / dbias rows are summed in the same
+launch by the last `split_blocks` blocks to finish, which count finished
+blocks on two int32 counters that the wrapper keeps zeroed, one pair per
+device and stream (`_counters`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 
-# every multiple of 128 up to 1024 holds a row in a warp's registers, where
-# a lane's backward fills the register file (TR_HIDDEN_CASES in the .cu);
-# above, up to MAX_HIDDEN, in a block's (TR_WIDE_CASES)
+# every multiple of 128 up to 1024 gives a row to a warp (the register
+# route: the width a constant of its kernels); above, up to MAX_HIDDEN, to a
+# block
 REGISTER_HIDDEN = tuple(range(128, 1025, 128))
 MAX_HIDDEN = 8192
-BWD_MAX_BLOCKS = 512  # backward grid cap: rows of the dscale/dbias workspace
-BWD_WARPS = 4         # rows in flight per backward block (kWarps in the .cu)
+MAX_SPLIT = 128   # blocks that sum the backward's column sums, at most
 LAUNCHES = 0      # forward kernel launches since the last reset
-BWD_LAUNCHES = 0  # backward launches (row kernel + column sums)
+BWD_LAUNCHES = 0  # backward launches (one kernel a call)
 WIDE_LAUNCHES = 0      # the same two counts for the wide route
 WIDE_BWD_LAUNCHES = 0
 
@@ -47,10 +53,11 @@ _L = ctypes.c_int64
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 _SIGNATURES = {
+    "tr_residual_layernorm_bwd_plan": [_I, _I, _I, _P],
     "tr_residual_layernorm_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _F,
                                   _L, _I, _F, _P],
-    "tr_residual_layernorm_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _P, _P, _U, _F, _L, _I, _P],
+    "tr_residual_layernorm_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _P, _P, _U, _F, _L, _I, _P],
     "tr_row_keep_mask": [_P, _U, _P, _L, _I, _P],
 }
 
@@ -63,6 +70,61 @@ def takes_hidden(H: int) -> bool:
 def load_kernel():
     """Build (at first use) and load the kernels' library."""
     return _build.load("fused_layernorm", _SIGNATURES)
+
+
+class Plan(NamedTuple):
+    """The backward kernel's launch on one card
+    (tr_residual_layernorm_bwd_plan)."""
+    rows_per_block: int  # rows a block holds at once
+    blocks_per_sm: int   # blocks an SM holds at once (occupancy)
+    sms: int             # the card's SMs
+
+
+def grid_blocks(rows: int, plan: Plan) -> int:
+    """The backward's blocks: as many as the card holds at once, fewer when
+    the rows do not fill them, at least one (a backward of no rows still
+    writes dscale and dbias)."""
+    return max(1, min(-(-rows // plan.rows_per_block),
+                      plan.blocks_per_sm * plan.sms))
+
+
+def split_blocks(nblocks: int, hidden: int) -> int:
+    """How many of the backward's blocks sum the (nblocks, 2, hidden)
+    workspace's columns, each a slice of them over every row: at most half
+    the grid (a block that waits for the others never holds a place that a
+    block yet to start needs), at least four float4 columns a block, at
+    most MAX_SPLIT."""
+    return max(1, min(nblocks // 2, 2 * hidden // 16, MAX_SPLIT))
+
+
+_PLANS: dict = {}
+_COUNTERS: dict = {}
+
+
+def _plan(x: torch.Tensor, drop: bool) -> Plan:
+    """The backward kernel's plan on x's card, asked of the library once a
+    process."""
+    key = (x.device.index, x.dtype, x.shape[-1], drop)
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib = load_kernel()
+        out = (ctypes.c_int * 2)()
+        err = lib.tr_residual_layernorm_bwd_plan(
+            _build.DTYPE_CODE[x.dtype], x.shape[-1], int(drop), out)
+        _build.check(lib, err, "fused_residual_layernorm plan")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = _PLANS[key] = Plan(*out, sms)
+    return plan
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    """The two zeroed int32 counters of the current stream on `device`;
+    every backward leaves them zeroed."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = _COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return buf
 
 
 def layer_norm(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -155,7 +217,7 @@ def _check(x, y, scale, bias) -> None:
 
 class _FusedResidualLayerNorm(torch.autograd.Function):
     """Forward saves x, y, scale, the row mean and rstd and the seed;
-    backward launches the row kernel and the column sums."""
+    backward launches one kernel for dx, dy, dscale and dbias."""
 
     @staticmethod
     def forward(ctx, x, y, scale, bias, seed, eps, dropout_p, needs_grad):
@@ -190,19 +252,19 @@ class _FusedResidualLayerNorm(torch.autograd.Function):
         rows = x.numel() // H
         g = g.contiguous()
         dx, dy = torch.empty_like(x), torch.empty_like(x)
-        # a backward block walks BWD_WARPS rows at a time, a wide one one
-        per_block = BWD_WARPS if H in REGISTER_HIDDEN else 1
-        nblocks = max(1, min(-(-rows // per_block), BWD_MAX_BLOCKS))
-        partial = torch.empty((nblocks, 2, H), dtype=torch.float32,
-                              device=x.device)
+        nblocks = grid_blocks(rows, _plan(x, seed is not None))
+        ws = torch.empty((nblocks, 2, H), dtype=torch.float32,
+                         device=x.device)
         dparams = torch.empty((2, H), dtype=torch.float32, device=x.device)
         lib = load_kernel()
         err = lib.tr_residual_layernorm_bwd(
             _build.DTYPE_CODE[x.dtype], _build.ptr(x), _build.ptr(y),
             _build.ptr(g), _build.ptr(scale), _build.ptr(mean),
-            _build.ptr(rstd), _build.ptr(dx), _build.ptr(dy),
-            _build.ptr(partial), nblocks, _build.ptr(dparams),
-            *_build.dropout_args(seed, ctx.dropout_p), rows, H, _build.stream())
+            _build.ptr(rstd), _build.ptr(dx), _build.ptr(dy), _build.ptr(ws),
+            _build.ptr(_counters(x.device)), nblocks,
+            split_blocks(nblocks, H), _build.ptr(dparams),
+            *_build.dropout_args(seed, ctx.dropout_p), rows, H,
+            _build.stream())
         _build.check(lib, err, "fused_residual_layernorm backward")
         if H in REGISTER_HIDDEN:
             BWD_LAUNCHES += 1
