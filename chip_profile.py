@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where one optimizer step of the PyTorch port's RCR training path, one
-batch of its serving path, or one search of its retrieval path, spends its
-time on one CUDA GPU.
+batch of its serving path or of the template-free retro serving path, or
+one search of its retrieval path, spends its time on one CUDA GPU.
 
-    python3 chip_profile.py [--path train|serving|retrieval] [--out DIR]
+    python3 chip_profile.py [--path train|serving|retro|retrieval] [--out DIR]
 
 `--path train` (the default) builds the same model, batch and step as chip_smoke.py's training phase
 (SciBERT-base + bert_l6 at full width and depth, f32 parameters, bf16
@@ -21,6 +21,14 @@ steps, then records one step with torch.profiler and prints:
 `--path serving` builds chip_smoke.py's serving model and batch (bf16
 weights, 32 requests of L=512, beam 15, 16 decode positions), and records
 one Generator.generate and one encoder pass the same way.
+`--path retro` builds chip_smoke.py's retro_tf serving model and test
+batch (bf16 weights, 32 products of L=512, beam 20 over 160 positions,
+640 decode rows) and records one Generator.generate: the tables above by
+kinds that part the decode's row gathers (the cache reorder), softmax, the
+beam's sort, matrix products and elementwise copies, then device time by
+operator (the casts, among them the decode's f32 up-casts of the cached
+and cross K/V; index_select; softmax; the products; sort), and the port's
+kernel launches of one batch.
 `--path retrieval` makes chip_smoke.py's two retrieval shapes and records
 one FlatIndex.search of 8192 queries per shape and kernel layout: host
 clock from numpy in to numpy out, and device time of the scan kernel, the
@@ -72,10 +80,42 @@ KINDS = (
 )
 DECODER_ATTENTION_OPS = ("aten::bmm", "aten::_softmax",
                          "aten::_softmax_backward_data")
+# the retro decode's kernels by kind, first match wins: the row gathers
+# (the cache reorder's index_select, the beam's gathers), softmax and
+# log-softmax, the beam's sort, matrix products, and the elementwise copies
+# (casts and contiguous copies)
+RETRO_KINDS = (
+    ("residual_layernorm_fwd", "own: residual LayerNorm forward"),
+    ("attention_fwd", "own: attention forward"),
+    ("gather_kernel", "row gathers (cache reorder, beam gathers)"),
+    ("SoftMax", "softmax and log-softmax"),
+    ("softmax", "softmax and log-softmax"),
+    ("ort", "beam top-k (sort)"),
+    *((fragment, kind) for fragment, kind in KINDS
+      if kind in ("matrix products", "copies")),
+    ("copy", "elementwise copies (casts, contiguous copies)"),
+)
+# operators of the retro decode, device ms with their child kernels where
+# marked: the casts (the decode's f32 up-casts of the cached and cross K/V,
+# and the probabilities back to bf16), the contiguous copies (torch.matmul
+# copies the transposed f32 operands before its bmm), the decode's
+# products through torch.matmul with those copies, the cache reorder,
+# softmax, the matrix products (their own kernels), the beam's sort
+RETRO_OPS = (("aten::_to_copy", "dtype casts (.float(), .to())", True),
+             ("aten::clone", "contiguous copies", True),
+             ("aten::matmul", "the decode's f32 products with the operand "
+              "copies they make", True),
+             ("aten::index_select", "cache reorder", True),
+             ("aten::_softmax", "softmax", True),
+             ("aten::_log_softmax", "log-softmax", True),
+             ("aten::mm", "matrix products (mm)", False),
+             ("aten::addmm", "matrix products (addmm)", False),
+             ("aten::bmm", "matrix products (bmm)", False),
+             ("aten::sort", "beam top-k (sort)", True))
 
 
-def kind_of(name: str) -> str:
-    for fragment, kind in KINDS:
+def kind_of(name: str, kinds=KINDS) -> str:
+    for fragment, kind in kinds:
         if fragment in name:
             return kind
     return "elementwise, reductions, gathers"
@@ -206,8 +246,8 @@ def profile_sharded_retrieval(card: str, say, corpus, queries) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--path", choices=("train", "serving", "retrieval"),
-                        default="train")
+    parser.add_argument("--path", choices=("train", "serving", "retrieval",
+                                           "retro"), default="train")
     parser.add_argument("--out", default="profile_out")
     args = parser.parse_args()
     card = cs.phase_device()
@@ -222,6 +262,8 @@ def main() -> int:
         profile_retrieval(card, say)
     elif args.path == "serving":
         profile_serving(card, say)
+    elif args.path == "retro":
+        profile_retro(card, say)
     else:
         profile_train(card, say)
     out = Path(args.out)
@@ -268,13 +310,13 @@ def profile_train(card: str, say) -> None:
 
 
 def report(prof, what: str, plain_ms: float, wall_ms: float, where: str,
-           say, top: int = 20) -> None:
+           say, top: int = 20, kinds=KINDS) -> None:
     """The tables of one profiled call: host clock, the card's busy share,
     device time by kind of kernel and by kernel."""
     by_kind, by_kernel, intervals = defaultdict(float), defaultdict(float), []
     calls = defaultdict(int)
     for name, start, end in cs.device_events(prof):
-        by_kind[kind_of(name)] += end - start
+        by_kind[kind_of(name, kinds)] += end - start
         by_kernel[name] += end - start
         calls[name] += 1
         intervals.append((start, end))
@@ -343,6 +385,51 @@ def profile_serving(card: str, say) -> None:
            plain_ms, wall_ms, where, say, top=12)
     plain_ms, wall_ms, prof = profile_call(encode)
     report(prof, "the encoder alone", plain_ms, wall_ms, where, say, top=8)
+
+
+
+def profile_retro(card: str, say) -> None:
+    """One serving batch of the template-free retro recipe (chip_smoke.py's
+    retro_tf phase: 32 test products of the template fixture, bf16
+    weights, beam 20 over 160 positions): device time by kind of kernel and
+    by operator, the idle share, the launches of the port's kernels."""
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = Path(tmp) / "vocab.txt"
+        cs.write_text_vocab(vocab)
+        data = Path(tmp) / "template_data"
+        cs.write_template_fixture(data)
+        cfg = cs.retro_config(data, vocab, param_dtype="bfloat16")
+        enc_tok, dec_tok = get_tokenizers(cfg)
+        module, _, _ = build_model(cfg, enc_tok, dec_tok,
+                                   torch.Generator().manual_seed(0))
+        batch = cs.retro_batch(cfg, enc_tok, dec_tok, "test", cs.B).arrays
+    gen = Generator(module, num_beams=cs.RETRO_BEAMS,
+                    max_length=cs.RETRO_DEC_LEN)
+    gen.generate(batch)
+    cs.reset_counts()
+    gen.generate(batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cs.read_counts().items() if v}
+    where = (f"B={cs.B} L={cs.L} beam {cs.RETRO_BEAMS} dec "
+             f"{cs.RETRO_DEC_LEN} ({gen.last_steps} decode steps of "
+             f"{cs.B * cs.RETRO_BEAMS} rows), bf16 weights, on {card}")
+    plain_ms, wall_ms, prof = profile_call(lambda: gen.generate(batch))
+    report(prof, f"one retro serving batch ({gen.last_steps} decode steps)",
+           plain_ms, wall_ms, where, say, top=15, kinds=RETRO_KINDS)
+    say(f"[profile] the port's kernels launched by one batch: {launches}")
+    device_us = sum(end - start for _, start, end in cs.device_events(prof))
+    ops = {e.key: e for e in prof.key_averages()}
+    say("[profile] device time by operator (with the kernels it launched "
+        "where marked 'incl.'):")
+    for name, what, inclusive in RETRO_OPS:
+        if name not in ops:
+            say(f"  {name}: not in the trace")
+            continue
+        e = ops[name]
+        us = e.device_time_total if inclusive else e.self_device_time_total
+        say(f"  {us / 1e3:9.2f} ms {us / max(device_us, 1e-9):6.1%} "
+            f"{e.count:7d} calls  {name} {'incl. ' if inclusive else ''}"
+            f"{what}")
 
 
 if __name__ == "__main__":

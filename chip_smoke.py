@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's RCR serving, training, retrieval, causal-decoder
-and command-line paths, its template-based retrosynthesis path and its
-offline curation, once on one CUDA GPU.
+and command-line paths, its template-based and template-free
+retrosynthesis paths and its offline curation, once on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -122,6 +122,24 @@ Phases, each fatal on failure:
    against plain functions in f32 with and without the bond mask; then
    `python -m textreact_tpu_torch --task retro --template_based
    --unattend_nonbonds` in-process (train, validate, test with the decode);
+12b. template-free retrosynthesis (scripts/torch_port/train_RetroSyn_tf.sh:
+   the same encoder over the text tokenizer, bert_l6 over the SMILES
+   vocabulary at 160 decoder positions, MLM; with --shuffle_smiles) on phase
+   12's products: three optimizer steps of 4 x 32 with the decoder at 160
+   (a falling loss, changed parameters, 48 + 48 attention and 168 + 168
+   residual-LN launches a step: 96 at 16384 rows and 72 at 5120), the f32
+   loss and gradients against the plain functions; one test batch of 32
+   through Generator.generate at beam 20 over 160 with bf16 weights (640
+   decode rows; shapes, finite non-increasing scores, 12 attention and
+   24 + 18 x steps LN launches, no backward; ms a batch, the encoder's and
+   a decode step's, peak memory); the same batch generated in f32 with the
+   kernels and its 640 sequences rescored by the teacher-forced decoder
+   with the plain functions, each within a stated tolerance of its beam
+   score (the 160-slot cache and its reorder); the host's retro scoring of
+   5,000 x 20 beams with the trainer's workers, a gold planted at rank 3
+   read back as rank 3; then scripts/torch_port/parity_run.py --recipe
+   RetroSyn_tf in-process (its three searches, one epoch, validate, test
+   at beam 20 over 160; launches exact, each leg timed);
 13. the offline curation, raw rows to training: 1,000 raw condition rows
    (the schema parse_cml_reactions emits, with canonical_rxn) over 256
    reactions, skewed condition combos with empty slots and ionic reagents,
@@ -183,7 +201,7 @@ process: bench on the USPTO-condition-scale corpus (BENCH_N=700000) and
 bench_train --soak 6 (an eval every 120 s, a checkpoint at 300 s).
 
 Prints JSON lines of the runtime's, the pretrained start's, the template
-path's, the curation's, the tools' and the parallel legs' numbers and of
+path's, the template-free retro path's, the curation's, the tools' and the parallel legs' numbers and of
 per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -252,6 +270,11 @@ from textreact_tpu_torch.utils.table import Table, read_csv
 # B*DEC_LEN in the teacher-forced decoder
 B, L, HEADS, HEAD_DIM, HIDDEN, BEAMS, DEC_LEN = 32, 512, 12, 64, 768, 15, 16
 MICRO_BATCHES, TRAIN_STEPS, DROPOUT_P = 4, 3, 0.1
+# the template-free retro recipe (scripts/torch_port/train_RetroSyn_tf.sh):
+# the bert_l6 decoder over the SMILES vocabulary (591 tokens, a table of
+# 600) at 160 positions, beam 20: LN rows B*160 in training, B*20 = 640 a
+# decode step
+RETRO_DEC_LEN, RETRO_BEAMS = 160, 20
 BF16_ULP = 2.0 ** -7  # relative spacing of bf16 just above a power of two
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bounds
@@ -1289,7 +1312,8 @@ def layernorm_inputs(gen, rows: int, hidden: int, dtype):
 
 
 def kernels_layernorm(results: dict, hidden: int = HIDDEN,
-                      row_counts=(B * L, B * DEC_LEN, B * BEAMS),
+                      row_counts=(B * L, B * DEC_LEN, B * BEAMS,
+                                  B * RETRO_DEC_LEN, B * RETRO_BEAMS),
                       suffix: str = "") -> None:
     """The residual-LN kernels at `hidden` and each row count, f32 and
     bf16, p = 0 and 0.1, then timed in bf16; results under
@@ -1346,6 +1370,13 @@ def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs, line,
                                                  w.to(x.dtype),
                                                  b.to(x.dtype), eps))
         lib_bwd = time_ms(library_layernorm_backward(x, y, g, w, b, eps))
+        # PyTorch's streaming rate over the kernels' bytes: torch.add reads
+        # two rows and writes one (the forward's), torch.mul then reads and
+        # writes one more (the backward's five)
+        o1, o2 = torch.empty_like(x), torch.empty_like(x)
+        add_ms = time_ms(lambda: torch.add(x, y, out=o1))
+        add_mul_ms = time_ms(lambda: (torch.add(x, y, out=o1),
+                                      torch.mul(g, 2.0, out=o2)))
         seed = _build.draw_seed(gen, x.device)
         kernel_ms = time_ms(
             lambda: fused_layernorm._FusedResidualLayerNorm.apply(
@@ -1376,12 +1407,14 @@ def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs, line,
         f"{fwd_bytes / 1e6:.2f} MB); p=0 without statistics: kernel "
         f"{ms_p0:.4f} ms ({p0b / ms_p0:.1%} of its bound {p0b:.4f} ms), "
         f"plain {plain_p0:.4f} ms; for information, F.layer_norm(x + y), "
-        f"two calls with a two-pass variance: {two_calls:.4f} ms")
+        f"two calls with a two-pass variance: {two_calls:.4f} ms, and "
+        f"torch.add over the forward's bytes {add_ms:.4f} ms")
     log(f"  layernorm R={rows} H={hidden} bf16 backward p={p}: kernel "
         f"{bwd_ms:.4f} ms ({bb / bwd_ms:.1%} of the bound), plain autograd "
         f"backward {plain_bwd:.4f} ms (forward + backward "
         f"{plain_fwd + plain_bwd:.4f} ms), aten.native_layer_norm_backward "
-        f"at p=0 {lib_bwd:.4f} ms, bound {bb:.4f} ms ({bby}: "
+        f"at p=0 {lib_bwd:.4f} ms, torch.add + torch.mul over its bytes "
+        f"{add_mul_ms:.4f} ms, bound {bb:.4f} ms ({bby}: "
         f"{bwd_bytes / 1e6:.2f} MB)")
     fwd_name, bwd_name = ("fused_layernorm_fwd" + suffix,
                           "fused_layernorm_bwd" + suffix)
@@ -1390,20 +1423,21 @@ def time_layernorm(results, rows, x, y, g, w, b, gen, eps, errs, line,
             max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd,
             bound_ms=fb, bound_by=fby, library_ms=None, kernel_ms=kernel_ms,
             share_of_bound=fb / kernel_ms, ms_p0=ms_p0, plain_ms_p0=plain_p0,
-            bound_ms_p0=p0b)
+            bound_ms_p0=p0b, add_ms=add_ms)
         results[bwd_name] = dict(
             max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd,
             bound_ms=bb, bound_by=bby, library_ms=lib_bwd,
             share_of_bound=bb / bwd_ms,
-            plain_fwd_bwd_ms=plain_fwd + plain_bwd)
+            plain_fwd_bwd_ms=plain_fwd + plain_bwd, add_mul_ms=add_mul_ms)
     else:
         results[fwd_name].update({
             f"ms_rows_{rows}": fwd_ms, f"kernel_ms_rows_{rows}": kernel_ms,
             f"bound_ms_rows_{rows}": fb, f"ms_p0_rows_{rows}": ms_p0,
-            f"bound_ms_p0_rows_{rows}": p0b})
+            f"bound_ms_p0_rows_{rows}": p0b, f"add_ms_rows_{rows}": add_ms})
         results[bwd_name].update({
             f"ms_rows_{rows}": bwd_ms, f"bound_ms_rows_{rows}": bb,
-            f"library_ms_rows_{rows}": lib_bwd})
+            f"library_ms_rows_{rows}": lib_bwd,
+            f"add_mul_ms_rows_{rows}": add_mul_ms})
 
 
 def kernels_layernorm_wide(results: dict) -> None:
@@ -3879,6 +3913,528 @@ def check_template_run(card: str, save: Path, sizes: dict, accuracies,
                 * 1e3, cli_test_seconds=tests_s, launches=counts)
 
 
+# --- 12b. template-free retrosynthesis --------------------------------------
+
+# the f32 cache check: a beam's score (its log-probabilities added one step
+# at a time in f32) against the same tokens' log-probabilities from the
+# teacher-forced decoder, summed in f64. A log-probability is log-softmax of
+# f32 logits that the two sides compute in other orders (one row a step over
+# the cache against the whole sequence at once; in the encoder the kernels
+# against the plain functions, 7e-6 apart in its states, PERF.md): logits a
+# few ulps of their size apart, ~1e-6 here, and log-softmax moves by at most
+# twice the largest logit difference. RESCORE_TOKEN_BOUND allows 50 times
+# that a token. The beam's running sum rounds once a step, by at most half
+# an ulp of the sum: 2^-24 |score| a token. A row attending over another
+# beam's history moves its log-probabilities by orders of magnitude more
+RESCORE_TOKEN_BOUND = 1e-4
+# host retro scoring: examples of RETRO_BEAMS beams, the gold planted at
+# this rank (1-based), as the trainer scores a test pass
+SCORING_EXAMPLES, SCORING_RANK = 5000, 3
+
+
+def retro_config(data: Path, vocab: Path, **kw) -> ExperimentConfig:
+    """scripts/torch_port/train_RetroSyn_tf.sh on the CSVs in `data`:
+    SciBERT-base encoder over the text tokenizer (the recipe sets none),
+    bert_l6 decoder over the SMILES vocabulary at 160 positions, 3
+    neighbours with the gold one and a random share of 0.2, MLM (mlp,
+    ratio 0.15, lambda 0.1), lr 1e-4, warmup 0.02, global batch 128 (4 x
+    32), test batches of 32, beam 20, bf16 compute; clip 5, AdamW, cosine
+    (the defaults); and parity_run.py's --shuffle_smiles, which the
+    script leaves out, so that the loader's random SMILES run too."""
+    cfg = ExperimentConfig(
+        task="retro", encoder="scibert_base", decoder="bert_l6",
+        text_vocab_file=str(vocab), data_path=str(data),
+        train_file="train.csv", valid_file="val.csv", test_file="test.csv",
+        corpus_file=str(data / "corpus.csv"), nn_path=str(data),
+        train_nn_file="train_nn.json", valid_nn_file="val_nn.json",
+        test_nn_file="test_nn.json", num_neighbors=3,
+        use_gold_neighbor=True, random_neighbor_ratio=0.2, max_length=L,
+        max_dec_length=RETRO_DEC_LEN, shuffle_smiles=True, mlm=True,
+        mlm_ratio=0.15, mlm_layer="mlp", mlm_lambda=0.1, lr=1e-4,
+        warmup_ratio=0.02, batch_size=B * MICRO_BATCHES, test_batch_size=B,
+        num_beams=RETRO_BEAMS, compute_dtype="bfloat16",
+        attention_impl="flash", layernorm_impl="fused")
+    return dataclasses.replace(cfg, **kw)
+
+
+def retro_batch(cfg, enc_tok, dec_tok, split: str, n: int):
+    """n examples of `split` as the loader builds them (a training split
+    augmented: shuffled product SMILES, span MLM), collated at L and, with
+    decoder inputs, at 160 decoder positions."""
+    data = Path(cfg.data_path)
+    ds = RetrosynthesisDataset(cfg, str(data / f"{split}.csv"), enc_tok,
+                               dec_tok, split=split)
+    ds.load_corpus(read_corpus(cfg.corpus_file),
+                   str(data / f"{split}_nn.json"))
+    examples = [ds.example(i % len(ds), example_rng(cfg.seed, 0, i))
+                for i in range(n)]
+    collate = Collator(cfg, enc_tok.pad_token_id, dec_tok.pad_token_id)
+    return collate(examples, fixed_enc_len=L, fixed_dec_len=RETRO_DEC_LEN)
+
+
+@torch.inference_mode()
+def teacher_forced_scores(module, batch: dict, seqs: np.ndarray, steps: int,
+                          eos_id: int, examples_a_chunk: int = 8):
+    """(scores (B, K) in f64, tokens scored (B, K)): each sequence's
+    log-probability by the teacher-forced decoder
+    (`EncoderDecoder.decode_logits` over BOS and the generated tokens,
+    log-softmax in f32), summed over the tokens that beam search scored:
+    positions 1 up to the first EOS, or up to `steps` without one."""
+    dev = module.decoder.word_embedding.device
+    ids = torch.as_tensor(np.asarray(batch["input_ids"]), dtype=torch.long,
+                          device=dev)
+    mask = torch.as_tensor(np.asarray(batch["attention_mask"]),
+                           dtype=torch.int32, device=dev)
+    tokens = torch.as_tensor(seqs, dtype=torch.long, device=dev)
+    n_ex, beams, length = tokens.shape
+    pos = torch.arange(length, device=dev)
+    first_eos = torch.where(tokens == eos_id, pos, length).amin(-1)
+    last = torch.clamp(first_eos, max=steps)
+    scored = (pos >= 1) & (pos <= last[..., None])          # (B, K, T)
+    enc = module.encode(ids, mask)
+    out = torch.zeros(n_ex, beams, dtype=torch.float64, device=dev)
+    for b0 in range(0, n_ex, examples_a_chunk):
+        b1 = min(n_ex, b0 + examples_a_chunk)
+        rows = tokens[b0:b1].reshape(-1, length)
+        logits = module.decode_logits(
+            rows[:, :-1], enc[b0:b1].repeat_interleave(beams, 0),
+            mask[b0:b1].repeat_interleave(beams, 0))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        picked = logp.gather(-1, rows[:, 1:, None])[..., 0].double()
+        keep = scored[b0:b1].reshape(-1, length)[:, 1:]
+        out[b0:b1] = torch.where(keep, picked, 0.0).sum(-1).view(b1 - b0,
+                                                                 beams)
+    return out.cpu().numpy(), scored.sum(-1).cpu().numpy()
+
+
+def rescore_tolerance(n_tokens: np.ndarray, scores: np.ndarray) -> np.ndarray:
+    """RESCORE_TOKEN_BOUND and the beam's f32 running sum, a token each."""
+    return n_tokens * (RESCORE_TOKEN_BOUND + 2.0 ** -24 * np.abs(scores))
+
+
+def check_beams(what: str, seqs: np.ndarray, scores: np.ndarray,
+                steps: int) -> None:
+    """Shapes (B, 20, 160) and (B, 20), finite scores that do not increase
+    across beams, and 1 to 159 decode steps (159: no early stop, the worst
+    case that untrained weights gave the JAX package)."""
+    if seqs.shape != (B, RETRO_BEAMS, RETRO_DEC_LEN) or scores.shape != (
+            B, RETRO_BEAMS):
+        raise AssertionError(f"{what}: shapes {seqs.shape} {scores.shape}")
+    if not np.isfinite(scores).all() or not (np.diff(scores, axis=1)
+                                             <= 0).all():
+        raise AssertionError(f"{what}: scores not finite or increasing")
+    if not 1 <= steps <= RETRO_DEC_LEN - 1:
+        raise AssertionError(f"{what}: {steps} decode steps")
+
+
+def serving_launches(enc_layers: int, dec_layers: int, steps: int) -> dict:
+    """A generate call's launches: the encoder's attention and two LNs a
+    layer, then three LNs a decoder layer each decode step."""
+    return dict(fused_attention_fwd=enc_layers,
+                fused_layernorm_fwd=2 * enc_layers + 3 * dec_layers * steps)
+
+
+def retro_train(card: str, cfg, enc_tok, dec_tok, results: dict):
+    """Three optimizer steps of 4 x 32 at L=512 with the decoder at 160:
+    finite metrics, a falling loss, changed parameters and the exact
+    launches. Returns the micro-batches and the step's numbers."""
+    t0 = time.perf_counter()
+    module, enc_cfg, dec_cfg = build_model(cfg, enc_tok, dec_tok,
+                                           torch.Generator().manual_seed(0))
+    if dec_cfg.vocab_size != max(PRESETS["bert_l6"].vocab_size,
+                                 len(dec_tok)) or (
+            dec_cfg.max_position_embeddings < RETRO_DEC_LEN):
+        raise AssertionError(f"decoder vocab {len(dec_tok)} in a table of "
+                             f"{dec_cfg.vocab_size}, positions "
+                             f"{dec_cfg.max_position_embeddings}")
+    log(f"[retro_tf] model built in {time.perf_counter() - t0:.1f} s: "
+        f"{describe(module, enc_cfg, dec_cfg)} (SMILES vocabulary "
+        f"{len(dec_tok)}), {dec_cfg.max_position_embeddings} decoder "
+        f"positions, compute {cfg.compute_dtype}, dropout "
+        f"{enc_cfg.hidden_dropout_prob}/{enc_cfg.attention_probs_dropout_prob}")
+    batch = retro_batch(cfg, enc_tok, dec_tok, "train", cfg.batch_size)
+    micro = as_microbatches(batch, MICRO_BATCHES)
+    if micro["input_ids"].shape != (MICRO_BATCHES, B, L) or micro[
+            "decoder_input_ids"].shape != (MICRO_BATCHES, B, RETRO_DEC_LEN):
+        raise AssertionError(f"micro-batches {micro['input_ids'].shape} "
+                             f"{micro['decoder_input_ids'].shape}")
+    dec_tokens = batch.arrays["decoder_attention_mask"].sum(1)
+    log(f"[retro_tf] {cfg.batch_size} examples as {MICRO_BATCHES} x {B}: "
+        f"encoder tokens {int(batch.arrays['attention_mask'].sum(1).min())}"
+        f"-{int(batch.arrays['attention_mask'].sum(1).max())}, decoder "
+        f"tokens {int(dec_tokens.min())}-{int(dec_tokens.max())}; "
+        + ", ".join(f"{k} {v.shape[1:]}" for k, v in micro.items()))
+    optimizer = make_optimizer(cfg, TRAIN_STEPS, module.named_parameters())
+    state = TrainState.create(module, optimizer)
+    train_step = make_accum_train_step(module, cfg, optimizer,
+                                       dec_tok.pad_token_id)
+    before = [p.detach().clone() for p in module.parameters()]
+    weights = np.ones(MICRO_BATCHES, np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, micro, weights, cfg.seed)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+        log(f"[retro_tf] step {state.step}: {history[-1]} "
+            f"{step_ms[-1]:.1f} ms")
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
+                              dec_cfg.num_hidden_layers)
+    # a micro-batch: attention in the encoder only (the decoder carries a
+    # bias), two LNs an encoder layer at B * L = 16384 rows and three a
+    # decoder layer at B * 160 = 5120 rows
+    per_step = {"fused_attention_fwd": enc_layers * MICRO_BATCHES,
+                "fused_attention_bwd": enc_layers * MICRO_BATCHES,
+                "fused_layernorm_fwd": (2 * enc_layers + 3 * dec_layers)
+                * MICRO_BATCHES,
+                "fused_layernorm_bwd": (2 * enc_layers + 3 * dec_layers)
+                * MICRO_BATCHES}
+    check_launches(f"{TRAIN_STEPS} RetroSyn_tf steps", counts,
+                   {k: v * TRAIN_STEPS for k, v in per_step.items()})
+    for name, n in per_step.items():
+        results[name]["launches_retro_tf_step"] = n
+    if not all(np.isfinite(v) for h in history for v in h.values()) or not \
+            all(h["grad_norm"] > 0.0 for h in history):
+        raise AssertionError(f"non-finite metric or zero norm: {history}")
+    if not history[-1]["train_loss"] < history[0]["train_loss"]:
+        raise AssertionError(f"the loss did not fall: {history}")
+    changed = sum(int(not torch.equal(a, b))
+                  for a, b in zip(before, module.parameters()))
+    if changed != len(before):
+        raise AssertionError(f"only {changed} of {len(before)} parameter "
+                             f"tensors changed")
+    med = statistics.median(step_ms[1:])
+    log(f"[retro_tf] {med:.1f} ms per optimizer step (host clock, median of "
+        f"steps 2-{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms) = "
+        f"{cfg.batch_size / med * 1e3:.1f} examples/s for {MICRO_BATCHES} x "
+        f"{B} examples at L={L}, decoder at {RETRO_DEC_LEN}, bf16 compute, "
+        f"f32 parameters, dropout {DROPOUT_P}, MLM; launches a step "
+        f"{per_step} (LN: {2 * enc_layers * MICRO_BATCHES} at {B * L} rows "
+        f"+ {3 * dec_layers * MICRO_BATCHES} at {B * RETRO_DEC_LEN}); peak "
+        f"device memory {peak_gb:.1f} GB; on {card}")
+    return micro, dict(step_ms=med, first_step_ms=step_ms[0],
+                       examples_per_s=cfg.batch_size / med * 1e3,
+                       peak_gb=peak_gb,
+                       losses=[h["train_loss"] for h in history],
+                       launches_a_step=per_step)
+
+
+def retro_serving(card: str, cfg, enc_tok, dec_tok, batch, results: dict):
+    """One test batch of 32 through Generator.generate at beam 20 over 160
+    positions with bf16 weights: the beams' checks, exact launches, ms a
+    batch, the encoder's and a decode step's, peak memory. Returns the
+    numbers and the decoded predictions."""
+    module, enc_cfg, dec_cfg = build_model(
+        dataclasses.replace(cfg, param_dtype="bfloat16"), enc_tok, dec_tok,
+        torch.Generator().manual_seed(0))
+    gen = Generator(module, num_beams=RETRO_BEAMS, max_length=RETRO_DEC_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.max_memory_allocated() / 1e9
+    reset_counts()
+    seqs, scores = gen.generate(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = gen.last_steps
+    check_beams("retro serving", seqs, scores, steps)
+    want = serving_launches(enc_cfg.num_hidden_layers,
+                            dec_cfg.num_hidden_layers, steps)
+    check_launches("the retro serving batch", counts, want)
+    for name, n in want.items():
+        results[name]["launches_retro_serving"] = n
+    preds = predictions_from_beams(seqs, scores, batch["indices"],
+                                   batch["example_mask"], dec_tok)
+    if len(preds) != B or any(len(p["prediction"]) != RETRO_BEAMS
+                              for p in preds.values()):
+        raise AssertionError("predictions_from_beams lost requests")
+    dev = module.decoder.word_embedding.device
+    ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev)
+    mask = torch.as_tensor(batch["attention_mask"], device=dev)
+    batch_ms = wall_ms(lambda: gen.generate(batch))
+    with torch.inference_mode():
+        enc_ms = wall_ms(lambda: module.encode(ids, mask))
+    step_ms = (batch_ms - enc_ms) / steps
+    lens = batch["attention_mask"].sum(1)
+    log(f"[retro_tf] serving: {batch_ms:.1f} ms a batch (host clock, median "
+        f"of 5) for B={B} (encoder tokens {lens.min()}-{lens.max()}) L={L} "
+        f"beam {RETRO_BEAMS} dec {RETRO_DEC_LEN}, {steps} decode steps of "
+        f"{B * RETRO_BEAMS} rows, bf16 weights; the encoder alone "
+        f"{enc_ms:.1f} ms, {step_ms:.2f} ms a decode step (cache set-up "
+        f"included); peak device memory {peak_gb:.2f} GB ({base_gb:.2f} GB "
+        f"of it the weights before the call); launches {want}; request 0's "
+        f"best beam {preds[0]['prediction'][0][:60]!r} score "
+        f"{preds[0]['score'][0]:.3f}; on {card}")
+    return dict(batch_ms=batch_ms, encoder_ms=enc_ms, decode_step_ms=step_ms,
+                steps=steps, peak_gb=peak_gb, weights_gb=base_gb,
+                launches=want), preds
+
+
+def retro_cache_check(cfg, enc_tok, dec_tok, batch) -> dict:
+    """The batch generated in f32 with the kernels on, then its 640 final
+    sequences rescored by the teacher-forced decoder with the kernels off:
+    each sum within rescore_tolerance of its beam score. This holds the
+    160-slot cache, its reorder at 640 rows and the kernels together."""
+    module, enc_cfg, dec_cfg = build_model(
+        dataclasses.replace(cfg, compute_dtype="float32",
+                            param_dtype="float32"),
+        enc_tok, dec_tok, torch.Generator().manual_seed(0))
+    gen = Generator(module, num_beams=RETRO_BEAMS, max_length=RETRO_DEC_LEN)
+    reset_counts()
+    seqs, scores = gen.generate(batch)
+    torch.cuda.synchronize()
+    steps = gen.last_steps
+    check_beams("retro f32 generate", seqs, scores, steps)
+    check_launches("the f32 generate", read_counts(), serving_launches(
+        enc_cfg.num_hidden_layers, dec_cfg.num_hidden_layers, steps))
+    set_kernels(module, False)
+    before = read_counts()
+    t0 = time.perf_counter()
+    rescored, n_tokens = teacher_forced_scores(module, batch, seqs, steps,
+                                               dec_cfg.eos_token_id)
+    rescore_s = time.perf_counter() - t0
+    if read_counts() != before:
+        raise AssertionError("the plain rescoring launched a kernel")
+    diff = np.abs(rescored - scores.astype(np.float64))
+    tol = rescore_tolerance(n_tokens, scores)
+    worst = float((diff / tol).max())
+    log(f"[retro_tf] cache against teacher forcing, f32: {seqs.shape[0]} x "
+        f"{RETRO_BEAMS} sequences of {int(n_tokens.min())}-"
+        f"{int(n_tokens.max())} scored tokens ({int((n_tokens < steps).sum())}"
+        f" ended by EOS), beam scores {float(scores.min()):.2f} to "
+        f"{float(scores.max()):.2f}; max |beam - rescored| "
+        f"{float(diff.max()):.3e}, max |diff| / tolerance {worst:.3f} "
+        f"(bound 1; tolerance {RESCORE_TOKEN_BOUND:g} + 2^-24 |score| a "
+        f"token, up to {float(tol.max()):.3e}); rescoring {rescore_s:.1f} s")
+    if not worst <= 1.0:
+        raise AssertionError("cached beam scores depart from teacher-forced "
+                             "rescoring")
+    return dict(max_abs_diff=float(diff.max()), max_over_tolerance=worst,
+                max_tolerance=float(tol.max()), steps=steps)
+
+
+def scoring_predictions(beam_lists: list, golds: list, rng) -> dict:
+    """SCORING_EXAMPLES examples: example i takes beam list i and gold i
+    (both cycled; the two lists are as long), the gold written another way (the molecules in reverse order,
+    each from a random atom order), planted at SCORING_RANK."""
+    from textreact_tpu_torch.chem import random_smiles
+    prediction = {}
+    for i in range(SCORING_EXAMPLES):
+        beams = list(beam_lists[i % len(beam_lists)])
+        gold = golds[i % len(golds)]
+        beams[SCORING_RANK - 1] = ".".join(
+            random_smiles(s, rng)[0] for s in reversed(gold.split(".")))
+        prediction[i] = {"prediction": beams, "score": [0.0] * len(beams)}
+    return prediction
+
+
+def time_retro_scoring(card: str, preds: dict, data: Path) -> dict:
+    """evaluate_retrosynthesis with the trainer's worker count on
+    SCORING_EXAMPLES x 20 predictions: the serving batch's beams with the
+    test split's gold reactants planted at SCORING_RANK, which must read
+    back as that rank through the C++ canonicaliser; then the same with
+    every beam a real molecule (other reactant sets written from random
+    atom orders), as a trained model's beams are."""
+    import random
+    from textreact_tpu_torch.chem import random_smiles
+    from textreact_tpu_torch.evaluation import evaluate_retrosynthesis
+    from textreact_tpu_torch.evaluation.retro import TOP_KS
+    rng = random.Random(0)
+    golds = list(read_csv(str(data / "test.csv"))["reactant_smiles"])
+    table = Table({"reactant_smiles": [golds[i % len(golds)]
+                                       for i in range(SCORING_EXAMPLES)]})
+    workers = min(16, os.cpu_count() or 1)   # as train/trainer.py::test
+    want = {k: float(k >= SCORING_RANK) for k in TOP_KS}
+    phase_beams = [preds[i]["prediction"] for i in sorted(preds)]
+    parsed = sum(native_chem.native_canonical_smiles(s, fallback="") != ""
+                 for beams in phase_beams for s in beams)
+    # reactant sets of the other rows, none the gold (distinct golds apart)
+    others = sorted(set(golds))
+    real_beams = []
+    for i in range(len(golds)):
+        pool = [g for g in others if g != golds[i]]
+        real_beams.append([".".join(random_smiles(s, rng)[0]
+                                    for s in rng.choice(pool).split("."))
+                           for _ in range(RETRO_BEAMS)])
+    out = {}
+    for name, beam_lists in (("phase_beams", phase_beams),
+                             ("real_molecules", real_beams)):
+        prediction = scoring_predictions(beam_lists, golds, rng)
+        t0 = time.perf_counter()
+        accuracy = evaluate_retrosynthesis(prediction, table, RETRO_BEAMS,
+                                           num_workers=workers)
+        seconds = time.perf_counter() - t0
+        if accuracy != want:
+            raise AssertionError(f"scoring {name}: {accuracy}, the gold "
+                                 f"planted at rank {SCORING_RANK}: {want}")
+        out[name] = seconds
+    log(f"[retro_tf] host retro scoring, {SCORING_EXAMPLES} examples x "
+        f"{RETRO_BEAMS} beams, {workers} workers, the gold planted at rank "
+        f"{SCORING_RANK} read back as rank {SCORING_RANK} by the C++ "
+        f"canonicaliser: {out['phase_beams']:.2f} s with the serving batch's "
+        f"beams ({parsed} of {len(phase_beams) * RETRO_BEAMS} parse), "
+        f"{out['real_molecules']:.2f} s with every beam a real molecule; on "
+        f"the host of {card}")
+    return dict(seconds_phase_beams=out["phase_beams"],
+                seconds_real_molecules=out["real_molecules"],
+                workers=workers, phase_beams_parsed=parsed)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, seconds: list):
+    """Append the seconds of every call of module.name while the block
+    runs."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def recipe_run_launches(sizes: dict, steps: list) -> dict:
+    """The launches of one seq2seq recipe through parity_run.py on `sizes`
+    reactions (micro-batches of B): its retrieval's three searches, then an
+    epoch of training, fit's and --do_valid's validation and a test pass
+    on each of the two corpora, whose decode steps (`steps`, one entry a
+    test batch) set the decoder's LN launches."""
+    enc_layers = PRESETS["scibert_base"].num_hidden_layers
+    dec_layers = PRESETS["bert_l6"].num_hidden_layers
+    ln = 2 * enc_layers + 3 * dec_layers
+    mbs = -(-sizes["train"] // B)
+    evals = 2 * 2 * -(-sizes["val"] // B)
+    tests = 2 * -(-sizes["test"] // B)
+    if len(steps) != tests:
+        raise AssertionError(f"{len(steps)} test batches, expected {tests}")
+    return dict(exact_topk_corpus_split=3,
+                fused_attention_fwd=enc_layers * (mbs + evals + tests),
+                fused_attention_bwd=enc_layers * mbs,
+                fused_layernorm_fwd=ln * (mbs + evals) + 2 * enc_layers
+                * tests + 3 * dec_layers * sum(steps),
+                fused_layernorm_bwd=ln * mbs)
+
+
+def retro_recipe(card: str, tmp: Path, data: Path, vocab: Path,
+                 results: dict) -> dict:
+    """scripts/torch_port/parity_run.py --recipe RetroSyn_tf in-process on
+    the fixture's splits: it builds the neighbour files (three searches),
+    trains one epoch, validates and tests with beam 20 over 160; launches
+    exact, the test pass's LNs from its decode steps."""
+    parity_run = parity_run_module()
+    save, nn_dir = tmp / "retro_tf_run", tmp / "retro_tf_nn"
+    # the cut: one epoch; the SciBERT directory's place taken by the preset
+    # and the phase's vocab; the global batch of 128 as 4 x 32 and test
+    # batches of 32, as scripts/torch_port/train_RetroSyn_tf.sh has them
+    cut = ["--batch_size", str(B), "--gradient_accumulation_steps",
+           str(MICRO_BATCHES), "--test_batch_size", str(B), "--epochs", "1"]
+    override = ["--encoder", "scibert_base", "--decoder", "bert_l6",
+                "--text_vocab_file", str(vocab), *cut, "--log_every", "1",
+                "--debug"]
+    steps, legs = [], {"retrieval": [], "command": []}
+    reset_counts()
+    t0 = time.perf_counter()
+    with counted_decode_steps(steps), \
+            timed_calls(retrieval_cli, "main", legs["retrieval"]), \
+            timed_calls(runtime_cli, "main", legs["command"]):
+        parity_run.main([
+            "--recipe", "RetroSyn_tf", "--data_path", str(data),
+            "--corpus_file", str(data / "corpus.csv"),
+            "--nn_path", str(nn_dir), "--save_path", str(save),
+            "--override", " ".join(override)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    result = json.loads((save / "parity_results.json").read_text())
+    if (result["recipe"] != "RetroSyn_tf" or "--shuffle_smiles" not in
+            result["argv"] or "160" not in result["argv"]):
+        raise AssertionError(f"parity_results.json: {result}")
+    check_neighbour_files(data, nn_dir,
+                          parity_run.RECIPES["RetroSyn_tf"]["field"])
+    sizes = {s: len(read_csv(str(data / f"{s}.csv")))
+             for s in ("train", "val", "test")}
+    tests = 2 * -(-sizes["test"] // B)      # two corpora each
+    launches = recipe_run_launches(sizes, steps)
+    check_launches("the RetroSyn_tf run", counts, launches)
+    for name, n in launches.items():
+        results[name]["launches_retro_tf_run"] = n
+    accuracies = [{int(k): v for k, v in acc.items()}
+                  for acc in result["accuracy"]]
+    if len(accuracies) != 2 or any(
+            set(a) != {1, 2, 3, 5, 10, 20}
+            or not all(0.0 <= v <= 1.0 for v in a.values())
+            for a in accuracies):
+        raise AssertionError(f"retro top-k dicts: {accuracies}")
+    for li in (0, 1):
+        preds = json.loads((save / f"prediction_test_{li}.json").read_text())
+        if sorted(map(int, preds)) != list(range(sizes["test"])) or any(
+                len(p["prediction"]) != RETRO_BEAMS
+                or len(p["score"]) != RETRO_BEAMS for p in preds.values()):
+            raise AssertionError(f"prediction_test_{li}.json")
+    records = read_metrics(save)
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    if not losses or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"train_loss records: {losses}")
+    timing = [r for r in records if "epoch_seconds" in r][0]
+    test_s = sum(r["test_seconds"] for r in records if "test_seconds" in r)
+    legs = dict(retrieval=sum(legs["retrieval"]), command=sum(
+        legs["command"]), epoch=timing["epoch_seconds"], test=test_s)
+    log(f"[retro_tf] RetroSyn_tf through scripts/torch_port/parity_run.py "
+        f"in {seconds:.1f} s on {sizes} reactions (parity_run.py's flags, lr "
+        f"2e-4, --shuffle_smiles; {' '.join(cut)}): the "
+        f"retrieval CLI {legs['retrieval']:.1f} s (three searches), the "
+        f"command {legs['command']:.1f} s, of it the epoch "
+        f"{legs['epoch']:.1f} s ({timing['epoch_steps']:.0f} optimizer steps of "
+        f"{MICRO_BATCHES} x {B}, train_loss "
+        f"{', '.join(f'{v:.4f}' for v in losses)}) and the test passes "
+        f"{legs['test']:.1f} s ({sum(steps)} decode steps over {tests} "
+        f"batches of {B} at beam {RETRO_BEAMS}); retro top-k "
+        f"{accuracies[0]} / {accuracies[1]}; launches {launches}; on {card}")
+    return dict(seconds=seconds, legs=legs, decode_steps=sum(steps),
+                accuracy=accuracies, launches=launches)
+
+
+def phase_retro_tf(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
+    """Template-free retrosynthesis at full width and depth on the template
+    fixture's splits: three training steps, kernels against plain
+    functions, a serving batch, the f32 cache against teacher forcing, the
+    host's scoring, then the recipe through parity_run.py."""
+    data = tmp / "template_data"
+    if not data.exists():
+        write_template_fixture(data)
+    cfg = retro_config(data, vocab)
+    enc_tok, dec_tok = get_tokenizers(cfg)
+    out = {}
+    micro, out["train"] = retro_train(card, cfg, enc_tok, dec_tok, results)
+    torch.cuda.empty_cache()
+    phase_train_kernels_vs_plain(cfg, enc_tok, dec_tok, micro,
+                                 dec_tok.pad_token_id, tag="retro_tf")
+    del micro
+    torch.cuda.empty_cache()
+    batch = retro_batch(cfg, enc_tok, dec_tok, "test", B).arrays
+    out["serving"], preds = retro_serving(card, cfg, enc_tok, dec_tok, batch,
+                                          results)
+    torch.cuda.empty_cache()
+    out["cache"] = retro_cache_check(cfg, enc_tok, dec_tok, batch)
+    torch.cuda.empty_cache()
+    out["scoring"] = time_retro_scoring(card, preds, data)
+    out["recipe"] = retro_recipe(card, tmp, data, vocab, results)
+    return out
+
+
 # --- 13. curation: raw rows -> curated files -> neighbours -> training -----
 
 # raw condition rows and corpus paragraphs of the phase, from seed 0: 1,000
@@ -4326,28 +4882,17 @@ def phase_curation(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
         raise AssertionError(f"parity_results.json: {result}")
     check_neighbour_files(out, nn_dir, parity_run.RECIPES["RCR"]["field"])
     enc_layers = PRESETS["scibert_base"].num_hidden_layers
-    dec_layers = PRESETS["bert_l6"].num_hidden_layers
-    ln = 2 * enc_layers + 3 * dec_layers
     records = read_metrics(save)
     losses = [r["train_loss"] for r in records if "train_loss" in r]
     timing = [r for r in records if "epoch_seconds" in r][0]
     rcr_step_ms = timing["epoch_seconds"] / timing["epoch_steps"] * 1e3
     split_rows = rows["split_rows"]
     mbs = -(-split_rows["train"] // B)
-    evals = 2 * 2 * -(-split_rows["val"] // B)   # fit's and --do_valid's
     tests = 2 * -(-split_rows["test"] // B)      # two corpora each
     # the recipe's --shuffle_smiles reorders the SMILES of a reaction and
     # changes no shape: the counts are those of the run without it
-    check_launches("the RCR run", counts, dict(
-        exact_topk_corpus_split=3,    # parity_run's retrieval
-        fused_attention_fwd=enc_layers * (mbs + evals + tests),
-        fused_attention_bwd=enc_layers * mbs,
-        fused_layernorm_fwd=ln * (mbs + evals) + 2 * enc_layers * tests
-        + 3 * dec_layers * sum(steps),
-        fused_layernorm_bwd=ln * mbs))
-    if len(steps) != tests:
-        raise AssertionError(f"the RCR run: {len(steps)} test batches, "
-                             f"expected {tests}")
+    check_launches("the RCR run", counts,
+                   recipe_run_launches(split_rows, steps))
     launches = dict(counts)
     if not losses or not all(np.isfinite(v) for v in losses) or len(
             accuracies) != 2:
@@ -5008,6 +5553,9 @@ def main(argv: Optional[list] = None) -> int:
         phase_template(card, Path(tmp), vocab, results)
         torch.cuda.empty_cache()
         log(f"[time] template done at {time.perf_counter() - t_start:.0f} s")
+        retro_tf = phase_retro_tf(card, Path(tmp), vocab, results)
+        torch.cuda.empty_cache()
+        log(f"[time] retro_tf done at {time.perf_counter() - t_start:.0f} s")
         curation = phase_curation(card, Path(tmp), vocab, results)
         torch.cuda.empty_cache()
         log(f"[time] curation done at {time.perf_counter() - t_start:.0f} s")
@@ -5027,6 +5575,7 @@ def main(argv: Optional[list] = None) -> int:
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"pretrained": pretrained}))
     print(json.dumps({"template": template}))
+    print(json.dumps({"retro_tf": retro_tf}))
     print(json.dumps({"curation": curation}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"parallel": parallel}))
