@@ -19,16 +19,18 @@ steps, then records one step with torch.profiler and prints:
   (batched products and softmax), read from the operator table;
 - the twenty kernels with the most device time.
 `--path serving` builds chip_smoke.py's serving model and batch (bf16
-weights, 32 requests of L=512, beam 15, 16 decode positions), and records
-one Generator.generate and one encoder pass the same way.
-`--path retro` builds chip_smoke.py's retro_tf serving model and test
-batch (bf16 weights, 32 products of L=512, beam 20 over 160 positions,
-640 decode rows) and records one Generator.generate: the tables above by
-kinds that part the decode's row gathers (the cache reorder), softmax, the
-beam's sort, matrix products and elementwise copies, then device time by
-operator (the casts, among them the decode's f32 up-casts of the cached
-and cross K/V; index_select; softmax; the products; sort), and the port's
-kernel launches of one batch.
+weights, 32 requests of L=512, beam 15, 16 decode positions); `--path
+retro` chip_smoke.py's retro_tf serving model and test batch (bf16
+weights, 32 products of L=512, beam 20 over 160 positions, 640 decode
+rows). Each records one Generator.generate and one encoder pass the same
+way, and prints: the tables above by kinds that part softmax, the beam's
+sort, row gathers, matrix products and elementwise copies; device time by
+operator, with the decode's own parts named by this tool (the port
+carries no profiler annotations: `label_decode` wraps the ancestor bias,
+the grouped self-attention, the cross-attention and the decode's products
+in `record_function` ranges); the largest casts, copies and
+`index_select`s with their input shapes (none may be a cache's); the
+port's kernel launches of one batch and the launches of a decode step.
 `--path retrieval` makes chip_smoke.py's two retrieval shapes and records
 one FlatIndex.search of 8192 queries per shape and kernel layout: host
 clock from numpy in to numpy out, and device time of the scan kernel, the
@@ -80,14 +82,15 @@ KINDS = (
 )
 DECODER_ATTENTION_OPS = ("aten::bmm", "aten::_softmax",
                          "aten::_softmax_backward_data")
-# the retro decode's kernels by kind, first match wins: the row gathers
-# (the cache reorder's index_select, the beam's gathers), softmax and
-# log-softmax, the beam's sort, matrix products, and the elementwise copies
-# (casts and contiguous copies)
-RETRO_KINDS = (
+# a serving batch's kernels by kind, first match wins: the row gathers (the
+# beam's gathers, the embedding's lookup), softmax and log-softmax, the
+# beam's sort, matrix products, and the elementwise copies (casts and
+# contiguous copies)
+DECODE_KINDS = (
     ("residual_layernorm_fwd", "own: residual LayerNorm forward"),
     ("attention_fwd", "own: attention forward"),
-    ("gather_kernel", "row gathers (cache reorder, beam gathers)"),
+    ("gather_kernel", "row gathers (beam gathers)"),
+    ("indexSelect", "row gathers (embedding lookup)"),
     ("SoftMax", "softmax and log-softmax"),
     ("softmax", "softmax and log-softmax"),
     ("ort", "beam top-k (sort)"),
@@ -95,23 +98,86 @@ RETRO_KINDS = (
       if kind in ("matrix products", "copies")),
     ("copy", "elementwise copies (casts, contiguous copies)"),
 )
-# operators of the retro decode, device ms with their child kernels where
-# marked: the casts (the decode's f32 up-casts of the cached and cross K/V,
-# and the probabilities back to bf16), the contiguous copies (torch.matmul
-# copies the transposed f32 operands before its bmm), the decode's
-# products through torch.matmul with those copies, the cache reorder,
-# softmax, the matrix products (their own kernels), the beam's sort
-RETRO_OPS = (("aten::_to_copy", "dtype casts (.float(), .to())", True),
-             ("aten::clone", "contiguous copies", True),
-             ("aten::matmul", "the decode's f32 products with the operand "
-              "copies they make", True),
-             ("aten::index_select", "cache reorder", True),
-             ("aten::_softmax", "softmax", True),
-             ("aten::_log_softmax", "log-softmax", True),
-             ("aten::mm", "matrix products (mm)", False),
-             ("aten::addmm", "matrix products (addmm)", False),
-             ("aten::bmm", "matrix products (bmm)", False),
-             ("aten::sort", "beam top-k (sort)", True))
+# the decode's parts as label_decode names them: device ms of the kernels
+# that ran inside each range on the card's track
+DECODE_RANGES = (("beam::ancestor_bias", "the ancestry bias, built once a "
+                  "step"),
+                 ("decode::self_attention", "self-attention: cache write, "
+                  "products, scale and bias, softmax"),
+                 ("decode::cross_attention", "cross-attention over the "
+                  "example's encoder states"),
+                 ("decode::products", "the decode attention's products, "
+                  "bf16 operands read in place"))
+# operators of a serving batch, device ms with their child kernels where
+# marked: the casts, the contiguous copies, index_select, softmax, the
+# matrix products (their own kernels), the beam's sort
+DECODE_OPS = (("aten::_to_copy", "dtype casts (.float(), .to())", True),
+              ("aten::clone", "contiguous copies", True),
+              ("aten::index_select", "index_select", True),
+              ("aten::embedding", "embedding lookups", True),
+              ("aten::_softmax", "softmax", True),
+              ("aten::_log_softmax", "log-softmax", True),
+              ("aten::mm", "matrix products (mm)", False),
+              ("aten::addmm", "matrix products (addmm)", False),
+              ("aten::bmm", "matrix products (bmm)", False),
+              ("aten::sort", "beam top-k (sort)", True))
+# operators whose largest calls are listed with their input shapes
+COPY_OPS = ("aten::_to_copy", "aten::clone", "aten::contiguous",
+            "aten::index_select")
+
+
+def device_ms_in_ranges(prof, names) -> dict:
+    """{range name: (device ms of the kernels and copies inside the name's
+    ranges on the card's track, ranges)}. A range's own span on that track
+    runs from its first kernel to its last, the host's gaps between them
+    included, so the kernels inside it are summed instead."""
+    ranges = {name: [] for name in names}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.name in ranges):
+            ranges[ev.name].append((ev.time_range.start, ev.time_range.end))
+    kernels = sorted((start, end) for _, start, end in cs.device_events(prof))
+    out = {}
+    for name, spans in ranges.items():
+        us, i = 0.0, 0
+        for lo, hi in sorted(spans):
+            while i < len(kernels) and kernels[i][1] <= lo:
+                i += 1
+            j = i
+            while j < len(kernels) and kernels[j][0] < hi:
+                us += max(0.0, min(hi, kernels[j][1])
+                          - max(lo, kernels[j][0]))
+                j += 1
+        out[name] = (us / 1e3, len(spans))
+    return out
+
+
+def label_decode() -> None:
+    """Name the decode's parts in a trace: wrap the ancestor bias, the
+    self-attention, the cross-attention and the decode's products in
+    `record_function` ranges (DECODE_RANGES). A part that
+    the package does not have (a checkout from before the grouped cache,
+    profiled with this file to compare) is left out."""
+    from torch.profiler import record_function
+
+    from textreact_tpu_torch.inference import beam
+    from textreact_tpu_torch.models import layers
+
+    def labelled(fn, name):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    mha = layers.MultiHeadAttention
+    for owner, attr, name in (
+            (beam, "ancestor_bias", "beam::ancestor_bias"),
+            (layers, "_decode_bmm", "decode::products"),
+            (mha, "decode_self_grouped", "decode::self_attention"),
+            (mha, "decode_self", "decode::self_attention"),
+            (mha, "decode_cross", "decode::cross_attention")):
+        if hasattr(owner, attr):
+            setattr(owner, attr, labelled(getattr(owner, attr), name))
 
 
 def kind_of(name: str, kinds=KINDS) -> str:
@@ -310,9 +376,10 @@ def profile_train(card: str, say) -> None:
 
 
 def report(prof, what: str, plain_ms: float, wall_ms: float, where: str,
-           say, top: int = 20, kinds=KINDS) -> None:
+           say, top: int = 20, kinds=KINDS) -> tuple:
     """The tables of one profiled call: host clock, the card's busy share,
-    device time by kind of kernel and by kernel."""
+    device time by kind of kernel and by kernel. Returns (device us,
+    kernels and copies)."""
     by_kind, by_kernel, intervals = defaultdict(float), defaultdict(float), []
     calls = defaultdict(int)
     for name, start, end in cs.device_events(prof):
@@ -339,9 +406,10 @@ def report(prof, what: str, plain_ms: float, wall_ms: float, where: str,
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
         say(f"  {us / 1e3:9.2f} ms {us / device_us:6.1%} {calls[name]:6d} "
             f"calls  {name[:110]}")
+    return device_us, len(intervals)
 
 
-def profile_call(fn):
+def profile_call(fn, record_shapes: bool = False):
     """(median host ms of 3 calls, host ms under the profiler, profile)."""
     plain_ms = []
     for _ in range(3):
@@ -351,7 +419,7 @@ def profile_call(fn):
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=False) as prof:
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -360,6 +428,7 @@ def profile_call(fn):
 
 
 def profile_serving(card: str, say) -> None:
+    """One serving batch of the RCR recipe (chip_smoke.py's serving phase)."""
     with tempfile.TemporaryDirectory() as tmp:
         vocab = Path(tmp) / "vocab.txt"
         cs.write_text_vocab(vocab)
@@ -368,31 +437,14 @@ def profile_serving(card: str, say) -> None:
         module, _, _ = build_model(cfg, enc_tok, dec_tok,
                                    torch.Generator().manual_seed(0))
         batch = cs.make_requests(enc_tok, cs.B, cs.L)
-    gen = Generator(module, num_beams=cs.BEAMS, max_length=cs.DEC_LEN)
-    ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device="cuda")
-    mask = torch.as_tensor(batch["attention_mask"], device="cuda")
-    where = (f"B={cs.B} L={cs.L} beam {cs.BEAMS} dec {cs.DEC_LEN}, bf16 "
-             f"weights, on {card}")
-
-    def encode():
-        with torch.inference_mode():
-            module.encode(ids, mask)
-
-    for _ in range(2):
-        gen.generate(batch)
-    plain_ms, wall_ms, prof = profile_call(lambda: gen.generate(batch))
-    report(prof, f"one serving batch ({gen.last_steps} decode steps)",
-           plain_ms, wall_ms, where, say, top=12)
-    plain_ms, wall_ms, prof = profile_call(encode)
-    report(prof, "the encoder alone", plain_ms, wall_ms, where, say, top=8)
-
+    profile_generate(card, say, module, batch, "serving", cs.BEAMS,
+                     cs.DEC_LEN, top=12)
 
 
 def profile_retro(card: str, say) -> None:
     """One serving batch of the template-free retro recipe (chip_smoke.py's
     retro_tf phase: 32 test products of the template fixture, bf16
-    weights, beam 20 over 160 positions): device time by kind of kernel and
-    by operator, the idle share, the launches of the port's kernels."""
+    weights, beam 20 over 160 positions)."""
     with tempfile.TemporaryDirectory() as tmp:
         vocab = Path(tmp) / "vocab.txt"
         cs.write_text_vocab(vocab)
@@ -403,25 +455,53 @@ def profile_retro(card: str, say) -> None:
         module, _, _ = build_model(cfg, enc_tok, dec_tok,
                                    torch.Generator().manual_seed(0))
         batch = cs.retro_batch(cfg, enc_tok, dec_tok, "test", cs.B).arrays
-    gen = Generator(module, num_beams=cs.RETRO_BEAMS,
-                    max_length=cs.RETRO_DEC_LEN)
+    profile_generate(card, say, module, batch, "retro serving",
+                     cs.RETRO_BEAMS, cs.RETRO_DEC_LEN, top=15)
+
+
+def profile_generate(card: str, say, module, batch: dict, what: str,
+                     beams: int, dec_len: int, top: int) -> None:
+    """Device time of one Generator.generate by kind of kernel and by
+    operator, the idle share, the largest casts and copies with their
+    shapes, the port's kernel launches, and the launches of a decode step
+    (the batch's kernels less the encoder pass's, over the steps)."""
+    label_decode()
+    gen = Generator(module, num_beams=beams, max_length=dec_len)
+    try:
+        from textreact_tpu_torch.inference.beam import _plan_windows
+        windows = _plan_windows(dec_len, gen.attn_windows)
+    except ImportError:   # a checkout from before the windows
+        windows = "none: per-row cache, reordered"
+    dev = module.decoder.word_embedding.device
+    ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev)
+    mask = torch.as_tensor(batch["attention_mask"], device=dev)
     gen.generate(batch)
     cs.reset_counts()
     gen.generate(batch)
     torch.cuda.synchronize()
     launches = {k: v for k, v in cs.read_counts().items() if v}
-    where = (f"B={cs.B} L={cs.L} beam {cs.RETRO_BEAMS} dec "
-             f"{cs.RETRO_DEC_LEN} ({gen.last_steps} decode steps of "
-             f"{cs.B * cs.RETRO_BEAMS} rows), bf16 weights, on {card}")
-    plain_ms, wall_ms, prof = profile_call(lambda: gen.generate(batch))
-    report(prof, f"one retro serving batch ({gen.last_steps} decode steps)",
-           plain_ms, wall_ms, where, say, top=15, kinds=RETRO_KINDS)
+    steps = gen.last_steps
+    where = (f"B={cs.B} L={cs.L} beam {beams} dec {dec_len} ({steps} "
+             f"decode steps of {cs.B * beams} rows, windows {windows}), "
+             f"bf16 weights, on {card}")
+    plain_ms, wall_ms, prof = profile_call(lambda: gen.generate(batch),
+                                           record_shapes=True)
+    device_us, kernels = report(prof, f"one {what} batch ({steps} decode "
+                                f"steps)", plain_ms, wall_ms, where, say,
+                                top=top, kinds=DECODE_KINDS)
     say(f"[profile] the port's kernels launched by one batch: {launches}")
-    device_us = sum(end - start for _, start, end in cs.device_events(prof))
     ops = {e.key: e for e in prof.key_averages()}
+    say("[profile] device time by part of the decode (the kernels inside "
+        "its ranges):")
+    for name, (ms, n) in device_ms_in_ranges(
+            prof, [name for name, _ in DECODE_RANGES]).items():
+        label = dict(DECODE_RANGES)[name]
+        say(f"  {ms:9.2f} ms {ms * 1e3 / max(device_us, 1e-9):6.1%} {n:7d} "
+            f"ranges {name}: {label}" if n else f"  {name}: not in the "
+            f"trace")
     say("[profile] device time by operator (with the kernels it launched "
         "where marked 'incl.'):")
-    for name, what, inclusive in RETRO_OPS:
+    for name, label, inclusive in DECODE_OPS:
         if name not in ops:
             say(f"  {name}: not in the trace")
             continue
@@ -429,7 +509,25 @@ def profile_retro(card: str, say) -> None:
         us = e.device_time_total if inclusive else e.self_device_time_total
         say(f"  {us / 1e3:9.2f} ms {us / max(device_us, 1e-9):6.1%} "
             f"{e.count:7d} calls  {name} {'incl. ' if inclusive else ''}"
-            f"{what}")
+            f"{label}")
+    say("[profile] the largest casts, copies and index_selects by input "
+        "shape (device ms incl. their kernels):")
+    by_shape = [e for e in prof.key_averages(group_by_input_shape=True)
+                if e.key in COPY_OPS]
+    for e in sorted(by_shape, key=lambda e: -e.device_time_total)[:8]:
+        say(f"  {e.device_time_total / 1e3:9.2f} ms {e.count:7d} calls  "
+            f"{e.key} {e.input_shapes}")
+
+    def encode():
+        with torch.inference_mode():
+            module.encode(ids, mask)
+
+    plain_ms, wall_ms, prof = profile_call(encode)
+    _, enc_kernels = report(prof, "the encoder alone", plain_ms, wall_ms,
+                            where, say, top=8, kinds=DECODE_KINDS)
+    say(f"[profile] launches a decode step: ({kernels} - {enc_kernels} of "
+        f"the encoder) / {steps} steps = "
+        f"{(kernels - enc_kernels) / steps:.1f} kernels and copies")
 
 
 if __name__ == "__main__":

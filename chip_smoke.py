@@ -45,9 +45,11 @@ Phases, each fatal on failure:
 4. serving path: the RCR recipe's serving configuration at full width
    (SciBERT-base encoder, 12 x 768, L=512, bf16; bert_l6 decoder, beam 15,
    16 decode positions; batch 32) with random weights from a seeded
-   torch.Generator: tokenize 32 requests, Generator.generate,
-   predictions_from_beams; checks shapes, finite non-increasing scores, and
-   the forward kernels' launch counts; then the same batch's encoder states
+   torch.Generator: tokenize 32 requests, Generator.generate (the
+   row-stable grouped beam cache under the ancestry bias, one window of
+   16), predictions_from_beams; checks shapes, finite non-increasing
+   scores, and the forward kernels' launch counts; ms a batch and a step,
+   the card's busy ms, peak memory; then the same batch's encoder states
    with the kernels and with the plain functions, within a stated bound;
 5. training path: the RCR recipe's training step at full width and depth
    (f32 parameters, bf16 compute, MLM head, dropout 0.1, clip 5, AdamW,
@@ -131,11 +133,13 @@ Phases, each fatal on failure:
    loss and gradients against the plain functions; one test batch of 32
    through Generator.generate at beam 20 over 160 with bf16 weights (640
    decode rows; shapes, finite non-increasing scores, 12 attention and
-   24 + 18 x steps LN launches, no backward; ms a batch, the encoder's and
-   a decode step's, peak memory); the same batch generated in f32 with the
-   kernels and its 640 sequences rescored by the teacher-forced decoder
-   with the plain functions, each within a stated tolerance of its beam
-   score (the 160-slot cache and its reorder); the host's retro scoring of
+   24 + 18 x steps LN launches, no backward; the windows 48, 80, 160; ms
+   a batch, the encoder's and a decode step's, the card's busy ms, peak
+   memory); the same batch generated in f32 with the kernels and its 640
+   sequences rescored by the teacher-forced decoder with the plain
+   functions, each within a stated tolerance of its beam score (the
+   160-slot grouped cache, its ancestor table and bias); the host's retro
+   scoring of
    5,000 x 20 beams with the trainer's workers, a gold planted at rank 3
    read back as rank 3; then scripts/torch_port/parity_run.py --recipe
    RetroSyn_tf in-process (its three searches, one epoch, validate, test
@@ -245,6 +249,7 @@ from textreact_tpu_torch.evaluation import (device_topk_edits,
 from textreact_tpu_torch.evaluation.template_decode import \
     decode_template_predictions
 from textreact_tpu_torch.inference import Generator, predictions_from_beams
+from textreact_tpu_torch.inference.beam import _plan_windows
 from textreact_tpu_torch.models import build_model
 from textreact_tpu_torch.models.config import PRESETS
 from textreact_tpu_torch.models.layers import (TransformerBlock, dropout,
@@ -1583,10 +1588,13 @@ def phase_serving(card: str, vocab: Path, results: dict) -> None:
         f"{lens.max()}")
     gen = Generator(module, num_beams=BEAMS, max_length=DEC_LEN)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     seqs, scores = gen.generate(batch)
     torch.cuda.synchronize()
     counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = gen.last_steps
     log(f"[serve] launches: {counts} over {steps} decode steps")
     enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
@@ -1621,12 +1629,18 @@ def phase_serving(card: str, vocab: Path, results: dict) -> None:
     batch_ms = wall_ms(lambda: gen.generate(batch))
     with torch.inference_mode():
         enc_ms = wall_ms(lambda: module.encode(ids, mask))
+    busy_ms, _ = device_busy_ms(
+        lambda: gen.generate(batch),
+        {"residual_layernorm_fwd": counts["fused_layernorm_fwd"]}, tries=2)
     log(f"[serve] {batch_ms:.1f} ms/batch (host clock, median of 5) for "
-        f"B={B} L={L} beam {BEAMS} dec {DEC_LEN}, {gen.last_steps} decode "
+        f"B={B} L={L} beam {BEAMS} dec {DEC_LEN}, windows "
+        f"{_plan_windows(DEC_LEN, gen.attn_windows)}, {steps} decode "
         f"steps, on {card}; the encoder alone {enc_ms:.1f} ms, cache set-up "
-        f"and beam search the other {batch_ms - enc_ms:.1f} ms. Random "
-        f"weights rarely emit EOS, so this is the worst case with no early "
-        f"stop.")
+        f"and beam search the other {batch_ms - enc_ms:.1f} ms, "
+        f"{(batch_ms - enc_ms) / steps:.2f} ms a decode step; the card busy "
+        f"{fmt_ms(busy_ms, 1)} of the batch (torch.profiler); peak device "
+        f"memory {peak_gb:.2f} GB. Random weights rarely emit EOS, so this "
+        f"is the worst case with no early stop.")
 
     # the batch's encoder states through the kernels and through the plain
     # functions: the bf16 serving model, and the same seed built in f32
@@ -4161,26 +4175,32 @@ def retro_serving(card: str, cfg, enc_tok, dec_tok, batch, results: dict):
     with torch.inference_mode():
         enc_ms = wall_ms(lambda: module.encode(ids, mask))
     step_ms = (batch_ms - enc_ms) / steps
+    busy_ms, _ = device_busy_ms(
+        lambda: gen.generate(batch),
+        {"residual_layernorm_fwd": want["fused_layernorm_fwd"]})
+    windows = _plan_windows(RETRO_DEC_LEN, gen.attn_windows)
     lens = batch["attention_mask"].sum(1)
     log(f"[retro_tf] serving: {batch_ms:.1f} ms a batch (host clock, median "
         f"of 5) for B={B} (encoder tokens {lens.min()}-{lens.max()}) L={L} "
-        f"beam {RETRO_BEAMS} dec {RETRO_DEC_LEN}, {steps} decode steps of "
-        f"{B * RETRO_BEAMS} rows, bf16 weights; the encoder alone "
-        f"{enc_ms:.1f} ms, {step_ms:.2f} ms a decode step (cache set-up "
-        f"included); peak device memory {peak_gb:.2f} GB ({base_gb:.2f} GB "
-        f"of it the weights before the call); launches {want}; request 0's "
-        f"best beam {preds[0]['prediction'][0][:60]!r} score "
-        f"{preds[0]['score'][0]:.3f}; on {card}")
+        f"beam {RETRO_BEAMS} dec {RETRO_DEC_LEN}, windows {windows}, "
+        f"{steps} decode steps of {B * RETRO_BEAMS} rows, bf16 weights; the "
+        f"encoder alone {enc_ms:.1f} ms, {step_ms:.2f} ms a decode step "
+        f"(cache set-up included); the card busy {fmt_ms(busy_ms, 1)} of the "
+        f"batch (torch.profiler); peak device memory {peak_gb:.2f} GB "
+        f"({base_gb:.2f} GB of it the weights before the call); launches "
+        f"{want}; request 0's best beam {preds[0]['prediction'][0][:60]!r} "
+        f"score {preds[0]['score'][0]:.3f}; on {card}")
     return dict(batch_ms=batch_ms, encoder_ms=enc_ms, decode_step_ms=step_ms,
-                steps=steps, peak_gb=peak_gb, weights_gb=base_gb,
-                launches=want), preds
+                busy_ms=busy_ms, windows=windows, steps=steps,
+                peak_gb=peak_gb, weights_gb=base_gb, launches=want), preds
 
 
 def retro_cache_check(cfg, enc_tok, dec_tok, batch) -> dict:
     """The batch generated in f32 with the kernels on, then its 640 final
     sequences rescored by the teacher-forced decoder with the kernels off:
     each sum within rescore_tolerance of its beam score. This holds the
-    160-slot cache, its reorder at 640 rows and the kernels together."""
+    160-slot grouped cache of 32 x 20 beams, its ancestor table and bias,
+    the windows and the kernels together."""
     module, enc_cfg, dec_cfg = build_model(
         dataclasses.replace(cfg, compute_dtype="float32",
                             param_dtype="float32"),
@@ -5142,12 +5162,19 @@ def tp_generate_rank(rank: int, world_size: int, device: str, vocab: str,
     shard_params(make_mesh(1, 2), module)
     reset_counts()
     gen = Generator(module, num_beams=BEAMS, max_length=DEC_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     seqs, scores = gen.generate(make_requests(enc_tok, B, L))
     torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
     if rank == 0:
         np.savez(out, seqs=seqs, scores=scores)
         Path(out + ".json").write_text(json.dumps({
             "counts": read_counts(), "steps": gen.last_steps,
+            "windows": _plan_windows(DEC_LEN, gen.attn_windows),
+            "batch_ms": batch_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "backend": dist.get_backend(), "world": world_size,
             "device_count": torch.cuda.device_count()}))
 
@@ -5230,11 +5257,13 @@ def leg_d(tmp: Path, vocab: Path, backend: str, devices) -> dict:
     err = float(diff.max())
     share = float((diff / (TP_SCORE_BOUND
                            + TP_SCORE_BOUND * np.abs(ref_scores))).max())
-    log(f"[parallel] leg D: B={B} L={L} beam {BEAMS}, {d['steps']} decode "
-        f"steps, f32: sequences identical to the unsharded model's, scores "
-        f"max |diff| {err:.3e}, max |diff| / ({TP_SCORE_BOUND:g} + "
-        f"{TP_SCORE_BOUND:g} * |ref|) = {share:.3f} (bound 1); rank 0's "
-        f"launches {d['counts']}")
+    log(f"[parallel] leg D: B={B} L={L} beam {BEAMS}, windows "
+        f"{d['windows']}, {d['steps']} decode steps, f32: sequences "
+        f"identical to the unsharded model's, scores max |diff| {err:.3e}, "
+        f"max |diff| / ({TP_SCORE_BOUND:g} + {TP_SCORE_BOUND:g} * |ref|) = "
+        f"{share:.3f} (bound 1); rank 0's launches {d['counts']}, its first "
+        f"(cold) batch {d['batch_ms']:.1f} ms on the host clock, peak "
+        f"device memory {d['peak_gb']:.2f} GB (two ranks share the card)")
     if not share <= 1.0:
         raise AssertionError("leg D: beam scores depart")
     if not d["counts"]["fused_attention_fwd"] > 0:

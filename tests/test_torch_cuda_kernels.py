@@ -528,6 +528,110 @@ def test_model_on_card_matches_cpu(dev):
     np.testing.assert_allclose(scores, cpu_scores, rtol=1e-4)
 
 
+# the retro serving geometry: 32 examples, 12 heads of 64, beam 20 over 160
+# decoder positions, encoder length 512
+RETRO_DECODE = dict(B=32, H=12, D=64, G=20, T=160, L=512)
+
+
+def _product_bound(a, b, out_dtype):
+    """|card - CPU route| allowed for one decode product: both sum bf16
+    products exactly in f32, in other orders, which moves a sum by at most
+    2^-16 of the sum of |terms| at these depths (<= 3200 terms); a result
+    rounded to bf16 may then round the other way, one bf16 ulp, 2^-7 of
+    it."""
+    sum_abs = torch.bmm(a.float().abs(), b.float().abs())
+    return 2.0 ** -16 * sum_abs, (2.0 ** -7 if out_dtype == torch.bfloat16
+                                  else 0.0)
+
+
+@pytest.mark.parametrize("W", [48, 80, 160])
+def test_decode_products_match_the_cpu_route(dev, W):
+    """The decode attention's products on the card (bf16 operands read in
+    place; cuBLAS bmm into bf16, its out_dtype overload into f32) against
+    the CPU route's _matmul_f32 (f32 up-casts, f32 product) on the same
+    tensors: the grouped self-attention over a window W of the (B, H, D,
+    T*G) cache, scores into bf16 and f32 and the context, and the cross
+    attention over (B, H, L, D), scores into f32 and the context."""
+    from textreact_tpu_torch.models.layers import _decode_bmm, _matmul_f32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    c = RETRO_DECODE
+    B, H, D, G, T, L = (c[k] for k in "BHDGTL")
+    g = torch.Generator(device=dev).manual_seed(W)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cache = randn(B, H, D, T * G)
+    k = cache[..., :W * G].view(B * H, D, W * G)
+    q = randn(B * H, G, D)
+    probs = torch.softmax(randn(B * H, G, W * G).float(), -1).to(
+        torch.bfloat16)
+    cross_k, cross_v = randn(B * H, L, D), randn(B * H, L, D)
+    cross_p = torch.softmax(randn(B * H, G, L).float(), -1).to(
+        torch.bfloat16)
+    cases = [(q, k, torch.bfloat16), (q, k, torch.float32),
+             (probs, k.transpose(1, 2), torch.bfloat16),
+             (q, cross_k.transpose(1, 2), torch.float32),
+             (cross_p, cross_v, torch.bfloat16)]
+    for a, b, out_dtype in cases:
+        got = _decode_bmm(a, b, out_dtype)
+        ref = _matmul_f32(a, b).to(out_dtype)
+        assert got.dtype == out_dtype and got.shape == ref.shape
+        atol, rtol = _product_bound(a, b, out_dtype)
+        diff = (got.float() - ref.float()).abs()
+        assert (diff <= atol + rtol * ref.float().abs()).all(), \
+            (out_dtype, float(diff.max()))
+
+
+def test_grouped_decode_step_writes_its_cache_in_place(dev):
+    """A grouped decode step at the retro geometry (640 rows, a 160-slot
+    cache of 20 beams, bf16; two decoder layers) writes each position's
+    K/V into the cache where it lies: every layer's storage keeps its
+    address, the step's slots fill and the later ones stay zero."""
+    from textreact_tpu_torch.inference.beam import ancestor_bias
+    from textreact_tpu_torch.models import DecoderStep
+    c = RETRO_DECODE
+    B, G, T, L = c["B"], c["G"], c["T"], c["L"]
+    enc = TransformerConfig(num_hidden_layers=1, vocab_size=64,
+                            max_position_embeddings=L,
+                            layernorm_impl="fused")
+    dec = enc.replace(num_hidden_layers=2, vocab_size=600,
+                      max_position_embeddings=T, is_decoder=True,
+                      add_cross_attention=True)
+    model = EncoderDecoder(enc, dec, dtype=torch.bfloat16,
+                           param_dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    step = DecoderStep(model.decoder, beam_groups=G)
+    rng = np.random.default_rng(0)
+    states = torch.randn(B, L, enc.hidden_size, device=dev,
+                         dtype=torch.bfloat16)
+    mask = _mask(B, L, dev)
+    mask[-1, 0] = 1
+    src = torch.zeros(B, G, T, dtype=torch.long, device=dev)
+    W = 48
+    with torch.inference_mode():
+        cache = step.init_cache(states, mask, G, T)
+        assert cache.self_k[0].shape == (B, 12, 64, T * G)
+        tensors = cache.self_k + cache.self_v
+        where = [t.data_ptr() for t in tensors]
+        for pos in range(3):
+            src[:, :, pos] = torch.arange(G, device=dev)
+            tokens = torch.as_tensor(rng.integers(3, 600, (B * G, 1)),
+                                     device=dev)
+            logits = step(tokens, cache, pos,
+                          ancestor_bias(src[:, :, :W], pos + 1, B, G, W))
+            torch.cuda.synchronize()
+            assert logits.shape == (B * G, 1, 600)
+            assert torch.isfinite(logits).all()
+            assert [t.data_ptr() for t in cache.self_k + cache.self_v] == where
+            for t in tensors:
+                assert (t[..., pos * G:(pos + 1) * G] != 0).any()
+                assert not t[..., (pos + 1) * G:].any()
+            parents = torch.as_tensor(rng.integers(0, G, (B, G)), device=dev)
+            src = torch.gather(src, 1, parents[:, :, None].expand(-1, -1, T))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hidden,heads", [(256, 2), (640, 10)],
                          ids=["h2d128", "hidden640"])

@@ -73,7 +73,7 @@ def _jax_step(table):
 
 def _torch_step(table):
     t = torch.as_tensor(table, dtype=torch.float32)
-    return lambda tokens, pos: t[pos][None, None, :].expand(
+    return lambda tokens, pos, bias: t[pos][None, None, :].expand(
         tokens.shape[0], 1, -1)
 
 
@@ -83,8 +83,8 @@ def test_beam_search_matches_jax(name):
     T = table.shape[0]
     jseqs, jscores = jax_beam_search(_jax_step(table), {}, B, K, T, BOS, EOS,
                                      PAD)
-    seqs, scores, steps = beam_search(_torch_step(table), lambda rows: None,
-                                      B, K, T, BOS, EOS, PAD)
+    seqs, scores, steps = beam_search(_torch_step(table), B, K, T, BOS, EOS,
+                                      PAD)
     np.testing.assert_array_equal(seqs.numpy(), np.asarray(jseqs))
     np.testing.assert_allclose(scores.numpy(), np.asarray(jscores),
                                rtol=1e-6)
@@ -97,20 +97,6 @@ def test_top_k_ties_go_to_lowest_index():
     assert idx.tolist() == [[1, 2, 3, 5]]
     jv, ji = jax.lax.top_k(jnp.asarray(x.numpy()), 4)
     assert np.asarray(ji).tolist() == idx.tolist()
-
-
-def test_reorder_receives_parent_rows():
-    """Cache row r after a step is the old row of beam r's parent, offset
-    by the example's block of K rows."""
-    table = np.zeros((3, 6))
-    table[:, 3], table[:, 4] = 1.0, 0.5
-    table[:, EOS] = -50.0
-    calls = []
-    beam_search(_torch_step(table), calls.append, 2, 2, 3, BOS, EOS, PAD)
-    # step 1: both live beams descend from beam 0; step 2 from beams 0, 0
-    # (token 3 after either parent beats 4 after beam 1)
-    assert calls[0].tolist() == [0, 0, 2, 2]
-    assert calls[1].tolist() == [0, 0, 2, 2]
 
 
 @pytest.fixture(scope="module", params=[(40, 3, 10), (6, 4, 8)],

@@ -174,18 +174,40 @@ def test_decoder_step_matches_full_decoder(pair, outputs, num_beams):
 
 
 def test_decode_cache_reorder_moves_rows(pair):
+    """The row move that the grouped cache stands for: after one step, a
+    per-row cache whose rows are moved to the beams' parents, and the
+    row-stable grouped cache under the ancestor bias of the gathered
+    table, give the same logits at the next step; the grouped cache's
+    first position is not moved by it."""
+    from textreact_tpu_torch.inference.beam import ancestor_bias
     tmodel = pair[2]
     batch = make_batch()
     mask = torch.as_tensor(batch["attention_mask"])
-    step = DecoderStep(tmodel.decoder)
+    K = 2
+    per_row = DecoderStep(tmodel.decoder)
+    grouped = DecoderStep(tmodel.decoder, beam_groups=K)
+    rows = torch.tensor([1, 1, 2, 3, 5, 4])
+    parents = (rows - torch.arange(B).repeat_interleave(K) * K).view(B, K)
+    src = torch.zeros(B, K, LD, dtype=torch.long)
     with torch.no_grad():
         enc = tmodel.encode(torch.as_tensor(batch["input_ids"]), mask)
-        cache = step.init_cache(enc, mask, 2, LD)
-        step(torch.arange(3, 3 + 2 * B)[:, None], cache, 0)
-        before = cache.self_k[0].clone()
-        rows = torch.tensor([1, 1, 2, 3, 5, 4])
-        cache.reorder(rows)
-    torch.testing.assert_close(cache.self_k[0], before[rows], rtol=0, atol=0)
+        cache = per_row.init_cache(enc, mask, K, LD)
+        gcache = grouped.init_cache(enc, mask, K, LD)
+        first = torch.arange(3, 3 + K * B)[:, None]
+        per_row(first, cache, 0)
+        src[:, :, 0] = torch.arange(K)
+        grouped(first, gcache, 0, ancestor_bias(src, 1, B, K, LD))
+        before = gcache.self_k[0].clone()
+        cache.self_k = [c[rows] for c in cache.self_k]
+        cache.self_v = [c[rows] for c in cache.self_v]
+        src = torch.gather(src, 1, parents[:, :, None].expand(-1, -1, LD))
+        src[:, :, 1] = torch.arange(K)
+        second = torch.arange(10, 10 + K * B)[:, None]
+        want = per_row(second, cache, 1)
+        got = grouped(second, gcache, 1, ancestor_bias(src, 2, B, K, LD))
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(gcache.self_k[0][..., :K], before[..., :K],
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("case", ["bond_mask_2d", "length_96"])

@@ -15,8 +15,8 @@ initial parameters carried over with `from_flax`.
 - The port's cached beam scores equal the teacher-forced decoder's
   log-probabilities of the same sequences within chip_smoke's stated f32
   tolerance (`rescore_tolerance`): the CPU twin of chip_smoke.py's check
-  of the 160-slot cache and its reorder, so a reorder fault shows here
-  first."""
+  of the 160-slot grouped cache and its ancestry bias, so a fault in the
+  ancestor table or the bias shows here first."""
 
 import _torch_threads  # noqa: F401  (before torch runs)
 import json
@@ -140,15 +140,17 @@ def test_first_optimizer_steps_log_the_same_losses(workdir):
 
 
 def test_cached_beam_scores_equal_teacher_forced_rescoring(workdir):
-    """Beam 20 over 160 positions through the 160-slot cache and its
-    reorder (rows = 6 examples x 20 beams), then the same sequences
-    through the teacher-forced decoder: every score within
-    rescore_tolerance, and the sequences long enough to reorder the cache
-    many times. The decoder is drawn at initializer_range 0.2, ten times
-    the preset's, so that a token's log-probability depends on its
-    history: at 0.02 and width 32 it barely does, and a cache that is never
-    reordered stayed within 0.39 of the tolerance; at 0.2 it exceeds it
-    2,000-fold, while the true cache stays under 0.02 of it."""
+    """Beam 20 over 160 positions through the row-stable 160-slot grouped
+    cache (6 examples x 20 beams) under its ancestry bias and the windows
+    48, 80, 160, then the same sequences through the teacher-forced
+    decoder: every score within rescore_tolerance, and the sequences long
+    enough for the beams to fork and reorder many times. The decoder is
+    drawn at initializer_range 0.2, ten times the preset's, so that a
+    token's log-probability depends on its history: at 0.02 and width 32
+    it barely does, and a cache whose rows followed no parent stayed
+    within 0.39 of the tolerance; at 0.2 an ancestor table never gathered,
+    or a bias admitting each beam's own row, exceeds it 2,490-fold, while
+    the true cache stays under 0.02 of it."""
     _, pcfg = _cfgs(workdir, "rescore", do_test=True,
                     decoder=os.path.join(workdir, "dec_sharp.json"))
     ptrainer = Trainer(pcfg, device="cpu")

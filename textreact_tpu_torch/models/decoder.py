@@ -22,21 +22,20 @@ from .layers import (Embeddings, MLMHead, TransformerBlock, causal_bias,
 class DecodeCache:
     """Per-layer decode state.
 
-    self_k/self_v: (rows, cache_len, H, D), one row per beam, written in
-    place one position per step; beam search reorders them by row gather.
-    cross_k/cross_v: (examples, H, L, D), projected once from the encoder
-    states and never replicated across beams. cross_bias: (examples, 1, 1,
-    L) f32 key-padding bias, or None."""
+    self_k/self_v: the self-attention caches, written in place one
+    position per step and never moved. With beam_groups = G > 0 they are
+    the row-stable grouped beam cache (examples, H, D, cache_len * G),
+    read under an ancestry bias (layers.py decode_self_grouped); with 0,
+    one row per decode row (rows, H, cache_len, D). H is this rank's
+    heads. cross_k/cross_v: (examples, H, L, D), projected once from the
+    encoder states and never replicated across beams. cross_bias:
+    (examples, 1, 1, L) f32 key-padding bias, or None."""
     self_k: List[torch.Tensor]
     self_v: List[torch.Tensor]
     cross_k: List[torch.Tensor]
     cross_v: List[torch.Tensor]
     cross_bias: Optional[torch.Tensor]
-
-    def reorder(self, rows: torch.Tensor) -> None:
-        """Row r of every self-attention cache becomes old row rows[r]."""
-        self.self_k = [c.index_select(0, rows) for c in self.self_k]
-        self.self_v = [c.index_select(0, rows) for c in self.self_v]
+    beam_groups: int = 0
 
 
 def encoder_key_bias(encoder_attention_mask: Optional[torch.Tensor]
@@ -96,13 +95,18 @@ class Decoder(nn.Module):
 
     def init_cache(self, encoder_states: torch.Tensor,
                    encoder_attention_mask: Optional[torch.Tensor],
-                   rows: int, cache_len: int) -> DecodeCache:
-        """Empty self-attention caches for `rows` decode rows and the cross
-        K/V from the trained projections of this decoder."""
+                   rows: int, cache_len: int,
+                   beam_groups: int = 0) -> DecodeCache:
+        """Empty self-attention caches for `rows` decode rows, grouped by
+        `beam_groups` beams an example when it is > 0, and the cross K/V
+        from the trained projections of this decoder."""
         cfg = self.config
         # the heads of this rank (all of them without tensor parallelism)
-        shape = (rows, cache_len, self.layers[0].attention.num_heads,
-                 cfg.head_dim)
+        H, D = self.layers[0].attention.num_heads, cfg.head_dim
+        if beam_groups:
+            shape = (rows // beam_groups, H, D, cache_len * beam_groups)
+        else:
+            shape = (rows, H, cache_len, D)
         dev = encoder_states.device
         cross = [layer.crossattention.project_kv(encoder_states)
                  for layer in self.layers]
@@ -113,12 +117,19 @@ class Decoder(nn.Module):
                     for _ in self.layers],
             cross_k=[k for k, _ in cross],
             cross_v=[v for _, v in cross],
-            cross_bias=encoder_key_bias(encoder_attention_mask))
+            cross_bias=encoder_key_bias(encoder_attention_mask),
+            beam_groups=beam_groups)
 
     def decode(self, input_ids: torch.Tensor, cache: DecodeCache,
-               position: int) -> torch.Tensor:
+               position: int,
+               beam_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One token per row at `position`: (rows, 1) ids -> (rows, 1, V)
-        f32 logits; writes this position's K/V into the cache."""
+        f32 logits; writes this position's K/V into the cache. A grouped
+        cache needs the step's beam_bias (inference/beam.py::ancestor_bias),
+        which serves every layer; a per-row cache takes none."""
+        if (beam_bias is None) != (cache.beam_groups == 0):
+            raise ValueError("beam_bias goes with a grouped cache "
+                             f"(beam_groups {cache.beam_groups})")
         position_ids = (torch.arange(input_ids.shape[1],
                                      device=input_ids.device)[None, :]
                         + position)
@@ -127,5 +138,5 @@ class Decoder(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer.decode(x, cache.self_k[i], cache.self_v[i], position,
                              cache.cross_k[i], cache.cross_v[i],
-                             cache.cross_bias)
+                             cache.cross_bias, beam_bias)
         return self.lm_head(x, embedding=self.word_embedding)

@@ -93,25 +93,34 @@ class EncoderDecoder(nn.Module):
 
 
 class DecoderStep(nn.Module):
-    """Single-token decoder step over a `DecodeCache`, for beam search.
+    """Single-token decoder step over a `DecodeCache`, for beam search
+    (encdec.py:88-112).
 
     Holds the trained decoder itself, so the cross K/V cache is projected
-    with the trained weights (no fresh init can stand in for them)."""
+    with the trained weights (no fresh init can stand in for them). With
+    beam_groups = G > 0 the self-attention cache takes the row-stable
+    grouped beam layout and each step needs the ancestry bias (B, G,
+    W*G); with 0 it decodes per row under plain positional masking."""
 
-    def __init__(self, decoder: Decoder):
+    def __init__(self, decoder: Decoder, beam_groups: int = 0):
         super().__init__()
         self.decoder = decoder
+        self.beam_groups = beam_groups
 
     def init_cache(self, encoder_states: torch.Tensor,
                    encoder_attention_mask: Optional[torch.Tensor],
                    num_beams: int, cache_len: int) -> DecodeCache:
+        if self.beam_groups not in (0, num_beams):
+            raise ValueError(f"{num_beams} beams in a step model of "
+                             f"{self.beam_groups} beam groups")
         return self.decoder.init_cache(
             encoder_states, encoder_attention_mask,
-            encoder_states.shape[0] * num_beams, cache_len)
+            encoder_states.shape[0] * num_beams, cache_len, self.beam_groups)
 
     def forward(self, token_ids: torch.Tensor, cache: DecodeCache,
-                position: int) -> torch.Tensor:
-        return self.decoder.decode(token_ids, cache, position)
+                position: int,
+                beam_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decoder.decode(token_ids, cache, position, beam_bias)
 
 
 class TemplateHead(nn.Module):

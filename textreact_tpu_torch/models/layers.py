@@ -19,10 +19,14 @@ branch (inside the fused LayerNorm kernel on the fused path). The masks
 come from the `torch.Generator` passed to `forward`, never from the global
 generator.
 
-Decoding keeps a per-row self-attention KV cache that beam search
-reorders by gathering rows (`DecodeCache.reorder`), and the cross K/V
-projected once per example, unreplicated across beams: beams attend as
-grouped query rows over their example's encoder states.
+Decoding keeps the cross K/V projected once per example, unreplicated
+across beams: beams attend as grouped query rows over their example's
+encoder states. Beam search keeps its self-attention cache row-stable in
+the grouped layout (Bex, H, D, T*G) (`decode_self_grouped`, the twin of
+layers.py:232-309): beams never move it, and each beam reads its history
+under an ancestry bias. The per-row cache (`decode_self`) is the twin of the JAX
+package's beam_groups=0 path. The decode products take the compute-dtype
+operands in place, with the JAX package's output dtypes (`_decode_bmm`).
 """
 
 from __future__ import annotations
@@ -71,6 +75,22 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with f32 accumulation and output, for inputs in any dtype
     (preferred_element_type=float32 in the JAX package)."""
     return torch.matmul(a.float(), b.float())
+
+
+def _decode_bmm(a: torch.Tensor, b: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """Batched a @ b of the decode attention: (N, m, k) @ (N, k, n) ->
+    (N, m, n) in `out_dtype`, f32 accumulation (`preferred_element_type`
+    in the JAX package). On the card the operands are read in place in
+    their own dtype: a product into their dtype is cuBLAS's bmm, one into
+    f32 from bf16 its `out_dtype` overload. On the CPU the plain route
+    up-casts both to f32 (bf16 products are exact in f32, so the two differ
+    in summation order only) and rounds the result to `out_dtype`."""
+    if a.device.type != "cuda":
+        return _matmul_f32(a, b).to(out_dtype)
+    if out_dtype == a.dtype:
+        return torch.bmm(a, b)
+    return torch.bmm(a, b, out_dtype=out_dtype)
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -180,8 +200,9 @@ class Embeddings(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Self- or cross-attention with f32 scores and softmax.
 
-    `forward` is the full-sequence path; `decode_self` and `decode_cross`
-    are the one-token decode paths over the caches in `DecodeCache`.
+    `forward` is the full-sequence path; `decode_self_grouped` (beam
+    search's), `decode_self` (per row) and `decode_cross` are the one-token
+    decode paths over the caches in `DecodeCache`.
 
     `causal_hint` (layers.py:142, set by `TransformerBlock(causal=True)`)
     marks a decoder self-attention. Where the kernel's conditions hold
@@ -277,37 +298,80 @@ class MultiHeadAttention(nn.Module):
 
     def decode_cross(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: Optional[torch.Tensor]) -> torch.Tensor:
-        """x: (Bk*G, 1, d) with G beams per example; k, v: (Bk, H, L, D);
-        bias: (Bk, 1, 1, L). Beams attend as G query rows of their example
-        (layers.py:162-194)."""
+        """x: (Bk*G, 1, d) with G beams per example; k, v: (Bk, H, L, D),
+        read in place; bias: (Bk, 1, 1, L). Beams attend as G query rows of
+        their example (layers.py:162-194): f32 scores, the context
+        accumulated in f32 and rounded to the compute dtype."""
         H, D = self.num_heads, self.config.head_dim
-        Bk = k.shape[0]
+        Bk, L = k.shape[0], k.shape[2]
         G = x.shape[0] // Bk
-        q = self.query(x).view(Bk, G, H, D).transpose(1, 2)     # (Bk, H, G, D)
-        s = _matmul_f32(q, k.transpose(-1, -2)) / math.sqrt(D)  # (Bk, H, G, L)
+        q = self.query(x).view(Bk, G, H, D).transpose(1, 2).reshape(
+            Bk * H, G, D)
+        s = _decode_bmm(q, k.view(Bk * H, L, D).transpose(1, 2),
+                        torch.float32).view(Bk, H, G, L) / math.sqrt(D)
         if bias is not None:
             s = s + bias.float()
-        probs = torch.softmax(s, dim=-1)
-        ctx = _matmul_f32(probs.to(self.dtype), v)              # (Bk, H, G, D)
-        return self._out(ctx.transpose(1, 2).reshape(Bk * G, 1, H * D))
+        probs = torch.softmax(s, dim=-1).to(self.dtype)
+        ctx = _decode_bmm(probs.view(Bk * H, G, L), v.view(Bk * H, L, D),
+                          self.dtype)                         # (Bk*H, G, D)
+        return self._out(ctx.view(Bk, H, G, D).transpose(1, 2).reshape(
+            Bk * G, 1, H * D))
 
     def decode_self(self, x: torch.Tensor, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, position: int) -> torch.Tensor:
-        """One token per row. x: (N, 1, d); cache_k/v: (N, T, H, D), written
-        in place at `position`; attends over positions 0..position."""
+        """One token per row, the twin of the JAX package's beam_groups=0
+        path (layers.py:310-352). x: (N, 1, d); cache_k/v: (N, H, T, D),
+        head first so that the prefix is read in place, written at
+        `position`; attends over positions 0..position with f32 scores."""
+        H, D = self.num_heads, self.config.head_dim
+        N, t = x.shape[0], position + 1
+        cache_k[:, :, position] = self.key(x).view(N, H, D)
+        cache_v[:, :, position] = self.value(x).view(N, H, D)
+        q = self.query(x).view(N * H, 1, D)
+        k = cache_k[:, :, :t].view(N * H, t, D)    # views: no copy
+        v = cache_v[:, :, :t].view(N * H, t, D)
+        s = _decode_bmm(q, k.transpose(1, 2), torch.float32) / math.sqrt(D)
+        probs = torch.softmax(s, dim=-1).to(self.dtype)
+        ctx = _decode_bmm(probs, v, self.dtype)                   # (N*H, 1, D)
+        return self._out(ctx.view(N, 1, H * D))
+
+    def decode_self_grouped(self, x: torch.Tensor, cache_k: torch.Tensor,
+                            cache_v: torch.Tensor, position: int,
+                            beam_bias: torch.Tensor) -> torch.Tensor:
+        """The row-stable grouped beam decode (layers.py:232-309). x:
+        (Bex*G, 1, d), G beams per example; cache_k/v: (Bex, H, D, T*G),
+        head first and the merged (t, g) axis last, written in place at
+        [..., position*G : (position+1)*G] (only the new token is
+        transposed); beam_bias: (Bex, G, W*G) f32 from
+        inference/beam.py::ancestor_bias, whose width carries the step's
+        window W: the attention reads the cache prefix [..., :W*G] in place
+        and each beam sees one row per valid position, its ancestor's.
+        Scores are stored in the compute dtype unless decode_scores_dtype
+        is 'float32'; then scaled, biased and softmaxed in f32."""
         cfg = self.config
-        D = cfg.head_dim
-        cache_k[:, position] = self._heads(self.key(x))[:, 0]
-        cache_v[:, position] = self._heads(self.value(x))[:, 0]
-        q = self._heads(self.query(x)).transpose(1, 2)           # (N, H, 1, D)
-        k = cache_k[:, :position + 1].transpose(1, 2)            # (N, H, t, D)
-        v = cache_v[:, :position + 1].transpose(1, 2)
-        s = _matmul_f32(q, k.transpose(-1, -2))
-        if cfg.decode_scores_dtype != "float32":
-            s = s.to(self.dtype).float()   # score storage dtype (layers.py:295)
-        probs = torch.softmax(s * (1.0 / math.sqrt(D)), dim=-1)
-        ctx = _matmul_f32(probs.to(self.dtype), v)               # (N, H, 1, D)
-        return self._out(ctx.transpose(1, 2))
+        H, D = self.num_heads, cfg.head_dim
+        Bex = cache_k.shape[0]
+        G = x.shape[0] // Bex
+        WG = beam_bias.shape[-1]
+        # (Bex*G, 1, H*D) -> (Bex, H, D, G): the new token alone is
+        # transposed; the cache is written where it lies
+        cache_k[..., position * G:(position + 1) * G] = self.key(x).view(
+            Bex, G, H, D).permute(0, 2, 3, 1)
+        cache_v[..., position * G:(position + 1) * G] = self.value(x).view(
+            Bex, G, H, D).permute(0, 2, 3, 1)
+        q = self.query(x).view(Bex, G, H, D).transpose(1, 2).reshape(
+            Bex * H, G, D)
+        k = cache_k[..., :WG].view(Bex * H, D, WG)    # views: no copy
+        v = cache_v[..., :WG].view(Bex * H, D, WG)
+        s_dt = (torch.float32 if cfg.decode_scores_dtype == "float32"
+                else self.dtype)
+        s = _decode_bmm(q, k, s_dt).view(Bex, H, G, WG)
+        s = s.float() * (1.0 / math.sqrt(D)) + beam_bias[:, None]
+        probs = torch.softmax(s, dim=-1).to(self.dtype)
+        ctx = _decode_bmm(probs.view(Bex * H, G, WG), v.transpose(1, 2),
+                          self.dtype)                           # (Bex*H, G, D)
+        return self._out(ctx.view(Bex, H, G, D).transpose(1, 2).reshape(
+            Bex * G, 1, H * D))
 
 
 class ResidualLayerNorm(nn.Module):
@@ -403,9 +467,16 @@ class TransformerBlock(nn.Module):
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, position: int,
                cross_k: torch.Tensor, cross_v: torch.Tensor,
-               cross_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.attention_norm(
-            x, self.attention.decode_self(x, cache_k, cache_v, position))
+               cross_bias: Optional[torch.Tensor],
+               beam_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One decode step; a beam_bias selects the grouped self-attention
+        cache, none the per-row one."""
+        if beam_bias is None:
+            res = self.attention.decode_self(x, cache_k, cache_v, position)
+        else:
+            res = self.attention.decode_self_grouped(x, cache_k, cache_v,
+                                                     position, beam_bias)
+        x = self.attention_norm(x, res)
         x = self.crossattention_norm(
             x, self.crossattention.decode_cross(x, cross_k, cross_v,
                                                 cross_bias))
