@@ -22,15 +22,21 @@ steps, then records one step with torch.profiler and prints:
 weights, 32 requests of L=512, beam 15, 16 decode positions); `--path
 retro` chip_smoke.py's retro_tf serving model and test batch (bf16
 weights, 32 products of L=512, beam 20 over 160 positions, 640 decode
-rows). Each records one Generator.generate and one encoder pass the same
-way, and prints: the tables above by kinds that part softmax, the beam's
-sort, row gathers, matrix products and elementwise copies; device time by
-operator, with the decode's own parts named by this tool (the port
-carries no profiler annotations: `label_decode` wraps the ancestor bias,
-the grouped self-attention, the cross-attention and the decode's products
-in `record_function` ranges); the largest casts, copies and
-`index_select`s with their input shapes (none may be a cache's); the
-port's kernel launches of one batch and the launches of a decode step.
+rows). Each records one Generator.generate as it serves (the CUDA graphs
+of the encoder and of each window's decode step, replayed) and one encoder
+pass the same way, and prints: the tables above by kinds that part
+softmax, the beam's sort, row gathers, matrix products and elementwise
+copies; the port's kernel launches of one batch and the launches of a
+decode step; capture ms and peak memory. Then it records the same batch
+through the uncaptured device-state loop (`Generator.route =
+"uncaptured"`), since no `record_function` range fires inside a graph's
+replay: device time by operator, with the decode's own parts named by this
+tool (the port carries no profiler annotations: `label_decode` wraps the
+ancestor bias, the grouped self-attention, the cross-attention and the
+decode's products in `record_function` ranges), and the largest casts,
+copies and `index_select`s with their input shapes (none may be a
+cache's). Copied into an older checkout, it profiles that checkout's
+Python loop in both places.
 `--path retrieval` makes chip_smoke.py's two retrieval shapes and records
 one FlatIndex.search of 8192 queries per shape and kernel layout: host
 clock from numpy in to numpy out, and device time of the scan kernel, the
@@ -461,12 +467,17 @@ def profile_retro(card: str, say) -> None:
 
 def profile_generate(card: str, say, module, batch: dict, what: str,
                      beams: int, dec_len: int, top: int) -> None:
-    """Device time of one Generator.generate by kind of kernel and by
-    operator, the idle share, the largest casts and copies with their
-    shapes, the port's kernel launches, and the launches of a decode step
-    (the batch's kernels less the encoder pass's, over the steps)."""
-    label_decode()
+    """One Generator.generate as it serves (the graphed route; in a
+    checkout from before the graphs, its Python loop): host clock, the
+    card's busy time and idle share, device time by kind of kernel, the
+    port's kernel launches, the launches of a decode step (the batch's
+    kernels less the encoder pass's, over the steps the card ran), capture
+    ms and peak memory. Then the same batch through the uncaptured loop,
+    whose `record_function` ranges (label_decode) fire, as no range inside
+    a graph's replay does: device time by part of the decode and by
+    operator, and the largest casts and copies with their shapes."""
     gen = Generator(module, num_beams=beams, max_length=dec_len)
+    route = getattr(gen, "route", "python loop (a checkout before graphs)")
     try:
         from textreact_tpu_torch.inference.beam import _plan_windows
         windows = _plan_windows(dec_len, gen.attn_windows)
@@ -475,32 +486,62 @@ def profile_generate(card: str, say, module, batch: dict, what: str,
     dev = module.decoder.word_embedding.device
     ids = torch.as_tensor(batch["input_ids"], dtype=torch.long, device=dev)
     mask = torch.as_tensor(batch["attention_mask"], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     gen.generate(batch)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    capture_ms = getattr(gen, "last_capture_ms", None)
     cs.reset_counts()
     gen.generate(batch)
     torch.cuda.synchronize()
     launches = {k: v for k, v in cs.read_counts().items() if v}
     steps = gen.last_steps
+    replays = getattr(gen, "last_replays", steps)
     where = (f"B={cs.B} L={cs.L} beam {beams} dec {dec_len} ({steps} "
-             f"decode steps of {cs.B * beams} rows, windows {windows}), "
-             f"bf16 weights, on {card}")
-    plain_ms, wall_ms, prof = profile_call(lambda: gen.generate(batch),
-                                           record_shapes=True)
+             f"decode steps in {replays} replays of {cs.B * beams} rows, "
+             f"windows {windows}), bf16 weights, route {route}, on {card}")
+    plain_ms, wall_ms, prof = profile_call(lambda: gen.generate(batch))
     device_us, kernels = report(prof, f"one {what} batch ({steps} decode "
-                                f"steps)", plain_ms, wall_ms, where, say,
-                                top=top, kinds=DECODE_KINDS)
+                                f"steps), as it serves", plain_ms, wall_ms,
+                                where, say, top=top, kinds=DECODE_KINDS)
     say(f"[profile] the port's kernels launched by one batch: {launches}")
+    say(f"[profile] capture {fmt(capture_ms)} ms in the first batch; peak "
+        f"device memory {peak_gb:.2f} GB over it")
+
+    def encode():
+        with torch.inference_mode():
+            module.encode(ids, mask)
+
+    enc_plain, enc_wall, enc_prof = profile_call(encode)
+    _, enc_kernels = report(enc_prof, "the encoder alone (uncaptured)",
+                            enc_plain, enc_wall, where, say, top=8,
+                            kinds=DECODE_KINDS)
+    say(f"[profile] launches a decode step: ({kernels} - {enc_kernels} of "
+        f"the encoder) / {replays} steps the card ran = "
+        f"{(kernels - enc_kernels) / replays:.1f} kernels and copies")
+
+    label_decode()
+    ref = Generator(module, num_beams=beams, max_length=dec_len)
+    ref.route = "uncaptured"   # no attribute of a checkout before graphs
+    ref.generate(batch)
+    plain_ms, wall_ms, prof = profile_call(lambda: ref.generate(batch),
+                                           record_shapes=True)
+    device_us, _ = report(prof, f"the same {what} batch through the "
+                          f"uncaptured loop, for the decode's parts",
+                          plain_ms, wall_ms, where, say, top=top,
+                          kinds=DECODE_KINDS)
     ops = {e.key: e for e in prof.key_averages()}
-    say("[profile] device time by part of the decode (the kernels inside "
-        "its ranges):")
+    say("[profile] uncaptured loop: device time by part of the decode (the "
+        "kernels inside its ranges):")
     for name, (ms, n) in device_ms_in_ranges(
             prof, [name for name, _ in DECODE_RANGES]).items():
         label = dict(DECODE_RANGES)[name]
         say(f"  {ms:9.2f} ms {ms * 1e3 / max(device_us, 1e-9):6.1%} {n:7d} "
             f"ranges {name}: {label}" if n else f"  {name}: not in the "
             f"trace")
-    say("[profile] device time by operator (with the kernels it launched "
-        "where marked 'incl.'):")
+    say("[profile] uncaptured loop: device time by operator (with the "
+        "kernels it launched where marked 'incl.'):")
     for name, label, inclusive in DECODE_OPS:
         if name not in ops:
             say(f"  {name}: not in the trace")
@@ -510,24 +551,17 @@ def profile_generate(card: str, say, module, batch: dict, what: str,
         say(f"  {us / 1e3:9.2f} ms {us / max(device_us, 1e-9):6.1%} "
             f"{e.count:7d} calls  {name} {'incl. ' if inclusive else ''}"
             f"{label}")
-    say("[profile] the largest casts, copies and index_selects by input "
-        "shape (device ms incl. their kernels):")
+    say("[profile] uncaptured loop: the largest casts, copies and "
+        "index_selects by input shape (device ms incl. their kernels):")
     by_shape = [e for e in prof.key_averages(group_by_input_shape=True)
                 if e.key in COPY_OPS]
     for e in sorted(by_shape, key=lambda e: -e.device_time_total)[:8]:
         say(f"  {e.device_time_total / 1e3:9.2f} ms {e.count:7d} calls  "
             f"{e.key} {e.input_shapes}")
 
-    def encode():
-        with torch.inference_mode():
-            module.encode(ids, mask)
 
-    plain_ms, wall_ms, prof = profile_call(encode)
-    _, enc_kernels = report(prof, "the encoder alone", plain_ms, wall_ms,
-                            where, say, top=8, kinds=DECODE_KINDS)
-    say(f"[profile] launches a decode step: ({kernels} - {enc_kernels} of "
-        f"the encoder) / {steps} steps = "
-        f"{(kernels - enc_kernels) / steps:.1f} kernels and copies")
+def fmt(ms) -> str:
+    return "not measured (no capture)" if ms is None else f"{ms:.1f}"
 
 
 if __name__ == "__main__":

@@ -47,10 +47,15 @@ Phases, each fatal on failure:
    16 decode positions; batch 32) with random weights from a seeded
    torch.Generator: tokenize 32 requests, Generator.generate (the
    row-stable grouped beam cache under the ancestry bias, one window of
-   16), predictions_from_beams; checks shapes, finite non-increasing
-   scores, and the forward kernels' launch counts; ms a batch and a step,
-   the card's busy ms, peak memory; then the same batch's encoder states
-   with the kernels and with the plain functions, within a stated bound;
+   16; the encoder and the decode steps captured as CUDA graphs at the
+   first batch and replayed), predictions_from_beams; checks shapes,
+   finite non-increasing scores, the forward kernels' launch counts (a
+   replay counts its graph's kernels), and the beams, scores and steps
+   equal to the bit to the uncaptured device-state loop's on the same
+   batch; route, steps, replays, capture ms, ms a batch and a step, the
+   card's busy ms and idle share, peak memory; then the same batch's
+   encoder states with the kernels and with the plain functions, within a
+   stated bound;
 5. training path: the RCR recipe's training step at full width and depth
    (f32 parameters, bf16 compute, MLM head, dropout 0.1, clip 5, AdamW,
    cosine schedule): 128 tokenized, span-masked, collated examples run as 4
@@ -133,8 +138,10 @@ Phases, each fatal on failure:
    loss and gradients against the plain functions; one test batch of 32
    through Generator.generate at beam 20 over 160 with bf16 weights (640
    decode rows; shapes, finite non-increasing scores, 12 attention and
-   24 + 18 x steps LN launches, no backward; the windows 48, 80, 160; ms
-   a batch, the encoder's and a decode step's, the card's busy ms, peak
+   24 + 18 x replays LN launches, no backward; the windows 48, 80, 160,
+   each window's step one CUDA graph; the beams equal to the bit to the
+   uncaptured loop's; route, steps, replays, capture ms, ms a batch, the
+   encoder's and a decode step's, the card's busy ms and idle share, peak
    memory); the same batch generated in f32 with the kernels and its 640
    sequences rescored by the teacher-forced decoder with the plain
    functions, each within a stated tolerance of its beam score (the
@@ -180,9 +187,10 @@ Phases, each fatal on failure:
    to the bit on both ranks after 3 steps at p=0.1, attention at 6 heads a
    rank; leg C, FlatIndex over two corpus shards at the bench shape, equal
    to the unsharded index and the numpy oracle to the bit, timed; leg D,
-   tp=2 beam-15 generation in f32 at B=32 L=512, the unsharded model's
-   sequences and its scores within 1e-5 + 1e-5 * |score| (the JAX gate's
-   allclose);
+   tp=2 beam-15 generation in f32 at B=32 L=512 on the uncaptured route
+   (the collectives are gloo's, which no CUDA graph holds), the unsharded
+   model's graphed sequences and its scores within 1e-5 + 1e-5 * |score|
+   (the JAX gate's allclose), the route printed;
 15. the measurement tools, through their entry points (run before phase
    14): textreact_tpu_torch.bench at its card shape (200,000 x 1024, 8192
    queries, k = 20; exact parity with the numpy oracle before any timing;
@@ -1572,6 +1580,52 @@ def describe(module, enc_cfg, dec_cfg) -> str:
             f"{module.encoder.layers[0].ffn.output.weight.dtype}")
 
 
+def idle_share(busy_ms: Optional[float], span_ms: float) -> str:
+    """The share of a call's host-clock span in which the card ran
+    nothing, or "not measured"."""
+    if busy_ms is None:
+        return "not measured"
+    return f"{1.0 - busy_ms / span_ms:.1%}"
+
+
+def decode_graphs_report(gen: Generator) -> dict:
+    """The graphs a Generator's first batch of a key captured, printed:
+    route, steps, replays, capture ms."""
+    out = dict(route=gen.route, steps=gen.last_steps,
+               replays=gen.last_replays, capture_ms=gen.last_capture_ms)
+    if gen.route == "cuda_graphs" and not gen.last_capture_ms > 0:
+        raise AssertionError(f"the first batch captured no graph: {out}")
+    log(f"  decode: route {gen.route}, {gen.last_steps} steps, "
+        f"{gen.last_replays} replays, capture {gen.last_capture_ms:.1f} ms")
+    return out
+
+
+def check_against_uncaptured(what: str, gen: Generator, batch: dict,
+                             got: tuple) -> None:
+    """The batch again through the uncaptured device-state loop on the same
+    weights (`route = "uncaptured"`): beams, scores and steps equal to the
+    bit. The launch counters are left as they were."""
+    ref = Generator(gen.module, num_beams=gen.num_beams,
+                    max_length=gen.max_length, attn_windows=gen.attn_windows)
+    ref.route = "uncaptured"
+    before = read_counts()
+    seqs, scores = ref.generate(batch)
+    torch.cuda.synchronize()
+    fused_attention.LAUNCHES = before["fused_attention_fwd"]
+    fused_layernorm.LAUNCHES = before["fused_layernorm_fwd"]
+    same = (np.array_equal(got[0], seqs) and got[1].dtype == scores.dtype
+            and np.array_equal(got[1].view(np.uint32),
+                               scores.view(np.uint32)))
+    log(f"  {what}: graphed beams against the uncaptured loop's on the same "
+        f"batch: {'equal to the bit' if same else 'DIFFERENT'} (steps "
+        f"{gen.last_steps} and {ref.last_steps})")
+    if not same or ref.last_steps != gen.last_steps:
+        rows = np.nonzero((got[0] != seqs).any((1, 2))
+                          | (got[1] != scores).any(1))[0]
+        raise AssertionError(f"{what}: the graphed decode departs from the "
+                             f"uncaptured loop in requests {rows}")
+
+
 def phase_serving(card: str, vocab: Path, results: dict) -> None:
     # serving holds its weights pre-cast to the compute dtype
     cfg = base_config(vocab, param_dtype="bfloat16")
@@ -1595,19 +1649,23 @@ def phase_serving(card: str, vocab: Path, results: dict) -> None:
     torch.cuda.synchronize()
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steps = gen.last_steps
-    log(f"[serve] launches: {counts} over {steps} decode steps")
+    steps, replays = gen.last_steps, gen.last_replays
+    log(f"[serve] launches: {counts} over {steps} decode steps, {replays} "
+        f"replays ({gen.route})")
     enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
                               dec_cfg.num_hidden_layers)
     if counts["fused_attention_fwd"] != enc_layers:
         raise AssertionError(f"attention launches {counts}")
     if steps < 1 or counts["fused_layernorm_fwd"] != (
-            2 * enc_layers + 3 * dec_layers * steps):
-        raise AssertionError(f"layernorm launches {counts}, {steps} steps")
+            2 * enc_layers + 3 * dec_layers * replays):
+        raise AssertionError(f"layernorm launches {counts}, {replays} "
+                             f"replays")
     if counts["fused_attention_bwd"] or counts["fused_layernorm_bwd"]:
         raise AssertionError(f"serving launched a backward kernel: {counts}")
     for name in ("fused_attention_fwd", "fused_layernorm_fwd"):
         results[name]["launches_serving"] = counts[name]
+    capture = decode_graphs_report(gen)
+    check_against_uncaptured("serving", gen, batch, (seqs, scores))
 
     preds = predictions_from_beams(seqs, scores, batch["indices"],
                                    batch["example_mask"], dec_tok)
@@ -1635,12 +1693,16 @@ def phase_serving(card: str, vocab: Path, results: dict) -> None:
     log(f"[serve] {batch_ms:.1f} ms/batch (host clock, median of 5) for "
         f"B={B} L={L} beam {BEAMS} dec {DEC_LEN}, windows "
         f"{_plan_windows(DEC_LEN, gen.attn_windows)}, {steps} decode "
-        f"steps, on {card}; the encoder alone {enc_ms:.1f} ms, cache set-up "
-        f"and beam search the other {batch_ms - enc_ms:.1f} ms, "
-        f"{(batch_ms - enc_ms) / steps:.2f} ms a decode step; the card busy "
-        f"{fmt_ms(busy_ms, 1)} of the batch (torch.profiler); peak device "
-        f"memory {peak_gb:.2f} GB. Random weights rarely emit EOS, so this "
-        f"is the worst case with no early stop.")
+        f"steps in {replays} replays ({replays - steps} past the stop) of "
+        f"the {gen.route} route, on {card}; the encoder alone (uncaptured) "
+        f"{enc_ms:.1f} ms, cache set-up and beam search the other "
+        f"{batch_ms - enc_ms:.1f} ms, {(batch_ms - enc_ms) / steps:.2f} ms a "
+        f"decode step; the card busy {fmt_ms(busy_ms, 1)} of the batch "
+        f"(torch.profiler), idle {idle_share(busy_ms, batch_ms)}; capture "
+        f"{capture['capture_ms']:.1f} ms in the first batch; peak device "
+        f"memory {peak_gb:.2f} GB. Random "
+        f"weights rarely emit EOS, so this is the worst case with no early "
+        f"stop.")
 
     # the batch's encoder states through the kernels and through the plain
     # functions: the bf16 serving model, and the same seed built in f32
@@ -4041,11 +4103,13 @@ def check_beams(what: str, seqs: np.ndarray, scores: np.ndarray,
         raise AssertionError(f"{what}: {steps} decode steps")
 
 
-def serving_launches(enc_layers: int, dec_layers: int, steps: int) -> dict:
+def serving_launches(enc_layers: int, dec_layers: int, replays: int) -> dict:
     """A generate call's launches: the encoder's attention and two LNs a
-    layer, then three LNs a decoder layer each decode step."""
+    layer, then three LNs a decoder layer each decode step the card ran
+    (`Generator.last_replays`: the steps, and past a stop those that
+    change nothing)."""
     return dict(fused_attention_fwd=enc_layers,
-                fused_layernorm_fwd=2 * enc_layers + 3 * dec_layers * steps)
+                fused_layernorm_fwd=2 * enc_layers + 3 * dec_layers * replays)
 
 
 def retro_train(card: str, cfg, enc_tok, dec_tok, results: dict):
@@ -4156,13 +4220,15 @@ def retro_serving(card: str, cfg, enc_tok, dec_tok, batch, results: dict):
     torch.cuda.synchronize()
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steps = gen.last_steps
+    steps, replays = gen.last_steps, gen.last_replays
     check_beams("retro serving", seqs, scores, steps)
     want = serving_launches(enc_cfg.num_hidden_layers,
-                            dec_cfg.num_hidden_layers, steps)
+                            dec_cfg.num_hidden_layers, replays)
     check_launches("the retro serving batch", counts, want)
     for name, n in want.items():
         results[name]["launches_retro_serving"] = n
+    capture = decode_graphs_report(gen)
+    check_against_uncaptured("retro serving", gen, batch, (seqs, scores))
     preds = predictions_from_beams(seqs, scores, batch["indices"],
                                    batch["example_mask"], dec_tok)
     if len(preds) != B or any(len(p["prediction"]) != RETRO_BEAMS
@@ -4183,16 +4249,22 @@ def retro_serving(card: str, cfg, enc_tok, dec_tok, batch, results: dict):
     log(f"[retro_tf] serving: {batch_ms:.1f} ms a batch (host clock, median "
         f"of 5) for B={B} (encoder tokens {lens.min()}-{lens.max()}) L={L} "
         f"beam {RETRO_BEAMS} dec {RETRO_DEC_LEN}, windows {windows}, "
-        f"{steps} decode steps of {B * RETRO_BEAMS} rows, bf16 weights; the "
-        f"encoder alone {enc_ms:.1f} ms, {step_ms:.2f} ms a decode step "
-        f"(cache set-up included); the card busy {fmt_ms(busy_ms, 1)} of the "
-        f"batch (torch.profiler); peak device memory {peak_gb:.2f} GB "
-        f"({base_gb:.2f} GB of it the weights before the call); launches "
-        f"{want}; request 0's best beam {preds[0]['prediction'][0][:60]!r} "
-        f"score {preds[0]['score'][0]:.3f}; on {card}")
+        f"{steps} decode steps of {B * RETRO_BEAMS} rows in {replays} "
+        f"replays ({replays - steps} past the stop) of the {gen.route} "
+        f"route, bf16 weights; the encoder alone (uncaptured) {enc_ms:.1f} "
+        f"ms, {step_ms:.2f} ms a decode step (cache set-up included); the "
+        f"card busy {fmt_ms(busy_ms, 1)} of the batch (torch.profiler), "
+        f"idle {idle_share(busy_ms, batch_ms)}; capture "
+        f"{capture['capture_ms']:.1f} ms in the first batch; peak device "
+        f"memory {peak_gb:.2f} GB ({base_gb:.2f} GB of it the weights before "
+        f"the call); launches {want}; request "
+        f"0's best beam {preds[0]['prediction'][0][:60]!r} score "
+        f"{preds[0]['score'][0]:.3f}; on {card}")
     return dict(batch_ms=batch_ms, encoder_ms=enc_ms, decode_step_ms=step_ms,
                 busy_ms=busy_ms, windows=windows, steps=steps,
-                peak_gb=peak_gb, weights_gb=base_gb, launches=want), preds
+                replays=replays, capture_ms=capture["capture_ms"],
+                route=gen.route, peak_gb=peak_gb, weights_gb=base_gb,
+                launches=want), preds
 
 
 def retro_cache_check(cfg, enc_tok, dec_tok, batch) -> dict:
@@ -4212,7 +4284,8 @@ def retro_cache_check(cfg, enc_tok, dec_tok, batch) -> dict:
     steps = gen.last_steps
     check_beams("retro f32 generate", seqs, scores, steps)
     check_launches("the f32 generate", read_counts(), serving_launches(
-        enc_cfg.num_hidden_layers, dec_cfg.num_hidden_layers, steps))
+        enc_cfg.num_hidden_layers, dec_cfg.num_hidden_layers,
+        gen.last_replays))
     set_kernels(module, False)
     before = read_counts()
     t0 = time.perf_counter()
@@ -4719,13 +4792,15 @@ def check_curated(raw: Path, out: Path) -> dict:
 
 @contextlib.contextmanager
 def counted_decode_steps(steps: list):
-    """Append the decode steps of every `Generator.generate` call while the
-    block runs: the test pass's residual-LN launches follow from them."""
+    """Append the decode steps the card ran in every `Generator.generate`
+    call while the block runs (`last_replays`: past a stop, those that
+    change nothing too): the test pass's residual-LN launches follow from
+    them."""
     generate = Generator.generate
 
     def counted(self, *args, **kw):
         out = generate(self, *args, **kw)
-        steps.append(self.last_steps)
+        steps.append(self.last_replays)
         return out
 
     Generator.generate = counted
@@ -5172,6 +5247,7 @@ def tp_generate_rank(rank: int, world_size: int, device: str, vocab: str,
         np.savez(out, seqs=seqs, scores=scores)
         Path(out + ".json").write_text(json.dumps({
             "counts": read_counts(), "steps": gen.last_steps,
+            "replays": gen.last_replays, "route": gen.route,
             "windows": _plan_windows(DEC_LEN, gen.attn_windows),
             "batch_ms": batch_ms,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -5237,10 +5313,9 @@ def leg_d(tmp: Path, vocab: Path, backend: str, devices) -> dict:
     enc_tok, dec_tok = get_tokenizers(gcfg)
     module, _, _ = build_model(gcfg, enc_tok, dec_tok,
                                torch.Generator().manual_seed(0))
-    ref_seqs, ref_scores = Generator(module, num_beams=BEAMS,
-                                     max_length=DEC_LEN).generate(
-        make_requests(enc_tok, B, L))
-    del module
+    ref = Generator(module, num_beams=BEAMS, max_length=DEC_LEN)
+    ref_seqs, ref_scores = ref.generate(make_requests(enc_tok, B, L))
+    del module, ref
     torch.cuda.empty_cache()
     out = str(tmp / "leg_d.npz")
     spawn("chip_smoke:tp_generate_rank", 2,
@@ -5257,8 +5332,12 @@ def leg_d(tmp: Path, vocab: Path, backend: str, devices) -> dict:
     err = float(diff.max())
     share = float((diff / (TP_SCORE_BOUND
                            + TP_SCORE_BOUND * np.abs(ref_scores))).max())
+    if d["route"] != "uncaptured":
+        raise AssertionError(f"leg D: tp=2 took the {d['route']} route")
     log(f"[parallel] leg D: B={B} L={L} beam {BEAMS}, windows "
-        f"{d['windows']}, {d['steps']} decode steps, f32: sequences "
+        f"{d['windows']}, {d['steps']} decode steps in {d['replays']} "
+        f"calls, route {d['route']} (the unsharded reference: cuda_graphs), "
+        f"f32: sequences "
         f"identical to the unsharded model's, scores max |diff| {err:.3e}, "
         f"max |diff| / ({TP_SCORE_BOUND:g} + {TP_SCORE_BOUND:g} * |ref|) = "
         f"{share:.3f} (bound 1); rank 0's launches {d['counts']}, its first "
@@ -5269,6 +5348,7 @@ def leg_d(tmp: Path, vocab: Path, backend: str, devices) -> dict:
     if not d["counts"]["fused_attention_fwd"] > 0:
         raise AssertionError("leg D launched no attention kernel")
     return {"backend": d["backend"], "world": d["world"],
+            "route": d["route"],
             "device_count": d["device_count"], "score_err": err,
             "score_share": share}
 

@@ -413,7 +413,8 @@ def test_build_model_rcr_geometry_and_seeded_init(tmp_path):
 def test_port_imports_no_jax_or_pandas():
     """The port's modules (the curation's and the measurement tools' too),
     chip_smoke, chip_profile,
-    the multi-process tests' rank bodies (tests/_torch_parallel_worker.py)
+    the multi-process tests' rank bodies (tests/_torch_parallel_worker.py,
+    tests/_torch_decode_worker.py)
     and the port's parity_run.py and check_artifacts.py (scripts/torch_port/)
     load where JAX, pandas, safetensors, transformers and the JAX package
     are absent: nothing of them is in sys.modules afterwards."""
@@ -448,7 +449,8 @@ def test_port_imports_no_jax_or_pandas():
                  "templates.smarts_canon", "templates.labeling",
                  "templates.native_labeling", "templates.native_extractor",
                  "templates.extractor", "templates.processor", "bench",
-                 "bench_train"):
+                 "bench_train", "inference.beam", "inference.graphs",
+                 "inference.predictor"):
         assert "textreact_tpu_torch." + name in names
     # the template decode and the template preprocessing have one engine,
     # the own one: no RDKit twin, and no RDKit half copied into a module
@@ -463,7 +465,7 @@ def test_port_imports_no_jax_or_pandas():
     code = ("import sys, importlib, importlib.util\n"
             "sys.path.insert(0, 'tests')\n"
             f"for name in {names!r} + ['chip_smoke', 'chip_profile', "
-            "'_torch_parallel_worker']:\n"
+            "'_torch_parallel_worker', '_torch_decode_worker']:\n"
             "    importlib.import_module(name)\n"
             "for path in ('scripts/torch_port/parity_run.py', "
             "'scripts/torch_port/check_artifacts.py'):\n"

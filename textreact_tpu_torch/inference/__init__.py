@@ -1,4 +1,5 @@
 from .beam import beam_search
-from .predictor import Generator, predictions_from_beams
+from .predictor import Generator, decode_route, predictions_from_beams
 
-__all__ = ["beam_search", "Generator", "predictions_from_beams"]
+__all__ = ["beam_search", "Generator", "decode_route",
+           "predictions_from_beams"]

@@ -14,8 +14,8 @@ import torch
 from torch import nn
 
 from .config import TransformerConfig
-from .layers import (Embeddings, MLMHead, TransformerBlock, causal_bias,
-                     mask_to_bias, remat_block)
+from .layers import (Embeddings, MLMHead, Position, TransformerBlock,
+                     causal_bias, mask_to_bias, remat_block)
 
 
 @dataclasses.dataclass
@@ -29,7 +29,11 @@ class DecodeCache:
     one row per decode row (rows, H, cache_len, D). H is this rank's
     heads. cross_k/cross_v: (examples, H, L, D), projected once from the
     encoder states and never replicated across beams. cross_bias:
-    (examples, 1, 1, L) f32 key-padding bias, or None."""
+    (examples, 1, 1, L) f32 key-padding bias, or None.
+
+    `Decoder.refill_cache` loads another batch of the same shapes into
+    these tensors in place: a CUDA graph captured over the cache reads it
+    where it lies, so no tensor of it is ever allocated again."""
     self_k: List[torch.Tensor]
     self_v: List[torch.Tensor]
     cross_k: List[torch.Tensor]
@@ -120,16 +124,37 @@ class Decoder(nn.Module):
             cross_bias=encoder_key_bias(encoder_attention_mask),
             beam_groups=beam_groups)
 
+    def refill_cache(self, cache: DecodeCache, encoder_states: torch.Tensor,
+                     encoder_attention_mask: Optional[torch.Tensor]) -> None:
+        """Load a new batch into `cache` in place, as init_cache would make
+        it for these arguments: the cross K/V and the key bias copied in,
+        the self-attention caches zeroed. The shapes must be those the
+        cache was made for."""
+        for i, layer in enumerate(self.layers):
+            k, v = layer.crossattention.project_kv(encoder_states)
+            cache.cross_k[i].copy_(k)
+            cache.cross_v[i].copy_(v)
+        for t in cache.self_k + cache.self_v:
+            t.zero_()
+        bias = encoder_key_bias(encoder_attention_mask)
+        if (bias is None) != (cache.cross_bias is None):
+            raise ValueError("refill_cache: a key mask where the cache has "
+                             "none, or none where it has one")
+        if bias is not None:
+            cache.cross_bias.copy_(bias)
+
     def decode(self, input_ids: torch.Tensor, cache: DecodeCache,
-               position: int,
+               position: Position,
                beam_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One token per row at `position`: (rows, 1) ids -> (rows, 1, V)
+        """One token per row at `position` (an int, or a 0-d int64 tensor
+        on the cache's device): (rows, 1) ids -> (rows, 1, V)
         f32 logits; writes this position's K/V into the cache. A grouped
         cache needs the step's beam_bias (inference/beam.py::ancestor_bias),
         which serves every layer; a per-row cache takes none."""
         if (beam_bias is None) != (cache.beam_groups == 0):
             raise ValueError("beam_bias goes with a grouped cache "
                              f"(beam_groups {cache.beam_groups})")
+        # computed on the device from a tensor position
         position_ids = (torch.arange(input_ids.shape[1],
                                      device=input_ids.device)[None, :]
                         + position)

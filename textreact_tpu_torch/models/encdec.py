@@ -21,7 +21,7 @@ from torch import nn
 from .config import TransformerConfig
 from .decoder import DecodeCache, Decoder
 from .encoder import Encoder
-from .layers import MLMHead
+from .layers import MLMHead, Position
 
 
 class EncoderDecoder(nn.Module):
@@ -117,9 +117,18 @@ class DecoderStep(nn.Module):
             encoder_states, encoder_attention_mask,
             encoder_states.shape[0] * num_beams, cache_len, self.beam_groups)
 
+    def refill_cache(self, cache: DecodeCache, encoder_states: torch.Tensor,
+                     encoder_attention_mask: Optional[torch.Tensor]) -> None:
+        """A new batch of init_cache's shapes into `cache`, in place
+        (Decoder.refill_cache)."""
+        self.decoder.refill_cache(cache, encoder_states,
+                                  encoder_attention_mask)
+
     def forward(self, token_ids: torch.Tensor, cache: DecodeCache,
-                position: int,
+                position: Position,
                 beam_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`position`: an int, or a 0-d int64 tensor on the cache's
+        device."""
         return self.decoder.decode(token_ids, cache, position, beam_bias)
 
 

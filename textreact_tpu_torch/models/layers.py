@@ -32,7 +32,7 @@ operands in place, with the JAX package's output dtypes (`_decode_bmm`).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +48,9 @@ from ..ops.fused_layernorm import (fused_residual_layernorm, layer_norm,
 from .config import TransformerConfig
 
 NEG_INF = -1e9
+# a decode position: a Python int, or a 0-d int64 tensor on the cache's
+# device (beam search keeps it there, so that no step waits for the host)
+Position = Union[int, torch.Tensor]
 
 
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -91,6 +94,15 @@ def _decode_bmm(a: torch.Tensor, b: torch.Tensor,
     if out_dtype == a.dtype:
         return torch.bmm(a, b)
     return torch.bmm(a, b, out_dtype=out_dtype)
+
+
+def _slot(position: Position, device: torch.device) -> torch.Tensor:
+    """The decode position as a (1,) int64 index on `device`: a tensor
+    position is viewed where it lies, never read by the host (indexing or
+    slicing at a 0-d tensor would wait for it)."""
+    if isinstance(position, torch.Tensor):
+        return position.view(1)
+    return torch.full((1,), position, dtype=torch.long, device=device)
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -318,31 +330,47 @@ class MultiHeadAttention(nn.Module):
             Bk * G, 1, H * D))
 
     def decode_self(self, x: torch.Tensor, cache_k: torch.Tensor,
-                    cache_v: torch.Tensor, position: int) -> torch.Tensor:
+                    cache_v: torch.Tensor, position: Position) -> torch.Tensor:
         """One token per row, the twin of the JAX package's beam_groups=0
         path (layers.py:310-352). x: (N, 1, d); cache_k/v: (N, H, T, D),
         head first so that the prefix is read in place, written at
-        `position`; attends over positions 0..position with f32 scores."""
+        `position`; attends over positions 0..position with f32 scores.
+        At an int position the prefix 0..position is read; at a 0-d
+        tensor position, which no slice may take as a bound without a
+        host wait, all T slots are read under the JAX package's bias that
+        masks those past the position."""
         H, D = self.num_heads, self.config.head_dim
-        N, t = x.shape[0], position + 1
-        cache_k[:, :, position] = self.key(x).view(N, H, D)
-        cache_v[:, :, position] = self.value(x).view(N, H, D)
+        N = x.shape[0]
+        at = _slot(position, cache_k.device)
+        cache_k.index_copy_(2, at, self.key(x).view(N, H, 1, D))
+        cache_v.index_copy_(2, at, self.value(x).view(N, H, 1, D))
         q = self.query(x).view(N * H, 1, D)
+        bias = None
+        if isinstance(position, int):
+            t = position + 1
+        else:
+            t = cache_k.shape[2]
+            bias = torch.where(torch.arange(t, device=x.device) <= position,
+                               0.0, NEG_INF)
         k = cache_k[:, :, :t].view(N * H, t, D)    # views: no copy
         v = cache_v[:, :, :t].view(N * H, t, D)
         s = _decode_bmm(q, k.transpose(1, 2), torch.float32) / math.sqrt(D)
+        if bias is not None:
+            s = s + bias
         probs = torch.softmax(s, dim=-1).to(self.dtype)
         ctx = _decode_bmm(probs, v, self.dtype)                   # (N*H, 1, D)
         return self._out(ctx.view(N, 1, H * D))
 
     def decode_self_grouped(self, x: torch.Tensor, cache_k: torch.Tensor,
-                            cache_v: torch.Tensor, position: int,
+                            cache_v: torch.Tensor, position: Position,
                             beam_bias: torch.Tensor) -> torch.Tensor:
         """The row-stable grouped beam decode (layers.py:232-309). x:
         (Bex*G, 1, d), G beams per example; cache_k/v: (Bex, H, D, T*G),
         head first and the merged (t, g) axis last, written in place at
         [..., position*G : (position+1)*G] (only the new token is
-        transposed); beam_bias: (Bex, G, W*G) f32 from
+        transposed; `position` an int or a 0-d int64 tensor on the
+        cache's device, which beam search's device-state loop passes);
+        beam_bias: (Bex, G, W*G) f32 from
         inference/beam.py::ancestor_bias, whose width carries the step's
         window W: the attention reads the cache prefix [..., :W*G] in place
         and each beam sees one row per valid position, its ancestor's.
@@ -353,12 +381,14 @@ class MultiHeadAttention(nn.Module):
         Bex = cache_k.shape[0]
         G = x.shape[0] // Bex
         WG = beam_bias.shape[-1]
-        # (Bex*G, 1, H*D) -> (Bex, H, D, G): the new token alone is
-        # transposed; the cache is written where it lies
-        cache_k[..., position * G:(position + 1) * G] = self.key(x).view(
-            Bex, G, H, D).permute(0, 2, 3, 1)
-        cache_v[..., position * G:(position + 1) * G] = self.value(x).view(
-            Bex, G, H, D).permute(0, 2, 3, 1)
+        # (Bex*G, 1, H*D) -> (Bex, H, D, 1, G): the new token alone is
+        # transposed; the cache, seen as (Bex, H, D, T, G), is written
+        # where it lies at the position's G slots
+        at, T = _slot(position, cache_k.device), cache_k.shape[-1] // G
+        cache_k.view(Bex, H, D, T, G).index_copy_(3, at, self.key(x).view(
+            Bex, G, H, D).permute(0, 2, 3, 1)[:, :, :, None])
+        cache_v.view(Bex, H, D, T, G).index_copy_(3, at, self.value(x).view(
+            Bex, G, H, D).permute(0, 2, 3, 1)[:, :, :, None])
         q = self.query(x).view(Bex, G, H, D).transpose(1, 2).reshape(
             Bex * H, G, D)
         k = cache_k[..., :WG].view(Bex * H, D, WG)    # views: no copy
@@ -465,7 +495,7 @@ class TransformerBlock(nn.Module):
         return self.ffn_norm(x, self.ffn(x), generator)
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, position: int,
+               cache_v: torch.Tensor, position: Position,
                cross_k: torch.Tensor, cross_v: torch.Tensor,
                cross_bias: Optional[torch.Tensor],
                beam_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
