@@ -7,8 +7,10 @@ one search of its retrieval path, spends its time on one CUDA GPU.
 
 `--path train` (the default) builds the same model, batch and step as chip_smoke.py's training phase
 (SciBERT-base + bert_l6 at full width and depth, f32 parameters, bf16
-compute, dropout 0.1, 4 micro-batches of 32 at L=512), runs two warm-up
-steps, then records one step with torch.profiler and prints:
+compute, dropout 0.1, 4 micro-batches of 32 at L=512; the step's route,
+on the card "cuda_graphs", is printed), runs two warm-up steps (the first
+captures the graphs), then records one step with torch.profiler and
+prints:
 - the step's host-clock time, without and under the profiler, and the
   share of it in which the card ran at least one kernel (the rest is the
   host not keeping the card fed);
@@ -369,7 +371,8 @@ def profile_train(card: str, say) -> None:
     plain_ms, wall_ms, prof = profile_call(one_step)
     metrics = box["metrics"]
     where = (f"{cs.MICRO_BATCHES} x {cs.B} examples at L={cs.L}, bf16 "
-             f"compute, f32 parameters, dropout {cs.DROPOUT_P}, on {card}")
+             f"compute, f32 parameters, dropout {cs.DROPOUT_P}, train step "
+             f"route {step.route}, on {card}")
     report(prof, f"one optimizer step (loss "
            f"{float(metrics['train_loss']):.4f})", plain_ms, wall_ms, where,
            say)

@@ -59,10 +59,19 @@ Phases, each fatal on failure:
 5. training path: the RCR recipe's training step at full width and depth
    (f32 parameters, bf16 compute, MLM head, dropout 0.1, clip 5, AdamW,
    cosine schedule): 128 tokenized, span-masked, collated examples run as 4
-   micro-batches of 32 at L=512 for 3 optimizer steps, then an eval step;
-   checks finite metrics, a falling loss, changed parameters and the exact
-   launch counts of all four kernels; a weight-0 micro-batch changes
-   nothing;
+   micro-batches of 32 at L=512 for 3 optimizer steps on each of the
+   step's two routes from one snapshot of weights and moments: the CUDA
+   graphs (train/graphs.py: each part run once uncaptured, captured, then
+   replayed) and the same parts uncaptured; checks finite metrics, a
+   falling loss, changed parameters, the exact launch counts of all four
+   kernels on both routes (the graphed one's go into the kernels line),
+   and every metric, parameter and moment of the two routes equal to the
+   bit (both under torch's deterministic algorithms, without which the
+   embedding backward's atomics part two runs of one route); each route's
+   host ms, the card's span (CUDA events), busy ms and
+   idle share (profiler), the host's launch calls a step, capture ms per
+   key and peak memory, printed as the `train` line; then an eval step; a
+   weight-0 micro-batch changes nothing;
 6. training, kernels against plain functions: one micro-batch's loss and
    every gradient in float32 without dropout, within a stated bound;
 7. retrieval path at full size through FlatIndex.search, data made from a
@@ -98,7 +107,8 @@ Phases, each fatal on failure:
    dropout 0.1, batch 32 x accumulation 4, 512 training reactions, 2 epochs,
    --do_train --do_valid --do_test, beam 15; a falling loss, published
    checkpoints, two prediction files, kernel launches that match the steps
-   run; then the same command with one more epoch resumes;
+   run, the trainer's train step route (cuda_graphs) printed; then the same
+   command with one more epoch resumes;
 11. the pretrained start: two HF checkpoint directories written from a
    seed (SciBERT-base as model.safetensors; a 6-layer BERT of vocab 300
    with the MaskedLM head as pytorch_model.bin with the `bert.` prefix),
@@ -150,7 +160,9 @@ Phases, each fatal on failure:
    5,000 x 20 beams with the trainer's workers, a gold planted at rank 3
    read back as rank 3; then scripts/torch_port/parity_run.py --recipe
    RetroSyn_tf in-process (its three searches, one epoch, validate, test
-   at beam 20 over 160; launches exact, each leg timed);
+   at beam 20 over 160; launches exact, each leg timed, the trainer's
+   route printed); the template phase's command line prints its trainer's
+   route too;
 13. the offline curation, raw rows to training: 1,000 raw condition rows
    (the schema parse_cml_reactions emits, with canonical_rxn) over 256
    reactions, skewed condition combos with empty slots and ionic reagents,
@@ -1689,7 +1701,7 @@ def phase_serving(card: str, vocab: Path, results: dict) -> None:
         enc_ms = wall_ms(lambda: module.encode(ids, mask))
     busy_ms, _ = device_busy_ms(
         lambda: gen.generate(batch),
-        {"residual_layernorm_fwd": counts["fused_layernorm_fwd"]}, tries=2)
+        {"residual_layernorm_fwd": counts["fused_layernorm_fwd"]})
     log(f"[serve] {batch_ms:.1f} ms/batch (host clock, median of 5) for "
         f"B={B} L={L} beam {BEAMS} dec {DEC_LEN}, windows "
         f"{_plan_windows(DEC_LEN, gen.attn_windows)}, {steps} decode "
@@ -1745,7 +1757,178 @@ def as_microbatches(batch, n: int) -> dict:
             for k, v in batch.arrays.items()}
 
 
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_launch_calls(fn) -> int:
+    """The kernel launches, graph launches and copies the host issued in
+    one call of `fn`, from torch.profiler's runtime events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.name in HOST_LAUNCH_CALLS for ev in prof.events()
+               if ev.device_type != torch.autograd.DeviceType.CUDA)
+
+
+def train_snapshot(module, optimizer) -> dict:
+    """Copies of every parameter and both moments of every parameter."""
+    return {"params": [p.detach().clone() for p in module.parameters()],
+            "exp_avg": [t.clone() for t in optimizer.exp_avg],
+            "exp_avg_sq": [t.clone() for t in optimizer.exp_avg_sq]}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warn_only, as the parallel phase
+    takes them), new tensors left unfilled. Without them torch's embedding
+    backward sums the rows of a table that many tokens look up by atomics,
+    in an order that varies from run to run: on an H100 with torch 2.11,
+    twenty backward passes of the token-type table at 32 x 512 tokens
+    differ by up to 2.4e-4 and of the position table by up to 9.5e-7, and
+    two uncaptured runs of one train step differ in those tables' last
+    bits. Under them the two runs are equal to the bit."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def differing(a: dict, b: dict, names: list) -> dict:
+    """{tensor: max |a - b| / max |b|} of the tensors of two
+    train_snapshot()s that are not equal to the bit."""
+    return {f"{part} {names[i]}": float(
+                (x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+            for part in a for i, (x, y) in enumerate(zip(a[part], b[part]))
+            if not torch.equal(x, y)}
+
+
+def run_route(route: str, module, cfg, optimizer, pad_id: int, micro,
+              state: TrainState) -> dict:
+    """TRAIN_STEPS steps of the accumulated train step on `route`, from the
+    weights and moments the module and optimizer hold: the metrics and host
+    ms of each step (synchronized before and after), the launches of all
+    of them (counters set to 0 just before, read just after), peak
+    memory, and the end state."""
+    step = make_accum_train_step(module, cfg, optimizer, pad_id)
+    if step.route != "cuda_graphs":
+        raise AssertionError(f"the train step's route on one card is "
+                             f"{step.route}")
+    step.route = route
+    weights = np.ones(MICRO_BATCHES, np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, micro, weights, cfg.seed)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append(metrics)
+        log(f"[train] {route} step {state.step}: "
+            f"{ {k: float(v) for k, v in metrics.items()} } lr "
+            f"{optimizer.schedule(state.step - 1):.3g} {step_ms[-1]:.1f} ms")
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return dict(step=step, state=state, history=history, step_ms=step_ms,
+                counts=counts, peak_gb=peak_gb,
+                end=train_snapshot(module, optimizer))
+
+
+def capture_by_key(graphs) -> dict:
+    """ms each capture of a train step's graphs took: the update part's and
+    each key's micro-batch part's, labelled by the key's input shapes."""
+    out = {"update": round(graphs.update.capture_ms, 1)}
+    for key, part in graphs.keys.items():
+        shapes = {name: shape for name, shape, _ in key}
+        label = "micro " + "x".join(map(str, shapes.get("input_ids", ())))
+        if "decoder_input_ids" in shapes:
+            label += " dec " + "x".join(map(str, shapes["decoder_input_ids"]))
+        out[label] = round(part.micro.capture_ms, 1)
+    return out
+
+
+def uncaptured_peak_gb(module, cfg, optimizer, pad_id: int, micro,
+                       step_count: int) -> float:
+    """Peak device memory of one accumulated train step of `micro` on the
+    uncaptured route, from the weights and moments that the module and the
+    optimizer hold, put back after it (their copies wait on the host), the
+    launch counters left as they were: the uncaptured route's figure beside
+    a phase's graphed steps."""
+    params = [p.detach().cpu() for p in module.parameters()]
+    saved = optimizer.state_dict()
+    saved["moments"] = {n: {k: v.cpu() for k, v in m.items()}
+                        for n, m in saved["moments"].items()}
+    counters = (fused_attention.LAUNCHES, fused_attention.BWD_LAUNCHES,
+                fused_layernorm.LAUNCHES, fused_layernorm.BWD_LAUNCHES)
+    step = make_accum_train_step(module, cfg, optimizer, pad_id)
+    step.route = "uncaptured"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(TrainState(module, optimizer, step_count), micro,
+         np.ones(MICRO_BATCHES, np.float32), cfg.seed)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        for p, p0 in zip(module.parameters(), params):
+            p.copy_(p0)
+    optimizer.load_state_dict(saved)
+    (fused_attention.LAUNCHES, fused_attention.BWD_LAUNCHES,
+     fused_layernorm.LAUNCHES, fused_layernorm.BWD_LAUNCHES) = counters
+    return peak_gb
+
+
+def route_timing(card: str, run: dict, micro, cfg, per_mb: dict) -> dict:
+    """A route's host ms (median of steps 2-3), the card's span of a step
+    (CUDA events), its busy ms and idle share (torch.profiler), the host's
+    launch calls a step, capture ms per key and peak memory, printed."""
+    step, state = run["step"], run["state"]
+    weights = np.ones(MICRO_BATCHES, np.float32)
+    box = {"state": state}
+
+    def one_step():
+        box["state"], _ = step(box["state"], micro, weights, cfg.seed)
+
+    host_ms = statistics.median(run["step_ms"][1:])
+    span_ms = device_span_ms(one_step)
+    expect = {"residual_layernorm_fwd": per_mb["fused_layernorm_fwd"]
+              * MICRO_BATCHES,
+              "residual_layernorm_bwd": per_mb["fused_layernorm_bwd"]
+              * MICRO_BATCHES,
+              "attention_fwd": per_mb["fused_attention_fwd"] * MICRO_BATCHES}
+    busy_ms, kernels = device_busy_ms(one_step, expect)
+    calls = host_launch_calls(one_step)
+    capture = {} if step.graphs is None else capture_by_key(step.graphs)
+    out = dict(route=step.route, host_ms=host_ms, device_span_ms=span_ms,
+               busy_ms=busy_ms, idle=idle_share(busy_ms, host_ms),
+               device_kernels=kernels, host_launch_calls=calls,
+               capture_ms=capture, peak_gb=run["peak_gb"])
+    log(f"[train] route {step.route}: {host_ms:.1f} ms a step (host clock, "
+        f"median of steps 2-{TRAIN_STEPS}; step 1 {run['step_ms'][0]:.1f} "
+        f"ms), the card's span {span_ms:.1f} ms (CUDA events, median of 2), "
+        f"busy {fmt_ms(busy_ms, 1)} ({kernels} kernels and copies), idle "
+        f"{out['idle']} of the host's step; the host issued {calls} kernel "
+        f"launches, graph launches and copies a step; capture ms by key "
+        f"{capture}; peak device memory {run['peak_gb']:.1f} GB; on {card}")
+    return out
+
+
 def phase_train(card: str, vocab: Path, results: dict):
+    """The training path on its two routes from one snapshot of weights and
+    moments: the graphed route (the main path, exact launch counts), then
+    the uncaptured route, equal to the bit in every metric, parameter and
+    moment; each timed. Both run under torch's deterministic algorithms
+    (`deterministic`)."""
     cfg = train_config(vocab)
     enc_tok, dec_tok = get_tokenizers(cfg)
     t0 = time.perf_counter()
@@ -1762,32 +1945,22 @@ def phase_train(card: str, vocab: Path, results: dict):
                                 for k, v in micro.items()))
     # a 3-step run: warmup int(3 * 0.02) = 0 steps, then the cosine decay
     optimizer = make_optimizer(cfg, TRAIN_STEPS, module.named_parameters())
-    state = TrainState.create(module, optimizer)
-    train_step = make_accum_train_step(module, cfg, optimizer,
-                                       dec_tok.pad_token_id)
     eval_step = make_eval_step(module, cfg, dec_tok.pad_token_id)
-    before = [p.detach().clone() for p in module.parameters()]
-    weights = np.ones(MICRO_BATCHES, np.float32)
+    names = [n for n, _ in module.named_parameters()]
+    start = train_snapshot(module, optimizer)
+    fresh = {"count": 0, "moments": {}}   # moments zero, no update made
 
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    history, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, micro, weights, cfg.seed)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        history.append({k: float(v) for k, v in metrics.items()})
-        log(f"[train] step {state.step}: {history[-1]} "
-            f"lr {optimizer.schedule(state.step - 1):.3g} "
-            f"{step_ms[-1]:.1f} ms")
-    counts = read_counts()
-    if any([counts.pop(name) for name in (*TOPK_LAYOUTS.values(),
-                                          *CAUSAL_KERNELS)]):
-        raise AssertionError("training launched a retrieval or causal "
-                             "kernel")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runs = {}
+    for route in ("cuda_graphs", "uncaptured"):
+        with torch.no_grad():
+            for p, p0 in zip(module.parameters(), start["params"]):
+                p.copy_(p0)
+        optimizer.load_state_dict(fresh)
+        with deterministic():
+            runs[route] = run_route(route, module, cfg, optimizer,
+                                    dec_tok.pad_token_id, micro,
+                                    TrainState.create(module, optimizer))
+    graphed, uncaptured = runs["cuda_graphs"], runs["uncaptured"]
 
     enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
                               dec_cfg.num_hidden_layers)
@@ -1796,12 +1969,40 @@ def phase_train(card: str, vocab: Path, results: dict):
               "fused_layernorm_fwd": 2 * enc_layers + 3 * dec_layers,
               "fused_layernorm_bwd": 2 * enc_layers + 3 * dec_layers}
     expected = {k: v * MICRO_BATCHES * TRAIN_STEPS for k, v in per_mb.items()}
-    log(f"[train] launches over {TRAIN_STEPS} steps x {MICRO_BATCHES} "
-        f"micro-batches: {counts} (per micro-batch {per_mb})")
-    if counts != expected:
-        raise AssertionError(f"launches {counts}, expected {expected}")
-    for name, n in counts.items():
-        results[name]["launches"] = n
+    for route, run in runs.items():
+        counts = dict(run["counts"])
+        if any([counts.pop(name) for name in (*TOPK_LAYOUTS.values(),
+                                              *CAUSAL_KERNELS)]):
+            raise AssertionError("training launched a retrieval or causal "
+                                 "kernel")
+        log(f"[train] {route}: launches over {TRAIN_STEPS} steps x "
+            f"{MICRO_BATCHES} micro-batches: {counts} (per micro-batch "
+            f"{per_mb})")
+        if counts != expected:
+            raise AssertionError(f"{route}: launches {counts}, expected "
+                                 f"{expected}")
+        if route == "cuda_graphs":
+            for name, n in counts.items():
+                results[name]["launches"] = n
+
+    # the two routes from one snapshot: equal to the bit
+    unequal = [f"step {i + 1} {k}"
+               for i, (a, b) in enumerate(zip(graphed["history"],
+                                              uncaptured["history"]))
+               for k in a if not torch.equal(a[k], b[k])]
+    diff = differing(graphed["end"], uncaptured["end"], names)
+    unequal += list(diff)
+    log(f"[train] graphed route against the uncaptured route from one "
+        f"snapshot, {TRAIN_STEPS} steps, under torch's deterministic "
+        f"algorithms: "
+        + ("every metric, parameter and moment equal to the bit"
+           if not unequal else
+           f"DIFFERENT: {unequal[:10]} ({ {k: f'{d:.2e}' for k, d in diff.items()} })"))
+    if unequal:
+        raise AssertionError(f"the graphed train step departs from the "
+                             f"uncaptured one: {unequal[:10]}")
+    history = [{k: float(v) for k, v in h.items()}
+               for h in graphed["history"]]
     for h in history:
         if not all(np.isfinite(v) for v in h.values()):
             raise AssertionError(f"non-finite metric: {h}")
@@ -1809,13 +2010,17 @@ def phase_train(card: str, vocab: Path, results: dict):
             raise AssertionError(f"grad_norm {h['grad_norm']}")
     if not history[-1]["train_loss"] < history[0]["train_loss"]:
         raise AssertionError(f"the loss did not fall: {history}")
-    changed = sum(int(not torch.equal(a, b))
-                  for a, b in zip(before, module.parameters()))
-    if changed != len(before):
-        raise AssertionError(f"only {changed} of {len(before)} parameter "
+    changed = sum(int(not torch.equal(a, b)) for a, b in zip(
+        start["params"], graphed["end"]["params"]))
+    if changed != len(names):
+        raise AssertionError(f"only {changed} of {len(names)} parameter "
                              f"tensors changed")
-    del before
+    del start, graphed["end"], uncaptured["end"]
 
+    with deterministic():
+        timing = {route: route_timing(card, run, micro, cfg, per_mb)
+                  for route, run in runs.items()}
+    results["train_routes"] = timing
     out = eval_step({k: v[0] for k, v in micro.items()})
     loss, acc = out["loss"].float().cpu(), out["acc"].float().cpu()
     if loss.shape != (B,) or acc.shape != (B,) or not bool(
@@ -1824,13 +2029,12 @@ def phase_train(card: str, vocab: Path, results: dict):
     log(f"[train] eval step on micro-batch 0: mean loss "
         f"{float(loss.mean()):.4f}, greedy exact match "
         f"{float(acc.mean()):.3f}")
-    med = statistics.median(step_ms[1:])
-    log(f"[train] {med:.1f} ms per optimizer step (host clock, median of "
-        f"steps 2-{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms) = "
-        f"{cfg.batch_size / med * 1e3:.1f} examples/s for "
+    med = timing["cuda_graphs"]["host_ms"]
+    log(f"[train] {med:.1f} ms per optimizer step on the graphed route "
+        f"(host clock) = {cfg.batch_size / med * 1e3:.1f} examples/s for "
         f"{MICRO_BATCHES} x {B} examples at L={L}, bf16 compute, f32 "
-        f"parameters, dropout {DROPOUT_P}, peak device memory "
-        f"{peak_gb:.1f} GB, on {card}")
+        f"parameters, dropout {DROPOUT_P}, on {card}; uncaptured "
+        f"{timing['uncaptured']['host_ms']:.1f} ms")
     return cfg, enc_tok, dec_tok, micro, med
 
 
@@ -2814,7 +3018,9 @@ def phase_runtime(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
     epochs = 2
     reset_counts()
     t0 = time.perf_counter()
-    accuracies = runtime_cli.main(argv(epochs))
+    routes: list = []
+    with trainer_routes(routes):
+        accuracies = runtime_cli.main(argv(epochs))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
@@ -2879,6 +3085,7 @@ def phase_runtime(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
         f"{test_rate:.1f} examples/s (beam {BEAMS}, both corpora); on "
         f"{card}")
     results["runtime"] = dict(
+        route=check_trainer_route("runtime", routes),
         step_ms=step_ms, bare_step_ms=bare_step_ms,
         save_blocking_s=timing[0]["save_blocking_seconds"],
         save_copy_s=timing[0]["save_copy_seconds"], save_write_s=write_s, test_examples_per_s=test_rate)
@@ -3095,6 +3302,42 @@ def check_pretrained_import(params: dict, seeded: dict, files: dict,
         n_imported += p[:n].numel()
         n_seeded += p[n:].numel()
     return n_imported, n_seeded
+
+
+@contextlib.contextmanager
+def trainer_routes(routes: list):
+    """Append (the train step's route, the peak device memory of the fit in
+    GB) of every Trainer whose fit runs inside to `routes`: the command
+    line builds its trainer out of reach."""
+    from textreact_tpu_torch.train.trainer import Trainer
+    fit = Trainer.fit
+
+    def recorded_fit(self):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return fit(self)
+        finally:
+            torch.cuda.synchronize()
+            routes.append((self.train_route,
+                           torch.cuda.max_memory_allocated() / 1e9))
+
+    Trainer.fit = recorded_fit
+    try:
+        yield
+    finally:
+        Trainer.fit = fit
+
+
+def check_trainer_route(tag: str, routes: list) -> str:
+    """The one route the trainers of a run took and each fit's peak device
+    memory, printed; on one card "cuda_graphs" (train/graphs.py)."""
+    log(f"[{tag}] the trainer's train step route: {[r for r, _ in routes]}; "
+        f"peak device memory of each fit (its validation included) "
+        f"{[round(gb, 1) for _, gb in routes]} GB")
+    if {r for r, _ in routes} != {"cuda_graphs"}:
+        raise AssertionError(f"{tag}: trainer routes {routes}")
+    return routes[0][0]
 
 
 @contextlib.contextmanager
@@ -3455,18 +3698,22 @@ def device_span_ms(fn, reps: int = 2) -> float:
     return statistics.median(spans)
 
 
-def device_busy_ms(fn, expect: dict, tries: int = 4) -> tuple:
+def device_busy_ms(fn, expect: dict, tries: int = 4,
+                   need: int = 3) -> tuple:
     """(ms in which the card ran at least one kernel or copy during one call
     of `fn`, kernels and copies seen), from torch.profiler after a warm-up
-    call. The profiler has lost launches here, so a trace counts only where
-    it saw exactly `expect` ({fragment of a kernel's name: its launches a
-    call}) and as many kernels and copies in all as the trace before it;
-    after `tries` traces without such a pair both read None: not
-    measured."""
+    call: the median over the first `need` traces, of at most `tries`, that
+    saw exactly `expect` ({fragment of a kernel's name: its launches a
+    call}); without `need` such traces both read None: not measured. The
+    profiler has lost launches here, a whole 23 ms kernel among them, and
+    its count of the other kernels and copies of one call varies by a few
+    between traces (13,248-13,254 of an uncaptured train step on an H100),
+    so the traces need not agree in it: the median keeps one trace that
+    lost a long kernel out of the result."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    previous, seen = None, []
+    seen, good = [], []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3479,21 +3726,25 @@ def device_busy_ms(fn, expect: dict, tries: int = 4) -> tuple:
         counts = {fragment: sum(fragment in name for name, _, _ in events)
                   for fragment in expect}
         seen.append((len(events), counts))
-        if counts != expect or len(events) != previous:
-            previous = len(events) if counts == expect else None
+        if counts != expect:
             continue
-        spans = sorted((start, end) for _, start, end in events)
         busy, reach = 0.0, None
-        for start, end in spans:
+        for start, end in sorted((start, end) for _, start, end in events):
             if reach is None or start > reach:
                 busy += end - start
                 reach = end
             elif end > reach:
                 busy += end - reach
                 reach = end
-        return busy / 1e3, len(spans)
+        good.append((busy / 1e3, len(events)))
+        if len(good) == need:
+            log(f"  profiler: busy ms {[round(b, 2) for b, _ in good]} in "
+                f"traces of {[n for _, n in good]} kernels and copies; the "
+                f"median taken")
+            return (statistics.median(b for b, _ in good),
+                    int(statistics.median(n for _, n in good)))
     log(f"  profiler: traces saw (kernels and copies, named launches) {seen},"
-        f" expected {expect} in two traces alike: not measured")
+        f" expected {expect} in {need}: not measured")
     return None, None
 
 
@@ -3780,17 +4031,22 @@ def phase_template(card: str, tmp: Path, vocab: Path,
         raise AssertionError(f"only {changed} of {len(before)} parameter "
                              f"tensors changed")
     del before
+    uncaptured_gb = uncaptured_peak_gb(module, cfg, optimizer, 0, micro,
+                                       state.step)
 
     # the same batch without the bond mask: the fused attention kernels
     keyed = dict(micro, attention_mask=np.ascontiguousarray(np.diagonal(
         micro["attention_mask"], axis1=2, axis2=3)))
     reset_counts()
+    state, metrics = train_step(state, keyed, weights, cfg.seed)
+    counts = read_counts()
+    # the key's first step ran its micro-batch part once uncaptured and
+    # captured it: time the step after it, a replay as the others are
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, metrics = train_step(state, keyed, weights, cfg.seed)
+    state, _ = train_step(state, keyed, weights, cfg.seed)
     torch.cuda.synchronize()
     keyed_ms = (time.perf_counter() - t0) * 1e3
-    counts = read_counts()
     want = dict(want, fused_layernorm_fwd=per_step,
                 fused_layernorm_bwd=per_step,
                 fused_attention_fwd=layers * MICRO_BATCHES,
@@ -3822,7 +4078,8 @@ def phase_template(card: str, tmp: Path, vocab: Path,
         f"{step_ms[0]:.1f} ms), the card's span {step_span:.1f} ms (CUDA "
         f"events, median of 2), busy {fmt_ms(step_busy, 1)} of a profiled "
         f"step ({step_kernels} kernels and copies), peak device memory "
-        f"{peak_gb:.1f} GB; without the bond mask {keyed_ms:.1f} ms, span "
+        f"{peak_gb:.1f} GB ({train_step.route}; one uncaptured step "
+        f"{uncaptured_gb:.1f} GB); without the bond mask {keyed_ms:.1f} ms, span "
         f"{keyed_span:.1f} ms, busy {fmt_ms(keyed_busy, 1)} "
         f"({keyed_kernels}); launches of that step {counts}; "
         f"{cfg.batch_size} examples at L={L}, on {card}")
@@ -3875,7 +4132,8 @@ def phase_template(card: str, tmp: Path, vocab: Path,
         step_ms=med, step_span_ms=step_span, step_busy_ms=step_busy,
         step_kernels=step_kernels, no_mask_step_ms=keyed_ms,
         no_mask_span_ms=keyed_span, no_mask_busy_ms=keyed_busy,
-        peak_gb=peak_gb, bond_mask_ms=mask_ms, bond_mask_copy_ms=pad_ms,
+        peak_gb=peak_gb, uncaptured_peak_gb=uncaptured_gb,
+        bond_mask_ms=mask_ms, bond_mask_copy_ms=pad_ms,
         examples_ms=example_ms, collate_ms=collate_ms, eval_ms=eval_ms,
         attention=attention, decode=decode, **cli)
 
@@ -3929,13 +4187,17 @@ def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
     reactions on the CSVs in `data`, validate, test with the decode."""
     reset_counts()
     t0 = time.perf_counter()
-    accuracies = runtime_cli.main(template_cli_argv(data, vocab, save))
+    routes: list = []
+    with trainer_routes(routes):
+        accuracies = runtime_cli.main(template_cli_argv(data, vocab, save))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
     check_launches("the command line", counts,
                    template_cli_launches(layers, sizes))
-    return check_template_run(card, save, sizes, accuracies, seconds, counts)
+    return dict(check_template_run(card, save, sizes, accuracies, seconds,
+                                   counts),
+                route=check_trainer_route("template", routes))
 
 
 def check_template_run(card: str, save: Path, sizes: dict, accuracies,
@@ -4187,6 +4449,9 @@ def retro_train(card: str, cfg, enc_tok, dec_tok, results: dict):
     if changed != len(before):
         raise AssertionError(f"only {changed} of {len(before)} parameter "
                              f"tensors changed")
+    uncaptured_gb = uncaptured_peak_gb(module, cfg, optimizer,
+                                       dec_tok.pad_token_id, micro,
+                                       state.step)
     med = statistics.median(step_ms[1:])
     log(f"[retro_tf] {med:.1f} ms per optimizer step (host clock, median of "
         f"steps 2-{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms) = "
@@ -4195,10 +4460,11 @@ def retro_train(card: str, cfg, enc_tok, dec_tok, results: dict):
         f"f32 parameters, dropout {DROPOUT_P}, MLM; launches a step "
         f"{per_step} (LN: {2 * enc_layers * MICRO_BATCHES} at {B * L} rows "
         f"+ {3 * dec_layers * MICRO_BATCHES} at {B * RETRO_DEC_LEN}); peak "
-        f"device memory {peak_gb:.1f} GB; on {card}")
+        f"device memory {peak_gb:.1f} GB ({train_step.route}; one uncaptured "
+        f"step {uncaptured_gb:.1f} GB); on {card}")
     return micro, dict(step_ms=med, first_step_ms=step_ms[0],
                        examples_per_s=cfg.batch_size / med * 1e3,
-                       peak_gb=peak_gb,
+                       peak_gb=peak_gb, uncaptured_peak_gb=uncaptured_gb,
                        losses=[h["train_loss"] for h in history],
                        launches_a_step=per_step)
 
@@ -4437,10 +4703,10 @@ def retro_recipe(card: str, tmp: Path, data: Path, vocab: Path,
     override = ["--encoder", "scibert_base", "--decoder", "bert_l6",
                 "--text_vocab_file", str(vocab), *cut, "--log_every", "1",
                 "--debug"]
-    steps, legs = [], {"retrieval": [], "command": []}
+    steps, legs, routes = [], {"retrieval": [], "command": []}, []
     reset_counts()
     t0 = time.perf_counter()
-    with counted_decode_steps(steps), \
+    with counted_decode_steps(steps), trainer_routes(routes), \
             timed_calls(retrieval_cli, "main", legs["retrieval"]), \
             timed_calls(runtime_cli, "main", legs["command"]):
         parity_run.main([
@@ -4497,7 +4763,8 @@ def retro_recipe(card: str, tmp: Path, data: Path, vocab: Path,
         f"batches of {B} at beam {RETRO_BEAMS}); retro top-k "
         f"{accuracies[0]} / {accuracies[1]}; launches {launches}; on {card}")
     return dict(seconds=seconds, legs=legs, decode_steps=sum(steps),
-                accuracy=accuracies, launches=launches)
+                accuracy=accuracies, launches=launches,
+                route=check_trainer_route("retro_tf", routes))
 
 
 def phase_retro_tf(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
@@ -5549,6 +5816,7 @@ def phase_bench(card: str) -> dict:
         tool = bench_train.Bench(B, "fused", "fused", "cuda")
         soak, problems = tool.soak(SOAK_MINUTES,
                                    log=lambda m: log(f"[soak] {m}"))
+        tool_route = tool.step.route
     finally:
         bench_train.EVAL_EVERY_S, bench_train.CKPT_EVERY_S = cadences
     del tool
@@ -5559,10 +5827,13 @@ def phase_bench(card: str) -> dict:
     drift = problems.pop("drift", None)
     if problems or not min(fired.values()) >= 1:
         raise AssertionError(f"soak: {problems}, fired {fired}")
+    drift_pct = re.search(r"drift=(-?[\d.]+)%", soak["unit"]).group(1)
     log(f"[soak] evals and checkpoints fired {fired}, no kernel built, the "
-        f"same launches in every window; the step-time drift "
-        + (f"is over the tool's bound: {drift}" if drift else
-           f"is within the tool's {bench_train.DRIFT_LIMIT:.0%} bound"))
+        f"same launches in every window; the step-time drift {drift_pct}% "
+        + (f"is over the tool's {bench_train.DRIFT_LIMIT:.0%} bound"
+           if drift else
+           f"is within the tool's {bench_train.DRIFT_LIMIT:.0%} bound")
+        + f" (train step route {tool_route})")
     report["soak"] = dict(soak, drift_within_bound=drift is None)
     counts = read_counts()
     log(f"[bench] launches of the phase: {counts}")
@@ -5673,6 +5944,7 @@ def main(argv: Optional[list] = None) -> int:
             f"{time.perf_counter() - t_start:.0f} s")
         parallel = phase_parallel(card, Path(tmp), vocab, bare_step_ms,
                                   results)
+    train = results.pop("train_routes")
     runtime = results.pop("runtime")
     pretrained = results.pop("pretrained")
     template = results.pop("template")
@@ -5681,6 +5953,7 @@ def main(argv: Optional[list] = None) -> int:
             raise AssertionError(f"{name} was not launched on the main path")
     kernels = [dict(name=name, **meta, **results[name])
                for name, meta in KERNELS.items()]
+    print(json.dumps({"train": train}))
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"pretrained": pretrained}))
     print(json.dumps({"template": template}))

@@ -90,7 +90,7 @@ def test_save_publishes_atomically(tmp_path, async_save):
     state = _state(1, steps=3)
     want = {k: v.clone() for k, v in state.module.state_dict().items()}
     moments = [s["exp_avg"].clone()
-               for s in state.optimizer.adamw.state.values()]
+               for s in state.optimizer.state_dict()["moments"].values()]
     mgr = CheckpointManager(str(tmp_path), "val_acc", async_save=async_save)
     mgr.save("last", state, {"epoch": 1})
     assert mgr.exists("last")
@@ -101,7 +101,7 @@ def test_save_publishes_atomically(tmp_path, async_save):
     assert got.step == 3 and got.optimizer.count == 3
     for k, v in got.module.state_dict().items():
         assert torch.equal(v, want[k])
-    for s, m in zip(got.optimizer.adamw.state.values(), moments):
+    for s, m in zip(got.optimizer.state_dict()["moments"].values(), moments):
         assert torch.equal(s["exp_avg"], m) and float(s["step"]) == 3.0
     # an overwriting save publishes the NEW contents
     mgr.save("last", _state(2), {"epoch": 2})
@@ -127,7 +127,7 @@ def test_an_update_after_save_cannot_reach_the_checkpoint(tmp_path,
     state = _state(1, steps=1)
     want_w = state.module.weight.detach().clone()
     want_m = [s["exp_avg"].clone()
-              for s in state.optimizer.adamw.state.values()]
+              for s in state.optimizer.state_dict()["moments"].values()]
     mgr = CheckpointManager(str(tmp_path), "val_acc")
     mgr.save("last", state, {"epoch": 0})
     # the write is held back; train on, in place
@@ -141,7 +141,7 @@ def test_an_update_after_save_cannot_reach_the_checkpoint(tmp_path,
     gate.set()
     got, _ = mgr.restore("last", _state(0), device="cpu")
     assert torch.equal(got.module.weight, want_w) and got.step == 1
-    for s, m in zip(got.optimizer.adamw.state.values(), want_m):
+    for s, m in zip(got.optimizer.state_dict()["moments"].values(), want_m):
         assert torch.equal(s["exp_avg"], m)
 
 

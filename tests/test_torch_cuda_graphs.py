@@ -8,25 +8,42 @@ geometry, beam 20 over 160 positions (the windows 48, 80, 160). Each
 compares the graphed route with the same weights' uncaptured loop
 (`Generator.route = "uncaptured"`) to the bit: on two batches through the
 same graphs, on batches that stop early under an lm-head bias that
-favours EOS, and on a new key after them. Every test needs a GPU: it
-carries the `cuda` marker and skips (from a fixture) without one. On the
-GPU machine:
+favours EOS, and on a new key after them.
+
+The train step's graphs (train/graphs.py) the same way: the two layers at
+full width with the MLM head, bf16 compute over f32 parameters, dropout
+0.1, micro-batches of 8 rows at L=512; each graphed train step against
+a twin on the same weights whose `route` is "uncaptured", to the bit in
+loss, gradient norm, every parameter and both moments, under torch's
+deterministic algorithms (chip_smoke.deterministic: without them torch's
+embedding backward sums a table's repeated rows by atomics, and two
+uncaptured runs differ there); the dropout seed taken up at every replay; a weight-0 pad; two keys alternating; no host
+wait in a replayed step; the counters against a trace.
+
+Every test needs a GPU: it carries the `cuda` marker and skips (from a
+fixture) without one. On the GPU machine:
 
     python -m pytest tests/test_torch_cuda_graphs.py -q -m cuda
 """
 
 import _torch_threads  # noqa: F401  (before torch runs)
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import deterministic as deterministic_algorithms
 from chip_smoke import device_events
+from textreact_tpu_torch.bench_train import experiment, make_batch
 from textreact_tpu_torch.inference import Generator
 from textreact_tpu_torch.inference.beam import STOP_LAG
 from textreact_tpu_torch.models import EncoderDecoder
 from textreact_tpu_torch.models.config import BERT_L6_DECODER, SCIBERT_BASE
 from textreact_tpu_torch.models.factory import init_weights
 from textreact_tpu_torch.ops import fused_attention, fused_layernorm
+from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
+                                       make_optimizer, make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +205,209 @@ def test_counters_equal_the_kernels_a_trace_counts(dev):
             sum("residual_layernorm_fwd" in n for n in names))
     assert seen == (after[0] - before[0], after[1] - before[1])
     assert seen[1] == 2 * LAYERS + 3 * LAYERS * graphed.last_replays
+
+
+# --- the train step ---------------------------------------------------------
+
+TRAIN_ROWS, MICRO = 8, 4
+DEC_VOCAB = 315
+
+
+@pytest.fixture
+def deterministic():
+    with deterministic_algorithms():
+        yield
+
+
+def _train_model(dev) -> EncoderDecoder:
+    kernels = dict(attention_impl="flash", layernorm_impl="fused")
+    enc = SCIBERT_BASE.replace(num_hidden_layers=LAYERS, **kernels)
+    dec = BERT_L6_DECODER.replace(num_hidden_layers=LAYERS,
+                                  vocab_size=DEC_VOCAB, **kernels)
+    assert enc.hidden_dropout_prob == enc.attention_probs_dropout_prob == 0.1
+    model = EncoderDecoder(enc, dec, dtype=torch.bfloat16, mlm_layer="mlp")
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.to(dev)
+
+
+def _trainer(dev, accumulate: bool = True, route: str = "cuda_graphs",
+             lr: float = 1e-3):
+    """(state, step) of a fresh model: every call draws the same weights."""
+    model = _train_model(dev)
+    cfg = dataclasses.replace(experiment("fused"), lr=lr, warmup_ratio=0.0,
+                              max_grad_norm=1.0)
+    opt = make_optimizer(cfg, 100, model.named_parameters())
+    make = make_accum_train_step if accumulate else make_train_step
+    step = make(model, cfg, opt, 0)
+    assert step.route == "cuda_graphs"
+    step.route = route
+    return TrainState.create(model, opt), step
+
+
+def _micro(seed: int, length: int = L, n: int = MICRO) -> dict:
+    batches = [make_batch(TRAIN_ROWS, length, dec_vocab=DEC_VOCAB,
+                          seed=seed * 10 + i) for i in range(n)]
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def _state_tensors(state) -> dict:
+    opt = state.optimizer
+    out = {n: p.detach() for n, p in state.module.named_parameters()}
+    out.update({f"exp_avg {n}": t for n, t in zip(opt.names, opt.exp_avg)})
+    out.update({f"exp_avg_sq {n}": t
+                for n, t in zip(opt.names, opt.exp_avg_sq)})
+    return out
+
+
+def _differing(a, b) -> dict:
+    """{name: max |a - b| / max |b|} of the parameters and moments of two
+    train states that are not equal to the bit."""
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    return {n: float((ta[n] - tb[n]).abs().max()
+                     / tb[n].abs().max().clamp(min=1e-30))
+            for n in ta if not torch.equal(ta[n], tb[n])}
+
+
+def _same_training(graphed, uncaptured) -> None:
+    """Every parameter and both moments of the two states equal to the
+    bit; the differing ones by name in the failure."""
+    (g_state, _), (u_state, _) = graphed, uncaptured
+    diff = _differing(g_state, u_state)
+    assert not diff, diff
+    assert g_state.step == u_state.step
+    assert g_state.optimizer.count == u_state.optimizer.count
+
+
+def _same_metrics(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for k in got:
+        assert torch.equal(got[k], want[k]), (k, float(got[k]),
+                                              float(want[k]))
+
+
+@pytest.mark.parametrize("accumulate", [True, False],
+                         ids=["accumulation", "one_batch"])
+def test_graphed_train_steps_equal_the_uncaptured_route(dev, deterministic,
+                                                        accumulate):
+    """Three steps (of four micro-batches, or of one batch): the graphed
+    route's metrics after each step and its parameters and moments after
+    the three equal the uncaptured route's to the bit, as two uncaptured
+    runs equal each other. Every replay draws the masks of its own (seed,
+    step, micro-batch), since the uncaptured route reseeds the same
+    generator the same way."""
+    graphed = _trainer(dev, accumulate)
+    uncaptured = _trainer(dev, accumulate, route="uncaptured")
+    again = _trainer(dev, accumulate, route="uncaptured")
+    micro = _micro(1)
+    weights = np.ones(MICRO, np.float32)
+    for _ in range(3):
+        outs = []
+        for state, step in (graphed, uncaptured, again):
+            if accumulate:
+                outs.append(step(state, micro, weights, 5)[1])
+            else:
+                outs.append(step(state, {k: v[0] for k, v in micro.items()},
+                                 5)[1])
+        _same_metrics(outs[0], outs[1])
+        _same_metrics(outs[1], outs[2])
+    _same_training(again, uncaptured)
+    _same_training(graphed, uncaptured)
+    graphs = graphed[1].graphs
+    (key,) = graphs.keys.values()
+    assert key.micro.replays == (3 * MICRO - 1 if accumulate else 2)
+    assert graphs.update.replays == 2
+    assert graphs.update.capture_ms > 0 and key.micro.capture_ms > 0
+
+
+def test_each_replay_takes_up_its_seed(dev, deterministic):
+    """At rate 0 the weights stay: the same step counter replays the same
+    masks to the bit, another counter draws others, so the replays' masks
+    follow the generator's seed at each replay, not the capture's."""
+    state, step = _trainer(dev, lr=0.0)
+    micro, weights = _micro(2), np.ones(MICRO, np.float32)
+    losses = []
+    for counter in (0, 0, 1, 0):
+        state.step = counter
+        losses.append(step(state, micro, weights, 5)[1]["train_loss"])
+    assert step.graphs.update.replays == 3
+    assert torch.equal(losses[0], losses[1])
+    assert torch.equal(losses[1], losses[3])
+    assert not torch.equal(losses[1], losses[2])
+
+
+def test_a_weight_zero_pad_gives_the_update_of_the_real_batches(
+        dev, deterministic):
+    """Three real micro-batches and a weight-0 pad give the update of the
+    three alone, to the bit, over two graphed steps."""
+    padded, alone = _trainer(dev), _trainer(dev)
+    micro = _micro(3)
+    for _ in range(2):
+        got = padded[1](padded[0], micro, np.array([1, 1, 1, 0], np.float32),
+                        5)[1]
+        want = alone[1](alone[0], {k: v[:3] for k, v in micro.items()},
+                        np.ones(3, np.float32), 5)[1]
+        _same_metrics(got, want)
+    _same_training(padded, alone)
+
+
+def test_two_keys_alternate_through_their_graphs(dev, deterministic):
+    """Micro-batches at L=512 and at L=256 in turn: each key captures once
+    and replays after, and every step equals the uncaptured route's to the
+    bit."""
+    graphed = _trainer(dev)
+    uncaptured = _trainer(dev, route="uncaptured")
+    weights = np.ones(MICRO, np.float32)
+    for n, length in enumerate((L, L // 2, L, L // 2)):
+        micro = _micro(4 + n, length)
+        outs = [step(state, micro, weights, 5)[1]
+                for state, step in (graphed, uncaptured)]
+        _same_metrics(*outs)
+    _same_training(graphed, uncaptured)
+    keys = list(graphed[1].graphs.keys.values())
+    assert len(keys) == 2
+    assert [k.micro.replays for k in keys] == [2 * MICRO - 1] * 2
+
+
+def test_a_replayed_train_step_makes_no_host_wait(dev):
+    """Once captured, a step runs under sync_debug_mode 'error': the
+    inputs go up through pinned memory, the weight, the weight sum and the
+    rate are written by kernels, and the metrics come back as tensors."""
+    state, step = _trainer(dev)
+    micro, weights = _micro(5), np.ones(MICRO, np.float32)
+    step(state, micro, weights, 5)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = step(state, micro, weights, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert step.graphs.update.replays == 1
+    assert torch.isfinite(metrics["train_loss"]).item()
+
+
+def test_train_counters_equal_the_kernels_a_trace_counts(dev):
+    """The counters' launches of one replayed step equal the attention and
+    residual-LN kernels that torch.profiler saw on the card: per
+    micro-batch the encoder's attention forward and backward a layer, and
+    two LNs an encoder layer and three a decoder layer, each way."""
+    from torch.profiler import ProfilerActivity, profile
+    state, step = _trainer(dev)
+    micro, weights = _micro(6), np.ones(MICRO, np.float32)
+    step(state, micro, weights, 5)
+    torch.cuda.synchronize()
+    counters = lambda: (fused_attention.LAUNCHES,  # noqa: E731
+                        fused_attention.BWD_LAUNCHES,
+                        fused_layernorm.LAUNCHES,
+                        fused_layernorm.BWD_LAUNCHES)
+    before = counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, micro, weights, 5)
+        torch.cuda.synchronize()
+    counted = tuple(a - b for a, b in zip(counters(), before))
+    names = [name for name, _, _ in device_events(prof)]
+    seen = tuple(sum(fragment in n for n in names) for fragment in (
+        "attention_fwd", "attention_bwd_dq", "residual_layernorm_fwd",
+        "residual_layernorm_bwd"))
+    ln = (2 * LAYERS + 3 * LAYERS) * MICRO
+    assert counted == (LAYERS * MICRO, LAYERS * MICRO, ln, ln)
+    assert seen == counted

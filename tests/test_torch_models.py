@@ -450,7 +450,7 @@ def test_port_imports_no_jax_or_pandas():
                  "templates.native_labeling", "templates.native_extractor",
                  "templates.extractor", "templates.processor", "bench",
                  "bench_train", "inference.beam", "inference.graphs",
-                 "inference.predictor"):
+                 "inference.predictor", "train.graphs", "ops.launches"):
         assert "textreact_tpu_torch." + name in names
     # the template decode and the template preprocessing have one engine,
     # the own one: no RDKit twin, and no RDKit half copied into a module

@@ -190,7 +190,8 @@ def test_optimizer_refuses_what_would_lose_its_moments(fault):
     fresh = make_optimizer(cfg, 4, module.named_parameters())
     with pytest.raises(error):
         fresh.load_state_dict(state)
-    assert fresh.count == 0 and not fresh.adamw.state
+    assert fresh.count == 0 and fresh.count_t is None
+    assert not fresh.exp_avg and not fresh.exp_avg_sq
 
 
 # --- (f) the slice as a whole ------------------------------------------------

@@ -28,8 +28,12 @@ three steady windows against the best of the last three), no kernel is
 built after the warm step and every window launches each kernel the same
 number of times. It reports the peak device memory, the caching
 allocator's retries, and `cpu_drift`: the same drift of the CPU time of the
-thread that launches the forward and the optimizer (the step is host-bound:
-where the host's speed moves, both drifts move together).
+thread that issues the step (where the step is host-bound, the host's speed
+moves both drifts together).
+
+Both records name the train step's route in their unit (`route=`): on the
+card "cuda_graphs", the micro-batch part and the update replayed as CUDA
+graphs (train/graphs.py); elsewhere "uncaptured".
 
 Runs on the CUDA card unless `--device cpu` is given; without a card it
 fails.
@@ -207,7 +211,8 @@ class Bench:
         where = "1 GPU" if self.device.type == "cuda" else "1 CPU"
         return (f"B={self.batch_size}, L={ENC_LEN}, "
                 f"params={self.n_params / 1e6:.1f}M, bf16+fused, "
-                f"ln={self.layernorm_impl}, mlm={self.mlm_impl}, {where}")
+                f"ln={self.layernorm_impl}, mlm={self.mlm_impl}, {where}, "
+                f"route={self.step.route}")
 
     def record(self, dt: float) -> dict:
         return {"metric": METRIC, "value": round(self.batch_size / dt, 1),
@@ -225,8 +230,7 @@ class Bench:
         """Train for `minutes` (see the module's docstring); returns the
         JSON record and the failed checks by name (`judge`; empty:
         passed). Each window also reads the CPU time of this thread (it
-        launches the forward and the optimizer's kernels; the step is
-        host-bound, so this time moves with the host's speed) and, on the
+        issues the step: its kernels, or its graphs' replays) and, on the
         card, the caching allocator's retries."""
         float(self.train(1))
         builds = dict(_build.BUILD_SECONDS)

@@ -23,78 +23,21 @@ stop flag a few replays late (`beam.StopFlags`), and the replays past a
 stop change nothing. The host waits for the card once a batch, for the
 beams, which come back through pinned buffers.
 
-`GraphLaunches` keeps the kernel wrappers' launch counters equal to the
-kernels the card ran: what a capture adds is taken back, and each replay
-adds the launches recorded at its capture.
+`GraphLaunches` (ops/launches.py) keeps the kernel wrappers' launch
+counters equal to the kernels the card ran: what a capture adds is taken
+back, and each replay adds the launches recorded at its capture.
 """
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
-from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import fused_attention, fused_layernorm, topk
+from ..ops.launches import GraphedPart, GraphLaunches  # noqa: F401
 from .beam import (BeamState, StopFlags, beam_step, finalize, run_windows,
                    window_plan)
-
-# the kernel wrappers' launch counters: (module, name of an int or of a
-# dict of ints)
-KERNEL_COUNTERS = (
-    (fused_attention, "LAUNCHES"), (fused_attention, "BWD_LAUNCHES"),
-    (fused_attention, "CAUSAL_LAUNCHES"),
-    (fused_attention, "CAUSAL_BWD_LAUNCHES"),
-    (fused_attention, "PADDED_LAUNCHES"),
-    (fused_layernorm, "LAUNCHES"), (fused_layernorm, "BWD_LAUNCHES"),
-    (fused_layernorm, "WIDE_LAUNCHES"),
-    (fused_layernorm, "WIDE_BWD_LAUNCHES"),
-    (topk, "LAUNCHES"), (topk, "LARGE_K_LAUNCHES"))
-
-
-class GraphLaunches:
-    """The launches one graph holds, by counter, and their accounting:
-    `capturing()` around a capture takes back what the wrappers counted
-    while it recorded, `replayed()` after a replay adds it."""
-
-    def __init__(self, counters: Sequence[Tuple[object, str]]
-                 = KERNEL_COUNTERS):
-        self.counters = counters
-        self.per_replay: Dict[tuple, int] = {}
-
-    def _read(self) -> Dict[tuple, int]:
-        out = {}
-        for owner, name in self.counters:
-            value = getattr(owner, name)
-            if isinstance(value, dict):
-                out.update(((id(owner), name, k), v)
-                           for k, v in value.items())
-            else:
-                out[(id(owner), name, None)] = value
-        return out
-
-    def _add(self, delta: Dict[tuple, int], times: int) -> None:
-        for owner, name in self.counters:
-            value = getattr(owner, name)
-            if isinstance(value, dict):
-                for k in value:
-                    value[k] += times * delta.get((id(owner), name, k), 0)
-            else:
-                setattr(owner, name,
-                        value + times * delta.get((id(owner), name, None), 0))
-
-    @contextmanager
-    def capturing(self) -> Iterator[None]:
-        before = self._read()
-        yield
-        self.per_replay = {k: v - before.get(k, 0)
-                           for k, v in self._read().items()}
-        self._add(self.per_replay, -1)
-
-    def replayed(self, times: int = 1) -> None:
-        self._add(self.per_replay, times)
 
 
 class GraphedDecode:
@@ -119,9 +62,8 @@ class GraphedDecode:
         self.plan = window_plan(T, attn_windows)
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
-        # part ("prologue" or a window's index) -> (graph, its launches)
-        self.graphs: Dict[object, Tuple[torch.cuda.CUDAGraph,
-                                        GraphLaunches]] = {}
+        # part ("prologue" or a window's index) -> its graph
+        self.graphs: Dict[object, GraphedPart] = {}
         self.capture_ms = 0.0   # spent capturing, over the key's life
         self.seqs_host = torch.empty((B, K, T), dtype=torch.long,
                                      pin_memory=True)
@@ -150,26 +92,15 @@ class GraphedDecode:
         """Replay `part`'s graph, or run `fn` uncaptured on the capture
         stream and capture it."""
         entry = self.graphs.get(part)
-        if entry is not None:
-            entry[0].replay()
-            entry[1].replayed()
+        if entry is None:
+            if any(m.training for m in self.module.modules()):
+                raise RuntimeError("a decode graph would capture a dropout "
+                                   "draw: the module is in training mode")
+            entry = self.graphs[part] = GraphedPart(self.pool, self.stream)
+            entry(fn)
+            self.capture_ms += entry.capture_ms
             return
-        if any(m.training for m in self.module.modules()):
-            raise RuntimeError("a decode graph would capture a dropout draw: "
-                               "the module is in training mode")
-        current = torch.cuda.current_stream()
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            fn()
-        current.wait_stream(self.stream)
-        t0 = time.perf_counter()
-        graph, launches = torch.cuda.CUDAGraph(), GraphLaunches()
-        with launches.capturing(), torch.cuda.graph(
-                graph, pool=self.pool, stream=self.stream,
-                capture_error_mode="thread_local"):
-            fn()
-        self.capture_ms += (time.perf_counter() - t0) * 1e3
-        self.graphs[part] = (graph, launches)
+        entry(fn)
 
     def run(self, input_ids: np.ndarray, attention_mask: np.ndarray
             ) -> Tuple[np.ndarray, np.ndarray, int, int]:

@@ -1,11 +1,13 @@
 """Train and eval steps (twin of textreact_tpu/train/step.py).
 
 Replaces the reference's Lightning training_step / validation_step
-(main.py:164-196). A step runs eagerly on one device: forward in training
-mode, backward through the kernels' own backward passes, the optimizer's
-update. Every dropout mask of a step comes from one `torch.Generator`
-seeded from (the run's seed, the step, the micro-batch), so a step is
-reproducible and no global generator is touched.
+(main.py:164-196). A step runs on one device: forward in training mode,
+backward through the kernels' own backward passes, the optimizer's
+update; on a card as CUDA graphs, replayed (`TrainStep`,
+train/graphs.py), the JAX step's one jitted program. Every dropout mask
+of a step comes from one `torch.Generator` seeded from (the run's seed,
+the step, the micro-batch), so a step is reproducible and no global
+generator is touched.
 
 The entry points run on the CUDA card unless the caller passes `device=`;
 they raise where no card is found, and where the module lies elsewhere.
@@ -37,6 +39,7 @@ import torch
 from ..data.collate import IGNORE_INDEX
 from ..models.factory import resolve_device
 from . import losses
+from .graphs import TrainGraphs
 from .optim import Optimizer
 
 Tensor = torch.Tensor
@@ -193,47 +196,207 @@ def make_loss_fn(module: torch.nn.Module, cfg, dec_pad_id: int) -> Callable:
     return loss_fn
 
 
-def _detached(metrics: Dict[str, Tensor], mesh=None) -> Dict[str, Tensor]:
-    """The metrics without their graphs; on a mesh, each the sum of the dp
-    ranks' terms (the global value)."""
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    if mesh is None:
-        return metrics
-    total = _all_reduce(torch.stack(list(metrics.values())), mesh)
-    return dict(zip(metrics, total.unbind()))
+# the train step's routes: CUDA graphs (one card's), or the same two parts
+# run as they are (the CPU's, a mesh's and remat's)
+CUDA_GRAPHS, UNCAPTURED = "cuda_graphs", "uncaptured"
+
+
+def train_route(module: torch.nn.Module, device: torch.device) -> str:
+    """The route of a train step of `module` on `device`: graphs on a card,
+    unless the step holds a collective (a mesh: gloo cannot be captured,
+    and NCCL capture is not done yet) or remat, whose recomputation sets
+    the dropout generator's state on the host (models/layers.py
+    `remat_block`), which no capture can hold."""
+    remat = any(getattr(m, "remat", False) for m in module.modules())
+    return (CUDA_GRAPHS if device.type == "cuda" and _dp(module) is None
+            and not remat else UNCAPTURED)
+
+
+class TrainStep:
+    """A train step of one module, as two parts that a CUDA graph can hold
+    (the port's counterpart of the JAX step's one `jax.jit` program):
+
+    - the micro-batch part: forward, the backward of `loss * w` into the
+      `.grad` buffers (allocated once by `Optimizer.ensure_grads`,
+      accumulated in place) and `loss_sum += w * loss` (accumulation); or
+      forward, backward and the metrics into their buffers (one batch);
+    - the update part: the gradients divided by the weight sum (a device
+      scalar), then `Optimizer.apply` (norm, clip, AdamW, the gradients
+      zeroed in place).
+
+    Every tensor that outlives a part is allocated outside any graph: the
+    gradients, the moments, `loss_sum`, the weight, the weight sum and the
+    metric outputs, which the next step overwrites; a call returns clones.
+    The host does what no graph can: it reseeds the dropout generator for
+    each micro-batch, skips weight-0 micro-batches (their weights are known
+    before any part runs), and writes the weight, the weight sum and the
+    scheduled rate into their buffers.
+
+    `route` is chosen once (`train_route`) and printed by the callers. On
+    "cuda_graphs" each shape key (the sorted names, per-micro-batch shapes
+    and dtypes of the arrays) has static inputs and a graph of the
+    micro-batch part, and one graph of the update part serves every key
+    (train/graphs.py). On "uncaptured" the same parts run as they are;
+    setting `route` to it on a card gives the reference the graphs are held
+    to."""
+
+    def __init__(self, module: torch.nn.Module, cfg, optimizer: Optimizer,
+                 dec_pad_id: int, device=None):
+        self.device = _check_device(module, device)
+        self.module, self.cfg, self.optimizer = module, cfg, optimizer
+        self.dec_pad_id = dec_pad_id
+        self.loss_fn = make_loss_fn(module, cfg, dec_pad_id)
+        self.gen = torch.Generator(device=self.device)
+        self.mesh = _dp(module)
+        self.dp_rank = 0 if self.mesh is None else self.mesh.dp_rank
+        self.route = train_route(module, self.device)
+        self.graphs = None   # train/graphs.py TrainGraphs, at the first call
+        self.outputs: Dict[str, Tensor] = {}
+        self._started = False
+
+    # --- the two parts are a subclass's `_micro` and `_update` ---------
+    def _output(self, name: str) -> Tensor:
+        """The buffer of metric `name`, allocated at the first, uncaptured
+        run of a part."""
+        out = self.outputs.get(name)
+        if out is None:
+            out = self.outputs[name] = torch.zeros((), device=self.device)
+        return out
+
+    # --- the host's share ---------------------------------------------
+    def _begin(self, arrays: Mapping[str, Any], stacked: bool):
+        """The static inputs and graph of the arrays' key on the graphed
+        route (None on the other)."""
+        self.module.train()
+        if not self._started:   # whatever a caller left in .grad
+            self.optimizer.ensure_grads()
+            self.optimizer.zero_grad()
+            self._started = True
+        if self.route != CUDA_GRAPHS:
+            return None
+        if self.graphs is None:
+            self.graphs = TrainGraphs(self.device, self.gen)
+        self.graphs.check_grads(self.optimizer)
+        return self.graphs.key(arrays, stacked)
+
+    def _micro_batch(self, key, arrays, i: Optional[int],
+                     denoms: Optional[Tensor], counter: int,
+                     seed: int) -> None:
+        """Reseed the generator for this micro-batch, then run or replay
+        the micro-batch part on micro-batch `i` of `arrays` (all of them
+        when None)."""
+        _dropout_generator(self.gen, seed, counter, self.dp_rank)
+        if key is None:
+            batch = to_device(arrays if i is None else
+                              {k: v[i] for k, v in arrays.items()},
+                              self.device)
+            if self.mesh is not None and denoms is None:
+                denoms = _global_denoms(
+                    loss_counts(batch, self.cfg, self.dec_pad_id), self.mesh)
+            self._micro(batch, denoms)
+            return
+        key.load(arrays, i)
+        key.micro(lambda: self._micro(key.inputs, None))
+
+    def _finish(self, state: TrainState) -> Dict[str, Tensor]:
+        self.optimizer.prepare()
+        if self.route == CUDA_GRAPHS:
+            self.graphs.update(self._update)
+        else:
+            self._update()
+        self.optimizer.advance()
+        state.step += 1
+        out = {k: v.clone() for k, v in self.outputs.items()}
+        out["grad_norm"] = self.optimizer.grad_norm.clone()
+        return out
+
+
+class _SingleStep(TrainStep):
+    """One batch: the micro-batch part's backward writes the gradients and
+    the metrics into their buffers."""
+
+    def _micro(self, batch, denoms) -> None:
+        loss, metrics = self.loss_fn(batch, self.gen, denoms)
+        loss.backward()
+        for name, value in metrics.items():
+            self._output(name).copy_(value.detach())
+
+    @torch.no_grad()
+    def _update(self) -> None:
+        if self.mesh is not None:   # each the sum of the dp ranks' terms
+            total = _all_reduce(torch.stack(list(self.outputs.values())),
+                                self.mesh)
+            torch._foreach_copy_(list(self.outputs.values()),
+                                 list(total.unbind()))
+        self.optimizer.apply()
+
+    def __call__(self, state: TrainState, batch: Mapping[str, Any],
+                 seed: int) -> Tuple[TrainState, Dict[str, Tensor]]:
+        arrays = getattr(batch, "arrays", batch)
+        key = self._begin(arrays, stacked=False)
+        self._micro_batch(key, arrays, None, None, state.step, seed)
+        return state, self._finish(state)
+
+
+class _AccumStep(TrainStep):
+    """Micro-batches: the micro-batch part accumulates the backward of
+    `loss * w` and `loss_sum += w * loss`; the update part divides both by
+    the weight sum. The weight and the weight sum are device scalars that
+    the host writes before each part."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        scalar = lambda: torch.zeros((), device=self.device)  # noqa: E731
+        self.loss_sum, self.w, self.denom = scalar(), scalar(), scalar()
+
+    def _micro(self, batch, denoms) -> None:
+        loss, _ = self.loss_fn(batch, self.gen, denoms)
+        (loss * self.w).backward()
+        self.loss_sum += loss.detach() * self.w
+
+    @torch.no_grad()
+    def _update(self) -> None:
+        loss_sum = (self.loss_sum if self.mesh is None
+                    else _all_reduce(self.loss_sum, self.mesh))
+        self._output("train_loss").copy_(loss_sum / self.denom)
+        self.loss_sum.zero_()
+        torch._foreach_div_(self.optimizer.ensure_grads(), self.denom)
+        self.optimizer.apply()
+
+    def __call__(self, state: TrainState, microbatches: Mapping[str, Any],
+                 mb_weights: Sequence[float], seed: int
+                 ) -> Tuple[TrainState, Dict[str, Tensor]]:
+        arrays = getattr(microbatches, "arrays", microbatches)
+        weights = [float(w) for w in np.asarray(mb_weights, dtype=np.float32)]
+        key = self._begin(arrays, stacked=True)
+        denoms = [None] * len(weights)
+        if self.mesh is not None:
+            counts = torch.stack([
+                loss_counts({k: v[i] for k, v in arrays.items()}, self.cfg,
+                            self.dec_pad_id) for i in range(len(weights))])
+            denoms = _global_denoms(counts.to(self.device),
+                                    self.mesh).unbind()
+        for i, w in enumerate(weights):
+            if w == 0.0:
+                continue
+            self.w.fill_(w)
+            self._micro_batch(key, arrays, i, denoms[i],
+                              state.step * 1009 + i, seed)
+        self.denom.fill_(max(sum(weights), 1.0))
+        return state, self._finish(state)
 
 
 def make_train_step(module: torch.nn.Module, cfg, optimizer: Optimizer,
-                    dec_pad_id: int, device=None) -> Callable:
+                    dec_pad_id: int, device=None) -> TrainStep:
     """train_step(state, batch, seed) -> (state, metrics). Metrics are
     0-dim tensors on the device (`train_loss`, with MLM `mlm_loss` and
-    `total_loss`, and `grad_norm`, the global norm before the clip)."""
-    device = _check_device(module, device)
-    loss_fn = make_loss_fn(module, cfg, dec_pad_id)
-    gen = torch.Generator(device=device)
-    mesh = _dp(module)
-    dp_rank = 0 if mesh is None else mesh.dp_rank
-
-    def train_step(state: TrainState, batch: Mapping[str, Any], seed: int
-                   ) -> Tuple[TrainState, Dict[str, Tensor]]:
-        module.train()
-        optimizer.zero_grad()
-        batch = to_device(batch, device)
-        denoms = (None if mesh is None else _global_denoms(
-            loss_counts(batch, cfg, dec_pad_id), mesh))
-        loss, metrics = loss_fn(
-            batch, _dropout_generator(gen, seed, state.step, dp_rank), denoms)
-        loss.backward()
-        metrics = _detached(metrics, mesh)
-        metrics["grad_norm"] = optimizer.update()
-        state.step += 1
-        return state, metrics
-
-    return train_step
+    `total_loss`, and `grad_norm`, the global norm before the clip).
+    `train_step.route` says how it runs (`TrainStep`)."""
+    return _SingleStep(module, cfg, optimizer, dec_pad_id, device)
 
 
 def make_accum_train_step(module: torch.nn.Module, cfg, optimizer: Optimizer,
-                          dec_pad_id: int, device=None) -> Callable:
+                          dec_pad_id: int, device=None) -> TrainStep:
     """Gradient accumulation over the leading micro-batch axis (reference
     accumulate_grad_batches, main.py:381).
 
@@ -244,47 +407,9 @@ def make_accum_train_step(module: torch.nn.Module, cfg, optimizer: Optimizer,
     micro-batch contributes 0 * its gradient, so it is not run at all.
     On a mesh every micro-batch's loss divides by its global counts (one
     all-reduce of all the counts before the first forward), and the dp
-    ranks must hold the same weights."""
-    device = _check_device(module, device)
-    loss_fn = make_loss_fn(module, cfg, dec_pad_id)
-    gen = torch.Generator(device=device)
-    mesh = _dp(module)
-    dp_rank = 0 if mesh is None else mesh.dp_rank
-
-    def train_step(state: TrainState, microbatches: Mapping[str, Any],
-                   mb_weights: Sequence[float], seed: int
-                   ) -> Tuple[TrainState, Dict[str, Tensor]]:
-        module.train()
-        optimizer.zero_grad()
-        arrays = getattr(microbatches, "arrays", microbatches)
-        weights = [float(w) for w in np.asarray(mb_weights, dtype=np.float32)]
-        denoms = [None] * len(weights)
-        if mesh is not None:
-            counts = torch.stack([
-                loss_counts({k: v[i] for k, v in arrays.items()}, cfg,
-                            dec_pad_id) for i in range(len(weights))])
-            denoms = _global_denoms(counts.to(device), mesh).unbind()
-        loss_sum = torch.zeros((), device=device)
-        for i, w in enumerate(weights):
-            if w == 0.0:
-                continue
-            mb = to_device({k: v[i] for k, v in arrays.items()}, device)
-            loss, _ = loss_fn(
-                mb, _dropout_generator(gen, seed, state.step * 1009 + i,
-                                       dp_rank), denoms[i])
-            (loss * w).backward()
-            loss_sum += loss.detach() * w
-        if mesh is not None:
-            loss_sum = _all_reduce(loss_sum, mesh)
-        denom = max(sum(weights), 1.0)
-        grads = [p.grad for p in optimizer.params if p.grad is not None]
-        if grads:
-            torch._foreach_div_(grads, denom)
-        grad_norm = optimizer.update()
-        state.step += 1
-        return state, {"train_loss": loss_sum / denom, "grad_norm": grad_norm}
-
-    return train_step
+    ranks must hold the same weights. `train_step.route` says how it runs
+    (`TrainStep`)."""
+    return _AccumStep(module, cfg, optimizer, dec_pad_id, device)
 
 
 def make_eval_step(module: torch.nn.Module, cfg, dec_pad_id: int,

@@ -78,6 +78,7 @@ class Trainer:
         setup_logging()
         cfg.validate()
         self.cfg = cfg
+        self.train_route: Optional[str] = None   # fit's train step's route
         # under torchrun: card LOCAL_RANK, and the process group
         self.device = local_device(resolve_device(device))
         initialize_distributed(device=self.device)
@@ -260,6 +261,12 @@ class Trainer:
             train_step = make_train_step(
                 self.module, cfg, state.optimizer, self.dec_pad_id,
                 device=self.device)
+        # on one card the step's two parts run as CUDA graphs, captured at
+        # each shape bucket's first step (after the restore above, which
+        # copies into the buffers they read) and replayed after
+        # (a caller's wrapper around `make_train_step` may not carry it)
+        self.train_route = getattr(train_step, "route", None)
+        log.info("train step route: %s", self.train_route)
         eval_step = make_eval_step(self.module, cfg, self.dec_pad_id,
                                    edit_topk=1, device=self.device)
 
