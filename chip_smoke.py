@@ -70,8 +70,14 @@ Phases, each fatal on failure:
    embedding backward's atomics part two runs of one route); each route's
    host ms, the card's span (CUDA events), busy ms and
    idle share (profiler), the host's launch calls a step, capture ms per
-   key and peak memory, printed as the `train` line; then an eval step; a
-   weight-0 micro-batch changes nothing;
+   key and peak memory, printed as the `train` line; then the eval step
+   (its forward, top 1) on its two routes over the four micro-batches:
+   the graphed one (train/graphs.py `EvalGraphs`: the key captured at its
+   first batch, replayed after) and the uncaptured one, every output of
+   every batch equal to the bit, exact launches on both, each route's host
+   ms a batch, the card's span, busy ms and idle share, host launch calls,
+   keys, capture ms and peak memory (the `eval` line's "rcr"); a weight-0
+   micro-batch changes nothing;
 6. training, kernels against plain functions: one micro-batch's loss and
    every gradient in float32 without dropout, within a stated bound;
 7. retrieval path at full size through FlatIndex.search, data made from a
@@ -107,8 +113,10 @@ Phases, each fatal on failure:
    dropout 0.1, batch 32 x accumulation 4, 512 training reactions, 2 epochs,
    --do_train --do_valid --do_test, beam 15; a falling loss, published
    checkpoints, two prediction files, kernel launches that match the steps
-   run, the trainer's train step route (cuda_graphs) printed; then the same
-   command with one more epoch resumes;
+   run, the trainer's train step route (cuda_graphs) printed, each
+   epoch's validation and --do_valid's on the eval step's graphed route
+   (metrics.jsonl: route, keys, replays, seconds); then the same command
+   with one more epoch resumes;
 11. the pretrained start: two HF checkpoint directories written from a
    seed (SciBERT-base as model.safetensors; a 6-layer BERT of vocab 300
    with the MaskedLM head as pytorch_model.bin with the `bert.` prefix),
@@ -130,7 +138,9 @@ Phases, each fatal on failure:
    template classes and neighbour text filling L: three optimizer steps
    under the bond mask (a falling loss, changed parameters, 96 + 96
    residual-LN launches a step and no attention launch), one step without
-   it (48 + 48 attention launches); the eval step's top 500 edits, and
+   it (48 + 48 attention launches); the eval step at top 500 edits under
+   the bond mask on its two routes as in phase 5 (the `eval` line's
+   "template"), and
    `device_topk_edits` on the card equal to `rank_edits` on the host on the
    same probabilities, ties included; the ester decode through the own
    template engine gives the gold reactants; the loader's bond masks, the
@@ -138,13 +148,17 @@ Phases, each fatal on failure:
    bond-masked attention beside the fused kernel and SDPA, timed; kernels
    against plain functions in f32 with and without the bond mask; then
    `python -m textreact_tpu_torch --task retro --template_based
-   --unattend_nonbonds` in-process (train, validate, test with the decode);
+   --unattend_nonbonds` in-process (train, validate, test with the decode;
+   the validations and test passes on the eval step's graphed route, their
+   keys and replays printed);
 12b. template-free retrosynthesis (scripts/torch_port/train_RetroSyn_tf.sh:
    the same encoder over the text tokenizer, bert_l6 over the SMILES
    vocabulary at 160 decoder positions, MLM; with --shuffle_smiles) on phase
    12's products: three optimizer steps of 4 x 32 with the decoder at 160
    (a falling loss, changed parameters, 48 + 48 attention and 168 + 168
-   residual-LN launches a step: 96 at 16384 rows and 72 at 5120), the f32
+   residual-LN launches a step: 96 at 16384 rows and 72 at 5120), the eval
+   step on its two routes at 160 decoder positions as in phase 5 (the
+   `eval` line's "retro_tf"), the f32
    loss and gradients against the plain functions; one test batch of 32
    through Generator.generate at beam 20 over 160 with bf16 weights (640
    decode rows; shapes, finite non-increasing scores, 12 attention and
@@ -210,8 +224,8 @@ Phases, each fatal on failure:
    textreact_tpu_torch.bench_train at B = 32 with the kernels (12 attention
    and 42 residual-LN launches a step, forward and backward, no top-k),
    with the plain LayerNorm (no LN launch) and with the plain MLM loss,
-   then a one-minute soak with the eval and checkpoint cadences cut to 20
-   and 40 s (both fire, no kernel is built, every window launches the
+   then a half-minute soak with the eval and checkpoint cadences cut to 10
+   and 20 s (both fire, no kernel is built, every window launches the
    kernels alike; the step-time drift is printed beside the tool's 2%
    bound, and does not fail the phase: the step is host-bound, and on the
    card's shared host the same step's host time moves by up to 1.7x
@@ -225,7 +239,7 @@ process: bench on the USPTO-condition-scale corpus (BENCH_N=700000) and
 bench_train --soak 6 (an eval every 120 s, a checkpoint at 300 s).
 
 Prints JSON lines of the runtime's, the pretrained start's, the template
-path's, the template-free retro path's, the curation's, the tools' and the parallel legs' numbers and of
+path's, the template-free retro path's, the curation's, the tools', the parallel legs' and the eval step's numbers and of
 per-kernel results, then, as the last line, {"ok": true, "device": {...}}.
 Exits non-zero without CUDA.
 """
@@ -1923,6 +1937,100 @@ def route_timing(card: str, run: dict, micro, cfg, per_mb: dict) -> dict:
     return out
 
 
+EVAL_ROUTES = ("cuda_graphs", "uncaptured")
+
+
+def eval_labels(step) -> dict:
+    """ms each key's capture of an eval step's forward took, labelled by
+    the key's input shapes."""
+    out = {}
+    for key, part in ({} if step.graphs is None else step.graphs.keys).items():
+        shapes = {name: shape for name, shape, _ in key}
+        label = "x".join(map(str, shapes["input_ids"]))
+        for name in ("decoder_input_ids", "atom_indices", "bond_pairs"):
+            if name in shapes:
+                label += f" {name.split('_')[0]} " + "x".join(
+                    map(str, shapes[name][1:]))
+        out[label] = round(part.forward.capture_ms, 1)
+    return out
+
+
+def eval_routes(card: str, tag: str, module, cfg, pad_id: int, batches: list,
+                per_batch: dict, results: dict, edit_topk: int = 1):
+    """The eval step on its two routes over `batches` of one key (the first
+    captures, the others replay), each route from fresh counters: every
+    output of every batch equal to the bit once all calls are made (so a
+    later call left each result as it was), the launches exact on both
+    (`per_batch`: read_counts' name -> launches a batch); then each
+    route's host ms a batch (median of 5, synchronized), the card's span
+    (CUDA events) and busy ms and idle share (profiler), the host's launch
+    calls a batch, keys and capture ms, and the peak device memory of the
+    calls (the capture included), printed. Returns (the graphed step, the
+    numbers by route); `results[tag]` takes the graphed launches."""
+    steps, outs, peak = {}, {}, {}
+    for route in EVAL_ROUTES:
+        step = make_eval_step(module, cfg, pad_id, edit_topk=edit_topk)
+        if step.route != "cuda_graphs":
+            raise AssertionError(f"[{tag}] the eval step's route on one card "
+                                 f"is {step.route}")
+        step.route = route
+        steps[route] = step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        outs[route] = [step(batch) for batch in batches]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak[route] = torch.cuda.max_memory_allocated() / 1e9
+        want = dict.fromkeys(counts, 0)
+        want.update({k: v * len(batches) for k, v in per_batch.items()})
+        if counts != want:
+            raise AssertionError(f"[{tag}] eval step, {route}: launches "
+                                 f"{counts}, expected {want}")
+    for name, n in per_batch.items():
+        results[name][f"launches_eval_{tag}"] = n * len(batches)
+    unequal = [f"batch {i} {k}"
+               for i, (a, b) in enumerate(zip(*outs.values()))
+               for k in sorted(set(a) | set(b))
+               if k not in a or k not in b or a[k].dtype != b[k].dtype
+               or not torch.equal(a[k], b[k])]
+    log(f"[{tag}] eval step on {len(batches)} batches of one key "
+        f"(top {edit_topk}): graphed route against the uncaptured route: "
+        + ("every output equal to the bit" if not unequal else
+           f"DIFFERENT: {unequal[:10]}"))
+    if unequal:
+        raise AssertionError(f"[{tag}] the graphed eval step departs from "
+                             f"the uncaptured one: {unequal[:10]}")
+    graphed = steps["cuda_graphs"]
+    if len(graphed.graphs.keys) != 1 or next(iter(
+            graphed.graphs.keys.values())).forward.replays != len(batches) - 1:
+        raise AssertionError(f"[{tag}] eval graphs: {eval_labels(graphed)}")
+    expect = {"attention_fwd": per_batch.get("fused_attention_fwd", 0),
+              "residual_layernorm_fwd": per_batch["fused_layernorm_fwd"]}
+    batch = batches[-1]
+    out = {"card": card}
+    for route, step in steps.items():
+        call = lambda: step(batch)   # noqa: E731
+        host_ms = wall_ms(call)
+        span_ms = device_span_ms(call)
+        busy_ms, kernels = device_busy_ms(call, expect)
+        calls = host_launch_calls(call)
+        out[route] = dict(host_ms=host_ms, device_span_ms=span_ms,
+                          busy_ms=busy_ms, idle=idle_share(busy_ms, host_ms),
+                          device_kernels=kernels, host_launch_calls=calls,
+                          keys=len(eval_labels(step)),
+                          capture_ms=eval_labels(step), peak_gb=peak[route])
+        log(f"[{tag}] eval route {route}: {host_ms:.2f} ms a batch (host "
+            f"clock, median of 5), the card's span {span_ms:.2f} ms (CUDA "
+            f"events), busy {fmt_ms(busy_ms, 2)} ({kernels} kernels and "
+            f"copies), idle {out[route]['idle']} of the host's batch; the "
+            f"host issued {calls} kernel launches, graph launches and "
+            f"copies a batch; keys {out[route]['keys']}, capture ms "
+            f"{out[route]['capture_ms']}; peak device memory "
+            f"{peak[route]:.2f} GB; on {card}")
+    return graphed, out
+
+
 def phase_train(card: str, vocab: Path, results: dict):
     """The training path on its two routes from one snapshot of weights and
     moments: the graphed route (the main path, exact launch counts), then
@@ -1945,7 +2053,6 @@ def phase_train(card: str, vocab: Path, results: dict):
                                 for k, v in micro.items()))
     # a 3-step run: warmup int(3 * 0.02) = 0 steps, then the cosine decay
     optimizer = make_optimizer(cfg, TRAIN_STEPS, module.named_parameters())
-    eval_step = make_eval_step(module, cfg, dec_tok.pad_token_id)
     names = [n for n, _ in module.named_parameters()]
     start = train_snapshot(module, optimizer)
     fresh = {"count": 0, "moments": {}}   # moments zero, no update made
@@ -2021,7 +2128,14 @@ def phase_train(card: str, vocab: Path, results: dict):
         timing = {route: route_timing(card, run, micro, cfg, per_mb)
                   for route, run in runs.items()}
     results["train_routes"] = timing
-    out = eval_step({k: v[0] for k, v in micro.items()})
+    # the eval step on its two routes, the four micro-batches in turn
+    batches = [{k: v[i] for k, v in micro.items()}
+               for i in range(MICRO_BATCHES)]
+    eval_step, results["eval"]["rcr"] = eval_routes(
+        card, "train", module, cfg, dec_tok.pad_token_id, batches,
+        {"fused_attention_fwd": enc_layers,
+         "fused_layernorm_fwd": 2 * enc_layers + 3 * dec_layers}, results)
+    out = eval_step(batches[0])
     loss, acc = out["loss"].float().cpu(), out["acc"].float().cpu()
     if loss.shape != (B,) or acc.shape != (B,) or not bool(
             torch.isfinite(loss).all()):
@@ -2952,6 +3066,33 @@ def read_metrics(save: Path) -> list:
         return [json.loads(line) for line in f]
 
 
+def check_eval_records(tag: str, records: list, batches: int) -> dict:
+    """The eval step's records of a command-line run on one card (each
+    epoch's timing record and --do_valid's): the graphed route, the keys
+    captured and the replays of `batches` validation batches a pass, and
+    the seconds of each validation, printed."""
+    fit = [r for r in records if "epoch_seconds" in r and "val_seconds" in r]
+    valid = [r for r in records if "val_seconds" in r
+             and "epoch_seconds" not in r]
+    if not fit or len(valid) != 1 or any(
+            r["eval_route"] != "cuda_graphs"
+            or r["eval_keys"] + r["eval_replays"] != batches * (i + 1)
+            for i, r in enumerate(fit)) or valid[0]["eval_route"] != \
+            "cuda_graphs" or valid[0]["eval_keys"] + valid[0][
+            "eval_replays"] != batches:
+        raise AssertionError(f"[{tag}] eval records: {fit} {valid}")
+    out = dict(route="cuda_graphs",
+               val_seconds=[r["val_seconds"] for r in fit],
+               keys=[int(r["eval_keys"]) for r in fit],
+               do_valid_seconds=valid[0]["val_seconds"],
+               do_valid_keys=int(valid[0]["eval_keys"]))
+    log(f"[{tag}] validation on the eval step's graphed route: "
+        f"{out['val_seconds']} s each epoch ({batches} batches a pass; "
+        f"keys captured by then {out['keys']}), --do_valid "
+        f"{out['do_valid_seconds']:.2f} s ({out['do_valid_keys']} keys)")
+    return out
+
+
 def phase_runtime(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
                   results: dict) -> None:
     """python -m textreact_tpu_torch, in-process on the card: train, validate
@@ -3061,6 +3202,7 @@ def phase_runtime(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
     timing = [r for r in records if "epoch_seconds" in r]
     step_ms = timing[-1]["epoch_seconds"] / timing[-1]["epoch_steps"] * 1e3
     first_ms = timing[0]["epoch_seconds"] / timing[0]["epoch_steps"] * 1e3
+    validation = check_eval_records("runtime", records, val_batches)
     write_s = [r for r in records if "save_write_seconds" in r][-1][
         "save_write_seconds"]
     tests = [r for r in records if "test_seconds" in r]
@@ -3088,7 +3230,8 @@ def phase_runtime(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
         route=check_trainer_route("runtime", routes),
         step_ms=step_ms, bare_step_ms=bare_step_ms,
         save_blocking_s=timing[0]["save_blocking_seconds"],
-        save_copy_s=timing[0]["save_copy_seconds"], save_write_s=write_s, test_examples_per_s=test_rate)
+        save_copy_s=timing[0]["save_copy_seconds"], save_write_s=write_s,
+        test_examples_per_s=test_rate, validation=validation)
 
     # --- the same command with one more epoch resumes
     before = len(records)
@@ -4084,22 +4227,30 @@ def phase_template(card: str, tmp: Path, vocab: Path,
         f"({keyed_kernels}); launches of that step {counts}; "
         f"{cfg.batch_size} examples at L={L}, on {card}")
 
-    # the eval step at the test pass's edit_topk, the ranking, the decode
-    eval_step = make_eval_step(module, cfg, 0, edit_topk=TEMPLATE_EDITS)
-    first = {k: v[0] for k, v in micro.items()}
+    # the eval step at the test pass's edit_topk on its two routes under
+    # the bond mask, the four micro-batches in turn; the ranking, the
+    # decode on the graphed route
+    batches = [{k: v[i] for k, v in micro.items()}
+               for i in range(MICRO_BATCHES)]
+    eval_step, results["eval"]["template"] = eval_routes(
+        card, "template", module, cfg, 0, batches,
+        {"fused_layernorm_fwd": 2 * layers}, results,
+        edit_topk=TEMPLATE_EDITS)
+    first = batches[0]
     res = eval_step(first)
     if res["loss"].shape != (B,) or not bool(torch.isfinite(
             res["loss"]).all()) or res["atom_topk_idx"].shape != (
             B, TEMPLATE_EDITS):
         raise AssertionError(f"eval step: {res['loss'].shape} "
                              f"{res['atom_topk_idx'].shape}")
-    eval_ms = wall_ms(lambda: eval_step(first))
+    eval_ms = results["eval"]["template"]["cuda_graphs"]["host_ms"]
     compared = check_edit_ranking(module, to_device(first,
                                                     torch.device("cuda")))
     log(f"[template] eval step, top {TEMPLATE_EDITS} edits on the card: "
         f"{eval_ms:.1f} ms a micro-batch of {B} (host clock), mean loss "
         f"{float(res['loss'].mean()):.4f}; {compared} ranked edits compared")
     decode = check_ester_decode(data, cfg, enc_tok, tables, eval_step)
+    decode["eval_keys"] = eval_labels(eval_step)
 
     # what the bond mask costs one layer's attention
     attention = time_bond_masked_attention(card, to_device(
@@ -4237,6 +4388,21 @@ def check_template_run(card: str, save: Path, sizes: dict, accuracies,
             for a in accuracies):
         raise AssertionError(f"retro top-k dicts: {accuracies}")
     tests_s = sum(r["test_seconds"] for r in records if "test_seconds" in r)
+    validation = check_eval_records("template", records,
+                                    2 * -(-sizes["val"] // B))
+    # each test pass makes its own eval step: its keys and replays
+    test_batches = -(-sizes["test"] // B)
+    passes = [r for r in records if "test_seconds" in r]
+    if len(passes) != 2 or any(
+            r["eval_route"] != "cuda_graphs"
+            or r["eval_keys"] + r["eval_replays"] != test_batches
+            for r in passes):
+        raise AssertionError(f"test pass records: {passes}")
+    validation["test_keys"] = [int(r["eval_keys"]) for r in passes]
+    validation["test_replays"] = [int(r["eval_replays"]) for r in passes]
+    log(f"[template] command line's test passes on the eval step's graphed "
+        f"route: keys captured {validation['test_keys']} and replays "
+        f"{validation['test_replays']} of {test_batches} batches a pass")
     log(f"[template] command line: train {sizes['train']} "
         f"reactions ({timing['epoch_steps']:.0f} optimizer steps of {accum} x "
         f"{B}, "
@@ -4248,7 +4414,8 @@ def check_template_run(card: str, save: Path, sizes: dict, accuracies,
         f"{accuracies[0]} / {accuracies[1]}; launches {counts}; on {card}")
     return dict(cli_seconds=seconds, cli_epoch_seconds=timing["epoch_seconds"],
                 cli_step_ms=timing["epoch_seconds"] / timing["epoch_steps"]
-                * 1e3, cli_test_seconds=tests_s, launches=counts)
+                * 1e3, cli_test_seconds=tests_s, launches=counts,
+                cli_eval=validation)
 
 
 # --- 12b. template-free retrosynthesis --------------------------------------
@@ -4452,6 +4619,13 @@ def retro_train(card: str, cfg, enc_tok, dec_tok, results: dict):
     uncaptured_gb = uncaptured_peak_gb(module, cfg, optimizer,
                                        dec_tok.pad_token_id, micro,
                                        state.step)
+    # the eval step on its two routes with the decoder at 160, the four
+    # micro-batches in turn
+    _, results["eval"]["retro_tf"] = eval_routes(
+        card, "retro_tf", module, cfg, dec_tok.pad_token_id,
+        [{k: v[i] for k, v in micro.items()} for i in range(MICRO_BATCHES)],
+        {"fused_attention_fwd": enc_layers,
+         "fused_layernorm_fwd": 2 * enc_layers + 3 * dec_layers}, results)
     med = statistics.median(step_ms[1:])
     log(f"[retro_tf] {med:.1f} ms per optimizer step (host clock, median of "
         f"steps 2-{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms) = "
@@ -4762,9 +4936,12 @@ def retro_recipe(card: str, tmp: Path, data: Path, vocab: Path,
         f"{legs['test']:.1f} s ({sum(steps)} decode steps over {tests} "
         f"batches of {B} at beam {RETRO_BEAMS}); retro top-k "
         f"{accuracies[0]} / {accuracies[1]}; launches {launches}; on {card}")
+    validation = check_eval_records("retro_tf", records,
+                                    2 * -(-sizes["val"] // B))
     return dict(seconds=seconds, legs=legs, decode_steps=sum(steps),
                 accuracy=accuracies, launches=launches,
-                route=check_trainer_route("retro_tf", routes))
+                route=check_trainer_route("retro_tf", routes),
+                validation=validation)
 
 
 def phase_retro_tf(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
@@ -5737,8 +5914,10 @@ def phase_parallel(card: str, tmp: Path, vocab: Path, bare_step_ms: float,
 # the measurement tools (phase 15): bench_train's configurations
 # (layernorm_impl, mlm_impl) at B = 32, and a soak of SOAK_MINUTES with the
 # eval and checkpoint cadences cut to SOAK_CADENCES seconds, so both fire
+# (half a minute: ten windows of 50 steps, room for the eval step's phases
+# in the run's time)
 BENCH_TRAIN_CONFIGS = (("fused", "fused"), ("xla", "fused"), ("fused", "xla"))
-SOAK_MINUTES, SOAK_CADENCES = 1.0, (20.0, 40.0)
+SOAK_MINUTES, SOAK_CADENCES = 0.5, (10.0, 20.0)
 # the captures (`--captures`): the full soak and the RCR-scale corpus
 CAPTURE_SOAK_MINUTES, CAPTURE_BENCH_N = 6, 700_000
 
@@ -5897,7 +6076,7 @@ def main(argv: Optional[list] = None) -> int:
     if args.captures:
         print(json.dumps({"captures": captures()}))
         return finish(t_start)
-    results: dict = {}
+    results: dict = {"eval": {}}
     phase_kernels(results)
     log(f"[time] kernels phase done at {time.perf_counter() - t_start:.0f} s")
     with tempfile.TemporaryDirectory() as tmp:
@@ -5948,6 +6127,7 @@ def main(argv: Optional[list] = None) -> int:
     runtime = results.pop("runtime")
     pretrained = results.pop("pretrained")
     template = results.pop("template")
+    evals = results.pop("eval")
     for name in KERNELS:
         if not results[name].get("launches", 0) > 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -5961,6 +6141,7 @@ def main(argv: Optional[list] = None) -> int:
     print(json.dumps({"curation": curation}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"eval": evals}))
     print(json.dumps({"kernels": kernels}))
     return finish(t_start)
 

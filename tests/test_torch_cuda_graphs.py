@@ -20,6 +20,15 @@ embedding backward sums a table's repeated rows by atomics, and two
 uncaptured runs differ there); the dropout seed taken up at every replay; a weight-0 pad; two keys alternating; no host
 wait in a replayed step; the counters against a trace.
 
+The eval step's graphs (train/graphs.py `EvalGraphs`) the same way, at 32
+rows of L=512: the RCR model's forward (top 1) and a template model's at
+the RetroSyn_tb recipe's 400 atom and 60 bond classes under the bond mask
+(top 500 edits), each against the uncaptured route to the bit, on two
+batches of one key and with the first result left as it was by the
+second; keys alternating and a new one captured; no host wait in a replay;
+the counters against a trace; and a validation between two train keys,
+after which the new key's capture equals a run that saw no validation.
+
 Every test needs a GPU: it carries the `cuda` marker and skips (from a
 fixture) without one. On the GPU machine:
 
@@ -38,12 +47,15 @@ from chip_smoke import device_events
 from textreact_tpu_torch.bench_train import experiment, make_batch
 from textreact_tpu_torch.inference import Generator
 from textreact_tpu_torch.inference.beam import STOP_LAG
-from textreact_tpu_torch.models import EncoderDecoder
+from textreact_tpu_torch.config import ExperimentConfig
+from textreact_tpu_torch.data.collate import IGNORE_INDEX
+from textreact_tpu_torch.models import EncoderDecoder, TemplateBasedModel
 from textreact_tpu_torch.models.config import BERT_L6_DECODER, SCIBERT_BASE
 from textreact_tpu_torch.models.factory import init_weights
 from textreact_tpu_torch.ops import fused_attention, fused_layernorm
 from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
-                                       make_optimizer, make_train_step)
+                                       make_eval_step, make_optimizer,
+                                       make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -411,3 +423,220 @@ def test_train_counters_equal_the_kernels_a_trace_counts(dev):
     ln = (2 * LAYERS + 3 * LAYERS) * MICRO
     assert counted == (LAYERS * MICRO, LAYERS * MICRO, ln, ln)
     assert seen == counted
+
+
+# --- the eval step ----------------------------------------------------------
+
+EDITS, ATOM_CLASSES, BOND_CLASSES = 500, 400, 60
+ATOMS, BONDS = 48, 104   # a batch's padded atoms and bond slots
+
+
+def _eval_pair(model, cfg, edit_topk: int = 1):
+    """(the graphed eval step, the uncaptured one) on the same weights."""
+    graphed = make_eval_step(model, cfg, 0, edit_topk=edit_topk)
+    uncaptured = make_eval_step(model, cfg, 0, edit_topk=edit_topk)
+    assert graphed.route == "cuda_graphs"
+    uncaptured.route = "uncaptured"
+    return graphed, uncaptured
+
+
+def _rcr_eval(seed: int, length: int = L, rows: int = B) -> dict:
+    """bench_train's batch with a ragged key mask."""
+    batch = make_batch(rows, length, dec_vocab=DEC_VOCAB, seed=seed)
+    batch["attention_mask"] = _batch(seed, rows)["attention_mask"][:, :length]
+    return batch
+
+
+def _template_model(dev) -> TemplateBasedModel:
+    enc = SCIBERT_BASE.replace(num_hidden_layers=LAYERS,
+                               attention_impl="flash",
+                               layernorm_impl="fused")
+    model = TemplateBasedModel(enc, ATOM_CLASSES, BOND_CLASSES,
+                               dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.to(dev)
+
+
+def _template_eval(seed: int, rows: int = B) -> dict:
+    """The collator's arrays of `rows` products: atom tokens after [CLS],
+    bonds between random atoms, a label or two an example, and the (L, L)
+    bond mask of RetrosynthesisDataset._bond_mask."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(ATOMS + 16, L + 1, rows)
+    n_atoms = rng.integers(ATOMS // 2, ATOMS + 1, rows)
+    n_bonds = rng.integers(BONDS // 2, BONDS + 1, rows)
+    key = np.arange(L)[None] < lengths[:, None]
+    out = {"input_ids": (rng.integers(100, SCIBERT_BASE.vocab_size, (rows, L))
+                         * key).astype(np.int32),
+           "attention_mask": np.zeros((rows, L, L), np.int32),
+           "atom_indices": np.zeros((rows, ATOMS), np.int32),
+           "atom_mask": np.zeros((rows, ATOMS), np.int32),
+           "bond_pairs": np.zeros((rows, BONDS, 2), np.int32),
+           "bond_mask": np.zeros((rows, BONDS), np.int32),
+           "atom_template_labels": np.full((rows, ATOMS), IGNORE_INDEX,
+                                           np.int32),
+           "bond_template_labels": np.full((rows, BONDS), IGNORE_INDEX,
+                                           np.int32),
+           "example_mask": np.ones((rows,), np.int32),
+           "indices": np.arange(rows, dtype=np.int32)}
+    for b in range(rows):
+        n, m = int(n_atoms[b]), int(n_bonds[b])
+        pairs = rng.integers(0, n, (m, 2))
+        keep = np.eye(n, dtype=np.int32)
+        keep[pairs[:, 0], pairs[:, 1]] = 1
+        mask = np.ones((lengths[b], lengths[b]), np.int32)
+        mask[1:n + 1, 1:n + 1] = keep
+        out["attention_mask"][b, :lengths[b], :lengths[b]] = mask
+        out["atom_indices"][b, :n] = np.arange(1, n + 1)
+        out["atom_mask"][b, :n] = 1
+        out["bond_pairs"][b, :m] = pairs
+        out["bond_mask"][b, :m] = 1
+        out["atom_template_labels"][b, :n] = 0
+        out["atom_template_labels"][b, rng.integers(n)] = rng.integers(
+            1, ATOM_CLASSES + 1)
+        out["bond_template_labels"][b, :m] = 0
+        out["bond_template_labels"][b, rng.integers(m)] = rng.integers(
+            1, BOND_CLASSES + 1)
+    return out
+
+
+def _same_results(got: dict, want: dict) -> None:
+    """Every output of two eval calls equal to the bit."""
+    assert set(got) == set(want)
+    for k in got:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k],
+                                                             want[k]), k
+
+
+EVAL_PATHS = {
+    # path -> (model, config, top k, batch, launches of attention and of
+    # residual LN a call)
+    "rcr": (_train_model, lambda: experiment("fused"), 1, _rcr_eval,
+            (LAYERS, 5 * LAYERS)),
+    "template": (_template_model, lambda: ExperimentConfig(
+        task="retro", template_based=True, unattend_nonbonds=True,
+        template_path="x"), EDITS, _template_eval, (0, 2 * LAYERS)),
+}
+
+
+@pytest.mark.parametrize("path", sorted(EVAL_PATHS))
+def test_graphed_eval_equals_the_uncaptured_route(dev, path):
+    """Two batches of one key: the first captures, the second replays;
+    each equals the uncaptured route on its batch to the bit, the two
+    batches' results differ, the first result is left as it was by the
+    second call, the output buffers keep their storage, and the counters
+    count the kernels the card ran (under the bond mask attention takes
+    the plain path)."""
+    make_model, make_cfg, k, make, launches = EVAL_PATHS[path]
+    graphed, uncaptured = _eval_pair(make_model(dev), make_cfg(), k)
+    results = []
+    for n, seed in enumerate((1, 2)):
+        batch = make(seed)
+        before = _counts()
+        got = graphed(batch)
+        after = _counts()
+        assert (after[0] - before[0], after[1] - before[1]) == launches
+        (key,) = graphed.graphs.keys.values()
+        assert key.forward.replays == n and key.forward.capture_ms > 0
+        if n == 0:
+            kept = {name: t.clone() for name, t in got.items()}
+            pointers = [t.data_ptr() for t in key.outputs.values()]
+        assert [t.data_ptr() for t in key.outputs.values()] == pointers
+        _same_results(got, uncaptured(batch))
+        results.append(got)
+    _same_results(results[0], kept)
+    assert not torch.equal(results[0]["loss"], results[1]["loss"])
+    if path == "template":
+        assert results[0]["atom_topk_idx"].shape == (B, EDITS)
+        assert (results[0]["bond_topk_vals"][:, -1] >= 0).all()
+
+
+def test_eval_keys_alternate_and_a_new_key_captures(dev):
+    """Batches at L=512 and at L=256 in turn, then 8 rows (a new key) and
+    512 again: a key captures at its first call only, and every call
+    equals the uncaptured route to the bit."""
+    graphed, uncaptured = _eval_pair(_train_model(dev), experiment("fused"))
+    shapes = ((L, B), (L // 2, B), (L, B), (L // 2, B), (L, 8), (L, B))
+    for n, (length, rows) in enumerate(shapes):
+        batch = _rcr_eval(20 + n, length, rows)
+        keys = 0 if graphed.graphs is None else len(graphed.graphs.keys)
+        got = graphed(batch)
+        assert len(graphed.graphs.keys) - keys == (n in (0, 1, 4))
+        _same_results(got, uncaptured(batch))
+    parts = list(graphed.graphs.keys.values())
+    assert [p.forward.replays for p in parts] == [2, 1, 0]
+
+
+def test_a_replayed_eval_step_makes_no_host_wait(dev):
+    """Once captured, a call runs under sync_debug_mode 'error': the batch
+    goes up through pinned memory and the results come back as tensors on
+    the card; the caller's read is the one wait."""
+    graphed, _ = _eval_pair(_template_model(dev), EVAL_PATHS["template"][1](),
+                            EDITS)
+    graphed(_template_eval(3))
+    batch = _template_eval(4)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = graphed(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    (key,) = graphed.graphs.keys.values()
+    assert key.forward.replays == 1
+    assert torch.isfinite(res["loss"]).all().item()
+
+
+def test_eval_counters_equal_the_kernels_a_trace_counts(dev):
+    """The counters' launches of one replayed RCR eval call equal the
+    attention and residual-LN kernels that torch.profiler saw: the
+    encoder's attention a layer, two LNs an encoder layer and three a
+    decoder layer, no backward."""
+    from torch.profiler import ProfilerActivity, profile
+    graphed, _ = _eval_pair(_train_model(dev), experiment("fused"))
+    batch = _rcr_eval(5)
+    graphed(batch)
+    torch.cuda.synchronize()
+    before = _counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graphed(batch)
+        torch.cuda.synchronize()
+    counted = tuple(a - b for a, b in zip(_counts(), before))
+    names = [name for name, _, _ in device_events(prof)]
+    seen = tuple(sum(fragment in n for n in names) for fragment in (
+        "attention_fwd", "residual_layernorm_fwd"))
+    assert counted == seen == (LAYERS, 5 * LAYERS)
+    assert not any("_bwd" in n for n in names)
+
+
+def test_a_validation_between_train_keys_leaves_the_next_capture_right(
+        dev, deterministic):
+    """A graphed train step at L=512, a graphed validation (the module in
+    eval mode, its forward captured), then the first step of a new key
+    (L=256, captured after the validation) and one more of each key: every
+    metric, parameter and moment equals a graphed run that made no
+    validation and an uncaptured run that made it, to the bit; the
+    validations of the two runs that made them are equal too."""
+    runs = {name: _trainer(dev, route=route) for name, route in (
+        ("graphed", "cuda_graphs"), ("quiet", "cuda_graphs"),
+        ("uncaptured", "uncaptured"))}
+    cfg = experiment("fused")
+    evals = {name: make_eval_step(runs[name][0].module, cfg, 0)
+             for name in ("graphed", "uncaptured")}
+    evals["uncaptured"].route = "uncaptured"
+    weights = np.ones(MICRO, np.float32)
+    scores = {}
+    for n, length in enumerate((L, L // 2, L, L // 2)):
+        micro = _micro(30 + n, length)
+        outs = {}
+        for name, (state, step) in runs.items():
+            outs[name] = step(state, micro, weights, 5)[1]
+            assert state.module.training
+            if name in evals and n == 0:
+                scores[name] = evals[name](_rcr_eval(7))
+                assert not state.module.training
+        _same_metrics(outs["graphed"], outs["quiet"])
+        _same_metrics(outs["graphed"], outs["uncaptured"])
+    _same_results(scores["graphed"], scores["uncaptured"])
+    _same_training(runs["graphed"], runs["quiet"])
+    _same_training(runs["graphed"], runs["uncaptured"])
+    assert len(runs["graphed"][1].graphs.keys) == 2

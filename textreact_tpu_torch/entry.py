@@ -267,7 +267,7 @@ def _data_path_shards(leg: str):
 
 def _train_and_score(module, batch: Dict[str, np.ndarray], device) -> tuple:
     """One train step and one eval step on `batch`; (train loss, {index:
-    per-example eval loss} of the real rows)."""
+    per-example eval loss} of the real rows, the two steps' routes)."""
     from .train import (TrainState, make_eval_step, make_optimizer,
                         make_train_step)
     cfg = _gate_cfg("float32", max_length=32, max_dec_length=8)
@@ -278,12 +278,14 @@ def _train_and_score(module, batch: Dict[str, np.ndarray], device) -> tuple:
     step = make_train_step(module, cfg, optimizer, dec_pad_id=0,
                            device=device)
     state, metrics = step(state, batch, seed=1)
-    res = make_eval_step(module, cfg, dec_pad_id=0, device=device)(batch)
+    eval_step = make_eval_step(module, cfg, dec_pad_id=0, device=device)
+    res = eval_step(batch)
     mask = res["example_mask"].cpu().numpy().astype(bool)
     scores = {int(i): float(v) for i, v, m in zip(
         res["indices"].cpu().numpy(), res["loss"].double().cpu().numpy(),
         mask) if m}
-    return float(metrics["train_loss"]), scores
+    return (float(metrics["train_loss"]), scores,
+            {"train": step.route, "eval": eval_step.route})
 
 
 def _data_path_worker(rank: int, world_size: int, device: str, out: str,
@@ -296,11 +298,12 @@ def _data_path_worker(rank: int, world_size: int, device: str, out: str,
                        device=device)
     shard_params(mesh, module)
     batch = _data_path_shards(leg)[mesh.dp_rank]   # by dp rank, not rank
-    loss, scores = _train_and_score(module, batch.arrays, device)
+    loss, scores, routes = _train_and_score(module, batch.arrays, device)
     scores = gather_score_dict(scores)
     if is_primary():
         _write(out, f"{leg}.json", {"train_loss": loss, "scores": {
-            str(k): scores[k] for k in sorted(scores)}, "world": world_size})
+            str(k): scores[k] for k in sorted(scores)}, "world": world_size,
+            "routes": routes})
 
 
 def _dryrun_data_path(leg: str, world: int, device: str, out: str) -> None:
@@ -308,7 +311,7 @@ def _dryrun_data_path(leg: str, world: int, device: str, out: str) -> None:
     shards = _data_path_shards(leg)
     whole = {k: np.concatenate([s.arrays[k] for s in shards])
              for k in shards[0].arrays}
-    ref_loss, ref_scores = _train_and_score(
+    ref_loss, ref_scores, ref_routes = _train_and_score(
         _flagship(tiny=True, dtype=torch.float32, dropout=False,
                   device=device), whole, device)
     spawn("textreact_tpu_torch.entry:_data_path_worker", world,
@@ -321,14 +324,17 @@ def _dryrun_data_path(leg: str, world: int, device: str, out: str) -> None:
     for k, v in ref_scores.items():
         np.testing.assert_allclose(got["scores"][str(k)], v,
                                    rtol=_GATE_BOUND, err_msg=str(k))
+    routes = (f"(train/eval step routes: one process {ref_routes['train']}/"
+              f"{ref_routes['eval']}, the ranks {got['routes']['train']}/"
+              f"{got['routes']['eval']})")
     if leg == "even":
         print("dryrun_multichip: 2-process data path (static collation + "
-              "per-rank shards + score gather) matches one process ok",
-              flush=True)
+              f"per-rank shards + score gather) matches one process {routes} "
+              "ok", flush=True)
     else:
         print("dryrun_multichip: 4-process dp=2 x tp=2 leg (uneven shards, "
-              "duplicate-id drop, 9 unique ids) matches one process ok",
-              flush=True)
+              f"duplicate-id drop, 9 unique ids) matches one process {routes} "
+              "ok", flush=True)
 
 
 def dryrun_multichip(n_devices: int = 4, device=None) -> None:

@@ -1,6 +1,7 @@
-"""The train step's compiled execution on the card: CUDA graphs in place of
-the JAX package's one jitted program per shape bucket
-(textreact_tpu/train/step.py `make_train_step`, `make_accum_train_step`).
+"""The train and eval steps' compiled execution on the card: CUDA graphs in
+place of the JAX package's one jitted program per shape bucket
+(textreact_tpu/train/step.py `make_train_step`, `make_accum_train_step`,
+`make_eval_step`).
 
 A train step (train/step.py `TrainStep`) is two parts. `TrainGraphs`
 holds a train step's graphs, all drawing their memory from one pool:
@@ -31,6 +32,14 @@ replay (`manual_seed` cannot run inside a capture), and the replay's
 prologue takes up the seed and offset the generator holds then, so a
 replay draws what the uncaptured part draws from a generator seeded the
 same.
+
+An eval step (train/step.py `EvalStep`) is one part, its forward, and
+`EvalGraphs` holds its graphs in a pool of its own: per shape key, a
+`GraphedEvalStep` with static inputs, the graph of the forward and the
+buffers of its outputs. Those buffers are allocated at the key's first,
+uncaptured run, outside the pool, as the train step's are; the step hands
+back clones of them. The forward draws no mask (no dropout runs in eval
+mode), so no generator is registered.
 """
 
 from __future__ import annotations
@@ -59,23 +68,20 @@ def static_dtype(value) -> torch.dtype:
     return dtype if dtype.is_floating_point else torch.int64
 
 
-class GraphedTrainStep:
-    """One shape key's static inputs and micro-batch graph. `load(arrays,
-    i)` copies micro-batch `i` of a step's arrays (stacked on a leading
-    micro-batch axis; all of them when `i` is None) into `inputs` on the
-    current stream, a host array through pinned memory. Each micro-batch
-    is converted and pinned at its own `load`, so that the host prepares
-    micro-batch i + 1 while the card runs micro-batch i."""
+class StaticInputs:
+    """One shape key's static inputs. `load(arrays, i)` copies micro-batch
+    `i` of a step's arrays (stacked on a leading micro-batch axis; all of
+    them when `i` is None) into `inputs` on the current stream, a host
+    array through pinned memory. Each micro-batch is converted and pinned
+    at its own `load`, so that the host prepares micro-batch i + 1 while
+    the card runs micro-batch i."""
 
-    def __init__(self, graphs: "TrainGraphs", key: Key):
+    def __init__(self, graphs: "KeyedGraphs", key: Key):
         self.key = key
-        device = graphs.device
         self.inputs: Dict[str, torch.Tensor] = {
             name: torch.zeros(shape, dtype=getattr(torch, dtype),
-                              device=device)
+                              device=graphs.device)
             for name, shape, dtype in key}
-        self.micro = GraphedPart(graphs.pool, graphs.stream,
-                                 graphs.generator)
 
     def load(self, arrays: Mapping[str, Any], i: Optional[int]) -> None:
         for name, value in arrays.items():
@@ -88,19 +94,42 @@ class GraphedTrainStep:
             self.inputs[name].copy_(src, non_blocking=True)
 
 
-class TrainGraphs:
-    """A train step's graphs (see the module's docstring): the pool, the
-    capture stream, the dropout generator, the update part's graph and one
-    `GraphedTrainStep` per shape key."""
+class GraphedTrainStep(StaticInputs):
+    """One shape key's static inputs and micro-batch graph."""
 
-    def __init__(self, device: torch.device, generator: torch.Generator):
+    def __init__(self, graphs: "TrainGraphs", key: Key):
+        super().__init__(graphs, key)
+        self.micro = GraphedPart(graphs.pool, graphs.stream,
+                                 graphs.generator)
+
+
+class GraphedEvalStep(StaticInputs):
+    """One shape key's static inputs, forward graph and output buffers."""
+
+    def __init__(self, graphs: "EvalGraphs", key: Key):
+        super().__init__(graphs, key)
+        self.forward = GraphedPart(graphs.pool, graphs.stream)
+        self.outputs: Dict[str, torch.Tensor] = {}
+
+    def store(self, results: Mapping[str, torch.Tensor]) -> None:
+        """Copy a forward's results into the output buffers, allocating
+        them at the first, uncaptured run (so outside the pool)."""
+        for name, value in results.items():
+            out = self.outputs.get(name)
+            if out is None:
+                out = self.outputs[name] = torch.empty_like(value)
+            out.copy_(value)
+
+
+class KeyedGraphs:
+    """A step's pool, capture stream and one `part` (a `StaticInputs`
+    class) per shape key."""
+
+    def __init__(self, device: torch.device):
         self.device = device
-        self.generator = generator
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
-        self.update = GraphedPart(self.pool, self.stream)
-        self.keys: Dict[Key, GraphedTrainStep] = {}
-        self._grads: Optional[list] = None
+        self.keys: Dict[Key, Any] = {}
 
     @staticmethod
     def key_of(arrays: Mapping[str, Any], stacked: bool) -> Key:
@@ -111,13 +140,33 @@ class TrainGraphs:
              str(static_dtype(value)).replace("torch.", ""))
             for name, value in arrays.items()))
 
-    def key(self, arrays: Mapping[str, Any], stacked: bool
-            ) -> GraphedTrainStep:
+    def key(self, arrays: Mapping[str, Any], stacked: bool = False):
         key = self.key_of(arrays, stacked)
-        step = self.keys.get(key)
-        if step is None:
-            step = self.keys[key] = GraphedTrainStep(self, key)
-        return step
+        part = self.keys.get(key)
+        if part is None:
+            part = self.keys[key] = self.part(self, key)
+        return part
+
+
+class EvalGraphs(KeyedGraphs):
+    """An eval step's graphs (see the module's docstring): the pool, the
+    capture stream and one `GraphedEvalStep` per shape key."""
+
+    part = GraphedEvalStep
+
+
+class TrainGraphs(KeyedGraphs):
+    """A train step's graphs (see the module's docstring): the pool, the
+    capture stream, the dropout generator, the update part's graph and one
+    `GraphedTrainStep` per shape key."""
+
+    part = GraphedTrainStep
+
+    def __init__(self, device: torch.device, generator: torch.Generator):
+        super().__init__(device)
+        self.generator = generator
+        self.update = GraphedPart(self.pool, self.stream)
+        self._grads: Optional[list] = None
 
     def check_grads(self, optimizer) -> None:
         """The graphs accumulate into the `.grad` buffers they were

@@ -4,7 +4,8 @@ Replaces the reference's Lightning training_step / validation_step
 (main.py:164-196). A step runs on one device: forward in training mode,
 backward through the kernels' own backward passes, the optimizer's
 update; on a card as CUDA graphs, replayed (`TrainStep`,
-train/graphs.py), the JAX step's one jitted program. Every dropout mask
+train/graphs.py), the JAX step's one jitted program. The eval step's
+forward is graphed the same way (`EvalStep`). Every dropout mask
 of a step comes from one `torch.Generator` seeded from (the run's seed,
 the step, the micro-batch), so a step is reproducible and no global
 generator is touched.
@@ -39,7 +40,7 @@ import torch
 from ..data.collate import IGNORE_INDEX
 from ..models.factory import resolve_device
 from . import losses
-from .graphs import TrainGraphs
+from .graphs import EvalGraphs, TrainGraphs
 from .optim import Optimizer
 
 Tensor = torch.Tensor
@@ -412,26 +413,51 @@ def make_accum_train_step(module: torch.nn.Module, cfg, optimizer: Optimizer,
     return _AccumStep(module, cfg, optimizer, dec_pad_id, device)
 
 
-def make_eval_step(module: torch.nn.Module, cfg, dec_pad_id: int,
-                   edit_topk: int = 500, device=None) -> Callable:
+def eval_route(module: torch.nn.Module, device: torch.device) -> str:
+    """The route of an eval step of `module` on `device`: graphs on a card,
+    unless the forward holds a collective (a mesh, as `train_route`).
+    Remat does not bar them: `remat_block` runs only in training mode with
+    gradients on (models/encoder.py, models/decoder.py), and the eval step
+    runs in eval mode under `torch.no_grad`, so its forward sets no
+    generator state on the host."""
+    return (CUDA_GRAPHS if device.type == "cuda" and _dp(module) is None
+            else UNCAPTURED)
+
+
+class EvalStep:
     """Per-example val scores (reference validation_step, main.py:177-188):
-    acc = greedy exact match, loss = per-example mean CE.
+    acc = greedy exact match, loss = per-example mean CE; the port's
+    counterpart of the JAX eval step's one `jax.jit` program.
 
     Template-based models return the top-`edit_topk` edit candidates ranked
     on the device (`device_topk_edits` over the flattened atom and bond
     probabilities) instead of the full (B, A, n_a+1) / (B, MB, n_b+1)
     probability tensors: the host merges two k-long lists per example
     (edits_from_topk), where the reference argsorts the full grids on the
-    host (utils.py:79-108)."""
-    template_based = cfg.template_based
-    device = _check_device(module, device)
+    host (utils.py:79-108).
 
-    @torch.no_grad()
-    def eval_step(batch: Mapping[str, Any]) -> Dict[str, Tensor]:
-        module.eval()
-        batch = to_device(batch, device)
-        out = module(**_model_inputs(batch, template_based, None))
-        if template_based:
+    `route` is chosen once (`eval_route`). On "cuda_graphs" each shape key
+    has static inputs, a graph of the forward (run once uncaptured at the
+    key's first call, then captured and replayed) and output buffers
+    outside the graph pool (train/graphs.py `EvalGraphs`): a call copies
+    the batch into its key's inputs, replays, and returns clones of the
+    outputs, so a result stays as it was across later calls. Nothing waits
+    for the card: the caller's read of a result is the one wait. On
+    "uncaptured" the forward runs as it is; setting `route` to it on a card
+    gives the reference the graphs are held to."""
+
+    def __init__(self, module: torch.nn.Module, cfg, dec_pad_id: int,
+                 edit_topk: int = 500, device=None):
+        self.device = _check_device(module, device)
+        self.module, self.dec_pad_id = module, dec_pad_id
+        self.template_based = cfg.template_based
+        self.edit_topk = edit_topk
+        self.route = eval_route(module, self.device)
+        self.graphs: Optional[EvalGraphs] = None   # at the first call
+
+    def _forward(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        out = self.module(**_model_inputs(batch, self.template_based, None))
+        if self.template_based:
             from ..evaluation.edit_rank import device_topk_edits
             atom_logits, bond_logits = out["logits"]
             atom_labels = batch["atom_template_labels"]
@@ -445,16 +471,34 @@ def make_eval_step(module: torch.nn.Module, cfg, dec_pad_id: int,
              res["bond_topk_vals"], res["bond_topk_idx"]) = device_topk_edits(
                 losses.masked_probs(atom_logits, atom_labels),
                 losses.masked_probs(bond_logits, bond_labels),
-                bond_labels != losses.IGNORE_INDEX, edit_topk)
+                bond_labels != losses.IGNORE_INDEX, self.edit_topk)
             return res
         return {
             "example_mask": batch["example_mask"],
             "indices": batch["indices"],
             "loss": losses.seq2seq_loss(
-                out["logits"], batch["decoder_input_ids"], dec_pad_id,
+                out["logits"], batch["decoder_input_ids"], self.dec_pad_id,
                 reduction="none"),
             "acc": losses.seq2seq_greedy_acc(
-                out["logits"], batch["decoder_input_ids"], dec_pad_id),
+                out["logits"], batch["decoder_input_ids"], self.dec_pad_id),
         }
 
-    return eval_step
+    @torch.no_grad()
+    def __call__(self, batch: Mapping[str, Any]) -> Dict[str, Tensor]:
+        self.module.eval()
+        if self.route != CUDA_GRAPHS:
+            return self._forward(to_device(batch, self.device))
+        arrays = getattr(batch, "arrays", batch)
+        if self.graphs is None:
+            self.graphs = EvalGraphs(self.device)
+        key = self.graphs.key(arrays)
+        key.load(arrays, None)
+        key.forward(lambda: key.store(self._forward(key.inputs)))
+        return {name: out.clone() for name, out in key.outputs.items()}
+
+
+def make_eval_step(module: torch.nn.Module, cfg, dec_pad_id: int,
+                   edit_topk: int = 500, device=None) -> EvalStep:
+    """eval_step(batch) -> per-example scores, tensors on the device
+    (`EvalStep`); `eval_step.route` says how it runs."""
+    return EvalStep(module, cfg, dec_pad_id, edit_topk, device)

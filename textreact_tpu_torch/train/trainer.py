@@ -79,6 +79,8 @@ class Trainer:
         cfg.validate()
         self.cfg = cfg
         self.train_route: Optional[str] = None   # fit's train step's route
+        # the template-based test pass's eval step (`_eval_record`)
+        self.test_eval: Dict[str, Any] = {}
         # under torchrun: card LOCAL_RANK, and the process group
         self.device = local_device(resolve_device(device))
         initialize_distributed(device=self.device)
@@ -264,11 +266,13 @@ class Trainer:
         # on one card the step's two parts run as CUDA graphs, captured at
         # each shape bucket's first step (after the restore above, which
         # copies into the buffers they read) and replayed after
-        # (a caller's wrapper around `make_train_step` may not carry it)
+        # (a caller's wrapper around `make_train_step` may not carry it);
+        # the eval step's forward the same, one step for every epoch's
+        # validation, so its graphs persist across epochs
         self.train_route = getattr(train_step, "route", None)
-        log.info("train step route: %s", self.train_route)
-        eval_step = make_eval_step(self.module, cfg, self.dec_pad_id,
-                                   edit_topk=1, device=self.device)
+        eval_step = self._eval_step(edit_topk=1)
+        log.info("train step route: %s; eval step route: %s",
+                 self.train_route, eval_step.route)
 
         # every dropout mask of a step is drawn from a generator reseeded
         # from (this seed, state.step), and state.step is in the checkpoint:
@@ -337,7 +341,10 @@ class Trainer:
                 timing = {"epoch": epoch, "epoch_steps": global_step - step0,
                           "epoch_seconds": self._clock() - t0}
                 if (epoch + 1) % cfg.eval_per_epoch == 0 and self.val_dataset is not None:
+                    t0 = self._clock()
                     scores = self._run_validation(eval_step)
+                    timing.update(self._eval_record(eval_step),
+                                  val_seconds=self._clock() - t0)
                     self.metrics.log(scores, global_step)
                     log.info("epoch %d: %s", epoch, scores)
                     t0 = time.perf_counter()
@@ -362,6 +369,20 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
+
+    def _eval_step(self, edit_topk: int = 500):
+        """An eval step of this trainer's module, on its device."""
+        return make_eval_step(self.module, self.cfg, self.dec_pad_id,
+                              edit_topk=edit_topk, device=self.device)
+
+    @staticmethod
+    def _eval_record(eval_step) -> Dict[str, Any]:
+        """The eval step's route, the shape keys it has captured and the
+        replays of their graphs, for metrics.jsonl."""
+        keys = [] if eval_step.graphs is None else list(
+            eval_step.graphs.keys.values())
+        return {"eval_route": eval_step.route, "eval_keys": len(keys),
+                "eval_replays": sum(k.forward.replays for k in keys)}
 
     # ------------------------------------------------------------------
     # validation (reference main.py:177-196)
@@ -412,11 +433,14 @@ class Trainer:
         return out
 
     def validate(self) -> Dict[str, float]:
-        self._load_for_eval()
-        eval_step = make_eval_step(self.module, self.cfg, self.dec_pad_id,
-                                   device=self.device)
+        state = self._load_for_eval()
+        eval_step = self._eval_step()
+        t0 = self._clock()
         scores = self._run_validation(eval_step)
-        log.info("validation: %s", scores)
+        record = dict(self._eval_record(eval_step),
+                      val_seconds=self._clock() - t0)
+        self.metrics.log(record, int(state.step))
+        log.info("validation: %s (%s)", scores, record)
         return scores
 
     # ------------------------------------------------------------------
@@ -430,9 +454,9 @@ class Trainer:
             t0 = self._clock()
             # every rank's predictions, id-keyed (padding repeats collapse)
             predictions = gather_prediction_dict(self._predict(loader))
-            self.metrics.log({"test_loader": li,
-                              "test_examples": len(predictions),
-                              "test_seconds": self._clock() - t0},
+            self.metrics.log(dict(self.test_eval, test_loader=li,
+                                  test_examples=len(predictions),
+                                  test_seconds=self._clock() - t0),
                              int(self._state.step))
             if not is_primary():   # rank 0 writes and scores
                 continue
@@ -464,8 +488,7 @@ class Trainer:
             # top-500 edit ranking on the device (reference combined_edit
             # top 500, main.py:211-216): the host receives 2 x 500
             # candidates an example instead of the full probability grids
-            eval_step = make_eval_step(self.module, cfg, self.dec_pad_id,
-                                       edit_topk=500, device=self.device)
+            eval_step = self._eval_step(edit_topk=500)
             n_a1 = self.module.num_atom_templates + 1
             n_b1 = self.module.num_bond_templates + 1
             for batch in loader:
@@ -485,6 +508,8 @@ class Trainer:
                         "raw_template_labels": raw,
                         "top1_template_match": bool(edits) and edits[0] in raw,
                     }
+            self.test_eval = self._eval_record(eval_step)
+            log.info("test pass eval step: %s", self.test_eval)
             return predictions
         generator = Generator(self.module, cfg.num_beams, cfg.max_dec_length)
         for batch in loader:
