@@ -31,14 +31,13 @@ softmax, the beam's sort, row gathers, matrix products and elementwise
 copies; the port's kernel launches of one batch and the launches of a
 decode step; capture ms and peak memory. Then it records the same batch
 through the uncaptured device-state loop (`Generator.route =
-"uncaptured"`), since no `record_function` range fires inside a graph's
-replay: device time by operator, with the decode's own parts named by this
-tool (the port carries no profiler annotations: `label_decode` wraps the
-ancestor bias, the grouped self-attention, the cross-attention and the
-decode's products in `record_function` ranges), and the largest casts,
-copies and `index_select`s with their input shapes (none may be a
-cache's). Copied into an older checkout, it profiles that checkout's
-Python loop in both places.
+"uncaptured"`), since the decode's own spans (utils/profiling.py: the
+ancestor bias, the self-attention, the cross-attention and the decode's
+products) open only as a graph is captured, not at its replay: device time
+by operator and by those parts, and the largest casts, copies and
+`index_select`s with their input shapes (none may be a cache's). Copied
+into an older checkout, it profiles that checkout's Python loop in both
+places (a checkout without the spans gives no parts).
 `--path retrieval` makes chip_smoke.py's two retrieval shapes and records
 one FlatIndex.search of 8192 queries per shape and kernel layout: host
 clock from numpy in to numpy out, and device time of the scan kernel, the
@@ -106,15 +105,15 @@ DECODE_KINDS = (
       if kind in ("matrix products", "copies")),
     ("copy", "elementwise copies (casts, contiguous copies)"),
 )
-# the decode's parts as label_decode names them: device ms of the kernels
-# that ran inside each range on the card's track
-DECODE_RANGES = (("beam::ancestor_bias", "the ancestry bias, built once a "
+# the decode's parts as the program's spans name them: device ms of the
+# kernels that ran inside each range on the card's track
+DECODE_RANGES = (("beam.ancestor_bias", "the ancestry bias, built once a "
                   "step"),
-                 ("decode::self_attention", "self-attention: cache write, "
+                 ("decode.self_attention", "self-attention: cache write, "
                   "products, scale and bias, softmax"),
-                 ("decode::cross_attention", "cross-attention over the "
+                 ("decode.cross_attention", "cross-attention over the "
                   "example's encoder states"),
-                 ("decode::products", "the decode attention's products, "
+                 ("decode.products", "the decode attention's products, "
                   "bf16 operands read in place"))
 # operators of a serving batch, device ms with their child kernels where
 # marked: the casts, the contiguous copies, index_select, softmax, the
@@ -158,34 +157,6 @@ def device_ms_in_ranges(prof, names) -> dict:
                 j += 1
         out[name] = (us / 1e3, len(spans))
     return out
-
-
-def label_decode() -> None:
-    """Name the decode's parts in a trace: wrap the ancestor bias, the
-    self-attention, the cross-attention and the decode's products in
-    `record_function` ranges (DECODE_RANGES). A part that
-    the package does not have (a checkout from before the grouped cache,
-    profiled with this file to compare) is left out."""
-    from torch.profiler import record_function
-
-    from textreact_tpu_torch.inference import beam
-    from textreact_tpu_torch.models import layers
-
-    def labelled(fn, name):
-        def run(*args, **kwargs):
-            with record_function(name):
-                return fn(*args, **kwargs)
-        return run
-
-    mha = layers.MultiHeadAttention
-    for owner, attr, name in (
-            (beam, "ancestor_bias", "beam::ancestor_bias"),
-            (layers, "_decode_bmm", "decode::products"),
-            (mha, "decode_self_grouped", "decode::self_attention"),
-            (mha, "decode_self", "decode::self_attention"),
-            (mha, "decode_cross", "decode::cross_attention")):
-        if hasattr(owner, attr):
-            setattr(owner, attr, labelled(getattr(owner, attr), name))
 
 
 def kind_of(name: str, kinds=KINDS) -> str:
@@ -476,9 +447,9 @@ def profile_generate(card: str, say, module, batch: dict, what: str,
     port's kernel launches, the launches of a decode step (the batch's
     kernels less the encoder pass's, over the steps the card ran), capture
     ms and peak memory. Then the same batch through the uncaptured loop,
-    whose `record_function` ranges (label_decode) fire, as no range inside
-    a graph's replay does: device time by part of the decode and by
-    operator, and the largest casts and copies with their shapes."""
+    where the decode's part spans open at every step, as they do not at a
+    graph's replay: device time by part of the decode and by operator, and
+    the largest casts and copies with their shapes."""
     gen = Generator(module, num_beams=beams, max_length=dec_len)
     route = getattr(gen, "route", "python loop (a checkout before graphs)")
     try:
@@ -524,7 +495,6 @@ def profile_generate(card: str, say, module, batch: dict, what: str,
         f"the encoder) / {replays} steps the card ran = "
         f"{(kernels - enc_kernels) / replays:.1f} kernels and copies")
 
-    label_decode()
     ref = Generator(module, num_beams=beams, max_length=dec_len)
     ref.route = "uncaptured"   # no attribute of a checkout before graphs
     ref.generate(batch)

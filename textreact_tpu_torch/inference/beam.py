@@ -42,6 +42,8 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..utils.profiling import span
+
 NEG_INF = -1.0e7
 NEG_INF_BIAS = -1.0e9  # attention-bias masking (models/layers.py NEG_INF)
 # on the card, the host reads the stop flag of the step this many steps
@@ -73,11 +75,12 @@ def ancestor_bias(src: torch.Tensor, cur_len: Union[int, torch.Tensor],
     exactly one row per position below cur_len, its ancestor's, so the
     softmax over the masked T*K axis equals the softmax over the beam's own
     history."""
-    rows = torch.arange(K, device=src.device)
-    valid = src[:, :, :, None] == rows                          # (B,K,T,K)
-    valid &= (torch.arange(T, device=src.device) < cur_len)[:, None]
-    return torch.where(valid.reshape(B, K, T * K), 0.0,
-                       NEG_INF_BIAS).to(torch.float32)
+    with span("beam.ancestor_bias"):
+        rows = torch.arange(K, device=src.device)
+        valid = src[:, :, :, None] == rows                      # (B,K,T,K)
+        valid &= (torch.arange(T, device=src.device) < cur_len)[:, None]
+        return torch.where(valid.reshape(B, K, T * K), 0.0,
+                           NEG_INF_BIAS).to(torch.float32)
 
 
 def _plan_windows(T: int, user: Optional[Sequence[int]]) -> list:
@@ -280,17 +283,18 @@ class StopFlags:
     def stopped(self) -> bool:
         """Call after each step: whether a stop has been read."""
         self.steps += 1
-        if not self.done.is_cuda:
-            return bool(self.done)
-        n = self.lag + 1
-        i = (self.steps - 1) % n
-        self.host[i].copy_(self.done, non_blocking=True)
-        self.events[i].record()
-        if self.steps <= self.lag:
-            return False
-        j = (self.steps - 1 - self.lag) % n
-        self.events[j].synchronize()
-        return bool(self.host[j])
+        with span("serve.stop_read"):
+            if not self.done.is_cuda:
+                return bool(self.done)
+            n = self.lag + 1
+            i = (self.steps - 1) % n
+            self.host[i].copy_(self.done, non_blocking=True)
+            self.events[i].record()
+            if self.steps <= self.lag:
+                return False
+            j = (self.steps - 1 - self.lag) % n
+            self.events[j].synchronize()
+            return bool(self.host[j])
 
 
 def run_windows(plan: Sequence[Window], step: Callable[[int], None],
@@ -321,8 +325,12 @@ def beam_search(step_fn: StepFn,
     state = BeamState.allocate(batch_size, num_beams, max_length, device)
     state.reset(bos_token_id, pad_token_id)
     plan = window_plan(max_length, attn_windows)
-    run_windows(plan, lambda i: beam_step(state, step_fn, plan[i],
-                                          eos_token_id),
-                StopFlags(state.done))
-    seqs, scores = finalize(state)
+
+    def step(i: int) -> None:
+        with span("serve.step"):
+            beam_step(state, step_fn, plan[i], eos_token_id)
+
+    run_windows(plan, step, StopFlags(state.done))
+    with span("serve.finalize"):
+        seqs, scores = finalize(state)
     return seqs, scores, int(state.cur_len) - 1

@@ -26,6 +26,10 @@ beams, which come back through pinned buffers.
 `GraphLaunches` (ops/launches.py) keeps the kernel wrappers' launch
 counters equal to the kernels the card ran: what a capture adds is taken
 back, and each replay adds the launches recorded at its capture.
+
+A batch's spans (utils/profiling.py): `serve.stage`, `serve.prologue`,
+one `serve.step` a decode step the card ran (each window's graph opens
+it), `serve.stop_read`, `serve.finalize`, `serve.readback`.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from ..ops.launches import GraphedPart, GraphLaunches  # noqa: F401
+from ..utils.profiling import span
 from .beam import (BeamState, StopFlags, beam_step, finalize, run_windows,
                    window_plan)
 
@@ -96,7 +101,9 @@ class GraphedDecode:
             if any(m.training for m in self.module.modules()):
                 raise RuntimeError("a decode graph would capture a dropout "
                                    "draw: the module is in training mode")
-            entry = self.graphs[part] = GraphedPart(self.pool, self.stream)
+            name = "serve.prologue" if part == "prologue" else "serve.step"
+            entry = self.graphs[part] = GraphedPart(self.pool, self.stream,
+                                                    name)
             entry(fn)
             self.capture_ms += entry.capture_ms
             return
@@ -109,19 +116,23 @@ class GraphedDecode:
         stop included."""
         # the last batch ended in a wait for the card, so the pinned
         # inputs are free to refill
-        self.ids_host.numpy()[...] = input_ids
-        self.mask_host.numpy()[...] = attention_mask
-        self.ids.copy_(self.ids_host, non_blocking=True)
-        self.mask.copy_(self.mask_host, non_blocking=True)
+        with span("serve.stage"):
+            self.ids_host.numpy()[...] = input_ids
+            self.mask_host.numpy()[...] = attention_mask
+            self.ids.copy_(self.ids_host, non_blocking=True)
+            self.mask.copy_(self.mask_host, non_blocking=True)
         self._run("prologue", self._prologue)
         replays = run_windows(
             self.plan, lambda i: self._run(i, lambda: self._step(i)),
             StopFlags(self.state.done))
-        seqs, scores = finalize(self.state)
-        self.seqs_host.copy_(seqs, non_blocking=True)
-        self.scores_host.copy_(scores, non_blocking=True)
-        self.cur_len_host.copy_(self.state.cur_len, non_blocking=True)
-        self.done_event.record()
-        self.done_event.synchronize()
-        return (self.seqs_host.numpy().copy(), self.scores_host.numpy().copy(),
-                int(self.cur_len_host) - 1, replays)
+        with span("serve.finalize"):
+            seqs, scores = finalize(self.state)
+            self.seqs_host.copy_(seqs, non_blocking=True)
+            self.scores_host.copy_(scores, non_blocking=True)
+            self.cur_len_host.copy_(self.state.cur_len, non_blocking=True)
+            self.done_event.record()
+        with span("serve.readback"):
+            self.done_event.synchronize()
+            return (self.seqs_host.numpy().copy(),
+                    self.scores_host.numpy().copy(),
+                    int(self.cur_len_host) - 1, replays)

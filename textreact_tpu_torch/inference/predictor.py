@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ..models.encdec import DecoderStep, EncoderDecoder
+from ..utils.profiling import span
 from .beam import beam_search
 from .graphs import GraphedDecode
 
@@ -70,27 +71,25 @@ class Generator:
     def generate(self, batch: Mapping[str, np.ndarray]
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """batch: 'input_ids' (B, L) and 'attention_mask' (B, L) or
-        (B, L, L). Returns (sequences (B, K, max_length), scores (B, K))."""
-        self.module.eval()  # no dropout, whatever a train step left on
-        input_ids = np.asarray(batch["input_ids"])
-        attention_mask = np.asarray(batch["attention_mask"])
-        # cuBLAS may otherwise reduce a bf16 product's partial sums in bf16;
-        # the reference (the JAX package on its MXU) accumulates in f32. A
-        # graph keeps the algorithms chosen at its capture, so this holds
-        # for capture and replay alike.
-        matmul = torch.backends.cuda.matmul
-        reduced = matmul.allow_bf16_reduced_precision_reduction
-        matmul.allow_bf16_reduced_precision_reduction = False
-        try:
-            if self.route == CUDA_GRAPHS:
-                seqs, scores = self._generate_graphed(input_ids,
-                                                      attention_mask)
-            else:
-                seqs, scores = self._generate_uncaptured(input_ids,
-                                                         attention_mask)
-        finally:
-            matmul.allow_bf16_reduced_precision_reduction = reduced
-        return seqs, scores
+        (B, L, L). Returns (sequences (B, K, max_length), scores (B, K)).
+        The call is the span `serve.batch` (utils/profiling.py)."""
+        with span("serve.batch"):
+            self.module.eval()  # no dropout, whatever a train step left on
+            input_ids = np.asarray(batch["input_ids"])
+            attention_mask = np.asarray(batch["attention_mask"])
+            # cuBLAS may otherwise reduce a bf16 product's partial sums in
+            # bf16; the reference (the JAX package on its MXU) accumulates
+            # in f32. A graph keeps the algorithms chosen at its capture,
+            # so this holds for capture and replay alike.
+            matmul = torch.backends.cuda.matmul
+            reduced = matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = False
+            try:
+                if self.route == CUDA_GRAPHS:
+                    return self._generate_graphed(input_ids, attention_mask)
+                return self._generate_uncaptured(input_ids, attention_mask)
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = reduced
 
     def _generate_graphed(self, input_ids: np.ndarray,
                           attention_mask: np.ndarray):
@@ -112,15 +111,17 @@ class Generator:
     def _generate_uncaptured(self, input_ids: np.ndarray,
                              attention_mask: np.ndarray):
         device = self.module.decoder.word_embedding.device
-        ids = torch.as_tensor(input_ids, dtype=torch.long, device=device)
-        mask = torch.as_tensor(attention_mask, dtype=torch.int32,
-                               device=device)
+        with span("serve.stage"):
+            ids = torch.as_tensor(input_ids, dtype=torch.long, device=device)
+            mask = torch.as_tensor(attention_mask, dtype=torch.int32,
+                                   device=device)
         K, T = self.num_beams, self.max_length
         cfg = self.dec_config
-        enc = self.module.encode(ids, mask)
-        # encoder states and mask stay one row per example; beams attend
-        # as grouped query rows (layers.py decode_cross)
-        cache = self.step_model.init_cache(enc, mask, K, T)
+        with span("serve.prologue"):
+            enc = self.module.encode(ids, mask)
+            # encoder states and mask stay one row per example; beams
+            # attend as grouped query rows (layers.py decode_cross)
+            cache = self.step_model.init_cache(enc, mask, K, T)
         calls = [0]
 
         def step_fn(tokens, pos, bias):
@@ -132,7 +133,8 @@ class Generator:
             eos_token_id=cfg.eos_token_id, pad_token_id=cfg.pad_token_id,
             attn_windows=self.attn_windows, device=device)
         self.last_replays, self.last_capture_ms = calls[0], 0.0
-        return seqs.cpu().numpy(), scores.cpu().numpy()
+        with span("serve.readback"):
+            return seqs.cpu().numpy(), scores.cpu().numpy()
 
 
 def predictions_from_beams(seqs: np.ndarray, scores: np.ndarray,

@@ -45,6 +45,7 @@ from ..ops.fused_attention import (SEQ_MULTIPLE, causal_attention,
 from ..ops.fused_ce import fused_linear_ce
 from ..ops.fused_layernorm import (fused_residual_layernorm, layer_norm,
                                    residual_layernorm_reference)
+from ..utils.profiling import span
 from .config import TransformerConfig
 
 NEG_INF = -1e9
@@ -89,11 +90,12 @@ def _decode_bmm(a: torch.Tensor, b: torch.Tensor,
     f32 from bf16 its `out_dtype` overload. On the CPU the plain route
     up-casts both to f32 (bf16 products are exact in f32, so the two differ
     in summation order only) and rounds the result to `out_dtype`."""
-    if a.device.type != "cuda":
-        return _matmul_f32(a, b).to(out_dtype)
-    if out_dtype == a.dtype:
-        return torch.bmm(a, b)
-    return torch.bmm(a, b, out_dtype=out_dtype)
+    with span("decode.products"):
+        if a.device.type != "cuda":
+            return _matmul_f32(a, b).to(out_dtype)
+        if out_dtype == a.dtype:
+            return torch.bmm(a, b)
+        return torch.bmm(a, b, out_dtype=out_dtype)
 
 
 def _slot(position: Position, device: torch.device) -> torch.Tensor:
@@ -314,20 +316,21 @@ class MultiHeadAttention(nn.Module):
         read in place; bias: (Bk, 1, 1, L). Beams attend as G query rows of
         their example (layers.py:162-194): f32 scores, the context
         accumulated in f32 and rounded to the compute dtype."""
-        H, D = self.num_heads, self.config.head_dim
-        Bk, L = k.shape[0], k.shape[2]
-        G = x.shape[0] // Bk
-        q = self.query(x).view(Bk, G, H, D).transpose(1, 2).reshape(
-            Bk * H, G, D)
-        s = _decode_bmm(q, k.view(Bk * H, L, D).transpose(1, 2),
-                        torch.float32).view(Bk, H, G, L) / math.sqrt(D)
-        if bias is not None:
-            s = s + bias.float()
-        probs = torch.softmax(s, dim=-1).to(self.dtype)
-        ctx = _decode_bmm(probs.view(Bk * H, G, L), v.view(Bk * H, L, D),
-                          self.dtype)                         # (Bk*H, G, D)
-        return self._out(ctx.view(Bk, H, G, D).transpose(1, 2).reshape(
-            Bk * G, 1, H * D))
+        with span("decode.cross_attention"):
+            H, D = self.num_heads, self.config.head_dim
+            Bk, L = k.shape[0], k.shape[2]
+            G = x.shape[0] // Bk
+            q = self.query(x).view(Bk, G, H, D).transpose(1, 2).reshape(
+                Bk * H, G, D)
+            s = _decode_bmm(q, k.view(Bk * H, L, D).transpose(1, 2),
+                            torch.float32).view(Bk, H, G, L) / math.sqrt(D)
+            if bias is not None:
+                s = s + bias.float()
+            probs = torch.softmax(s, dim=-1).to(self.dtype)
+            ctx = _decode_bmm(probs.view(Bk * H, G, L),
+                              v.view(Bk * H, L, D), self.dtype)  # (Bk*H, G, D)
+            return self._out(ctx.view(Bk, H, G, D).transpose(1, 2).reshape(
+                Bk * G, 1, H * D))
 
     def decode_self(self, x: torch.Tensor, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, position: Position) -> torch.Tensor:
@@ -339,27 +342,29 @@ class MultiHeadAttention(nn.Module):
         tensor position, which no slice may take as a bound without a
         host wait, all T slots are read under the JAX package's bias that
         masks those past the position."""
-        H, D = self.num_heads, self.config.head_dim
-        N = x.shape[0]
-        at = _slot(position, cache_k.device)
-        cache_k.index_copy_(2, at, self.key(x).view(N, H, 1, D))
-        cache_v.index_copy_(2, at, self.value(x).view(N, H, 1, D))
-        q = self.query(x).view(N * H, 1, D)
-        bias = None
-        if isinstance(position, int):
-            t = position + 1
-        else:
-            t = cache_k.shape[2]
-            bias = torch.where(torch.arange(t, device=x.device) <= position,
-                               0.0, NEG_INF)
-        k = cache_k[:, :, :t].view(N * H, t, D)    # views: no copy
-        v = cache_v[:, :, :t].view(N * H, t, D)
-        s = _decode_bmm(q, k.transpose(1, 2), torch.float32) / math.sqrt(D)
-        if bias is not None:
-            s = s + bias
-        probs = torch.softmax(s, dim=-1).to(self.dtype)
-        ctx = _decode_bmm(probs, v, self.dtype)                   # (N*H, 1, D)
-        return self._out(ctx.view(N, 1, H * D))
+        with span("decode.self_attention"):
+            H, D = self.num_heads, self.config.head_dim
+            N = x.shape[0]
+            at = _slot(position, cache_k.device)
+            cache_k.index_copy_(2, at, self.key(x).view(N, H, 1, D))
+            cache_v.index_copy_(2, at, self.value(x).view(N, H, 1, D))
+            q = self.query(x).view(N * H, 1, D)
+            bias = None
+            if isinstance(position, int):
+                t = position + 1
+            else:
+                t = cache_k.shape[2]
+                bias = torch.where(
+                    torch.arange(t, device=x.device) <= position, 0.0,
+                    NEG_INF)
+            k = cache_k[:, :, :t].view(N * H, t, D)    # views: no copy
+            v = cache_v[:, :, :t].view(N * H, t, D)
+            s = _decode_bmm(q, k.transpose(1, 2), torch.float32) / math.sqrt(D)
+            if bias is not None:
+                s = s + bias
+            probs = torch.softmax(s, dim=-1).to(self.dtype)
+            ctx = _decode_bmm(probs, v, self.dtype)               # (N*H, 1, D)
+            return self._out(ctx.view(N, 1, H * D))
 
     def decode_self_grouped(self, x: torch.Tensor, cache_k: torch.Tensor,
                             cache_v: torch.Tensor, position: Position,
@@ -376,32 +381,33 @@ class MultiHeadAttention(nn.Module):
         and each beam sees one row per valid position, its ancestor's.
         Scores are stored in the compute dtype unless decode_scores_dtype
         is 'float32'; then scaled, biased and softmaxed in f32."""
-        cfg = self.config
-        H, D = self.num_heads, cfg.head_dim
-        Bex = cache_k.shape[0]
-        G = x.shape[0] // Bex
-        WG = beam_bias.shape[-1]
-        # (Bex*G, 1, H*D) -> (Bex, H, D, 1, G): the new token alone is
-        # transposed; the cache, seen as (Bex, H, D, T, G), is written
-        # where it lies at the position's G slots
-        at, T = _slot(position, cache_k.device), cache_k.shape[-1] // G
-        cache_k.view(Bex, H, D, T, G).index_copy_(3, at, self.key(x).view(
-            Bex, G, H, D).permute(0, 2, 3, 1)[:, :, :, None])
-        cache_v.view(Bex, H, D, T, G).index_copy_(3, at, self.value(x).view(
-            Bex, G, H, D).permute(0, 2, 3, 1)[:, :, :, None])
-        q = self.query(x).view(Bex, G, H, D).transpose(1, 2).reshape(
-            Bex * H, G, D)
-        k = cache_k[..., :WG].view(Bex * H, D, WG)    # views: no copy
-        v = cache_v[..., :WG].view(Bex * H, D, WG)
-        s_dt = (torch.float32 if cfg.decode_scores_dtype == "float32"
-                else self.dtype)
-        s = _decode_bmm(q, k, s_dt).view(Bex, H, G, WG)
-        s = s.float() * (1.0 / math.sqrt(D)) + beam_bias[:, None]
-        probs = torch.softmax(s, dim=-1).to(self.dtype)
-        ctx = _decode_bmm(probs.view(Bex * H, G, WG), v.transpose(1, 2),
-                          self.dtype)                           # (Bex*H, G, D)
-        return self._out(ctx.view(Bex, H, G, D).transpose(1, 2).reshape(
-            Bex * G, 1, H * D))
+        with span("decode.self_attention"):
+            cfg = self.config
+            H, D = self.num_heads, cfg.head_dim
+            Bex = cache_k.shape[0]
+            G = x.shape[0] // Bex
+            WG = beam_bias.shape[-1]
+            # (Bex*G, 1, H*D) -> (Bex, H, D, 1, G): the new token alone is
+            # transposed; the cache, seen as (Bex, H, D, T, G), is written
+            # where it lies at the position's G slots
+            at, T = _slot(position, cache_k.device), cache_k.shape[-1] // G
+            cache_k.view(Bex, H, D, T, G).index_copy_(3, at, self.key(x).view(
+                Bex, G, H, D).permute(0, 2, 3, 1)[:, :, :, None])
+            cache_v.view(Bex, H, D, T, G).index_copy_(3, at, self.value(
+                x).view(Bex, G, H, D).permute(0, 2, 3, 1)[:, :, :, None])
+            q = self.query(x).view(Bex, G, H, D).transpose(1, 2).reshape(
+                Bex * H, G, D)
+            k = cache_k[..., :WG].view(Bex * H, D, WG)    # views: no copy
+            v = cache_v[..., :WG].view(Bex * H, D, WG)
+            s_dt = (torch.float32 if cfg.decode_scores_dtype == "float32"
+                    else self.dtype)
+            s = _decode_bmm(q, k, s_dt).view(Bex, H, G, WG)
+            s = s.float() * (1.0 / math.sqrt(D)) + beam_bias[:, None]
+            probs = torch.softmax(s, dim=-1).to(self.dtype)
+            ctx = _decode_bmm(probs.view(Bex * H, G, WG), v.transpose(1, 2),
+                              self.dtype)                       # (Bex*H, G, D)
+            return self._out(ctx.view(Bex, H, G, D).transpose(1, 2).reshape(
+                Bex * G, 1, H * D))
 
 
 class ResidualLayerNorm(nn.Module):

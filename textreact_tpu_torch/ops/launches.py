@@ -17,6 +17,7 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from . import fused_attention, fused_layernorm, topk
 
 # the kernel wrappers' launch counters: (module, name of an int or of a
@@ -84,22 +85,30 @@ class GraphedPart:
     when given, is registered with the graph: each replay then draws from
     the generator's seed and offset as they stand at the replay, not from
     those of the capture. A failed capture or replay raises.
-    `capture_ms` is what the capture took, `replays` the replays made."""
+    `capture_ms` is what the capture took, `replays` the replays made.
+    Every call runs inside the span `name` (utils/profiling.py), a
+    capture inside `graph.capture` too."""
 
-    def __init__(self, pool, stream: torch.cuda.Stream,
+    def __init__(self, pool, stream: torch.cuda.Stream, name: str,
                  generator: Optional[torch.Generator] = None):
         self.pool, self.stream, self.generator = pool, stream, generator
+        self.name = name
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches = GraphLaunches()
         self.capture_ms = 0.0
         self.replays = 0
 
     def __call__(self, fn: Callable[[], None]) -> None:
-        if self.graph is not None:
-            self.graph.replay()
-            self.launches.replayed()
-            self.replays += 1
-            return
+        with span(self.name):
+            if self.graph is not None:
+                self.graph.replay()
+                self.launches.replayed()
+                self.replays += 1
+                return
+            with span("graph.capture"):
+                self._capture(fn)
+
+    def _capture(self, fn: Callable[[], None]) -> None:
         current = torch.cuda.current_stream()
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):

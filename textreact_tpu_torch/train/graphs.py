@@ -99,7 +99,7 @@ class GraphedTrainStep(StaticInputs):
 
     def __init__(self, graphs: "TrainGraphs", key: Key):
         super().__init__(graphs, key)
-        self.micro = GraphedPart(graphs.pool, graphs.stream,
+        self.micro = GraphedPart(graphs.pool, graphs.stream, "train.micro",
                                  graphs.generator)
 
 
@@ -108,7 +108,7 @@ class GraphedEvalStep(StaticInputs):
 
     def __init__(self, graphs: "EvalGraphs", key: Key):
         super().__init__(graphs, key)
-        self.forward = GraphedPart(graphs.pool, graphs.stream)
+        self.forward = GraphedPart(graphs.pool, graphs.stream, "eval.forward")
         self.outputs: Dict[str, torch.Tensor] = {}
 
     def store(self, results: Mapping[str, torch.Tensor]) -> None:
@@ -165,7 +165,7 @@ class TrainGraphs(KeyedGraphs):
     def __init__(self, device: torch.device, generator: torch.Generator):
         super().__init__(device)
         self.generator = generator
-        self.update = GraphedPart(self.pool, self.stream)
+        self.update = GraphedPart(self.pool, self.stream, "train.update")
         self._grads: Optional[list] = None
 
     def check_grads(self, optimizer) -> None:

@@ -39,6 +39,7 @@ import torch
 
 from ..data.collate import IGNORE_INDEX
 from ..models.factory import resolve_device
+from ..utils.profiling import span
 from . import losses
 from .graphs import EvalGraphs, TrainGraphs
 from .optim import Optimizer
@@ -239,7 +240,9 @@ class TrainStep:
     micro-batch part, and one graph of the update part serves every key
     (train/graphs.py). On "uncaptured" the same parts run as they are;
     setting `route` to it on a card gives the reference the graphs are held
-    to."""
+    to. A call is the span `train.step`, and holds `train.stage` and
+    `train.micro` a micro-batch run, then `train.update`
+    (utils/profiling.py), on either route."""
 
     def __init__(self, module: torch.nn.Module, cfg, optimizer: Optimizer,
                  dec_pad_id: int, device=None):
@@ -288,15 +291,18 @@ class TrainStep:
         when None)."""
         _dropout_generator(self.gen, seed, counter, self.dp_rank)
         if key is None:
-            batch = to_device(arrays if i is None else
-                              {k: v[i] for k, v in arrays.items()},
-                              self.device)
+            with span("train.stage"):
+                batch = to_device(arrays if i is None else
+                                  {k: v[i] for k, v in arrays.items()},
+                                  self.device)
             if self.mesh is not None and denoms is None:
                 denoms = _global_denoms(
                     loss_counts(batch, self.cfg, self.dec_pad_id), self.mesh)
-            self._micro(batch, denoms)
+            with span("train.micro"):
+                self._micro(batch, denoms)
             return
-        key.load(arrays, i)
+        with span("train.stage"):
+            key.load(arrays, i)
         key.micro(lambda: self._micro(key.inputs, None))
 
     def _finish(self, state: TrainState) -> Dict[str, Tensor]:
@@ -304,7 +310,8 @@ class TrainStep:
         if self.route == CUDA_GRAPHS:
             self.graphs.update(self._update)
         else:
-            self._update()
+            with span("train.update"):
+                self._update()
         self.optimizer.advance()
         state.step += 1
         out = {k: v.clone() for k, v in self.outputs.items()}
@@ -333,10 +340,11 @@ class _SingleStep(TrainStep):
 
     def __call__(self, state: TrainState, batch: Mapping[str, Any],
                  seed: int) -> Tuple[TrainState, Dict[str, Tensor]]:
-        arrays = getattr(batch, "arrays", batch)
-        key = self._begin(arrays, stacked=False)
-        self._micro_batch(key, arrays, None, None, state.step, seed)
-        return state, self._finish(state)
+        with span("train.step"):
+            arrays = getattr(batch, "arrays", batch)
+            key = self._begin(arrays, stacked=False)
+            self._micro_batch(key, arrays, None, None, state.step, seed)
+            return state, self._finish(state)
 
 
 class _AccumStep(TrainStep):
@@ -367,24 +375,27 @@ class _AccumStep(TrainStep):
     def __call__(self, state: TrainState, microbatches: Mapping[str, Any],
                  mb_weights: Sequence[float], seed: int
                  ) -> Tuple[TrainState, Dict[str, Tensor]]:
-        arrays = getattr(microbatches, "arrays", microbatches)
-        weights = [float(w) for w in np.asarray(mb_weights, dtype=np.float32)]
-        key = self._begin(arrays, stacked=True)
-        denoms = [None] * len(weights)
-        if self.mesh is not None:
-            counts = torch.stack([
-                loss_counts({k: v[i] for k, v in arrays.items()}, self.cfg,
-                            self.dec_pad_id) for i in range(len(weights))])
-            denoms = _global_denoms(counts.to(self.device),
-                                    self.mesh).unbind()
-        for i, w in enumerate(weights):
-            if w == 0.0:
-                continue
-            self.w.fill_(w)
-            self._micro_batch(key, arrays, i, denoms[i],
-                              state.step * 1009 + i, seed)
-        self.denom.fill_(max(sum(weights), 1.0))
-        return state, self._finish(state)
+        with span("train.step"):
+            arrays = getattr(microbatches, "arrays", microbatches)
+            weights = [float(w)
+                       for w in np.asarray(mb_weights, dtype=np.float32)]
+            key = self._begin(arrays, stacked=True)
+            denoms = [None] * len(weights)
+            if self.mesh is not None:
+                counts = torch.stack([
+                    loss_counts({k: v[i] for k, v in arrays.items()},
+                                self.cfg, self.dec_pad_id)
+                    for i in range(len(weights))])
+                denoms = _global_denoms(counts.to(self.device),
+                                        self.mesh).unbind()
+            for i, w in enumerate(weights):
+                if w == 0.0:
+                    continue
+                self.w.fill_(w)
+                self._micro_batch(key, arrays, i, denoms[i],
+                                  state.step * 1009 + i, seed)
+            self.denom.fill_(max(sum(weights), 1.0))
+            return state, self._finish(state)
 
 
 def make_train_step(module: torch.nn.Module, cfg, optimizer: Optimizer,
@@ -487,7 +498,9 @@ class EvalStep:
     def __call__(self, batch: Mapping[str, Any]) -> Dict[str, Tensor]:
         self.module.eval()
         if self.route != CUDA_GRAPHS:
-            return self._forward(to_device(batch, self.device))
+            batch = to_device(batch, self.device)
+            with span("eval.forward"):
+                return self._forward(batch)
         arrays = getattr(batch, "arrays", batch)
         if self.graphs is None:
             self.graphs = EvalGraphs(self.device)

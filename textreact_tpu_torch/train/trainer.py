@@ -59,7 +59,7 @@ from ..parallel.multihost import (gather_prediction_dict, gather_score_dict,
 from ..parallel.sharding import shard_params
 from ..tokenizers import get_tokenizers
 from ..utils.logging import MetricLogger, log, setup_logging
-from ..utils.profiling import StepTimer, trace
+from ..utils.profiling import StepTimer, span, trace
 from .checkpoint import CheckpointManager
 from .optim import make_optimizer
 from .step import (TrainState, make_accum_train_step, make_eval_step,
@@ -305,7 +305,12 @@ class Trainer:
             for epoch in range(start_epoch, cfg.epochs):
                 loader.set_epoch(epoch)
                 t0, step0 = self._clock(), global_step
-                for batch in loader:
+                batches = iter(loader)
+                while True:
+                    with span("train.loader_wait"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
                     if accum > 1:
                         # accumulate N loader batches per optimizer step
                         # (reference accumulate_grad_batches, main.py:381)
