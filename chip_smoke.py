@@ -41,7 +41,12 @@ Phases, each fatal on failure:
    shared memory up to 339 and in device memory past it; fewer rows than
    k, ties across tiles and slabs, banned ids, negative counts, d from 128
    to 2048) against the plain version on the card and the float64 numpy
-   oracle on the host, equal to the bit;
+   oracle on the host, equal to the bit; the grouped decode
+   self-attention kernel at the retro and RCR serving shapes against its
+   plain version and float64, timed at three lengths of each window
+   beside its bound, the plain version and SDPA
+   (`phase_decode_attention`; its launches on the main path are those of
+   the serving phases);
 4. serving path: the RCR recipe's serving configuration at full width
    (SciBERT-base encoder, 12 x 768, L=512, bf16; bert_l6 decoder, beam 15,
    16 decode positions; batch 32) with random weights from a seeded
@@ -288,8 +293,9 @@ from textreact_tpu_torch.models import build_model
 from textreact_tpu_torch.models.config import PRESETS
 from textreact_tpu_torch.models.layers import (TransformerBlock, dropout,
                                                mask_to_bias)
-from textreact_tpu_torch.ops import (_build, fused_attention, fused_layernorm,
-                                     topk)
+from textreact_tpu_torch.inference.beam import ancestor_bias
+from textreact_tpu_torch.ops import (_build, decode_attention, fused_attention,
+                                     fused_layernorm, topk)
 from textreact_tpu_torch.preprocess.condition_splits import SPECIALS
 from textreact_tpu_torch.preprocess.retro_tools import canonical_rxn_smiles
 from textreact_tpu_torch.retrieval import FlatIndex
@@ -417,6 +423,11 @@ KERNELS.update({
         ("fused_layernorm_fwd", "_wide"), ("fused_layernorm_bwd", "_wide"),
         ("exact_topk_corpus_split", "_large_k"),
         ("exact_topk_query_outer", "_large_k"))})
+# the port's own kernel (a perf_opt): its launches are counted in every
+# phase that decodes
+KERNELS["grouped_decode_attn"] = dict(
+    route="cuda", source=_CSRC + "decode_attention.cu",
+    replaces="none (a perf_opt: the JAX package's decode step is XLA's)")
 # the retrieval kernels by FlatIndex's corpus_resident flag
 TOPK_LAYOUTS = {True: "exact_topk_corpus_split",
                 False: "exact_topk_query_outer"}
@@ -603,7 +614,7 @@ def phase_build() -> None:
         host = [pool.submit(native_tokenizer.get_lib),
                 pool.submit(native_chem.get_lib)]
         _build.build_all([*fused_attention.LIBRARIES, "fused_layernorm",
-                          "exact_topk"])
+                          "exact_topk", "decode_attention"])
         for future in host:
             future.result()
     fused_attention.load_kernel()
@@ -612,7 +623,8 @@ def phase_build() -> None:
     fused_attention.load_causal_bwd_kernel()
     fused_layernorm.load_kernel()
     topk.load_kernel()
-    log(f"[build] six libraries (eight kernels) and the two C++ host "
+    decode_attention.load_kernel()
+    log(f"[build] seven libraries (nine kernels) and the two C++ host "
         f"libraries loaded in {time.perf_counter() - t0:.1f} s, built in "
         f"parallel (nvcc seconds per source: "
         f"{_build.BUILD_SECONDS or 'cached'})")
@@ -654,6 +666,7 @@ def reset_counts() -> None:
         fused_attention.PADDED_LAUNCHES, 0))
     fused_layernorm.WIDE_LAUNCHES = fused_layernorm.WIDE_BWD_LAUNCHES = 0
     topk.LARGE_K_LAUNCHES.update(corpus_split=0, query_outer=0)
+    decode_attention.DECODE_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -664,7 +677,8 @@ def read_counts() -> dict:
             "fused_layernorm_fwd": fused_layernorm.LAUNCHES,
             "fused_layernorm_bwd": fused_layernorm.BWD_LAUNCHES,
             "exact_topk_corpus_split": topk.LAUNCHES["corpus_split"],
-            "exact_topk_query_outer": topk.LAUNCHES["query_outer"]}
+            "exact_topk_query_outer": topk.LAUNCHES["query_outer"],
+            "grouped_decode_attn": decode_attention.DECODE_LAUNCHES}
 
 
 def read_route_counts() -> dict:
@@ -1513,6 +1527,113 @@ def phase_kernels(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the grouped decode self-attention's shapes: (examples, heads, beams, head
+# dim, decoder positions, window) of retro serving's three windows and RCR
+# serving's one; a window's steps run from the length past the previous
+# window up to the window
+DECODE_SHAPES = {"retro48": (B, HEADS, RETRO_BEAMS, HEAD_DIM, RETRO_DEC_LEN, 48),
+                 "retro80": (B, HEADS, RETRO_BEAMS, HEAD_DIM, RETRO_DEC_LEN, 80),
+                 "retro160": (B, HEADS, RETRO_BEAMS, HEAD_DIM, RETRO_DEC_LEN,
+                              160),
+                 "rcr16": (B, HEADS, BEAMS, HEAD_DIM, DEC_LEN, DEC_LEN)}
+DECODE_FIRST_LENGTH = {"retro48": 1, "retro80": 49, "retro160": 81,
+                       "rcr16": 1}
+
+
+def decode_attention_inputs(shape, cur_len: int, dtype, seed: int):
+    """(q, cache_k, cache_v, ancestry bias at cur_len) on the card."""
+    Bex, H, G, D, T, W = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(Bex * H, G, D, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(Bex, H, D, T * G, generator=g,
+                        device="cuda").to(dtype) for _ in range(2))
+    src = torch.randint(0, G, (Bex, G, W), generator=g, device="cuda")
+    return q, k, v, ancestor_bias(src, cur_len, Bex, G, W)
+
+
+def phase_decode_attention(results: dict) -> dict:
+    """The grouped decode self-attention kernel at the serving cells'
+    shapes, bf16, both score dtypes: against the plain version (a bf16 ulp
+    of the context) and float64 (no further than 1.25 times the plain
+    version), then timed at three lengths of each window (the masked tiles
+    past the length are not read) beside its bound at the full window (K
+    and V bytes), the plain version and SDPA over transposed copies with
+    the bias as its mask (timed only); the float32 route checked and timed
+    at retro's last window. The launches here are no part of the main
+    path's count: the counter is set back as it was."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {}
+    counted = decode_attention.DECODE_LAUNCHES
+    for tag, shape in DECODE_SHAPES.items():
+        Bex, H, G, D, T, W = shape
+        scale = 1.0 / math.sqrt(D)
+        first = DECODE_FIRST_LENGTH[tag]
+        row = {"kernel_ms": {}}
+        for cur_len in sorted({first, (first + W) // 2, W}):
+            q, k, v, bias = decode_attention_inputs(shape, cur_len,
+                                                    torch.bfloat16, cur_len)
+            for round_scores in (True, False):
+                got = decode_attention.grouped_decode_attention(
+                    q, k, v, bias, scale, round_scores)
+                torch.cuda.synchronize()
+                plain = decode_attention.grouped_decode_attention_reference(
+                    q, k, v, bias, scale, round_scores)
+                check_close(f"decode attention {tag} len {cur_len} "
+                            f"round {round_scores}", got, plain, 2e-2, 0.0)
+                kk = k[..., :W * G].double().reshape(Bex * H, D, W * G)
+                vv = v[..., :W * G].double().reshape(Bex * H, D, W * G)
+                p = torch.softmax(
+                    (torch.bmm(q.double(), kk).view(Bex, H, G, W * G) * scale
+                     + bias.double()[:, None]), -1).view(Bex * H, G, W * G)
+                exact = torch.bmm(p, vv.transpose(1, 2))
+                err = float((got.double() - exact).abs().max())
+                plain_err = float((plain.double() - exact).abs().max())
+                log(f"  against float64: kernel {err:.3e}, plain "
+                    f"{plain_err:.3e}")
+                if not err <= 1.25 * plain_err:
+                    raise AssertionError(f"decode attention {tag}: {err} "
+                                         f"against float64, plain "
+                                         f"{plain_err}")
+            row["kernel_ms"][cur_len] = time_ms(
+                lambda: decode_attention.grouped_decode_attention(
+                    q, k, v, bias, scale, True))
+        # at the full window: the bound, the plain version, SDPA
+        nbytes = 2 * Bex * H * D * W * G * 2
+        flops = 4 * Bex * H * G * W * G * D
+        row["bound_ms"], row["binds"] = bound(nbytes, flops, torch.bfloat16)
+        row["plain_ms"] = time_ms(
+            lambda: decode_attention.grouped_decode_attention_reference(
+                q, k, v, bias, scale, True))
+        q4 = q.view(Bex, H, G, D)
+        kt = k[..., :W * G].transpose(2, 3).contiguous()
+        vt = v[..., :W * G].transpose(2, 3).contiguous()
+        mask = bias[:, None].to(torch.bfloat16)
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, scale=scale))
+        del kt, vt, mask
+        log(f"[decode attention] {tag}: kernel ms by length "
+            f"{row['kernel_ms']}, bound {row['bound_ms']:.4f} "
+            f"({row['binds']}), plain {row['plain_ms']:.4f}, SDPA "
+            f"{row['library_ms']:.4f}")
+        out[tag] = row
+    shape = DECODE_SHAPES["retro160"]
+    q, k, v, bias = decode_attention_inputs(shape, 120, torch.float32, 7)
+    got = decode_attention.grouped_decode_attention(q, k, v, bias, 0.125,
+                                                    True)
+    check_close("decode attention f32 retro160", got,
+                decode_attention.grouped_decode_attention_reference(
+                    q, k, v, bias, 0.125, True), 2e-5, 0.0)
+    out["float32_retro160_ms"] = time_ms(
+        lambda: decode_attention.grouped_decode_attention(
+            q, k, v, bias, 0.125, True))
+    log(f"[decode attention] float32 at retro160, length 120: "
+        f"{out['float32_retro160_ms']:.4f} ms")
+    decode_attention.DECODE_LAUNCHES = counted
+    results["grouped_decode_attn"] = {}
+    torch.cuda.empty_cache()
+    return out
+
+
 def write_text_vocab(path: Path) -> None:
     """A WordPiece vocab (SciBERT's is not bundled): specials, the words
     above, and every printable character alone and as a continuation, so
@@ -1639,6 +1760,7 @@ def check_against_uncaptured(what: str, gen: Generator, batch: dict,
     torch.cuda.synchronize()
     fused_attention.LAUNCHES = before["fused_attention_fwd"]
     fused_layernorm.LAUNCHES = before["fused_layernorm_fwd"]
+    decode_attention.DECODE_LAUNCHES = before["grouped_decode_attn"]
     same = (np.array_equal(got[0], seqs) and got[1].dtype == scores.dtype
             and np.array_equal(got[1].view(np.uint32),
                                scores.view(np.uint32)))
@@ -1680,6 +1802,10 @@ def phase_serving(card: str, vocab: Path, results: dict) -> None:
         f"replays ({gen.route})")
     enc_layers, dec_layers = (enc_cfg.num_hidden_layers,
                               dec_cfg.num_hidden_layers)
+    if counts["grouped_decode_attn"] != dec_layers * replays:
+        raise AssertionError(f"decode attention launches {counts}, "
+                             f"{replays} replays")
+    results["grouped_decode_attn"]["launches"] = counts["grouped_decode_attn"]
     if counts["fused_attention_fwd"] != enc_layers:
         raise AssertionError(f"attention launches {counts}")
     if steps < 1 or counts["fused_layernorm_fwd"] != (
@@ -2079,9 +2205,10 @@ def phase_train(card: str, vocab: Path, results: dict):
     for route, run in runs.items():
         counts = dict(run["counts"])
         if any([counts.pop(name) for name in (*TOPK_LAYOUTS.values(),
-                                              *CAUSAL_KERNELS)]):
-            raise AssertionError("training launched a retrieval or causal "
-                                 "kernel")
+                                              *CAUSAL_KERNELS,
+                                              "grouped_decode_attn")]):
+            raise AssertionError("training launched a retrieval, causal or "
+                                 "decode kernel")
         log(f"[train] {route}: launches over {TRAIN_STEPS} steps x "
             f"{MICRO_BATCHES} micro-batches: {counts} (per micro-batch "
             f"{per_mb})")
@@ -4534,11 +4661,12 @@ def check_beams(what: str, seqs: np.ndarray, scores: np.ndarray,
 
 def serving_launches(enc_layers: int, dec_layers: int, replays: int) -> dict:
     """A generate call's launches: the encoder's attention and two LNs a
-    layer, then three LNs a decoder layer each decode step the card ran
-    (`Generator.last_replays`: the steps, and past a stop those that
-    change nothing)."""
+    layer, then three LNs and one decode attention a decoder layer each
+    decode step the card ran (`Generator.last_replays`: the steps, and
+    past a stop those that change nothing)."""
     return dict(fused_attention_fwd=enc_layers,
-                fused_layernorm_fwd=2 * enc_layers + 3 * dec_layers * replays)
+                fused_layernorm_fwd=2 * enc_layers + 3 * dec_layers * replays,
+                grouped_decode_attn=dec_layers * replays)
 
 
 def retro_train(card: str, cfg, enc_tok, dec_tok, results: dict):
@@ -4844,7 +4972,7 @@ def recipe_run_launches(sizes: dict, steps: list) -> dict:
     reactions (micro-batches of B): its retrieval's three searches, then an
     epoch of training, fit's and --do_valid's validation and a test pass
     on each of the two corpora, whose decode steps (`steps`, one entry a
-    test batch) set the decoder's LN launches."""
+    test batch) set the decoder's LN and decode attention launches."""
     enc_layers = PRESETS["scibert_base"].num_hidden_layers
     dec_layers = PRESETS["bert_l6"].num_hidden_layers
     ln = 2 * enc_layers + 3 * dec_layers
@@ -4858,7 +4986,8 @@ def recipe_run_launches(sizes: dict, steps: list) -> dict:
                 fused_attention_bwd=enc_layers * mbs,
                 fused_layernorm_fwd=ln * (mbs + evals) + 2 * enc_layers
                 * tests + 3 * dec_layers * sum(steps),
-                fused_layernorm_bwd=ln * mbs)
+                fused_layernorm_bwd=ln * mbs,
+                grouped_decode_attn=dec_layers * sum(steps))
 
 
 def retro_recipe(card: str, tmp: Path, data: Path, vocab: Path,
@@ -6079,6 +6208,7 @@ def main(argv: Optional[list] = None) -> int:
     results: dict = {"eval": {}}
     phase_kernels(results)
     log(f"[time] kernels phase done at {time.perf_counter() - t_start:.0f} s")
+    decode = phase_decode_attention(results)
     with tempfile.TemporaryDirectory() as tmp:
         vocab = Path(tmp) / "vocab.txt"
         write_text_vocab(vocab)
@@ -6142,6 +6272,7 @@ def main(argv: Optional[list] = None) -> int:
     print(json.dumps({"tools": tools}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"eval": evals}))
+    print(json.dumps({"decode_attention": decode}))
     print(json.dumps({"kernels": kernels}))
     return finish(t_start)
 

@@ -52,7 +52,8 @@ from textreact_tpu_torch.data.collate import IGNORE_INDEX
 from textreact_tpu_torch.models import EncoderDecoder, TemplateBasedModel
 from textreact_tpu_torch.models.config import BERT_L6_DECODER, SCIBERT_BASE
 from textreact_tpu_torch.models.factory import init_weights
-from textreact_tpu_torch.ops import fused_attention, fused_layernorm
+from textreact_tpu_torch.ops import (decode_attention, fused_attention,
+                                     fused_layernorm)
 from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
                                        make_eval_step, make_optimizer,
                                        make_train_step)
@@ -131,23 +132,30 @@ def test_two_batches_through_the_same_graphs(dev, geometry):
     graph reading the first batch's inputs would fail), the cache's tensors
     keep their storage, and the counters count the kernels the card ran:
     the encoder's attention a layer, two LNs an encoder layer and three a
-    decoder layer each replay."""
+    decoder layer each replay, and the decode self-attention's kernel a
+    decoder layer each step, replayed or uncaptured."""
     model = _model(dev)
     graphed, uncaptured = _pair(model, geometry)
     batches = [_batch(1), _batch(2)]
     results = []
     for n, batch in enumerate(batches):
         before = _counts()
+        decode_before = decode_attention.DECODE_LAUNCHES
         got = graphed.generate(batch)
         after = _counts()
         assert (graphed.last_capture_ms > 0) == (n == 0)
         assert after[0] - before[0] == LAYERS
         assert after[1] - before[1] == (2 * LAYERS
                                         + 3 * LAYERS * graphed.last_replays)
+        assert (decode_attention.DECODE_LAUNCHES - decode_before
+                == LAYERS * graphed.last_replays)
         if n == 0:
             pointers = _cache_pointers(graphed)
         assert _cache_pointers(graphed) == pointers
+        decode_before = decode_attention.DECODE_LAUNCHES
         _same(got, uncaptured.generate(batch))
+        assert (decode_attention.DECODE_LAUNCHES - decode_before
+                == LAYERS * uncaptured.last_replays)
         assert graphed.last_steps == uncaptured.last_steps
         results.append(got)
     assert not np.array_equal(results[0][0], results[1][0])
@@ -199,14 +207,16 @@ def test_a_replayed_batch_makes_no_host_wait(dev):
 
 
 def test_counters_equal_the_kernels_a_trace_counts(dev):
-    """The counters' launches of one replayed batch equal the attention
-    and residual-LN kernels that torch.profiler saw on the card."""
+    """The counters' launches of one replayed batch equal the attention,
+    residual-LN and decode self-attention kernels that torch.profiler saw
+    on the card."""
     from torch.profiler import ProfilerActivity, profile
     model = _model(dev)
     graphed, _ = _pair(model, "rcr")
     batch = _batch(11)
     graphed.generate(batch)
     before = _counts()
+    decode_before = decode_attention.DECODE_LAUNCHES
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         graphed.generate(batch)
@@ -217,6 +227,9 @@ def test_counters_equal_the_kernels_a_trace_counts(dev):
             sum("residual_layernorm_fwd" in n for n in names))
     assert seen == (after[0] - before[0], after[1] - before[1])
     assert seen[1] == 2 * LAYERS + 3 * LAYERS * graphed.last_replays
+    decode = sum("grouped_decode_attn" in n for n in names)
+    assert decode == decode_attention.DECODE_LAUNCHES - decode_before
+    assert decode == LAYERS * graphed.last_replays
 
 
 # --- the train step ---------------------------------------------------------

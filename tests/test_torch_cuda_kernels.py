@@ -552,7 +552,8 @@ def test_decode_products_match_the_cpu_route(dev, W):
     tensors: the grouped self-attention over a window W of the (B, H, D,
     T*G) cache, scores into bf16 and f32 and the context, and the cross
     attention over (B, H, L, D), scores into f32 and the context."""
-    from textreact_tpu_torch.models.layers import _decode_bmm, _matmul_f32
+    from textreact_tpu_torch.ops.decode_attention import (_decode_bmm,
+                                                          _matmul_f32)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     c = RETRO_DECODE
     B, H, D, G, T, L = (c[k] for k in "BHDGTL")

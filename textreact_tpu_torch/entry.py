@@ -348,7 +348,7 @@ def dryrun_multichip(n_devices: int = 4, device=None) -> None:
     if device.startswith("cuda"):
         from .ops import _build, fused_attention
         _build.build_all([*fused_attention.LIBRARIES, "fused_layernorm",
-                          "exact_topk"])
+                          "exact_topk", "decode_attention"])
     with tempfile.TemporaryDirectory(prefix="tr_dryrun_") as out:
         _dryrun_train(n_devices, device, out)
         _dryrun_retrieval(n_devices, device)

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..config import ExperimentConfig
+from ..ops.decode_attention import MAX_HEAD_DIM
 from ..ops.fused_attention import HEAD_DIM_MULTIPLE, kernel_head_dim
 from ..ops.fused_layernorm import MAX_HIDDEN, takes_hidden
 from .config import TransformerConfig, resolve_config
@@ -34,7 +35,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_kernel_shapes(config: TransformerConfig,
-                        attention: bool = True) -> None:
+                        attention: bool = True, decode: bool = False) -> None:
     """Refuse, before any batch, a model that would reach a kernel with a
     shape the port's kernels do not take: a head dim that is no multiple of
     8 or above 128 under attention_impl='flash', or a hidden size that is a
@@ -44,7 +45,9 @@ def check_kernel_shapes(config: TransformerConfig,
     and runs no plain version in a kernel's place. The plain functions
     (impl 'xla') take any shape. `attention=False` for a stack whose
     attention always carries a bias and so never reaches the kernels (the
-    decoder's, layers.py:201-203)."""
+    decoder's, layers.py:201-203). `decode=True` for a decoder that beam
+    search runs: its grouped self-attention is a kernel on the card
+    (ops/decode_attention.py), which takes head dims up to MAX_HEAD_DIM."""
     if (attention and config.attention_impl == "flash"
             and not kernel_head_dim(config.head_dim)):
         raise ValueError(
@@ -52,6 +55,11 @@ def check_kernel_shapes(config: TransformerConfig,
             f"{config.num_attention_heads} heads): the attention kernels take "
             f"multiples of {HEAD_DIM_MULTIPLE} up to 128; use "
             f"attention_impl='xla' for others")
+    if decode and config.head_dim > MAX_HEAD_DIM:
+        raise ValueError(
+            f"decoder head dim {config.head_dim} (hidden "
+            f"{config.hidden_size} / {config.num_attention_heads} heads): the "
+            f"decode attention kernel takes head dims up to {MAX_HEAD_DIM}")
     if (config.layernorm_impl == "fused" and config.hidden_size % 128 == 0
             and not takes_hidden(config.hidden_size)):
         raise ValueError(
@@ -109,7 +117,7 @@ def build_model(cfg: ExperimentConfig, enc_tokenizer, dec_tokenizer,
     )
     if device.type == "cuda":
         check_kernel_shapes(enc_config)
-        check_kernel_shapes(dec_config, attention=False)
+        check_kernel_shapes(dec_config, attention=False, decode=True)
     module = EncoderDecoder(encoder_config=enc_config,
                             decoder_config=dec_config,
                             dtype=DTYPES[cfg.compute_dtype],

@@ -24,9 +24,11 @@ across beams: beams attend as grouped query rows over their example's
 encoder states. Beam search keeps its self-attention cache row-stable in
 the grouped layout (Bex, H, D, T*G) (`decode_self_grouped`, the twin of
 layers.py:232-309): beams never move it, and each beam reads its history
-under an ancestry bias. The per-row cache (`decode_self`) is the twin of the JAX
-package's beam_groups=0 path. The decode products take the compute-dtype
-operands in place, with the JAX package's output dtypes (`_decode_bmm`).
+under an ancestry bias; on the card one kernel computes that attention
+(ops/decode_attention.py). The per-row cache (`decode_self`) is the twin of
+the JAX package's beam_groups=0 path. The decode products take the
+compute-dtype operands in place, with the JAX package's output dtypes
+(`_decode_bmm`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..data.collate import IGNORE_INDEX
+from ..ops.decode_attention import (_decode_bmm, grouped_decode_attention,
+                                    grouped_decode_attention_reference)
 from ..ops.fused_attention import (SEQ_MULTIPLE, causal_attention,
                                    fused_dropout_attention)
 from ..ops.fused_ce import fused_linear_ce
@@ -73,29 +77,6 @@ def causal_bias(q_len: int, k_len: int, offset: int = 0,
     k_pos = torch.arange(k_len, device=device)[None, :]
     bias = torch.where(k_pos <= q_pos, 0.0, NEG_INF).to(torch.float32)
     return bias[None, None]
-
-
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with f32 accumulation and output, for inputs in any dtype
-    (preferred_element_type=float32 in the JAX package)."""
-    return torch.matmul(a.float(), b.float())
-
-
-def _decode_bmm(a: torch.Tensor, b: torch.Tensor,
-                out_dtype: torch.dtype) -> torch.Tensor:
-    """Batched a @ b of the decode attention: (N, m, k) @ (N, k, n) ->
-    (N, m, n) in `out_dtype`, f32 accumulation (`preferred_element_type`
-    in the JAX package). On the card the operands are read in place in
-    their own dtype: a product into their dtype is cuBLAS's bmm, one into
-    f32 from bf16 its `out_dtype` overload. On the CPU the plain route
-    up-casts both to f32 (bf16 products are exact in f32, so the two differ
-    in summation order only) and rounds the result to `out_dtype`."""
-    with span("decode.products"):
-        if a.device.type != "cuda":
-            return _matmul_f32(a, b).to(out_dtype)
-        if out_dtype == a.dtype:
-            return torch.bmm(a, b)
-        return torch.bmm(a, b, out_dtype=out_dtype)
 
 
 def _slot(position: Position, device: torch.device) -> torch.Tensor:
@@ -380,13 +361,14 @@ class MultiHeadAttention(nn.Module):
         window W: the attention reads the cache prefix [..., :W*G] in place
         and each beam sees one row per valid position, its ancestor's.
         Scores are stored in the compute dtype unless decode_scores_dtype
-        is 'float32'; then scaled, biased and softmaxed in f32."""
+        is 'float32'; then scaled, biased and softmaxed in f32. On the card
+        one kernel computes the attention (ops/decode_attention.py), on the
+        CPU its plain version."""
         with span("decode.self_attention"):
             cfg = self.config
             H, D = self.num_heads, cfg.head_dim
             Bex = cache_k.shape[0]
             G = x.shape[0] // Bex
-            WG = beam_bias.shape[-1]
             # (Bex*G, 1, H*D) -> (Bex, H, D, 1, G): the new token alone is
             # transposed; the cache, seen as (Bex, H, D, T, G), is written
             # where it lies at the position's G slots
@@ -397,15 +379,10 @@ class MultiHeadAttention(nn.Module):
                 x).view(Bex, G, H, D).permute(0, 2, 3, 1)[:, :, :, None])
             q = self.query(x).view(Bex, G, H, D).transpose(1, 2).reshape(
                 Bex * H, G, D)
-            k = cache_k[..., :WG].view(Bex * H, D, WG)    # views: no copy
-            v = cache_v[..., :WG].view(Bex * H, D, WG)
-            s_dt = (torch.float32 if cfg.decode_scores_dtype == "float32"
-                    else self.dtype)
-            s = _decode_bmm(q, k, s_dt).view(Bex, H, G, WG)
-            s = s.float() * (1.0 / math.sqrt(D)) + beam_bias[:, None]
-            probs = torch.softmax(s, dim=-1).to(self.dtype)
-            ctx = _decode_bmm(probs.view(Bex * H, G, WG), v.transpose(1, 2),
-                              self.dtype)                       # (Bex*H, G, D)
+            attend = (grouped_decode_attention if q.is_cuda
+                      else grouped_decode_attention_reference)
+            ctx = attend(q, cache_k, cache_v, beam_bias, 1.0 / math.sqrt(D),
+                         cfg.decode_scores_dtype != "float32")  # (Bex*H, G, D)
             return self._out(ctx.view(Bex, H, G, D).transpose(1, 2).reshape(
                 Bex * G, 1, H * D))
 

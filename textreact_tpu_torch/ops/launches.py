@@ -18,7 +18,7 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 import torch
 
 from ..utils.profiling import span
-from . import fused_attention, fused_layernorm, topk
+from . import decode_attention, fused_attention, fused_layernorm, topk
 
 # the kernel wrappers' launch counters: (module, name of an int or of a
 # dict of ints)
@@ -30,7 +30,8 @@ KERNEL_COUNTERS = (
     (fused_layernorm, "LAUNCHES"), (fused_layernorm, "BWD_LAUNCHES"),
     (fused_layernorm, "WIDE_LAUNCHES"),
     (fused_layernorm, "WIDE_BWD_LAUNCHES"),
-    (topk, "LAUNCHES"), (topk, "LARGE_K_LAUNCHES"))
+    (topk, "LAUNCHES"), (topk, "LARGE_K_LAUNCHES"),
+    (decode_attention, "DECODE_LAUNCHES"))
 
 
 class GraphLaunches:
