@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where one optimizer step of the PyTorch port's RCR training path, one
-batch of its serving path or of the template-free retro serving path, or
-one search of its retrieval path, spends its time on one CUDA GPU.
+"""Where one optimizer step of the PyTorch port's RCR or template-based
+training path, one batch of its serving path or of the template-free retro
+serving path, or one search of its retrieval path, spends its time on one
+CUDA GPU.
 
-    python3 chip_profile.py [--path train|serving|retro|retrieval] [--out DIR]
+    python3 chip_profile.py [--path train|serving|retro|template|retrieval]
+        [--out DIR]
 
 `--path train` (the default) builds the same model, batch and step as chip_smoke.py's training phase
 (SciBERT-base + bert_l6 at full width and depth, f32 parameters, bf16
@@ -38,6 +40,13 @@ by operator and by those parts, and the largest casts, copies and
 `index_select`s with their input shapes (none may be a cache's). Copied
 into an older checkout, it profiles that checkout's Python loop in both
 places (a checkout without the spans gives no parts).
+`--path template` builds the benchmark's `retro_tb` model (RetroSyn_tb at
+full width and depth, portbench/configs/retro_tb.json) and one step of its
+traffic (4 x 32 at L=512 under bond masks), runs it on the uncaptured
+route, where the plain attention path's and the template heads' spans
+(`attention.plain`, `template.head`) open, and prints the tables above and
+each span's device time, forward and its backward (matched by autograd's
+sequence numbers), as a share of the step's.
 `--path retrieval` makes chip_smoke.py's two retrieval shapes and records
 one FlatIndex.search of 8192 queries per shape and kernel layout: host
 clock from numpy in to numpy out, and device time of the scan kernel, the
@@ -292,7 +301,8 @@ def profile_sharded_retrieval(card: str, say, corpus, queries) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--path", choices=("train", "serving", "retrieval",
-                                           "retro"), default="train")
+                                           "retro", "template"),
+                        default="train")
     parser.add_argument("--out", default="profile_out")
     args = parser.parse_args()
     card = cs.phase_device()
@@ -309,6 +319,8 @@ def main() -> int:
         profile_serving(card, say)
     elif args.path == "retro":
         profile_retro(card, say)
+    elif args.path == "template":
+        profile_template(card, say)
     else:
         profile_train(card, say)
     out = Path(args.out)
@@ -405,6 +417,79 @@ def profile_call(fn, record_shapes: bool = False):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     return sorted(plain_ms)[1], wall_ms, prof
+
+
+def profile_template(card: str, say) -> None:
+    """One optimizer step of the template cell's traffic (portbench's
+    `retro_tb.train`: 4 x 32 at L=512 under (L, L) bond masks, MLM), at
+    full width and depth, on the uncaptured route, where the plain
+    attention path's and the template heads' spans open (on the graphed
+    route they mark the capture's host side only)."""
+    from portbench import program, traffic, traffic_template
+    from portbench.kinds import train_template
+    config = program.load_config("retro_tb")
+    cfg = train_template.experiment(config, "retro_tb", 0)
+    ids = config["encoder_ids"]
+    module, _, _ = build_model(
+        cfg, program.Vocab(ids["vocab_size"], ids["pad"]),
+        train_template.Tables(config["num_atom_templates"],
+                              config["num_bond_templates"]),
+        torch.Generator().manual_seed(0))
+    mix = dict(traffic.load("train_templates"), pool_steps=1)
+    micro = traffic_template.pool(mix, config, 0)[0]
+    optimizer = make_optimizer(cfg, 100, module.named_parameters())
+    state = TrainState.create(module, optimizer)
+    step = make_accum_train_step(module, cfg, optimizer, 0)
+    step.route = "uncaptured"
+    weights = np.ones(mix["micro_batches"], np.float32)
+    box = {"state": state}
+
+    def one_step():
+        box["state"], box["metrics"] = step(box["state"], micro, weights,
+                                            cfg.seed)
+
+    for _ in range(2):
+        one_step()
+    plain_ms, wall_ms, prof = profile_call(one_step)
+    where = (f"{mix['micro_batches']} x {mix['micro_batch_size']} examples "
+             f"at L={mix['prompt']['length']} under bond masks, bf16 "
+             f"compute, f32 parameters, dropout 0.1, uncaptured route, on "
+             f"{card}")
+    device_us, _ = report(prof, f"one template optimizer step (loss "
+                          f"{float(box['metrics']['train_loss']):.4f})",
+                          plain_ms, wall_ms, where, say)
+    split = span_split(prof, ("attention.plain", "template.head"))
+    for name, (fwd_us, bwd_us, count) in split.items():
+        say(f"[profile] under {name} ({count} ranges): forward "
+            f"{fwd_us / 1e3:.2f} ms, its backward {bwd_us / 1e3:.2f} ms, "
+            f"together {(fwd_us + bwd_us) / device_us:.1%} of the step's "
+            f"device time")
+
+
+def span_split(prof, names) -> dict:
+    """{span name: (device us of the kernels launched inside its ranges,
+    device us of the autograd backward of the operators that ran inside
+    them, ranges)}. The backward is matched by sequence number: autograd
+    gives a backward function the number of the forward operator that made
+    it."""
+    cpu = torch.autograd.DeviceType.CPU
+    out = {}
+    for name in names:
+        ranges = [ev for ev in prof.events()
+                  if ev.device_type == cpu and ev.name == name]
+        seqs, stack = set(), list(ranges)
+        while stack:
+            ev = stack.pop()
+            for child in ev.cpu_children:
+                if child.sequence_nr >= 0:
+                    seqs.add(child.sequence_nr)
+                stack.append(child)
+        bwd = sum(ev.device_time_total for ev in prof.events()
+                  if ev.name.startswith("autograd::engine::evaluate_function")
+                  and ev.sequence_nr in seqs)
+        out[name] = (sum(ev.device_time_total for ev in ranges), bwd,
+                     len(ranges))
+    return out
 
 
 def profile_serving(card: str, say) -> None:

@@ -128,7 +128,9 @@ def test_a_served_batch_gives_its_span_tree():
         "decode.self_attention": steps * LAYERS,
         "decode.cross_attention": steps * LAYERS,
         # two products in each attention
-        "decode.products": 4 * steps * LAYERS}
+        "decode.products": 4 * steps * LAYERS,
+        # the one encoder layer's attention (attention_impl "xla")
+        "attention.plain": 1}
 
 
 def test_a_train_step_gives_its_span_tree():
@@ -138,8 +140,12 @@ def test_a_train_step_gives_its_span_tree():
     step, state, arrays = _accum_step(module)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(state, arrays, WEIGHTS, 0)
+    # the plain attention path (attention_impl "xla"): the encoder's layer,
+    # and each decoder layer's self- and cross-attention, a micro-batch
+    plain = 1 + 2 * LAYERS
     assert _names(prof) == {"train.step": 1, "train.stage": 2,
-                            "train.micro": 2, "train.update": 1}
+                            "train.micro": 2, "train.update": 1,
+                            "attention.plain": 2 * plain}
     cfg = ExperimentConfig(lr=1e-3, scheduler="constant")
     single = make_train_step(module, cfg, step.optimizer, 0, device="cpu")
     evaluate = make_eval_step(module, cfg, 0, device="cpu")
@@ -148,7 +154,7 @@ def test_a_train_step_gives_its_span_tree():
         evaluate(_train_batch())
     assert _names(prof) == {"train.step": 1, "train.stage": 1,
                             "train.micro": 1, "train.update": 1,
-                            "eval.forward": 1}
+                            "eval.forward": 1, "attention.plain": 2 * plain}
 
 
 def test_spans_nest_where_the_table_puts_them():

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .config import TransformerConfig
 from .decoder import DecodeCache, Decoder
 from .encoder import Encoder
@@ -202,13 +203,16 @@ class TemplateBasedModel(nn.Module):
                 generator: Optional[torch.Generator] = None) -> dict:
         """`attention_mask` is (B, L), or (B, L, L) under
         --unattend_nonbonds; a 3-D mask becomes an additive bias, so the
-        self-attention takes the plain path (layers.py:201-203)."""
+        self-attention takes the plain path (layers.py:201-203). The
+        gather and the heads run inside the span `template.head`."""
         enc = self.encoder(input_ids, attention_mask=attention_mask,
                            position_ids=position_ids, generator=generator)
-        # batched gather of atom-token states: (B, A, d)
-        idx = atom_indices.long()[:, :, None].expand(-1, -1, enc.shape[-1])
-        atom_states = torch.gather(enc, 1, idx)
-        atom_logits, bond_logits = self.head(atom_states, bond_pairs)
+        with span("template.head"):
+            # batched gather of atom-token states: (B, A, d)
+            idx = atom_indices.long()[:, :, None].expand(-1, -1,
+                                                         enc.shape[-1])
+            atom_states = torch.gather(enc, 1, idx)
+            atom_logits, bond_logits = self.head(atom_states, bond_pairs)
         out = {"logits": (atom_logits, bond_logits),
                "encoder_last_hidden_state": enc}
         if self.mlm_layer and mlm_prefix_len is not None:

@@ -44,12 +44,13 @@ class Encoder(nn.Module):
                 self_mask = attention_mask  # the fused path takes the raw mask
             else:
                 bias = mask_to_bias(attention_mask)
+        mask_3d = attention_mask is not None and attention_mask.dim() == 3
         remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
                 x = remat_block(layer, x, self_bias=bias, self_mask=self_mask,
-                                generator=generator)
+                                generator=generator, mask_3d=mask_3d)
             else:
                 x = layer(x, self_bias=bias, self_mask=self_mask,
-                          generator=generator)
+                          generator=generator, mask_3d=mask_3d)
         return x

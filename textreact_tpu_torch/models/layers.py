@@ -53,6 +53,11 @@ from ..utils.profiling import span
 from .config import TransformerConfig
 
 NEG_INF = -1e9
+# full-sequence attention calls that took the plain path under a bias made
+# from a (B, Lq, Lk) mask (`mask_3d`: the template model's bond mask); on
+# the graphed routes the counter is kept at the replays (ops/launches.py),
+# as the kernel wrappers' launch counters are
+PLAIN_MASK_3D_CALLS = 0
 # a decode position: a Python int, or a 0-d int64 tensor on the cache's
 # device (beam search keeps it there, so that no step waits for the host)
 Position = Union[int, torch.Tensor]
@@ -249,7 +254,11 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
                 mask_kv: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask_3d: bool = False) -> torch.Tensor:
+        """`mask_3d`: `bias` was made from a (B, Lq, Lk) mask; the plain
+        path counts such calls in PLAIN_MASK_3D_CALLS. The plain path runs
+        inside the span `attention.plain`."""
         cfg = self.config
         D = cfg.head_dim
         x = self._enter(x)
@@ -270,19 +279,24 @@ class MultiHeadAttention(nn.Module):
                 q, k, v, mask_kv, drop_p, generator,
                 sm_scale=1.0 / math.sqrt(D), head_offset=self.head_offset,
                 total_heads=self.total_heads))
-        if mask_kv is not None:
-            extra = mask_to_bias(mask_kv)
-            bias = extra if bias is None else bias + extra
-            if self.causal_hint:   # only under a mask_kv (layers.py:229)
-                bias = bias + causal_bias(x.shape[1], kv_in.shape[1],
-                                          device=x.device)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
-        if bias is not None:
-            s = s + bias.float()
-        probs = dropout(torch.softmax(s, dim=-1), drop_p, generator,
-                        self.head_offset, self.total_heads)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(self.dtype).float(),
-                           v.float())
+        if mask_3d:
+            global PLAIN_MASK_3D_CALLS
+            PLAIN_MASK_3D_CALLS += 1
+        with span("attention.plain"):
+            if mask_kv is not None:
+                extra = mask_to_bias(mask_kv)
+                bias = extra if bias is None else bias + extra
+                if self.causal_hint:   # only under a mask_kv (layers.py:229)
+                    bias = bias + causal_bias(x.shape[1], kv_in.shape[1],
+                                              device=x.device)
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                             k.float()) / math.sqrt(D)
+            if bias is not None:
+                s = s + bias.float()
+            probs = dropout(torch.softmax(s, dim=-1), drop_p, generator,
+                            self.head_offset, self.total_heads)
+            ctx = torch.einsum("bhqk,bkhd->bqhd",
+                               probs.to(self.dtype).float(), v.float())
         return self._out(ctx)
 
     def project_kv(self, src: torch.Tensor):
@@ -467,10 +481,13 @@ class TransformerBlock(nn.Module):
                 encoder_states: Optional[torch.Tensor] = None,
                 cross_bias: Optional[torch.Tensor] = None,
                 self_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask_3d: bool = False) -> torch.Tensor:
+        """`mask_3d`: `self_bias` was made from a (B, L, L) mask."""
         x = self.attention_norm(
             x, self.attention(x, bias=self_bias, mask_kv=self_mask,
-                              generator=generator), generator)
+                              generator=generator, mask_3d=mask_3d),
+            generator)
         if self.config.add_cross_attention and encoder_states is not None:
             x = self.crossattention_norm(
                 x, self.crossattention(x, kv=encoder_states, bias=cross_bias,

@@ -2,11 +2,13 @@
 that the decode's and the train step's graphs share
 (inference/graphs.py, train/graphs.py).
 
-A wrapper adds one to its counter where it launches its kernel. A capture
-records the launches without running them, and a replay runs them without
-calling the wrappers: `GraphLaunches` takes back what a capture counted
-and adds it again at each replay, so the counters stay equal to the
-kernels the card ran.
+A wrapper adds one to its counter where it launches its kernel, and the
+plain attention path to `PLAIN_MASK_3D_CALLS` where a 3-D mask sends a
+call down it (models/layers.py). A capture records the launches without
+running them, and a replay runs them without calling the wrappers:
+`GraphLaunches` takes back what a capture counted and adds it again at
+each replay, so the counters stay equal to the kernels (and plain calls)
+the card ran.
 """
 
 from __future__ import annotations
@@ -17,11 +19,13 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from ..models import layers
 from ..utils.profiling import span
 from . import decode_attention, fused_attention, fused_layernorm, topk
 
-# the kernel wrappers' launch counters: (module, name of an int or of a
-# dict of ints)
+# the kernel wrappers' launch counters, and the plain attention path's
+# count of calls under a 3-D mask (models/layers.py): (module, name of an
+# int or of a dict of ints)
 KERNEL_COUNTERS = (
     (fused_attention, "LAUNCHES"), (fused_attention, "BWD_LAUNCHES"),
     (fused_attention, "CAUSAL_LAUNCHES"),
@@ -31,7 +35,8 @@ KERNEL_COUNTERS = (
     (fused_layernorm, "WIDE_LAUNCHES"),
     (fused_layernorm, "WIDE_BWD_LAUNCHES"),
     (topk, "LAUNCHES"), (topk, "LARGE_K_LAUNCHES"),
-    (decode_attention, "DECODE_LAUNCHES"))
+    (decode_attention, "DECODE_LAUNCHES"),
+    (layers, "PLAIN_MASK_3D_CALLS"))
 
 
 class GraphLaunches:
