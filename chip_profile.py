@@ -43,8 +43,10 @@ places (a checkout without the spans gives no parts).
 `--path template` builds the benchmark's `retro_tb` model (RetroSyn_tb at
 full width and depth, portbench/configs/retro_tb.json) and one step of its
 traffic (4 x 32 at L=512 under bond masks), runs it on the uncaptured
-route, where the plain attention path's and the template heads' spans
-(`attention.plain`, `template.head`) open, and prints the tables above and
+route, where the attention's spans (`attention.mask_3d`: the fused route
+under the packed bond mask; `attention.plain`: the plain path, which a
+float32 model or an unaligned length takes) and the template heads'
+(`template.head`) open, and prints the tables above and
 each span's device time, forward and its backward (matched by autograd's
 sequence numbers), as a share of the step's.
 `--path retrieval` makes chip_smoke.py's two retrieval shapes and records
@@ -422,9 +424,10 @@ def profile_call(fn, record_shapes: bool = False):
 def profile_template(card: str, say) -> None:
     """One optimizer step of the template cell's traffic (portbench's
     `retro_tb.train`: 4 x 32 at L=512 under (L, L) bond masks, MLM), at
-    full width and depth, on the uncaptured route, where the plain
-    attention path's and the template heads' spans open (on the graphed
-    route they mark the capture's host side only)."""
+    full width and depth, on the uncaptured route, where the attention's
+    spans (the packed-mask route's, the plain path's) and the template
+    heads' open (on the graphed route they mark the capture's host side
+    only)."""
     from portbench import program, traffic, traffic_template
     from portbench.kinds import train_template
     config = program.load_config("retro_tb")
@@ -458,7 +461,8 @@ def profile_template(card: str, say) -> None:
     device_us, _ = report(prof, f"one template optimizer step (loss "
                           f"{float(box['metrics']['train_loss']):.4f})",
                           plain_ms, wall_ms, where, say)
-    split = span_split(prof, ("attention.plain", "template.head"))
+    split = span_split(prof, ("attention.mask_3d", "attention.plain",
+                              "template.head"))
     for name, (fwd_us, bwd_us, count) in split.items():
         say(f"[profile] under {name} ({count} ranges): forward "
             f"{fwd_us / 1e3:.2f} ms, its backward {bwd_us / 1e3:.2f} ms, "

@@ -28,6 +28,17 @@ Phases, each fatal on failure:
    while the card is held busy, so device time) beside the least time the
    card could take and, for attention, beside
    F.scaled_dot_product_attention (timed only, used nowhere in the port);
+   the attention kernels under a packed (B, L, L) admission mask
+   (`masked_attention`, bf16, B=32 L=512 12 heads of 64) under one
+   micro-batch of the template cell's bond masks (portbench
+   `train_templates`), at p = 0 and 0.1 with the plain path's own
+   `torch.rand` draw: both packs equal `pack_bits_reference` to the bit,
+   out, dQ, dK and dV against the statement of their rounding points,
+   every element, and as close to a float64 evaluation as the plain
+   bond-masked path from the same generator state, which the route leaves
+   where the plain path does; timed (the route's draw, keep pack and
+   kernel, the mask's pack, the backward's two passes) beside its bound,
+   the plain path and SDPA under the mask's bias (kernel-table row 9);
    the causal attention forward and backward the same way (no dropout) at
    L=512 and L=128, beside SDPA under a boolean mask that joins the causal
    and the key mask; the routes of the shapes past the recipes' the same
@@ -142,20 +153,25 @@ Phases, each fatal on failure:
    drug and ester products of 21-50 heavy atoms with 400 atom and 60 bond
    template classes and neighbour text filling L: three optimizer steps
    under the bond mask (a falling loss, changed parameters, 96 + 96
-   residual-LN launches a step and no attention launch), one step without
-   it (48 + 48 attention launches); the eval step at top 500 edits under
+   residual-LN launches a step and 48 + 48 attention launches of the
+   packed-mask kernels, no plain call), one step without it (48 + 48
+   attention launches); the eval step at top 500 edits under
    the bond mask on its two routes as in phase 5 (the `eval` line's
    "template"), and
    `device_topk_edits` on the card equal to `rank_edits` on the host on the
    same probabilities, ties included; the ester decode through the own
-   template engine gives the gold reactants; the loader's bond masks, the
-   step (host clock and the card's busy time) and one layer's plain
-   bond-masked attention beside the fused kernel and SDPA, timed; kernels
-   against plain functions in f32 with and without the bond mask; then
-   `python -m textreact_tpu_torch --task retro --template_based
-   --unattend_nonbonds` in-process (train, validate, test with the decode;
-   the validations and test passes on the eval step's graphed route, their
-   keys and replays printed);
+   template engine gives the gold reactants; the loader's bond masks and
+   the step (host clock and the card's busy time), timed, and the
+   packed-mask route's share of the step at phase 3's times; kernels
+   against plain functions in f32 with and without the bond mask (in f32
+   the bond-masked attention takes the plain path on both sides: the LN
+   kernels only); then `python -m textreact_tpu_torch --task retro
+   --template_based --unattend_nonbonds` in-process (train, validate, test
+   with the decode; the validations and test passes on the eval step's
+   graphed route, their keys and replays printed; every batch's encoder
+   input is longer than the largest length bucket that is not a multiple
+   of 128, so every layer of every batch takes the packed-mask route, its
+   launches counted exactly);
 12b. template-free retrosynthesis (scripts/torch_port/train_RetroSyn_tf.sh:
    the same encoder over the text tokenizer, bert_l6 over the SMILES
    vocabulary at 160 decoder positions, MLM; with --shuffle_smiles) on phase
@@ -290,9 +306,10 @@ from textreact_tpu_torch.evaluation.template_decode import \
 from textreact_tpu_torch.inference import Generator, predictions_from_beams
 from textreact_tpu_torch.inference.beam import _plan_windows
 from textreact_tpu_torch.models import build_model
+from textreact_tpu_torch.models import layers as model_layers
 from textreact_tpu_torch.models.config import PRESETS
 from textreact_tpu_torch.models.layers import (TransformerBlock, dropout,
-                                               mask_to_bias)
+                                               dropout_uniforms, mask_to_bias)
 from textreact_tpu_torch.inference.beam import ancestor_bias
 from textreact_tpu_torch.ops import (_build, decode_attention, fused_attention,
                                      fused_layernorm, topk)
@@ -428,6 +445,14 @@ KERNELS.update({
 KERNELS["grouped_decode_attn"] = dict(
     route="cuda", source=_CSRC + "decode_attention.cu",
     replaces="none (a perf_opt: the JAX package's decode step is XLA's)")
+# the attention kernels under a packed (B, L, L) mask (a perf_opt; their
+# launches are the template phase's, also counted as attention launches)
+KERNELS["mask3d_attention_fwd"] = dict(
+    route="cuda", source=_CSRC + "mask3d_attention.cu",
+    replaces="textreact_tpu/models/layers.py:340 under the bond mask's bias")
+KERNELS["mask3d_attention_bwd"] = dict(
+    route="cuda", source=_CSRC + "mask3d_attention_bwd.cu",
+    replaces="textreact_tpu/models/layers.py:340 under the bond mask's bias")
 # the retrieval kernels by FlatIndex's corpus_resident flag
 TOPK_LAYOUTS = {True: "exact_topk_corpus_split",
                 False: "exact_topk_query_outer"}
@@ -621,10 +646,12 @@ def phase_build() -> None:
     fused_attention.load_bwd_kernel()
     fused_attention.load_causal_kernel()
     fused_attention.load_causal_bwd_kernel()
+    fused_attention.load_mask3d_kernel()
+    fused_attention.load_mask3d_bwd_kernel()
     fused_layernorm.load_kernel()
     topk.load_kernel()
     decode_attention.load_kernel()
-    log(f"[build] seven libraries (nine kernels) and the two C++ host "
+    log(f"[build] nine libraries (eleven kernels) and the two C++ host "
         f"libraries loaded in {time.perf_counter() - t0:.1f} s, built in "
         f"parallel (nvcc seconds per source: "
         f"{_build.BUILD_SECONDS or 'cached'})")
@@ -667,6 +694,8 @@ def reset_counts() -> None:
     fused_layernorm.WIDE_LAUNCHES = fused_layernorm.WIDE_BWD_LAUNCHES = 0
     topk.LARGE_K_LAUNCHES.update(corpus_split=0, query_outer=0)
     decode_attention.DECODE_LAUNCHES = 0
+    fused_attention.MASK_3D_LAUNCHES.update(fwd=0, bwd=0)
+    model_layers.PLAIN_MASK_3D_CALLS = 0
 
 
 def read_counts() -> dict:
@@ -1516,6 +1545,7 @@ def phase_kernels(results: dict) -> None:
     check_masks()
     check_dropout_bits()
     kernels_attention(results)
+    kernels_mask3d_attention(results)
     kernels_attention(results, PAD_HEADS, PAD_DIM, "_padded")
     kernels_attention_shapes()
     kernels_causal_attention(results)
@@ -4029,43 +4059,196 @@ def plain_bond_masked_attention(q, k, v, bias, p, gen):
                         v.float()).to(q.dtype)
 
 
-def time_bond_masked_attention(card: str, mask3d: torch.Tensor) -> dict:
-    """One layer's self-attention at B=32 L=512 H=12 D=64, bf16, p=0.1,
-    forward and forward + backward (device ms, CUDA events): the plain path
-    under the micro-batch's bond mask as a bias, the fused kernel under its
-    key mask (the mask's diagonal) and F.scaled_dot_product_attention under
-    the same bias in bf16 (timed only, used nowhere in the port)."""
-    dev = mask3d.device
+def bond_mask_micro_batch(dev) -> torch.Tensor:
+    """One micro-batch's (B, L, L) bond masks of the template cell's
+    traffic (portbench `train_templates` on configs/retro_tb.json), int64
+    on `dev`."""
+    from portbench import traffic, traffic_template
+    cfg = json.loads((Path(__file__).resolve().parent / "portbench" / "configs"
+                      / "retro_tb.json").read_text())
+    mix = dict(traffic.load("train_templates"), micro_batches=1,
+               pool_steps=1)
+    mask = torch.as_tensor(traffic_template.pool(mix, cfg, 2**31 + 9)[0][
+        "attention_mask"][0], dtype=torch.long, device=dev)
+    if mask.shape != (B, L, L):
+        raise AssertionError(f"bond masks {tuple(mask.shape)}")
+    return mask
+
+
+def rel_to(a: torch.Tensor, truth: torch.Tensor) -> float:
+    """||a - truth|| / ||truth||, in float64."""
+    return float((a.double() - truth).norm() / truth.norm())
+
+
+def check_mask3d_attention(q, k, v, do, mask, bias, packed, p, gen) -> None:
+    """`masked_attention` under the packed `mask` at dropout `p`, its
+    uniforms drawn by `dropout_uniforms` from `gen` as the route draws them,
+    against `plain_bond_masked_attention` from the same generator state: the
+    generator left in the same state, the keep bits equal to
+    `pack_bits_reference` of `uniforms >= p`, out and dQ, dK, dV within the
+    statement of the kernels' rounding points (`check_rounding`), and each
+    as close to a float64 evaluation under the same keep mask as the plain
+    path's (at most twice its relative error, or 2^-8)."""
+    Bq, Lq, H, D = q.shape
+    tag = f"attention under the bond mask p={p}"
+    scale = D ** -0.5
+    state = gen.get_state()
+
+    def leaves_of(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        return out.detach(), leaves
+
+    out, leaves = leaves_of(lambda *a: fused_attention.masked_attention(
+        *a, packed, p, None if p == 0.0 else dropout_uniforms(
+            (Bq, H, Lq, Lq), gen, q.device), scale))
+    after = gen.get_state()
+    gen.set_state(state)
+    ref, ref_leaves = leaves_of(
+        lambda *a: plain_bond_masked_attention(*a, bias, p, gen))
+    if not torch.equal(gen.get_state(), after):
+        raise AssertionError(f"{tag}: the route's draw left the generator "
+                             f"elsewhere than the plain path's")
+    keep = None
+    if p > 0.0:
+        gen.set_state(state)
+        u = dropout_uniforms((Bq, H, Lq, Lq), gen, q.device)
+        keep = u >= p
+        words = fused_attention.pack_keep_bits(u, p, 0, H)
+        if not torch.equal(words.view(Bq * H, Lq // 64, Lq, 2),
+                           fused_attention.pack_bits_reference(
+                               keep.view(Bq * H, Lq, Lq))):
+            raise AssertionError(f"{tag}: the keep bits' pack differs from "
+                                 f"the layout")
+        del u, words
+        gen.set_state(after)
+    check_rounding(tag, q, k, v, do, mask, scale, keep, p, False, out,
+                   leaves)
+    wide = [t.double().requires_grad_() for t in (q, k, v)]
+    s64 = torch.einsum("bqhd,bkhd->bhqk", *wide[:2]) * scale
+    # a barred pair's score is -1e9 itself, as in f32, where -1e9 + s is
+    # -1e9: a row with every key barred averages v here too (its gradient
+    # is 0 here, not on the f32 paths, which agree there)
+    probs = torch.softmax(torch.where(mask[:, None] > 0, s64,
+                                      model_layers.NEG_INF), -1)
+    if keep is not None:
+        probs = torch.where(keep, probs / (1.0 - p), 0.0)
+    out64 = torch.einsum("bhqk,bkhd->bqhd", probs, wide[2])
+    del s64, probs
+    out64.backward(do.double())
+    truth = (out64.detach(), *(t.grad for t in wide))
+    del out64, wide
+    for name, a, b, t in zip(("out", "dq", "dk", "dv"),
+                             (out, *(t.grad for t in leaves)),
+                             (ref, *(t.grad for t in ref_leaves)), truth):
+        ours, plains = rel_to(a, t), rel_to(b, t)
+        log(f"  {tag} {name} against float64: relative error {ours:.3e}, "
+            f"the plain path's {plains:.3e}")
+        if not ours <= max(2 * plains, 2 ** -8):
+            raise AssertionError(f"{tag} {name}: further from float64 "
+                                 f"({ours:.3e}) than the plain path allows "
+                                 f"({plains:.3e})")
+
+
+def kernels_mask3d_attention(results: dict) -> None:
+    """The self-attention under one micro-batch's (B, L, L) bond masks of
+    the template cell's traffic, B=32 L=512 H=12 D=64, bf16: the mask's
+    pack against its layout to the bit, then `check_mask3d_attention` at p
+    = 0 and 0.1; then at p = 0.1, device ms (CUDA events): the route as
+    `MultiHeadAttention.forward` runs it (the plain path's `torch.rand`
+    draw, the keep bits' pack, the kernel), the kernel alone on packed
+    bits, the two packs, the backward (dQ and dK/dV passes); the plain path
+    under the mask's bias and SDPA under the same bias in bf16 (timed
+    only); bounds over the pairs the mask admits (every key of a row that
+    admits none). Under results["mask3d_attention_{fwd,bwd}"]: row 9 of
+    the kernel table."""
+    dev = torch.device("cuda")
+    mask = bond_mask_micro_batch(dev)
+    heads, dim, p = HEADS, HEAD_DIM, DROPOUT_P
     g = torch.Generator(device=dev).manual_seed(7)
-    q, k, v, do = (torch.randn(B, L, HEADS, HEAD_DIM, generator=g,
+    q, k, v, do = (torch.randn(B, L, heads, dim, generator=g,
                                device=dev).to(torch.bfloat16)
                    for _ in range(4))
-    bias = mask_to_bias(mask3d)
-    key_mask = torch.diagonal(mask3d, dim1=1, dim2=2).contiguous()
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    scale = 1.0 / math.sqrt(HEAD_DIM)
-    paths = {
-        "plain": lambda *a: plain_bond_masked_attention(*a, bias, DROPOUT_P,
-                                                        g),
-        "fused": lambda *a: fused_attention.fused_dropout_attention(
-            *a, key_mask, DROPOUT_P, g, scale),
-        "sdpa": lambda *a: sdpa(*a, bias.to(torch.bfloat16), DROPOUT_P)}
-    out = {}
-    for name, fn in paths.items():
+    scale = dim ** -0.5
+    bias = mask_to_bias(mask)
+    packed = fused_attention.pack_mask_bits(mask)
+    if not torch.equal(packed.words,
+                       fused_attention.pack_bits_reference(mask > 0)):
+        raise AssertionError("the bond mask's pack differs from the layout")
+    admitted = mask.sum(-1)
+    log(f"[kernels] attention under the bond mask B={B} L={L} H={heads} "
+        f"D={dim} bf16, one micro-batch of the template cell's traffic, "
+        f"{int((admitted == 0).sum())} query rows with every key barred; "
+        f"the mask's pack equals its layout")
+    for drop in (0.0, p):
+        check_mask3d_attention(q, k, v, do, mask, bias, packed, drop, g)
+    torch.cuda.empty_cache()
+
+    def uniforms():
+        return dropout_uniforms((B, heads, L, L), g, dev)
+
+    def route(*a):
+        return fused_attention.masked_attention(*a, packed, p, uniforms(),
+                                                scale)
+
+    u = uniforms()
+    keep = fused_attention.pack_keep_bits(u, p, 0, heads)
+    with torch.no_grad():
+        pack_mask_ms = time_ms(lambda: fused_attention.pack_mask_bits(mask))
+        draw_ms = time_ms(uniforms)
+        pack_keep_ms = time_ms(lambda: fused_attention.pack_keep_bits(
+            u, p, 0, heads))
+        route_ms = time_ms(lambda: route(q, k, v))
+        kernel_ms = time_ms(lambda: fused_attention._FusedAttention.apply(
+            q, k, v, packed.words, None, p, scale, True, False, (0, heads),
+            True, keep))
+    out = route(*leaves)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True))
+    passes = device_ms_by_kernel(
+        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        {"dq": ("attention_bwd_dq", 1), "dkv": ("attention_bwd_dkv", 1)})
+    del out, u
+    plain = {}
+    for name, fn in (("plain", lambda *a: plain_bond_masked_attention(
+            *a, bias, p, g)), ("sdpa", lambda *a: sdpa(
+                *a, bias.to(torch.bfloat16), p))):
         with torch.no_grad():
-            fwd = time_ms(lambda: fn(q, k, v), reps=10)
-        both = time_ms(lambda: torch.autograd.grad(fn(*leaves), leaves, do),
-                       reps=10)
-        out[name] = {"fwd_ms": fwd, "fwd_bwd_ms": both}
-    log(f"[template] one layer's self-attention, B={B} L={L} H={HEADS} "
-        f"D={HEAD_DIM}, bf16, p={DROPOUT_P}, device ms (CUDA events, median "
-        f"of 10), forward / forward + backward: plain under the bond mask "
-        f"{out['plain']['fwd_ms']:.4f} / {out['plain']['fwd_bwd_ms']:.4f}; "
-        f"fused kernel under the key mask {out['fused']['fwd_ms']:.4f} / "
-        f"{out['fused']['fwd_bwd_ms']:.4f}; SDPA under the bond mask "
-        f"{out['sdpa']['fwd_ms']:.4f} / {out['sdpa']['fwd_bwd_ms']:.4f}; "
-        f"on {card}")
-    return out
+            plain[name] = time_ms(lambda: fn(q, k, v), reps=10)
+        ref = fn(*leaves)
+        plain[name + "_bwd"] = time_ms(lambda: torch.autograd.grad(
+            ref, leaves, do, retain_graph=True), reps=10)
+        del ref
+    # pairs the data needs: the admitted ones, every key of a barred row
+    pairs = float(torch.where(admitted == 0, L, admitted).sum()) * heads
+    elems, esize = q.numel(), q.element_size()
+    words = packed.words.numel() * 4 + keep.numel() * 4
+    stats = B * heads * L * 8
+    fb, fby = bound(4 * elems * esize + words + stats, 4.0 * dim * pairs,
+                    torch.bfloat16)
+    bb, bby = bound(8 * elems * esize + words + 2 * stats,
+                    10.0 * dim * pairs, torch.bfloat16)
+    log(f"[kernels] attention under the bond mask B={B} L={L} H={heads} "
+        f"D={dim} bf16 p={p}, {pairs / (B * heads * L * L) * 100:.2f}% of "
+        f"pairs admitted, device ms (CUDA events, median of 20; plain and "
+        f"SDPA of 10): route forward {route_ms:.4f} (the draw {draw_ms:.4f}, "
+        f"keep pack {pack_keep_ms:.4f}, kernel {kernel_ms:.4f}), bound "
+        f"{fb:.4f} ({fby}); backward {bwd_ms:.4f} (dQ "
+        f"{fmt_ms(passes['dq'], 4)}, dK/dV {fmt_ms(passes['dkv'], 4)}), bound "
+        f"{bb:.4f} ({bby}); the mask's pack {pack_mask_ms:.4f} a micro-batch; "
+        f"plain {plain['plain']:.4f} / {plain['plain_bwd']:.4f}; SDPA "
+        f"{plain['sdpa']:.4f} / {plain['sdpa_bwd']:.4f}")
+    results["mask3d_attention_fwd"] = dict(
+        ms=kernel_ms, route_ms=route_ms, draw_ms=draw_ms,
+        keep_pack_ms=pack_keep_ms, mask_pack_ms=pack_mask_ms, bound_ms=fb,
+        bound_by=fby, plain_ms=plain["plain"], library_ms=plain["sdpa"])
+    results["mask3d_attention_bwd"] = dict(
+        ms=bwd_ms, bound_ms=bb, bound_by=bby, plain_ms=plain["plain_bwd"],
+        library_ms=plain["sdpa_bwd"],
+        **{f"{label}_pass_ms": ms for label, ms in passes.items()
+           if ms is not None})
 
 
 def check_edit_ranking(module, batch: dict) -> int:
@@ -4205,7 +4388,7 @@ def phase_template(card: str, tmp: Path, vocab: Path,
                    results: dict) -> None:
     """Template-based retrosynthesis at full width and depth: three
     optimizer steps under the bond mask, one without it, the edit ranking
-    and the ester decode, the self-attention's cost under the bond mask,
+    and the ester decode, the packed-mask route's share of the step,
     kernels against plain functions, then the command line."""
     data = tmp / "template_data"
     write_template_fixture(data)
@@ -4280,16 +4463,24 @@ def phase_template(card: str, tmp: Path, vocab: Path,
     counts = read_counts()
     layers = enc_cfg.num_hidden_layers
     per_step = 2 * layers * MICRO_BATCHES
+    # every layer's self-attention takes the packed-mask kernels
+    packed = layers * MICRO_BATCHES * TRAIN_STEPS
     want = {name: 0 for name in counts}
     want.update(fused_layernorm_fwd=per_step * TRAIN_STEPS,
-                fused_layernorm_bwd=per_step * TRAIN_STEPS)
+                fused_layernorm_bwd=per_step * TRAIN_STEPS,
+                fused_attention_fwd=packed, fused_attention_bwd=packed)
     log(f"[template] launches over {TRAIN_STEPS} steps under the bond mask: "
-        f"{counts}")
-    if counts != want:
+        f"{counts}, packed-mask {fused_attention.MASK_3D_LAUNCHES}, plain "
+        f"calls {model_layers.PLAIN_MASK_3D_CALLS}")
+    if counts != want or fused_attention.MASK_3D_LAUNCHES != dict(
+            fwd=packed, bwd=packed) or model_layers.PLAIN_MASK_3D_CALLS:
         raise AssertionError(f"launches {counts}, expected {want}")
     for name in ("fused_layernorm_fwd", "fused_layernorm_bwd",
                  "fused_attention_fwd", "fused_attention_bwd"):
         results[name]["launches_template"] = counts[name]
+    for way in ("fwd", "bwd"):
+        results[f"mask3d_attention_{way}"]["launches"] = \
+            fused_attention.MASK_3D_LAUNCHES[way]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite metric: {history}")
@@ -4338,8 +4529,7 @@ def phase_template(card: str, tmp: Path, vocab: Path,
     keyed_span = device_span_ms(lambda: train_step(state, keyed, weights,
                                                    cfg.seed))
     step_busy, step_kernels = device_busy_ms(
-        lambda: train_step(state, micro, weights, cfg.seed),
-        dict(ln, **dict.fromkeys(attn, 0)))
+        lambda: train_step(state, micro, weights, cfg.seed), dict(ln, **attn))
     keyed_busy, keyed_kernels = device_busy_ms(
         lambda: train_step(state, keyed, weights, cfg.seed), dict(ln, **attn))
     med = statistics.median(step_ms[1:])
@@ -4361,7 +4551,8 @@ def phase_template(card: str, tmp: Path, vocab: Path,
                for i in range(MICRO_BATCHES)]
     eval_step, results["eval"]["template"] = eval_routes(
         card, "template", module, cfg, 0, batches,
-        {"fused_layernorm_fwd": 2 * layers}, results,
+        {"fused_layernorm_fwd": 2 * layers, "fused_attention_fwd": layers},
+        results,
         edit_topk=TEMPLATE_EDITS)
     first = batches[0]
     res = eval_step(first)
@@ -4379,16 +4570,20 @@ def phase_template(card: str, tmp: Path, vocab: Path,
     decode = check_ester_decode(data, cfg, enc_tok, tables, eval_step)
     decode["eval_keys"] = eval_labels(eval_step)
 
-    # what the bond mask costs one layer's attention
-    attention = time_bond_masked_attention(card, to_device(
-        {"m": micro["attention_mask"][0]}, torch.device("cuda"))["m"])
-    plain_ms = layers * MICRO_BATCHES * attention["plain"]["fwd_bwd_ms"]
-    attention["step_plain_ms"] = plain_ms
-    attention["share_of_span"] = plain_ms / step_span
-    attention["share_of_busy"] = (None if step_busy is None
-                                  else plain_ms / step_busy)
-    log(f"[template] {layers * MICRO_BATCHES} passes of the plain bond-masked"
-        f" attention (forward + backward) take {plain_ms:.1f} ms: "
+    # the packed-mask route's share of the step: every layer of every
+    # micro-batch at the kernels phase's times of one call (draw, keep
+    # pack, kernel, backward) under the template cell's bond masks, and the
+    # mask's pack once a micro-batch
+    fwd, bwd = results["mask3d_attention_fwd"], results["mask3d_attention_bwd"]
+    route_ms = MICRO_BATCHES * (layers * (fwd["route_ms"] + bwd["ms"])
+                                + fwd["mask_pack_ms"])
+    attention = dict(step_route_ms=route_ms,
+                     share_of_span=route_ms / step_span,
+                     share_of_busy=(None if step_busy is None
+                                    else route_ms / step_busy))
+    log(f"[template] {layers * MICRO_BATCHES} calls of the packed-mask "
+        f"attention route (forward + backward) and {MICRO_BATCHES} packs of "
+        f"the mask take {route_ms:.1f} ms at the kernels phase's times: "
         f"{attention['share_of_span'] * 100:.1f}% of the step's span on the "
         f"card, " + ("busy time not measured" if step_busy is None else
                      f"{attention['share_of_busy'] * 100:.1f}% of its busy "
@@ -4398,7 +4593,9 @@ def phase_template(card: str, tmp: Path, vocab: Path,
 
     # kernels against plain functions, with and without the bond mask
     phase_train_kernels_vs_plain(cfg, enc_tok, tables, micro, 0,
-                                 tag="template, bond mask")
+                                 tag="template, bond mask (f32: the LN "
+                                     "kernels; attention plain on both "
+                                     "sides)")
     phase_train_kernels_vs_plain(cfg, enc_tok, tables, keyed, 0,
                                  tag="template, key mask")
     torch.cuda.empty_cache()
@@ -4437,17 +4634,71 @@ def template_cli_argv(data: Path, vocab: Path, save: Path) -> list:
         "--log_every", "1", "--debug"]
 
 
+def shortest_encoder_input(cfg) -> int:
+    """The fewest encoder tokens of any example of the run's three splits
+    as the loader makes them (the training split at epoch 0's draw; the
+    second test pass, with the gold removed from the corpus, draws its
+    neighbours from the same lists), checked to lie above the largest
+    length bucket that is not a multiple of SEQ_MULTIPLE: the collator
+    then pads every batch to an aligned bucket, where every layer's
+    self-attention under the bond mask takes the packed-mask route."""
+    enc_tok, tables = get_tokenizers(cfg)
+    corpus = read_corpus(cfg.corpus_file)
+    shortest = cfg.max_length
+    for file, nn_file, split in ((cfg.train_file, cfg.train_nn_file, "train"),
+                                 (cfg.valid_file, cfg.valid_nn_file, "val"),
+                                 (cfg.test_file, cfg.test_nn_file, "test")):
+        ds = RetrosynthesisDataset(cfg, str(Path(cfg.data_path) / file),
+                                   enc_tok, tables, split=split)
+        ds.load_corpus(corpus, str(Path(cfg.nn_path) / nn_file))
+        for i in range(len(ds)):
+            ex = (ds.example(i, example_rng(cfg.seed, 0, i))
+                  if split == "train" else ds.example(i))
+            shortest = min(shortest, len(ex["input_ids"]))
+    unaligned = [b for b in cfg.length_buckets if b <= cfg.max_length
+                 and b % fused_attention.SEQ_MULTIPLE]
+    if unaligned and shortest <= max(unaligned):
+        raise AssertionError(f"an encoder input of {shortest} tokens fits "
+                             f"the unaligned bucket {max(unaligned)}: which "
+                             f"batches take the packed-mask route depends "
+                             f"on the loader's order")
+    return shortest
+
+
 def template_cli_launches(layers: int, sizes: dict) -> dict:
     """The launches of one template-based command-line run on `sizes`
-    reactions with `layers` encoder layers: an epoch of training, fit's and
-    --do_valid's validation, a test pass on each of the two corpora. Only
-    the residual LN runs on the card (no decoder, and attention under the
-    bond mask takes the plain path); every other count is 0."""
+    reactions with `layers` encoder layers, every batch at an aligned
+    length (`shortest_encoder_input`): an epoch of training, fit's and
+    --do_valid's validation, a test pass on each of the two corpora. The
+    residual LN and each layer's self-attention under the bond mask (the
+    packed-mask kernels, also counted in MASK_3D_LAUNCHES) run on the
+    card; no decoder; every other count is 0."""
     mbs = -(-sizes["train"] // B)
     evals = 2 * 2 * -(-sizes["val"] // B)  # fit's and --do_valid's
     tests = 2 * -(-sizes["test"] // B)     # two corpora each
-    return dict(fused_layernorm_fwd=2 * layers * (mbs + evals + tests),
-                fused_layernorm_bwd=2 * layers * mbs)
+    batches = mbs + evals + tests
+    return dict(fused_layernorm_fwd=2 * layers * batches,
+                fused_layernorm_bwd=2 * layers * mbs,
+                fused_attention_fwd=layers * batches,
+                fused_attention_bwd=layers * mbs)
+
+
+def check_packed_route(what: str, cfg, launches: dict) -> None:
+    """Every attention launch of a template run (`launches`, from
+    `template_cli_launches`) on the packed-mask kernels and no call on the
+    plain path, its inputs all past the unaligned buckets."""
+    shortest = shortest_encoder_input(cfg)
+    want = dict(fwd=launches["fused_attention_fwd"],
+                bwd=launches["fused_attention_bwd"])
+    log(f"[template] {what}: encoder inputs of {shortest} tokens at least, "
+        f"packed-mask launches {fused_attention.MASK_3D_LAUNCHES} (expected "
+        f"{want}), plain calls {model_layers.PLAIN_MASK_3D_CALLS}")
+    if (fused_attention.MASK_3D_LAUNCHES != want
+            or model_layers.PLAIN_MASK_3D_CALLS):
+        raise AssertionError(f"{what}: packed-mask launches "
+                             f"{fused_attention.MASK_3D_LAUNCHES}, expected "
+                             f"{want}; plain calls "
+                             f"{model_layers.PLAIN_MASK_3D_CALLS}")
 
 
 def check_launches(what: str, counts: dict, launches: dict) -> None:
@@ -4471,8 +4722,10 @@ def phase_template_cli(card: str, data: Path, vocab: Path, save: Path,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
-    check_launches("the command line", counts,
-                   template_cli_launches(layers, sizes))
+    launches = template_cli_launches(layers, sizes)
+    check_launches("the command line", counts, launches)
+    check_packed_route("the command line", template_config(data, vocab),
+                       launches)
     return dict(check_template_run(card, save, sizes, accuracies, seconds,
                                    counts),
                 route=check_trainer_route("template", routes))
@@ -5625,9 +5878,12 @@ def phase_curation(card: str, tmp: Path, vocab: Path, results: dict) -> dict:
     torch.cuda.synchronize()
     tb_seconds = time.perf_counter() - t0
     counts = read_counts()
+    tb_launches = template_cli_launches(enc_layers, MAPPED_SIZES)
     check_launches("the RetroSyn_tb run", counts, dict(
-        template_cli_launches(enc_layers, MAPPED_SIZES),
-        exact_topk_corpus_split=3))  # parity_run's retrieval
+        tb_launches, exact_topk_corpus_split=3))  # parity_run's retrieval
+    check_packed_route("the RetroSyn_tb run", template_config(
+        tpl, vocab, nn_path=str(tmp / "tb_nn"), train_nn_file="train.json",
+        valid_nn_file="val.json", test_nn_file="test.json"), tb_launches)
     check_neighbour_files(tpl, tmp / "tb_nn",
                           parity_run.RECIPES["RetroSyn_tb"]["field"])
     result = json.loads((tb_save / "parity_results.json").read_text())

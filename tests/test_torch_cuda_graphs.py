@@ -528,7 +528,7 @@ EVAL_PATHS = {
             (LAYERS, 5 * LAYERS)),
     "template": (_template_model, lambda: ExperimentConfig(
         task="retro", template_based=True, unattend_nonbonds=True,
-        template_path="x"), EDITS, _template_eval, (0, 2 * LAYERS)),
+        template_path="x"), EDITS, _template_eval, (LAYERS, 2 * LAYERS)),
 }
 
 
@@ -538,8 +538,8 @@ def test_graphed_eval_equals_the_uncaptured_route(dev, path):
     each equals the uncaptured route on its batch to the bit, the two
     batches' results differ, the first result is left as it was by the
     second call, the output buffers keep their storage, and the counters
-    count the kernels the card ran (under the bond mask attention takes
-    the plain path)."""
+    count the kernels the card ran (under the bond mask the packed-mask
+    kernels, a forward a layer)."""
     make_model, make_cfg, k, make, launches = EVAL_PATHS[path]
     graphed, uncaptured = _eval_pair(make_model(dev), make_cfg(), k)
     results = []

@@ -11,9 +11,11 @@ benchmark's own traffic (portbench/traffic_template.py).
   algorithms (chip_smoke.deterministic), as two uncaptured runs equal each
   other: the staged (B, L, L) mask, the atom indices, the bond pairs and
   both label arrays reach the graph as the uncaptured step reads them.
-- The plain attention path's counter of calls under a 3-D mask
-  (models/layers.py `PLAIN_MASK_3D_CALLS`) adds layers x micro-batches at
-  every replayed step, as the encoder's layers make those calls.
+- Every encoder layer's self-attention takes the fused kernels under the
+  packed bond mask: at every replayed step the packed-mask launch counter
+  (ops/fused_attention.py `MASK_3D_LAUNCHES`) adds layers x micro-batches
+  forward and backward, and the plain path's count of calls under a 3-D
+  mask (models/layers.py `PLAIN_MASK_3D_CALLS`) adds none.
 
 Every test needs a GPU: it carries the `cuda` marker and skips (from a
 fixture) without one. On the GPU machine:
@@ -35,6 +37,7 @@ from textreact_tpu_torch.config import ExperimentConfig
 from textreact_tpu_torch.models import TemplateBasedModel, layers
 from textreact_tpu_torch.models.config import SCIBERT_BASE
 from textreact_tpu_torch.models.factory import init_weights
+from textreact_tpu_torch.ops import fused_attention
 from textreact_tpu_torch.train import (TrainState, make_accum_train_step,
                                        make_optimizer)
 
@@ -129,10 +132,13 @@ def test_replays_count_the_plain_attention_calls(dev):
     step(state, micro, weights, 5)   # the key's capture
     (key,) = step.graphs.keys.values()
     before, replays = layers.PLAIN_MASK_3D_CALLS, key.micro.replays
+    packed = dict(fused_attention.MASK_3D_LAUNCHES)
     n = 3
     for _ in range(n):
         step(state, micro, weights, 5)
     torch.cuda.synchronize()
     assert key.micro.replays - replays == n * MICRO
-    assert layers.PLAIN_MASK_3D_CALLS - before == (
-        n * SCIBERT_BASE.num_hidden_layers * MICRO)
+    calls = n * SCIBERT_BASE.num_hidden_layers * MICRO
+    assert fused_attention.MASK_3D_LAUNCHES == {
+        "fwd": packed["fwd"] + calls, "bwd": packed["bwd"] + calls}
+    assert layers.PLAIN_MASK_3D_CALLS == before

@@ -340,10 +340,11 @@ constexpr int dq_tc_shared_bytes() {
   return 4 * tile_bytes<W>() + 2 * kTcTile * (int)sizeof(int32_t);
 }
 
-template <int W, bool kDrop>
+template <int W, bool kDrop, bool kBits = false>
 constexpr int dkv_tc_shared_bytes() {
   return 5 * tile_bytes<W>() + 2 * kTcTile * (int)(sizeof(float2) + sizeof(float)) +
-         (kDrop ? 2 * kTcTile * 2 * (int)sizeof(uint32_t) : 0);
+         (kDrop ? 2 * kTcTile * 2 * (int)sizeof(uint32_t) : 0) +
+         (kBits ? 2 * kTcTile * 2 * (int)sizeof(uint32_t) : 0);
 }
 
 // dQ pass, tensor-core path; also writes delta = rowsum(dO * O). A block of
@@ -351,7 +352,10 @@ constexpr int dkv_tc_shared_bytes() {
 // registers) and streams the key tiles as the forward does. Per piece of
 // kChunkDq keys: S = q k^T and dP = dO v^T, P = exp(S - m) / l, dS = P (keep
 // inv_keep dP - delta) scale rounded to bf16 in registers, dQ += dS k.
-template <int W, bool kDrop, bool kCausal>
+// kBits: `mask` holds the packed (B, L, L) admission bits and
+// `keep_words` the packed keep bits, which this pass reads instead of
+// drawing and writing them (attention_fwd_tc's kBits).
+template <int W, bool kDrop, bool kCausal, bool kBits = false>
 __global__ void __launch_bounds__(kTcThreads, dq_blocks_per_sm(W))
 attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -384,11 +388,19 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
   const uint32_t bh = (uint32_t)(b * H + h);
   const uint32_t dbh = tr::dropout_head(drop, b, h);  // its dropout coordinate
-  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
+  const uint64_t seed = (kDrop && !kBits) ? (uint64_t)*drop.seed : 0;
   const float inv_keep = kDrop ? drop.inv_keep : 1.f;
-  const int32_t* mrow = mask == nullptr ? nullptr : mask + (int64_t)b * L;
+  const int32_t* mrow = (kBits || mask == nullptr) ? nullptr : mask + (int64_t)b * L;
   const int n_tiles = kCausal ? qb + 1 : L / kTcTile;
   const KeyTiles kt = scan_key_tiles<kCausal>(mrow, L / kTcTile, lane);
+  // kBits: this lane's row g in key tile 0 (row g + 8 is 8 further, tile i
+  // i * L further)
+  const uint2* abits = kBits ? reinterpret_cast<const uint2*>(mask) +
+                                   (int64_t)b * (L / kTcTile) * L + row0 + g
+                             : nullptr;
+  const uint2* kbits = (kBits && kDrop) ? reinterpret_cast<const uint2*>(keep_words) +
+                                              (int64_t)bh * (L / kTcTile) * L + row0 + g
+                                        : nullptr;
 
   auto fetch = [&](int tile, int stage) {
     const int64_t off = head + (int64_t)tile * kTcTile * HD;
@@ -456,12 +468,31 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int next = next_tile(kt, tile + 1, n_tiles);
     if (next < n_tiles) fetch(next, stage ^ 1);
     cp_async_commit();
+    uint2 a0, a1, k0w, k1w;  // kBits: rows g, g + 8 of this key tile
+    if constexpr (kBits) {
+      a0 = abits[(int64_t)tile * L];
+      a1 = abits[(int64_t)tile * L + 8];
+      if constexpr (kDrop) {
+        k0w = kbits[(int64_t)tile * L];
+        k1w = kbits[(int64_t)tile * L + 8];
+      }
+    }
     cp_async_wait<1>();
     __syncthreads();
 
     const int k0 = tile * kTcTile;
 #pragma unroll 1
     for (int c0 = 0; c0 < kTcTile; c0 += kChunk) {
+      // kBits: the piece's word of rows g, g + 8 (a piece is 32 keys)
+      uint32_t aw0 = 0u, aw1 = 0u, kw0 = 0u, kw1 = 0u;
+      if constexpr (kBits) {
+        aw0 = c0 ? a0.y : a0.x;
+        aw1 = c0 ? a1.y : a1.x;
+        if constexpr (kDrop) {
+          kw0 = c0 ? k0w.y : k0w.x;
+          kw1 = c0 ? k1w.y : k1w.x;
+        }
+      }
       float s[NT][4], dp[NT][4];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -482,10 +513,18 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           b0 = mm.x > 0 ? 0.f : kMaskBias;
           b1 = mm.y > 0 ? 0.f : kMaskBias;
         }
+        float b2 = b0, b3 = b1;  // row g + 8
+        const int sh = 8 * j + 2 * tq;  // this lane's keys' bit in a piece's word
+        if constexpr (kBits) {
+          b0 = ((aw0 >> sh) & 1u) ? 0.f : kMaskBias;
+          b1 = ((aw0 >> sh) & 2u) ? 0.f : kMaskBias;
+          b2 = ((aw1 >> sh) & 1u) ? 0.f : kMaskBias;
+          b3 = ((aw1 >> sh) & 2u) ? 0.f : kMaskBias;
+        }
         float p0 = __expf(fmaf(s[j][0], scale, b0) - m0) * linv0;
         float p1 = __expf(fmaf(s[j][1], scale, b1) - m0) * linv0;
-        float p2 = __expf(fmaf(s[j][2], scale, b0) - m1) * linv1;
-        float p3 = __expf(fmaf(s[j][3], scale, b1) - m1) * linv1;
+        float p2 = __expf(fmaf(s[j][2], scale, b2) - m1) * linv1;
+        float p3 = __expf(fmaf(s[j][3], scale, b3) - m1) * linv1;
         if (kCausal && tile == qb) {  // the tile on the diagonal
           const int col = k0 + c, row = row0 + g;
           if (col > row) p0 = 0.f;
@@ -495,21 +534,25 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         float g0 = dp[j][0], g1 = dp[j][1], g2 = dp[j][2], g3 = dp[j][3];
         if (kDrop) {
-          const uint32_t keep =
-              keep_bits(seed, drop.threshold, dbh, row0, k0 + c0 + 8 * j, g, tq);
+          uint32_t keep;
+          if constexpr (kBits) {
+            keep = ((kw0 >> sh) & 3u) | (((kw1 >> sh) & 3u) << 2);
+          } else {
+            keep = keep_bits(seed, drop.threshold, dbh, row0, k0 + c0 + 8 * j, g, tq);
+          }
           g0 = (keep & 1u) ? g0 * inv_keep : 0.f;
           g1 = (keep & 2u) ? g1 * inv_keep : 0.f;
           g2 = (keep & 4u) ? g2 * inv_keep : 0.f;
           g3 = (keep & 8u) ? g3 * inv_keep : 0.f;
-          w0 |= (keep & 3u) << (8 * j + 2 * tq);
-          w1 |= (keep >> 2) << (8 * j + 2 * tq);
+          w0 |= (keep & 3u) << sh;
+          w1 |= (keep >> 2) << sh;
         }
         dsf[j >> 1][2 * (j & 1)] =
             pack_bf16(p0 * (g0 - dl0) * scale, p1 * (g1 - dl0) * scale);
         dsf[j >> 1][2 * (j & 1) + 1] =
             pack_bf16(p2 * (g2 - dl1) * scale, p3 * (g3 - dl1) * scale);
       }
-      if (kDrop) {
+      if (kDrop && !kBits) {
         // the dK/dV pass reads these bits instead of drawing them again: a
         // quad joins its rows' 32 bits, lane 0 stores row g, lane 1 row g + 8
         w0 |= __shfl_xor_sync(kFullWarp, w0, 1);
@@ -548,8 +591,10 @@ attention_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // key % 32) and this one copies a query tile's 512 bytes in with the tile. A
 // block whose keys are all masked writes zeros where that is exact
 // (scan_key_tiles); the dQ pass leaves out the same tiles, so no word is read
-// that was not written.
-template <int W, bool kDrop, bool kCausal>
+// that was not written. kBits: `mask` holds the packed (B, L, L) admission
+// bits, which a query tile's words of this block's keys bring in beside its
+// keep bits, in the same layout; no block is left out.
+template <int W, bool kDrop, bool kCausal, bool kBits = false>
 __global__ void __launch_bounds__(kTcThreads, dkv_blocks_per_sm(W))
 attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -563,9 +608,9 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kChunk = kChunkDkv;
   constexpr int NT = kChunk / 8;
   // dkv_tc_shared_bytes: two stages of q and of dO, dO inv_keep / l rounded
-  // (dsc), two stages of the rows' (max, normaliser) and delta, and with
+  // (dsc), two stages of the rows' (max, normaliser) and delta, with
   // dropout two of the keep bits of (query, this block's 64 keys) as the dQ
-  // pass wrote them
+  // pass wrote them, and with kBits two of their admission bits
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16 (*qs)[kTcTile * LD] = reinterpret_cast<bf16 (*)[kTcTile * LD]>(tc_smem);
   bf16 (*dos)[kTcTile * LD] = qs + 2;
@@ -573,6 +618,7 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float2 (*sts)[kTcTile] = reinterpret_cast<float2 (*)[kTcTile]>(dsc + kTcTile * LD);
   float (*dls)[kTcTile] = reinterpret_cast<float (*)[kTcTile]>(sts + 2);
   uint32_t (*kws)[kTcTile][2] = reinterpret_cast<uint32_t (*)[kTcTile][2]>(dls + 2);
+  uint32_t (*mws)[kTcTile][2] = kws + (kDrop ? 2 : 0);
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5, g = lane >> 2, tq = lane & 3;
@@ -584,7 +630,7 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
   const uint32_t bh = (uint32_t)(b * H + h);
   const float inv_keep = kDrop ? drop.inv_keep : 1.f;
-  const int32_t* mrow = mask == nullptr ? nullptr : mask + (int64_t)b * L;
+  const int32_t* mrow = (kBits || mask == nullptr) ? nullptr : mask + (int64_t)b * L;
   // where this warp's keys g, g + 8 stand in a query's two words of bits
   const int kw_half = warp >> 1, kw_shift = 16 * (warp & 1) + g;
 
@@ -619,6 +665,15 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int64_t qry =
             (int64_t)(bh * (L / kTcTile) + kb) * L + tile * kTcTile + 2 * i;
         cp_async16(&kws[stage][2 * i][0], keep_words + 2 * qry);
+      }
+    }
+    if constexpr (kBits) {
+      const int i = t - (kTcTile + kTcTile / 2);  // the last quarter copies them
+      if (i >= 0) {
+        const int64_t qry =
+            ((int64_t)b * (L / kTcTile) + kb) * L + tile * kTcTile + 2 * i;
+        cp_async16(&mws[stage][2 * i][0],
+                   reinterpret_cast<const uint32_t*>(mask) + 2 * qry);
       }
     }
   };
@@ -694,10 +749,21 @@ attention_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float4 st = *reinterpret_cast<const float4*>(&sts[stage][c]);
         const float2 dl = *reinterpret_cast<const float2*>(&dls[stage][c]);
         const float li0 = 1.f / st.y, li1 = 1.f / st.w;
-        float e0 = __expf(fmaf(s[j][0], scale, kb0) - st.x);
-        float e1 = __expf(fmaf(s[j][1], scale, kb0) - st.z);
-        float e2 = __expf(fmaf(s[j][2], scale, kb1) - st.x);
-        float e3 = __expf(fmaf(s[j][3], scale, kb1) - st.z);
+        // the bias of (key g, query c), (g, c + 1), (g + 8, c), (g + 8, c + 1)
+        float ba = kb0, bb = kb0, bc = kb1, bd = kb1;
+        if constexpr (kBits) {
+          const uint4 mw = *reinterpret_cast<const uint4*>(&mws[stage][c][0]);
+          const uint32_t ma = (kw_half ? mw.y : mw.x) >> kw_shift;  // query c
+          const uint32_t mb = (kw_half ? mw.w : mw.z) >> kw_shift;  // c + 1
+          ba = (ma & 1u) ? 0.f : kMaskBias;
+          bb = (mb & 1u) ? 0.f : kMaskBias;
+          bc = (ma & 256u) ? 0.f : kMaskBias;
+          bd = (mb & 256u) ? 0.f : kMaskBias;
+        }
+        float e0 = __expf(fmaf(s[j][0], scale, ba) - st.x);
+        float e1 = __expf(fmaf(s[j][1], scale, bb) - st.z);
+        float e2 = __expf(fmaf(s[j][2], scale, bc) - st.x);
+        float e3 = __expf(fmaf(s[j][3], scale, bd) - st.z);
         if (kCausal && tile == kb) {  // the tile on the diagonal
           const int qry = r0 + c, key = key0 + g;
           if (qry < key) e0 = 0.f;
@@ -791,6 +857,47 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
         qt, kt, vt, gt, mask, st, dl, kw, drop, static_cast<T*>(dk),
         static_cast<T*>(dv), L, H, D, scale);
   }
+  return cudaGetLastError();
+}
+
+// The tensor-core passes under a packed (B, L, L) admission mask `admit`
+// (B, L / 64, L, 2) words; with kDrop their keep bits are `keep` (B, H,
+// L / 64, L, 2), which both passes read (mask3d_attention_bwd.cu).
+template <int W, bool kDrop>
+cudaError_t launch_bwd_bits(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const uint32_t* admit,
+                            const void* stats, const uint32_t* keep, Dropout drop,
+                            void* dq, void* dk, void* dv, void* delta, int B,
+                            int L, int H, int D, float scale, cudaStream_t stream) {
+  if (kernel_width(D) != W || L % kTcTile != 0 || admit == nullptr ||
+      (kDrop && keep == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
+  const int32_t* m = reinterpret_cast<const int32_t*>(admit);
+  const float2* st = static_cast<const float2*>(stats);
+  float* dl = static_cast<float*>(delta);
+  uint32_t* kw = const_cast<uint32_t*>(keep);  // read, never written, here
+  const dim3 grid(L / kTcRows, H, B);
+  constexpr int dq_bytes = dq_tc_shared_bytes<W>();
+  constexpr int dkv_bytes = dkv_tc_shared_bytes<W, kDrop, true>();
+  auto dq_kernel = &attention_bwd_dq_tc<W, kDrop, false, true>;
+  auto dkv_kernel = &attention_bwd_dkv_tc<W, kDrop, false, true>;
+  cudaError_t err = allow_shared(dq_kernel, dq_bytes);
+  if (err != cudaSuccess) return err;
+  err = allow_shared(dkv_kernel, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  dq_kernel<<<grid, kTcThreads, dq_bytes, stream>>>(
+      qt, kt, vt, static_cast<const bf16*>(o), gt, m, st, drop,
+      static_cast<bf16*>(dq), dl, kw, L, H, D, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<grid, kTcThreads, dkv_bytes, stream>>>(
+      qt, kt, vt, gt, m, st, dl, kw, drop, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), L, H, D, scale);
   return cudaGetLastError();
 }
 

@@ -150,12 +150,21 @@ attention_fwd_exact(const T* __restrict__ q, const T* __restrict__ k,
 // are never visited, the diagonal tile gets -inf above the diagonal, and the
 // blocks with the most tiles start first. The tiles are W wide, their
 // columns D .. W - 1 zero (copy_tile_async).
-template <int W, bool kDrop, bool kCausal>
+//
+// kBits (mask3d_attention.cu): `mask` is not a (B, L) key mask but a
+// (B, L, L) admission mask packed to bits (mask3d_attention.cu: two words a
+// query row and key tile), which adds -1e9 to the score of each barred
+// (query, key) as the (B, L) mask does to a barred key; with kDrop the keep
+// bits come packed the same way a head from `keep_in` (B, H, L / 64, L, 2)
+// instead of from the generator. No key tile is left out.
+template <int W, bool kDrop, bool kCausal, bool kBits = false>
 __global__ void __launch_bounds__(kTcThreads)
 attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int32_t* __restrict__ mask,
                  bf16* __restrict__ out, float2* __restrict__ stats, Dropout drop,
-                 int L, int H, int D, float scale) {
+                 int L, int H, int D, float scale,
+                 const uint32_t* __restrict__ keep_in) {
+  static_assert(!(kBits && kCausal), "a packed mask has no causal variant");
   constexpr int LD = W + kPad;
   constexpr int NT = kTcTile / 8;  // score tiles of 8 keys
   // two stages of k and v, then of the key mask (fwd_tc_shared_bytes)
@@ -178,11 +187,19 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t head = (int64_t)b * L * HD + (int64_t)h * D;
   const uint32_t bh = (uint32_t)(b * H + h);
   const uint32_t dbh = tr::dropout_head(drop, b, h);  // its dropout coordinate
-  const uint64_t seed = kDrop ? (uint64_t)*drop.seed : 0;
-  const int32_t* mrow = mask == nullptr ? nullptr : mask + (int64_t)b * L;
+  const uint64_t seed = (kDrop && !kBits) ? (uint64_t)*drop.seed : 0;
+  const int32_t* mrow = (kBits || mask == nullptr) ? nullptr : mask + (int64_t)b * L;
   // tiles this block of rows can see, and those among them worth a visit
   const int n_tiles = kCausal ? qb + 1 : L / kTcTile;
   const KeyTiles kt = scan_key_tiles<kCausal>(mrow, L / kTcTile, lane);
+  // kBits: the words of this lane's row g in key tile 0; row g + 8 is 8
+  // further, tile i is i * L further
+  const uint2* abits = kBits ? reinterpret_cast<const uint2*>(mask) +
+                                   (int64_t)b * (L / kTcTile) * L + row0 + g
+                             : nullptr;
+  const uint2* kbits = (kBits && kDrop) ? reinterpret_cast<const uint2*>(keep_in) +
+                                              (int64_t)bh * (L / kTcTile) * L + row0 + g
+                                        : nullptr;
 
   auto fetch = [&](int tile, int stage) {
     const int64_t off = head + (int64_t)tile * kTcTile * HD;
@@ -217,6 +234,16 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int next = next_tile(kt, tile + 1, n_tiles);
     if (next < n_tiles) fetch(next, stage ^ 1);
     cp_async_commit();
+    // kBits: rows g, g + 8 of this key tile, admission and keep bits
+    uint2 a0, a1, k0w, k1w;
+    if constexpr (kBits) {
+      a0 = abits[(int64_t)tile * L];
+      a1 = abits[(int64_t)tile * L + 8];
+      if constexpr (kDrop) {
+        k0w = kbits[(int64_t)tile * L];
+        k1w = kbits[(int64_t)tile * L + 8];
+      }
+    }
     cp_async_wait<1>();  // this tile has landed; the next may be in flight
     __syncthreads();
 
@@ -236,10 +263,19 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         b0 = mm.x > 0 ? 0.f : kMaskBias;
         b1 = mm.y > 0 ? 0.f : kMaskBias;
       }
+      float b2 = b0, b3 = b1;  // row g + 8
+      if constexpr (kBits) {
+        const uint32_t w0 = (j < NT / 2 ? a0.x : a0.y) >> (c & 31);
+        const uint32_t w1 = (j < NT / 2 ? a1.x : a1.y) >> (c & 31);
+        b0 = (w0 & 1u) ? 0.f : kMaskBias;
+        b1 = (w0 & 2u) ? 0.f : kMaskBias;
+        b2 = (w1 & 1u) ? 0.f : kMaskBias;
+        b3 = (w1 & 2u) ? 0.f : kMaskBias;
+      }
       s[j][0] = fmaf(s[j][0], scale, b0);
       s[j][1] = fmaf(s[j][1], scale, b1);
-      s[j][2] = fmaf(s[j][2], scale, b0);
-      s[j][3] = fmaf(s[j][3], scale, b1);
+      s[j][2] = fmaf(s[j][2], scale, b2);
+      s[j][3] = fmaf(s[j][3], scale, b3);
       if (kCausal && tile == qb) {  // the tile on the diagonal
         const int col = k0 + c, row = row0 + g;
         if (col > row) s[j][0] = -INFINITY;
@@ -278,8 +314,14 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l0 += p0 + p1;  // the normaliser runs over the undropped weights
       l1 += p2 + p3;
       if (kDrop) {
-        const uint32_t keep =
-            keep_bits(seed, drop.threshold, dbh, row0, k0 + 8 * j, g, tq);
+        uint32_t keep;
+        if constexpr (kBits) {
+          const int sh = (8 * j + 2 * tq) & 31;
+          keep = (((j < NT / 2 ? k0w.x : k0w.y) >> sh) & 3u) |
+                 ((((j < NT / 2 ? k1w.x : k1w.y) >> sh) & 3u) << 2);
+        } else {
+          keep = keep_bits(seed, drop.threshold, dbh, row0, k0 + 8 * j, g, tq);
+        }
         if (!(keep & 1u)) p0 = 0.f;
         if (!(keep & 2u)) p1 = 0.f;
         if (!(keep & 4u)) p2 = 0.f;
@@ -338,8 +380,32 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
     kernel<<<dim3(L / kTcRows, H, B), kTcThreads, bytes, stream>>>(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), mask, static_cast<bf16*>(out),
-            static_cast<float2*>(stats), drop, L, H, D, scale);
+            static_cast<float2*>(stats), drop, L, H, D, scale, nullptr);
   }
+  return cudaGetLastError();
+}
+
+// The tensor-core kernel under a packed (B, L, L) admission mask `admit`
+// (B, L / 64, L, 2) words, with kDrop its packed keep bits `keep` (B, H,
+// L / 64, L, 2) scaled by drop.inv_keep (mask3d_attention.cu).
+template <int W, bool kDrop>
+cudaError_t launch_fwd_bits(const void* q, const void* k, const void* v,
+                            const uint32_t* admit, const uint32_t* keep,
+                            void* out, void* stats, Dropout drop, int B, int L,
+                            int H, int D, float scale, cudaStream_t stream) {
+  if (kernel_width(D) != W || L % kTcTile != 0 || admit == nullptr ||
+      (kDrop && keep == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int bytes = fwd_tc_shared_bytes<W>();
+  auto kernel = &attention_fwd_tc<W, kDrop, false, true>;
+  const cudaError_t err = allow_shared(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(L / kTcRows, H, B), kTcThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), reinterpret_cast<const int32_t*>(admit),
+      static_cast<bf16*>(out), static_cast<float2*>(stats), drop, L, H, D, scale,
+      keep);
   return cudaGetLastError();
 }
 

@@ -8,8 +8,8 @@ import torch
 from torch import nn
 
 from .config import TransformerConfig
-from .layers import (Embeddings, TransformerBlock, mask_to_bias,
-                     remat_block)
+from .layers import (Embeddings, TransformerBlock, remat_block,
+                     self_attention_mask)
 
 
 class Encoder(nn.Module):
@@ -32,18 +32,14 @@ class Encoder(nn.Module):
                 position_ids: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """`generator` feeds the dropouts in training mode."""
+        """`generator` feeds the dropouts in training mode. A (B, L, L)
+        mask is packed once for every layer where the fused kernels take
+        it (`self_attention_mask`), else made into the plain path's
+        bias."""
         x = self.embeddings(input_ids, position_ids=position_ids,
                             token_type_ids=token_type_ids,
                             generator=generator)
-        bias = None
-        self_mask = None
-        if attention_mask is not None:
-            if (self.config.attention_impl == "flash"
-                    and attention_mask.dim() == 2):
-                self_mask = attention_mask  # the fused path takes the raw mask
-            else:
-                bias = mask_to_bias(attention_mask)
+        self_mask, bias = self_attention_mask(self.config, attention_mask, x)
         mask_3d = attention_mask is not None and attention_mask.dim() == 3
         remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:

@@ -44,8 +44,10 @@ from torch import nn
 from ..data.collate import IGNORE_INDEX
 from ..ops.decode_attention import (_decode_bmm, grouped_decode_attention,
                                     grouped_decode_attention_reference)
-from ..ops.fused_attention import (SEQ_MULTIPLE, causal_attention,
-                                   fused_dropout_attention)
+from ..ops.fused_attention import (SEQ_MULTIPLE, PackedMask,
+                                   causal_attention, fused_dropout_attention,
+                                   masked_attention, pack_mask_bits,
+                                   takes_packed_mask)
 from ..ops.fused_ce import fused_linear_ce
 from ..ops.fused_layernorm import (fused_residual_layernorm, layer_norm,
                                    residual_layernorm_reference)
@@ -54,9 +56,10 @@ from .config import TransformerConfig
 
 NEG_INF = -1e9
 # full-sequence attention calls that took the plain path under a bias made
-# from a (B, Lq, Lk) mask (`mask_3d`: the template model's bond mask); on
-# the graphed routes the counter is kept at the replays (ops/launches.py),
-# as the kernel wrappers' launch counters are
+# from a (B, Lq, Lk) mask (`mask_3d`: the template model's bond mask), where
+# `mask_3d_route` did not hold; on the
+# graphed routes the counter is kept at the replays (ops/launches.py), as
+# the kernel wrappers' launch counters are
 PLAIN_MASK_3D_CALLS = 0
 # a decode position: a Python int, or a 0-d int64 tensor on the cache's
 # device (beam search keeps it there, so that no step waits for the host)
@@ -72,6 +75,38 @@ def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(f"mask ndim {mask.dim()}")
     return (1.0 - bias.float()) * NEG_INF
+
+
+def mask_3d_route(attention_impl: str, mask_rank: int, length: int,
+                  dtype: torch.dtype, device: torch.device,
+                  head_dim: int) -> bool:
+    """Whether an encoder's self-attention over `length` positions of
+    `dtype` on `device` takes a mask of rank `mask_rank` through the fused
+    kernels as packed bits (ops/fused_attention.py::masked_attention):
+    attention_impl 'flash', a (B, L, L) mask, a length that is a multiple
+    of SEQ_MULTIPLE, and the kernels' own conditions
+    (`fused_attention.takes_packed_mask`: bfloat16 on a CUDA device, a head
+    dim they hold). Elsewhere the plain path takes it as a bias."""
+    return (attention_impl == "flash" and mask_rank == 3
+            and length % SEQ_MULTIPLE == 0
+            and takes_packed_mask(dtype, device, head_dim))
+
+
+def self_attention_mask(config: TransformerConfig,
+                        mask: Optional[torch.Tensor], x: torch.Tensor):
+    """(mask_kv, bias) for the self-attention of every layer of an encoder
+    over `x` (B, L, hidden) under `mask`, a (B, L) key mask or a (B, L, L)
+    admission mask: under 'flash' a key mask goes to the fused kernels as
+    it is, a (B, L, L) mask packed once (a `PackedMask`) where
+    `mask_3d_route` holds; any other mask becomes the plain path's bias."""
+    if mask is None:
+        return None, None
+    if config.attention_impl == "flash" and mask.dim() == 2:
+        return mask, None
+    if mask_3d_route(config.attention_impl, mask.dim(), x.shape[1], x.dtype,
+                     x.device, config.head_dim):
+        return pack_mask_bits(mask), None
+    return None, mask_to_bias(mask)
 
 
 def causal_bias(q_len: int, k_len: int, offset: int = 0,
@@ -93,6 +128,16 @@ def _slot(position: Position, device: torch.device) -> torch.Tensor:
     return torch.full((1,), position, dtype=torch.long, device=device)
 
 
+def dropout_uniforms(shape, generator: Optional[torch.Generator],
+                     device: torch.device) -> torch.Tensor:
+    """`dropout`'s draw: one float32 `torch.rand` of `shape` from
+    `generator`; an element is kept where its uniform is at least p. The
+    fused route under a packed 3-D mask makes the same draw at the same
+    point of the generator's sequence and hands it to the kernels as
+    bits."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator],
             head_offset: int = 0, total_heads: Optional[int] = None
@@ -108,7 +153,7 @@ def dropout(x: torch.Tensor, p: float,
     shape = x.shape
     if total_heads is not None and total_heads != shape[1]:
         shape = (shape[0], total_heads) + tuple(shape[2:])
-    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    keep = dropout_uniforms(shape, generator, x.device) >= p
     if shape != x.shape:
         keep = keep[:, head_offset:head_offset + x.shape[1]]
     return torch.where(keep, x / (1.0 - p), 0.0)
@@ -253,20 +298,37 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
-                mask_kv: Optional[torch.Tensor] = None,
+                mask_kv: Optional[Union[torch.Tensor, PackedMask]] = None,
                 generator: Optional[torch.Generator] = None,
                 mask_3d: bool = False) -> torch.Tensor:
-        """`mask_3d`: `bias` was made from a (B, Lq, Lk) mask; the plain
-        path counts such calls in PLAIN_MASK_3D_CALLS. The plain path runs
-        inside the span `attention.plain`."""
+        """`mask_3d`: the call is under a (B, Lq, Lk) mask, given either as
+        `bias` (the plain path, which counts such calls in
+        PLAIN_MASK_3D_CALLS) or packed as `mask_kv` (a `PackedMask` from
+        `self_attention_mask`: the fused kernels, inside the span
+        `attention.mask_3d`). The plain path runs inside the span
+        `attention.plain`."""
         cfg = self.config
         D = cfg.head_dim
+        if isinstance(mask_kv, PackedMask) and (
+                kv is not None or bias is not None or self.causal_hint):
+            raise ValueError("a packed (B, L, L) mask is an encoder "
+                             "self-attention's only mask")
         x = self._enter(x)
         kv_in = x if kv is None else self._enter(kv)
         drop_p = cfg.attention_probs_dropout_prob if self.training else 0.0
         q = self._heads(self.query(x))
         k = self._heads(self.key(kv_in))
         v = self._heads(self.value(kv_in))
+        if isinstance(mask_kv, PackedMask):
+            with span("attention.mask_3d"):
+                # the plain path's draw, where the plain path makes it
+                uniforms = None if drop_p <= 0.0 else dropout_uniforms(
+                    (x.shape[0], self.total_heads, x.shape[1], x.shape[1]),
+                    generator, x.device)
+                ctx = masked_attention(q, k, v, mask_kv, drop_p, uniforms,
+                                       sm_scale=1.0 / math.sqrt(D),
+                                       head_offset=self.head_offset)
+            return self._out(ctx)
         # the fused kernels want 128-aligned lengths and no extra bias
         # (layers.py:201-203); the decoder always carries a bias
         if (cfg.attention_impl == "flash" and bias is None
@@ -483,7 +545,8 @@ class TransformerBlock(nn.Module):
                 self_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 mask_3d: bool = False) -> torch.Tensor:
-        """`mask_3d`: `self_bias` was made from a (B, L, L) mask."""
+        """`mask_3d`: the self-attention is under a (B, L, L) mask, as
+        `self_bias` or packed as `self_mask`."""
         x = self.attention_norm(
             x, self.attention(x, bias=self_bias, mask_kv=self_mask,
                               generator=generator, mask_3d=mask_3d),

@@ -32,6 +32,14 @@ dropout. Its kernels (csrc/causal_attention.cu, csrc/causal_attention_bwd.cu)
 are the same device functions with the causal flag set, so a block of query
 rows streams only the key tiles at or below its diagonal, and the blocks
 with the most tiles start first.
+
+`masked_attention` is the self-attention under a per-example (B, L, L)
+admission mask (the template model's bond mask), bf16 on the card only:
+`pack_mask_bits` packs the mask once for all layers, the dropout mask is
+the plain path's own `torch.rand` draw (models/layers.py::dropout), packed
+by the caller's uniforms into keep bits, and the tensor-core kernels read
+both as bits (csrc/mask3d_attention.cu, csrc/mask3d_attention_bwd.cu); the
+layout is `pack_bits_reference`.
 """
 
 from __future__ import annotations
@@ -56,6 +64,10 @@ CAUSAL_BWD_LAUNCHES = 0
 # the same four counts for calls whose head dim is below the kernel's width
 # (kernel_head_dim), which run with no copies
 PADDED_LAUNCHES = {"fwd": 0, "bwd": 0, "causal_fwd": 0, "causal_bwd": 0}
+# the launches of `masked_attention` (the kernels under a packed (B, L, L)
+# mask), also counted above as forward (LAUNCHES or PADDED_LAUNCHES["fwd"])
+# and backward launches, since their kernels carry those names
+MASK_3D_LAUNCHES = {"fwd": 0, "bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,7 +75,8 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 # one library per source, so that the four compile side by side
 LIBRARIES = ("fused_attention", "fused_attention_bwd", "causal_attention",
-             "causal_attention_bwd")
+             "causal_attention_bwd", "mask3d_attention",
+             "mask3d_attention_bwd")
 _SIGNATURES = {
     "tr_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _U, _F, _U, _U,
                          _I, _I, _I, _I, _F, _P],
@@ -84,6 +97,21 @@ _CAUSAL_BWD_SIGNATURES = {
     "tr_causal_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
+
+
+_MASK3D_SIGNATURES = {
+    "tr_pack_mask_bits": [_P, _I, _P, _I, _I, _P],
+    "tr_pack_keep_bits": [_P, _F, _P, _I, _I, _I, _I, _I, _P],
+    "tr_attention_fwd_bits": [_I, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+                              _I, _F, _P],
+}
+_MASK3D_BWD_SIGNATURES = {
+    "tr_attention_bwd_bits": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
+                              _P, _P, _I, _I, _I, _I, _F, _P],
+}
+_MASK3D_LOADED = False  # load_mask3d_kernel has built both its libraries
+# element sizes of the masks tr_pack_mask_bits takes
+_MASK_ELEM = {torch.int64: 8, torch.int32: 4}
 
 
 def kernel_head_dim(D: int) -> int:
@@ -120,12 +148,29 @@ def load_causal_bwd_kernel():
     return _build.load("causal_attention_bwd", _CAUSAL_BWD_SIGNATURES)
 
 
+def load_mask3d_kernel():
+    """Build (at first use) and load the packed-mask forward's library (with
+    the packing kernels). Its first use builds the backward's library too,
+    side by side: a route that runs the one runs the other."""
+    global _MASK3D_LOADED
+    if not _MASK3D_LOADED:
+        _build.build_all(LIBRARIES[-2:])
+        _MASK3D_LOADED = True
+    return _build.load("mask3d_attention", _MASK3D_SIGNATURES)
+
+
+def load_mask3d_bwd_kernel():
+    """Build (at first use) and load the packed-mask backward's library."""
+    return _build.load("mask3d_attention_bwd", _MASK3D_BWD_SIGNATURES)
+
+
 def _weights(q, k, mask_kv, sm_scale, causal):
     """(unnormalised softmax weights (B, H, L, L), their row sums), f32."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
     if mask_kv is not None:
         bias = torch.where(mask_kv > 0, 0.0, NEG_INF).to(torch.float32)
-        s = s + bias[:, None, None, :]
+        # a (B, L) key mask, or a (B, L, L) admission mask (masked_attention)
+        s = s + (bias[:, None] if bias.dim() == 3 else bias[:, None, None, :])
     if causal:
         Lq, Lk = s.shape[-2:]
         above = torch.ones(Lq, Lk, dtype=torch.bool,
@@ -143,7 +188,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version of the kernels (ops/fused_attention.py:_fwd_kernel;
     with `causal`, the flash kernel behind layers.py:_flash_attention).
 
-    q, k, v: (B, L, H, D); mask_kv: (B, L) {0, 1} or None; keep: optional
+    q, k, v: (B, L, H, D); mask_kv: (B, L) {0, 1}, a (B, L, L) {0, 1}
+    mask of (query, key) pairs, or None; keep: optional
     (B, H, L, L) bool dropout keep mask. Scores and the softmax in f32; the
     unnormalised weights meet v in v's dtype and 1/l scales the context.
     `causal`: a key above the diagonal scores -inf, so its weight is exactly
@@ -275,6 +321,119 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  needs_grad, True, (0, q.shape[2]))
 
 
+class PackedMask:
+    """A (B, L, L) admission mask as the kernels read it: `words`, (B,
+    L / 64, L, 2) int32 (`pack_bits_reference`'s layout), for self-attention
+    over L positions; a type of its own, so that no call takes it for a
+    (B, L) key mask."""
+
+    def __init__(self, words: torch.Tensor):
+        self.words = words
+
+
+def pack_bits_reference(bits: torch.Tensor) -> torch.Tensor:
+    """(P, L, L) bool -> (P, L / 64, L, 2) int32: the layout of the packed
+    masks in plain PyTorch. Element (p, q, k) is bit k % 32 of word
+    (k % 64) // 32 of [p, k // 64, q], the layout the tensor-core dQ pass
+    leaves its keep bits in for the dK/dV pass (csrc/attention_bwd.cuh): a
+    row's two words of a key tile of 64 lie together, and the rows of one
+    tile one after another."""
+    P, Lq, Lk = bits.shape
+    if Lk % 64:
+        raise ValueError(f"pack_bits_reference: {Lk} keys, not a multiple "
+                         f"of 64")
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
+    words = (bits.view(P, Lq, Lk // 32, 32).to(torch.int64) << shifts).sum(-1)
+    words = words.view(P, Lq, Lk // 64, 2).transpose(1, 2).contiguous()
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def takes_packed_mask(dtype: torch.dtype, device: torch.device,
+                      head_dim: int) -> bool:
+    """Whether `masked_attention`'s kernels take a call: bfloat16 on a CUDA
+    device at a head dim the kernels hold."""
+    return (device.type == "cuda" and dtype == torch.bfloat16
+            and kernel_head_dim(head_dim) != 0)
+
+
+def pack_mask_bits(mask: torch.Tensor) -> PackedMask:
+    """The (B, L, L) {0, 1} admission mask `mask` (int64 as the train and
+    eval steps stage it, or int32 as the collator makes it; on a CUDA
+    device) packed by the library's kernel, 1 where the element is above
+    0."""
+    B, Lq, Lk = mask.shape
+    if Lq != Lk or Lq % SEQ_MULTIPLE or not mask.is_cuda:
+        raise ValueError(f"pack_mask_bits: a mask of {tuple(mask.shape)} on "
+                         f"{mask.device}")
+    if mask.dtype not in _MASK_ELEM:
+        raise TypeError(f"pack_mask_bits: dtype {mask.dtype}")
+    mask = mask.contiguous()
+    words = torch.empty((B, Lq // 64, Lq, 2), dtype=torch.int32,
+                        device=mask.device)
+    lib = load_mask3d_kernel()
+    err = lib.tr_pack_mask_bits(_build.ptr(mask), _MASK_ELEM[mask.dtype],
+                                _build.ptr(words), B, Lq, _build.stream())
+    _build.check(lib, err, "pack_mask_bits")
+    return PackedMask(words)
+
+
+def pack_keep_bits(uniforms: torch.Tensor, dropout_p: float,
+                   head_offset: int, heads: int) -> torch.Tensor:
+    """Keep bits of heads head_offset .. + heads of the (B, total_heads, L,
+    L) float32 `uniforms` (models/layers.py::dropout's draw), 1 where the
+    uniform is at least dropout_p: (B, heads, L / 64, L, 2) int32."""
+    B, total, Lq, Lk = uniforms.shape
+    if (uniforms.dtype != torch.float32 or not uniforms.is_contiguous()
+            or Lq != Lk or not 0 <= head_offset <= total - heads):
+        raise ValueError(f"pack_keep_bits: {uniforms.dtype}"
+                         f"{tuple(uniforms.shape)}, heads {head_offset} .. "
+                         f"+ {heads}")
+    words = torch.empty((B, heads, Lq // 64, Lq, 2), dtype=torch.int32,
+                        device=uniforms.device)
+    lib = load_mask3d_kernel()
+    err = lib.tr_pack_keep_bits(_build.ptr(uniforms), float(dropout_p),
+                                _build.ptr(words), B, heads, total,
+                                head_offset, Lq, _build.stream())
+    _build.check(lib, err, "pack_keep_bits")
+    return words
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: PackedMask, dropout_p: float = 0.0,
+                     uniforms: Optional[torch.Tensor] = None,
+                     sm_scale: Optional[float] = None,
+                     head_offset: int = 0) -> torch.Tensor:
+    """Self-attention over (B, L, H, D) bf16 CUDA inputs under a packed
+    (B, L, L) admission mask; returns (B, L, H, D) bf16, differentiable in
+    q, k, v. A barred (query, key) pair adds -1e9 to the f32 score, as the
+    plain path's bias (models/layers.py::mask_to_bias). With dropout_p > 0,
+    `uniforms` is the plain path's draw for the layer, (B, total_heads, L,
+    L) float32, of which heads head_offset .. + H are kept where at least
+    dropout_p (`pack_keep_bits`), their weights scaled by 1 / (1 -
+    dropout_p); the keep bits are saved for the backward."""
+    B, L, H, D = q.shape
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    if not takes_packed_mask(q.dtype, q.device, D):
+        raise ValueError(f"masked_attention: {q.dtype} on {q.device} at head "
+                         f"dim {D}")
+    _check(q, k, v, None)
+    if mask.words.shape != (B, L // 64, L, 2):
+        raise ValueError(f"masked_attention: mask words "
+                         f"{tuple(mask.words.shape)} for {B} x {L}")
+    keep = None
+    if dropout_p > 0.0:
+        if uniforms is None:
+            raise ValueError("masked_attention: dropout without uniforms")
+        keep = pack_keep_bits(uniforms, dropout_p, head_offset, H)
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    return _FusedAttention.apply(q, k, v, mask.words, None, float(dropout_p),
+                                 float(sm_scale), needs_grad, False,
+                                 (head_offset, H), True, keep)
+
+
 def keep_mask(seed: torch.Tensor, B: int, H: int, L: int,
               dropout_p: float, head_offset: int = 0,
               total_heads: Optional[int] = None) -> torch.Tensor:
@@ -321,10 +480,14 @@ def _check(q, k, v, mask_kv) -> Optional[torch.Tensor]:
     return mask if mask.data_ptr() % 16 == 0 else mask.clone()
 
 
-def _count(padded: bool, causal: bool, bwd: bool) -> None:
+def _count(padded: bool, causal: bool, bwd: bool,
+           packed: bool = False) -> None:
     """One launch of the kernel that (padded, causal, bwd) names; `padded`:
-    the head dim is below the kernel's width."""
+    the head dim is below the kernel's width; `packed`: under a packed mask,
+    counted in MASK_3D_LAUNCHES too."""
     global LAUNCHES, BWD_LAUNCHES, CAUSAL_LAUNCHES, CAUSAL_BWD_LAUNCHES
+    if packed:
+        MASK_3D_LAUNCHES["bwd" if bwd else "fwd"] += 1
     if padded:
         PADDED_LAUNCHES[("causal_" if causal else "")
                         + ("bwd" if bwd else "fwd")] += 1
@@ -343,11 +506,12 @@ class _FusedAttention(torch.autograd.Function):
     any that kernel_head_dim gives a width), the row statistics (max,
     normaliser), the mask and the seed; backward launches the dQ and dK/dV
     passes. `causal` picks the causal libraries (no seed) and their
-    counters."""
+    counters; `packed` the packed-mask libraries, `mask` then being the
+    admission words and `keep` the keep words (None without dropout)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, dropout_p, sm_scale, needs_grad,
-                causal, heads):
+                causal, heads, packed=False, keep=None):
         B, L, H, D = q.shape
         out = torch.empty_like(q)
         stats = (torch.empty((B, H, L, 2), dtype=torch.float32,
@@ -355,7 +519,14 @@ class _FusedAttention(torch.autograd.Function):
         tensors = (_build.DTYPE_CODE[q.dtype], _build.ptr(q), _build.ptr(k),
                    _build.ptr(v), _build.ptr(mask), _build.ptr(out),
                    _build.ptr(stats))
-        if causal:
+        if packed:
+            lib = load_mask3d_kernel()
+            err = lib.tr_attention_fwd_bits(
+                *tensors[:5], _build.ptr(keep), *tensors[5:],
+                1.0 / (1.0 - dropout_p), B, L, H, D, sm_scale,
+                _build.stream())
+            _build.check(lib, err, "masked_attention")
+        elif causal:
             lib = load_causal_kernel()
             err = lib.tr_causal_attention_fwd(*tensors, B, L, H, D, sm_scale,
                                               _build.stream())
@@ -366,15 +537,15 @@ class _FusedAttention(torch.autograd.Function):
                 *tensors, *_build.dropout_args(seed, dropout_p), *heads,
                 B, L, H, D, sm_scale, _build.stream())
             _build.check(lib, err, "fused_dropout_attention")
-        _count(kernel_head_dim(D) != D, causal, bwd=False)
-        ctx.save_for_backward(q, k, v, out, stats, mask, seed)
+        _count(kernel_head_dim(D) != D, causal, bwd=False, packed=packed)
+        ctx.save_for_backward(q, k, v, out, stats, mask, seed, keep)
         ctx.dropout_p, ctx.sm_scale, ctx.causal = dropout_p, sm_scale, causal
-        ctx.heads = heads
+        ctx.heads, ctx.packed = heads, packed
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, stats, mask, seed = ctx.saved_tensors
+        q, k, v, out, stats, mask, seed, keep = ctx.saved_tensors
         B, L, H, D = q.shape
         dout = dout.contiguous()
         if dout.data_ptr() % 16 != 0:
@@ -387,7 +558,13 @@ class _FusedAttention(torch.autograd.Function):
         outputs = (_build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
                    _build.ptr(delta))
         shape = (B, L, H, D, ctx.sm_scale, _build.stream())
-        if ctx.causal:
+        if ctx.packed:
+            lib = load_mask3d_bwd_kernel()
+            err = lib.tr_attention_bwd_bits(
+                *inputs[:7], _build.ptr(stats), _build.ptr(keep),
+                1.0 / (1.0 - ctx.dropout_p), *outputs, *shape)
+            _build.check(lib, err, "masked_attention backward")
+        elif ctx.causal:
             lib = load_causal_bwd_kernel()
             err = lib.tr_causal_attention_bwd(*inputs, *outputs, *shape)
             _build.check(lib, err, "causal_attention backward")
@@ -403,5 +580,6 @@ class _FusedAttention(torch.autograd.Function):
                 *inputs, *_build.dropout_args(seed, ctx.dropout_p),
                 *ctx.heads, *outputs, _build.ptr(keep_words), *shape)
             _build.check(lib, err, "fused_dropout_attention backward")
-        _count(kernel_head_dim(D) != D, ctx.causal, bwd=True)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        _count(kernel_head_dim(D) != D, ctx.causal, bwd=True,
+               packed=ctx.packed)
+        return (dq, dk, dv) + (None,) * 9

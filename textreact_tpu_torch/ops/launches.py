@@ -2,9 +2,10 @@
 that the decode's and the train step's graphs share
 (inference/graphs.py, train/graphs.py).
 
-A wrapper adds one to its counter where it launches its kernel, and the
-plain attention path to `PLAIN_MASK_3D_CALLS` where a 3-D mask sends a
-call down it (models/layers.py). A capture records the launches without
+A wrapper adds one to its counter where it launches its kernel (the
+packed-mask attention to `MASK_3D_LAUNCHES` beside the forward and
+backward counts), and the plain attention path to `PLAIN_MASK_3D_CALLS`
+where a 3-D mask sends a call down it (models/layers.py). A capture records the launches without
 running them, and a replay runs them without calling the wrappers:
 `GraphLaunches` takes back what a capture counted and adds it again at
 each replay, so the counters stay equal to the kernels (and plain calls)
@@ -31,6 +32,7 @@ KERNEL_COUNTERS = (
     (fused_attention, "CAUSAL_LAUNCHES"),
     (fused_attention, "CAUSAL_BWD_LAUNCHES"),
     (fused_attention, "PADDED_LAUNCHES"),
+    (fused_attention, "MASK_3D_LAUNCHES"),
     (fused_layernorm, "LAUNCHES"), (fused_layernorm, "BWD_LAUNCHES"),
     (fused_layernorm, "WIDE_LAUNCHES"),
     (fused_layernorm, "WIDE_BWD_LAUNCHES"),

@@ -14,10 +14,10 @@ a flag read. A range is a host event on the profiler's clock: the device
 time of a kernel or a copy belongs to the ranges around the runtime call
 that launched it (for a CUDA graph's replay, its `cudaGraphLaunch`), which
 the trace links by correlation id. No range opens inside a captured
-function except the decode's four parts, the plain attention path and the
-template heads, which there mark the capture's host side only. A range
-opens around a forward: the backward that autograd runs for it lies
-outside it.
+function except the decode's four parts, the plain attention path, the
+packed-mask route and the template heads, which there mark the capture's
+host side only. A range opens around a forward: the backward that autograd
+runs for it lies outside it.
 """
 
 from __future__ import annotations
@@ -51,6 +51,8 @@ SPANS = {
     "decode.cross_attention": "a decoder layer's cross-attention",
     "decode.products": "one of the decode attention's batched products",
     "attention.plain": "a full-sequence attention's plain path (forward)",
+    "attention.mask_3d": "an attention's fused route under a packed 3-D "
+                         "mask (forward: draw, keep bits, kernel)",
     "template.head": "the atom-state gather and the three template heads",
 }
 
